@@ -1,0 +1,356 @@
+"""Tile-binned Gaussian rasterization, forward: worklist + compositing.
+
+Port of the TPU eval raster (``street_crafter_tpu/ops/gs_raster_fused.py``:
+K1 ``_compact_kernel`` and K2 ``_composite_kernel``) in gsplat's form rather
+than the TPU's: an exact (tile, depth)-sorted worklist over every 16x16 tile
+a splat's 3-sigma box overlaps, then front-to-back compositing per pixel. No
+capacity, so no splat is ever dropped.
+
+Rules kept from the reference raster (``ops/gs_raster.py``):
+  sigma = 0.5 (a dx^2 + c dy^2) + b dx dy, skipped when sigma < 0;
+  alpha = min(0.999, opacity exp(-sigma)), skipped when alpha < 1/255;
+  a pixel stops before the splat that would bring T to <= 1e-4 (gsplat's
+  rule, the train kernel's ``stop_lt``); alpha out = 1 - T.
+
+Each step has two implementations in this module:
+  * ``tile_worklist_reference`` / ``composite_reference``: plain torch, used
+    for CPU tensors (the tests) and as the oracle on the card;
+  * the CUDA kernels of ``csrc/gs_raster.cu``, used for CUDA tensors. They
+    are compiled with nvcc on first use; a failed build or launch raises.
+``launches`` counts the calls of each implementation.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+TILE = 16
+ALPHA_CLAMP = 0.999
+ALPHA_MIN = 1.0 / 255.0
+T_STOP = 1e-4
+MAX_CHANNELS = 7
+
+_PKG = Path(__file__).resolve().parents[1]
+KERNEL_SOURCE = _PKG / "csrc" / "gs_raster.cu"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# calls per implementation: "tile_worklist" and "composite" (CUDA kernels
+# A and B), "tile_worklist_reference" and "composite_reference" (plain)
+launches: collections.Counter = collections.Counter()
+
+
+def reset_launch_counts() -> None:
+    launches.clear()
+
+
+class TileWorklist(NamedTuple):
+    tile_ids: torch.Tensor   # [P] int32, ascending
+    gauss_ids: torch.Tensor  # [P] int32, depth order within a tile
+    ranges: torch.Tensor     # [tiles_y * tiles_x, 2] int32 [start, end)
+    n_pairs: int
+
+
+class RasterOutput(NamedTuple):
+    colors: torch.Tensor     # [H, W, C]
+    alpha: torch.Tensor      # [H, W]
+    n_pairs: int             # (tile, splat) pairs composited
+
+
+def tile_grid(width: int, height: int) -> tuple[int, int]:
+    return -(-width // TILE), -(-height // TILE)
+
+
+def _uses_kernel(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"gs_raster supports cpu and cuda tensors, not {dev}")
+
+
+def _depth_bits(depths: torch.Tensor) -> torch.Tensor:
+    return depths.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+def tile_worklist_reference(u, v, radii, depths, valid, width: int,
+                            height: int) -> TileWorklist:
+    """Vectorised bbox-overlap test (per axis) + stable (tile, depth) sort."""
+    launches["tile_worklist_reference"] += 1
+    tw, th = tile_grid(width, height)
+    dev = u.device
+    n = u.shape[0]
+    active = valid & (radii > 0)
+    ox = torch.arange(tw, dtype=torch.float32, device=dev) * TILE
+    oy = torch.arange(th, dtype=torch.float32, device=dev) * TILE
+    col = (((u - radii)[:, None] < ox + TILE) & ((u + radii)[:, None] > ox)
+           & active[:, None])                                   # [N, tw]
+    row = ((v - radii)[:, None] < oy + TILE) & ((v + radii)[:, None] > oy)
+    nx = col.sum(1)
+    ny = row.sum(1)
+    tx0 = col.to(torch.uint8).argmax(1)    # first overlapping column
+    ty0 = row.to(torch.uint8).argmax(1)
+    counts = nx * ny
+    gid = torch.repeat_interleave(torch.arange(n, device=dev), counts)
+    starts = torch.cumsum(counts, 0) - counts
+    k = torch.arange(gid.shape[0], device=dev) - starts[gid]
+    nxg = nx[gid]
+    tile = (ty0[gid] + k // nxg) * tw + tx0[gid] + k % nxg
+    key = (tile.to(torch.int64) << 32) | _depth_bits(depths)[gid]
+    key, order = torch.sort(key, stable=True)
+    tile_ids = (key >> 32).to(torch.int32)
+    per_tile = torch.bincount(tile_ids.to(torch.int64), minlength=tw * th)
+    end = torch.cumsum(per_tile, 0)
+    ranges = torch.stack([end - per_tile, end], 1) * (per_tile > 0)[:, None]
+    ranges = ranges.to(torch.int32)     # empty tiles: [0, 0)
+    return TileWorklist(tile_ids, gid[order].to(torch.int32), ranges,
+                        int(key.shape[0]))
+
+
+def composite_reference(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
+                        colors, opacities, width: int, height: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Python loop over tiles; per tile a vectorised [K, 256] alpha and an
+    inclusive transmittance scan for the stop rule."""
+    launches["composite_reference"] += 1
+    tw, th = tile_grid(width, height)
+    dev = u.device
+    C = colors.shape[1]
+    out = torch.zeros((th * TILE, tw * TILE, C), dtype=torch.float32,
+                      device=dev)
+    trans = torch.ones((th * TILE, tw * TILE), dtype=torch.float32, device=dev)
+    ly, lx = torch.meshgrid(
+        torch.arange(TILE, dtype=torch.float32, device=dev) + 0.5,
+        torch.arange(TILE, dtype=torch.float32, device=dev) + 0.5,
+        indexing="ij")
+    lx, ly = lx.reshape(-1), ly.reshape(-1)
+    for t, (s, e) in enumerate(wl.ranges.tolist()):
+        if s == e:
+            continue
+        g = wl.gauss_ids[s:e].to(torch.int64)
+        ty, tx = divmod(t, tw)
+        dx = (tx * TILE + lx)[None, :] - u[g][:, None]          # [K, 256]
+        dy = (ty * TILE + ly)[None, :] - v[g][:, None]
+        sigma = (0.5 * (conic_a[g][:, None] * dx * dx
+                        + conic_c[g][:, None] * dy * dy)
+                 + conic_b[g][:, None] * dx * dy)
+        alpha = torch.clamp(opacities[g][:, None] * torch.exp(-sigma),
+                            max=ALPHA_CLAMP)
+        alpha = torch.where((sigma >= 0) & (alpha >= ALPHA_MIN), alpha, 0.0)
+        # T after each splat: a scan along dim 0 multiplies sequentially
+        # per pixel, rounding exactly like the kernel's T *= 1 - alpha, so
+        # both stop at the same splat
+        t_after = torch.cumprod(1.0 - alpha, 0)
+        keep = t_after > T_STOP                      # a prefix per pixel
+        t_before = torch.cat([torch.ones_like(t_after[:1]), t_after[:-1]])
+        w = torch.where(keep, alpha * t_before, 0.0)
+        rows = slice(ty * TILE, (ty + 1) * TILE)
+        cols = slice(tx * TILE, (tx + 1) * TILE)
+        out[rows, cols] = (w.T @ colors[g]).reshape(TILE, TILE, C)
+        trans[rows, cols] = torch.where(keep, t_after, 1.0).amin(0).reshape(
+            TILE, TILE)
+    return out[:height, :width], 1.0 - trans[:height, :width]
+
+
+# --------------------------------------------------------------------------
+# CUDA kernels
+# --------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    return os.path.join(home, "bin", "nvcc")
+
+
+def build_kernels() -> tuple[Path, str]:
+    """Compile csrc/gs_raster.cu for sm_90a into BUILD_DIR (once per source
+    and flag set). Returns (library path, ptxas report of that build)."""
+    src = KERNEL_SOURCE.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    lib = BUILD_DIR / f"gs_raster_{digest[:16]}.so"
+    log = lib.with_suffix(".log")
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_SOURCE)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        log.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)
+    return lib, log.read_text() if log.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    path, _ = build_kernels()
+    lib = ctypes.CDLL(str(path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    sigs = {
+        "sc_isect_count": [P, P, P, P, I, I, I, P, P],
+        "sc_isect_emit": [P, P, P, P, P, P, I, I, I, P, P, P],
+        "sc_tile_ranges": [P, ctypes.c_longlong, P, P],
+        "sc_composite": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P, P, P],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = I
+    lib.sc_error_string.argtypes = [I]
+    lib.sc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.sc_error_string(err).decode()} ({err})")
+
+
+def _require(t: torch.Tensor, name: str, dtype: torch.dtype,
+             shape: tuple) -> int:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t.data_ptr()
+
+
+def _tile_worklist_cuda(u, v, radii, depths, valid, width, height
+                        ) -> TileWorklist:
+    lib = _library()
+    tw, th = tile_grid(width, height)
+    n = u.shape[0]
+    f32 = torch.float32
+    pu = _require(u, "u", f32, (n,))
+    pv = _require(v, "v", f32, (n,))
+    pr = _require(radii, "radii", f32, (n,))
+    pd = _require(depths, "depths", f32, (n,))
+    pm = _require(valid, "valid", torch.bool, (n,))
+    dev = u.device
+    ranges = torch.zeros((tw * th, 2), dtype=torch.int32, device=dev)
+    empty = TileWorklist(torch.empty(0, dtype=torch.int32, device=dev),
+                         torch.empty(0, dtype=torch.int32, device=dev),
+                         ranges, 0)
+    if n == 0:
+        return empty
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
+    _check(lib, lib.sc_isect_count(pu, pv, pr, pm, n, tw, th,
+                                   counts.data_ptr(), stream), "isect_count")
+    launches["tile_worklist"] += 1
+    offsets = torch.cumsum(counts, 0)                       # int64, inclusive
+    n_pairs = int(offsets[-1])                              # host sync
+    if n_pairs >= 2 ** 31:
+        raise RuntimeError(f"{n_pairs} (tile, splat) pairs exceed int32 ids")
+    if n_pairs == 0:
+        return empty
+    keys = torch.empty(n_pairs, dtype=torch.int64, device=dev)
+    gids = torch.empty(n_pairs, dtype=torch.int32, device=dev)
+    _check(lib, lib.sc_isect_emit(pu, pv, pr, pm, pd, offsets.data_ptr(), n,
+                                  tw, th, keys.data_ptr(), gids.data_ptr(),
+                                  stream), "isect_emit")
+    keys, order = torch.sort(keys, stable=True)
+    _check(lib, lib.sc_tile_ranges(keys.data_ptr(), n_pairs,
+                                   ranges.data_ptr(), stream), "tile_ranges")
+    return TileWorklist((keys >> 32).to(torch.int32), gids[order], ranges,
+                        n_pairs)
+
+
+def _composite_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
+                    colors, opacities, width, height):
+    lib = _library()
+    tw, th = tile_grid(width, height)
+    n, C = colors.shape
+    f32 = torch.float32
+    ptrs = [
+        _require(wl.ranges, "ranges", torch.int32, (tw * th, 2)),
+        _require(wl.gauss_ids, "gauss_ids", torch.int32, (wl.n_pairs,)),
+        _require(u, "u", f32, (n,)), _require(v, "v", f32, (n,)),
+        _require(conic_a, "conic_a", f32, (n,)),
+        _require(conic_b, "conic_b", f32, (n,)),
+        _require(conic_c, "conic_c", f32, (n,)),
+        _require(colors, "colors", f32, (n, C)),
+        _require(opacities, "opacities", f32, (n,)),
+    ]
+    out = torch.empty((height, width, C), dtype=f32, device=u.device)
+    alpha = torch.empty((height, width), dtype=f32, device=u.device)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    _check(lib, lib.sc_composite(*ptrs, C, width, height, tw, th,
+                                 out.data_ptr(), alpha.data_ptr(), stream),
+           "composite")
+    launches["composite"] += 1
+    return out, alpha
+
+
+# --------------------------------------------------------------------------
+# public entry points
+# --------------------------------------------------------------------------
+
+def tile_worklist(u, v, radii, depths, valid, width: int, height: int
+                  ) -> TileWorklist:
+    """Exact per-16x16-tile splat lists, depth-sorted (kernel A on CUDA)."""
+    if _uses_kernel(u, v, radii, depths, valid):
+        with torch.cuda.device(u.device):
+            return _tile_worklist_cuda(u, v, radii, depths, valid, width,
+                                       height)
+    return tile_worklist_reference(u, v, radii, depths, valid, width, height)
+
+
+def composite(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, colors,
+              opacities, width: int, height: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Front-to-back compositing of each tile's list (kernel B on CUDA)."""
+    if _uses_kernel(u, v, conic_a, conic_b, conic_c, colors, opacities,
+                    wl.ranges):
+        with torch.cuda.device(u.device):
+            return _composite_cuda(wl, u, v, conic_a, conic_b, conic_c,
+                                   colors, opacities, width, height)
+    return composite_reference(wl, u, v, conic_a, conic_b, conic_c, colors,
+                               opacities, width, height)
+
+
+def rasterize_pixels(u, v, conic_a, conic_b, conic_c, colors, opacities,
+                     depths, valid, radii, width: int, height: int,
+                     tile_size: int = TILE) -> RasterOutput:
+    """Composite [N] projected splats with [N, C] channels (C <= 7) into
+    (colors [H, W, C], alpha [H, W]). CPU tensors take the plain versions,
+    CUDA tensors the kernels."""
+    if tile_size != TILE:
+        raise ValueError(f"tile_size must be {TILE}, got {tile_size}")
+    if not 1 <= colors.shape[-1] <= MAX_CHANNELS:
+        raise ValueError(f"1..{MAX_CHANNELS} channels, got {colors.shape}")
+    wl = tile_worklist(u, v, radii, depths, valid, width, height)
+    out, alpha = composite(wl, u, v, conic_a, conic_b, conic_c, colors,
+                           opacities, width, height)
+    return RasterOutput(out, alpha, wl.n_pairs)

@@ -1,0 +1,158 @@
+"""Render entry point (port of ``street_crafter_tpu/runner/render.py``).
+
+Modes:
+- ``trajectory``: all train+test cameras in id order; pngs per stream
+  (rgb, acc, depth, gt, diff) and, with ``render.save_video``, videos;
+- ``novel_view``: each lane-shift trajectory.
+
+CLI: python -m street_crafter_tpu_torch.runner.render --config scene.json \
+    [mode=trajectory] [k=v ...]
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import Config, default_config, load_config, merge_dotlist
+from ..models.gs.renderer import render_scene
+from ..models.gs.scene import SceneParams
+from ..utils.checkpoint import load_checkpoint
+from ..visualizers import Visualizer
+from .scene import Scene, create_scene
+
+
+def psnr(img: torch.Tensor, gt: torch.Tensor) -> float:
+    mse = torch.mean((img - gt) ** 2)
+    return float(-10.0 * torch.log10(torch.clamp(mse, min=1e-10)))
+
+
+def make_eval_render(cfg: Config, meta, sh_degree: int):
+    """Eval/trajectory render: interpolated actor poses, clamped rgb."""
+    def eval_render(params: SceneParams, camera, batch: dict) -> dict:
+        return render_scene(
+            params, meta, camera,
+            frame_idx=batch["frame_idx"], frame=batch["frame"],
+            cam_id=batch["cam_id"], timestamp=batch.get("timestamp"),
+            image_idx=batch.get("image_idx", 0),
+            sh_degree=sh_degree, tile_size=int(cfg.render.tile_size),
+            interpolate_pose=True, clamp=True,
+            white_background=bool(cfg.data.white_background))
+    return eval_render
+
+
+def load_trained_state(cfg: Config, scene: Scene
+                       ) -> tuple[SceneParams, int]:
+    """The checkpoint's parameters; pools keep the saved sizes."""
+    iteration = None if cfg.loaded_iter < 0 else int(cfg.loaded_iter)
+    params, it = load_checkpoint(scene.model_path, iteration, scene.device)
+    if params is None:
+        raise FileNotFoundError(
+            f"no checkpoint under {scene.model_path}/checkpoints")
+    print(f"loaded checkpoint at iteration {it}")
+    return params, it
+
+
+def _render_cameras(cfg: Config, scene: Scene, params: SceneParams, infos,
+                    cams, vis: Visualizer) -> dict:
+    """Render each camera in id order; returns per-frame stats."""
+    eval_render = make_eval_render(cfg, scene.meta,
+                                   cfg.model.gaussian.sh_degree)
+    frame_ms, n_pairs, psnrs = [], [], []
+    for idx in np.argsort([i.uid for i in infos]):
+        info, cam = infos[idx], cams[idx]
+        batch = scene.batch_for(info)
+        t0 = time.perf_counter()
+        out = eval_render(params, cam, batch)
+        if scene.device.type == "cuda":
+            torch.cuda.synchronize(scene.device)
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        n_pairs.append(out["n_pairs"])
+        if not bool(torch.isfinite(out["rgb"]).all()):
+            raise FloatingPointError(f"non-finite render of {info.image_name}")
+        gt = batch.get("gt_image")
+        result = {k: out[k].cpu().numpy() for k in ("rgb", "acc", "depth")}
+        vis.add_result(result, info.metadata["frame"], info.metadata["cam"],
+                       gt=None if gt is None else gt.cpu().numpy())
+        if gt is not None and info.metadata["is_val"]:
+            psnrs.append(psnr(out["rgb"], gt))
+    if psnrs:
+        print(f"test psnr: {np.mean(psnrs):.3f}")
+    return {"frame_ms": frame_ms, "n_pairs": n_pairs,
+            "psnr": float(np.mean(psnrs)) if psnrs else None}
+
+
+def _visualizer(cfg: Config, out_dir: str) -> Visualizer:
+    return Visualizer(out_dir, fps=cfg.render.fps,
+                      save_images=bool(cfg.render.save_image),
+                      save_videos=bool(cfg.render.save_video))
+
+
+def render_trajectory(cfg: Config) -> dict:
+    """All train+test cameras in id order. Returns {"videos": stream ->
+    path, "out_dir", "frame_ms", "n_pairs", "psnr"}."""
+    scene = create_scene(cfg, need_processor=False, init_params=False)
+    params, it = load_trained_state(cfg, scene)
+    out_dir = os.path.join(scene.model_path, f"trajectory_{it}")
+    vis = _visualizer(cfg, out_dir)
+    stats = _render_cameras(cfg, scene, params,
+                            scene.info.train_cameras + scene.info.test_cameras,
+                            scene.train_cameras + scene.test_cameras, vis)
+    return {"videos": vis.summarize(), "out_dir": out_dir, **stats}
+
+
+def render_novel_view(cfg: Config) -> dict:
+    """Per-shift lane-shift trajectories. Returns {"videos": "shift:stream"
+    -> path, "out_dirs", "frame_ms", "n_pairs"}."""
+    scene = create_scene(cfg, need_processor=False, init_params=False)
+    params, it = load_trained_state(cfg, scene)
+    res = {"videos": {}, "out_dirs": [], "frame_ms": [], "n_pairs": []}
+    for shift in sorted({i.metadata["novel_view_id"]
+                         for i in scene.info.novel_view_cameras}):
+        out_dir = os.path.join(scene.model_path,
+                               f"novel_view_{it}_shift_{shift:.2f}")
+        vis = _visualizer(cfg, out_dir)
+        pairs = [(i, c) for i, c in zip(scene.info.novel_view_cameras,
+                                        scene.novel_cameras)
+                 if i.metadata["novel_view_id"] == shift]
+        stats = _render_cameras(cfg, scene, params, [p[0] for p in pairs],
+                                [p[1] for p in pairs], vis)
+        res["videos"].update({f"{shift}:{k}": v
+                              for k, v in vis.summarize().items()})
+        res["out_dirs"].append(out_dir)
+        res["frame_ms"] += stats["frame_ms"]
+        res["n_pairs"] += stats["n_pairs"]
+    return res
+
+
+MODES = {"trajectory": render_trajectory, "novel_view": render_novel_view}
+
+
+def main(argv: list[str] | None = None) -> dict:
+    import argparse
+    p = argparse.ArgumentParser(description="render a trained scene")
+    p.add_argument("--config", required=True)
+    p.add_argument("opts", nargs="*", default=[])
+    args = p.parse_args(argv)
+    cfg = default_config()
+    cfg.merge(load_config(args.config))
+    merge_dotlist(cfg, args.opts)
+    mode = cfg.get("mode", "trajectory")
+    if mode == "train":
+        mode = "trajectory"
+    if mode not in MODES:
+        raise NotImplementedError(
+            f"render mode {mode!r} is not ported yet (ROADMAP queue 1, "
+            f"item 8c); "
+            f"ported modes: {sorted(MODES)}")
+    result = MODES[mode](cfg)
+    for name, path in result["videos"].items():
+        print(f"{name}: {path}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

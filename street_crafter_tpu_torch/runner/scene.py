@@ -1,0 +1,121 @@
+"""Scene orchestrator: dataset + pools + processor wired together (port of
+``street_crafter_tpu/runner/scene.py``).
+
+Reads the processed scene dir, writes or reuses the input plys, builds the
+scene tensors on ``cfg.device`` and the camera lists. With
+``init_params=False`` only the scene meta is built; the render runner takes
+the parameters, at their saved sizes, from a checkpoint.
+"""
+
+from __future__ import annotations
+
+import os
+from glob import glob
+
+import torch
+
+from ..config import Config
+from ..data_processor import get_pointcloud_processor
+from ..datasets.readers import CameraInfo, SceneInfo
+from ..datasets.waymo import read_waymo_scene
+from ..models.gs.build import (auto_downscale, build_meta,
+                               build_scene_params, camera_batch, check_ported,
+                               to_device_camera)
+from ..models.gs.scene import SceneMeta, SceneParams
+
+
+class Scene:
+    def __init__(self, cfg: Config, load_images: bool = True,
+                 need_processor: bool = True, init_params: bool = True):
+        self.cfg = cfg
+        self.device = torch.device(cfg.get("device", "cuda"))
+        self.model_path = cfg.model_path or os.path.join(
+            cfg.workspace, "output", cfg.task, cfg.exp_name)
+        os.makedirs(self.model_path, exist_ok=True)
+        if cfg.data.type.lower() != "waymo":
+            raise ValueError(f"unsupported dataset type {cfg.data.type!r}")
+        check_ported(cfg)
+
+        shift = cfg.render.novel_view.shift
+        selected = tuple(cfg.data.selected_frames)
+        self.info: SceneInfo = read_waymo_scene(
+            cfg.source_path,
+            cameras=list(cfg.data.cameras),
+            selected_frames=None if selected[0] < 0 else selected,
+            split_test=cfg.data.split_test,
+            split_train=cfg.data.split_train,
+            box_scale=cfg.data.box_scale,
+            novel_view_shifts=list(shift) if isinstance(shift, (list, tuple))
+            else [shift],
+            train_actor_distance_thresh=(
+                cfg.render.novel_view.train_actor_distance_thresh),
+            extent=cfg.data.get("extent") or None,
+            mode=cfg.mode)
+
+        self.processor = None
+        if need_processor:
+            if cfg.data.use_colmap:
+                raise NotImplementedError(
+                    "data.use_colmap (COLMAP points, not ported yet)")
+            start = self.info.metadata["start_frame"]
+            self.processor = get_pointcloud_processor(
+                cfg.data.type, cfg.source_path,
+                cameras=list(cfg.data.cameras),
+                selected_frames=(start,
+                                 start + self.info.metadata["num_frames"] - 1),
+                delta_frames=cfg.data.delta_frames)
+            ply_paths = self.processor.initialize_ply(
+                self.model_path, self.info.metadata["obj_meta"])
+        else:
+            # render mode: reuse the input plys written at train time
+            ply_paths = {
+                os.path.basename(p)[len("points3D_"):-4]: p
+                for p in glob(os.path.join(self.model_path, "input_ply",
+                                           "points3D_*.ply"))}
+        self.ply_paths = ply_paths
+
+        self.params: SceneParams | None = None
+        self.meta: SceneMeta
+        if init_params:
+            self.params, self.meta = build_scene_params(
+                self.info, ply_paths, cfg, self.device)
+        else:
+            self.meta = build_meta(self.info, ply_paths, cfg, self.device)
+
+        self.load_images = load_images
+        self._batch_cache: dict[tuple, dict] = {}
+        self.downscale = auto_downscale(max(
+            (c.width for c in self.info.train_cameras), default=0))
+
+        def cams(infos):
+            return [to_device_camera(c, self.downscale, self.device)
+                    for c in infos]
+
+        self.train_cameras = cams(self.info.train_cameras)
+        self.test_cameras = cams(self.info.test_cameras)
+        self.novel_cameras = cams(self.info.novel_view_cameras)
+
+    @property
+    def extent(self) -> float:
+        return float(self.info.metadata["scene_radius"])
+
+    def batch_for(self, cam_info: CameraInfo) -> dict:
+        """Per-camera batch, cached per camera identity. Novel-view cameras
+        have no ground-truth image on disk; the gt image is resized to the
+        downscaled camera."""
+        is_novel = cam_info.metadata.get("is_novel_view", False)
+        load_img = self.load_images and (not is_novel
+                                         or cam_info._image is not None)
+        key = (cam_info.uid, cam_info.image_name, load_img)
+        if key not in self._batch_cache:
+            scale = 1.0 / self.downscale
+            self._batch_cache[key] = camera_batch(
+                cam_info, (int(round(cam_info.height * scale)),
+                           int(round(cam_info.width * scale))),
+                self.device, load_image=load_img,
+                load_guidance=not is_novel)
+        return self._batch_cache[key]
+
+
+def create_scene(cfg: Config, **kw) -> Scene:
+    return Scene(cfg, **kw)

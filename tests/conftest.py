@@ -74,6 +74,8 @@ def pytest_configure(config):
         "markers", "slow: test takes >=45s on the 1-core CI host")
     config.addinivalue_line(
         "markers", "smoke: fast tier, `pytest -m smoke` runs in <3 min")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,93 @@
+"""The raster kernels of street_crafter_tpu_torch against their plain torch
+versions on a CUDA device. Marked ``cuda``; each test skips when no CUDA
+device is present. On the GPU machine:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+Tolerances: the worklist must be equal; compositing agrees to atol 2e-4 on
+rgb and alpha (both decide the 1/255 and 1e-4 thresholds on identically
+rounded values; only the colour sums run in another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from street_crafter_tpu_torch.ops import gs_raster as G
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def splat_args(device, n, W, H, seed, wide):
+    rng = np.random.default_rng(seed)
+    sigma = rng.uniform(1.0, 8.0, n)
+    k = int(wide * n)
+    sigma[:k] = rng.uniform(30.0, 100.0, k)
+    ca = 1.0 / sigma ** 2
+    cc = 1.0 / (0.7 * sigma) ** 2
+    depth = rng.uniform(1.0, 80.0, n)
+    valid = rng.random(n) > 0.05
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return dict(u=t(rng.uniform(-40, W + 40, n)),
+                v=t(rng.uniform(-40, H + 40, n)), conic_a=t(ca),
+                conic_b=t(0.3 * np.sqrt(ca * cc) * rng.uniform(-1, 1, n)),
+                conic_c=t(cc),
+                colors=t(np.concatenate([rng.random((n, 3)),
+                                         depth[:, None]], 1)),
+                opacities=t(rng.uniform(0.02, 1.0, n)), depths=t(depth),
+                valid=t(valid, torch.bool),
+                radii=t(np.ceil(3 * sigma) * valid), width=W, height=H)
+
+
+@pytest.mark.parametrize("seed,wide", [(0, 0.0), (1, 0.1)])
+def test_kernels_match_plain_versions(cuda, seed, wide):
+    args = splat_args(cuda, 20_000, 200, 136, seed, wide)
+    geo = {k: args[k] for k in ("u", "v", "radii", "depths", "valid",
+                                "width", "height")}
+    comp = {k: args[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
+                                 "colors", "opacities", "width", "height")}
+    G.reset_launch_counts()
+    wl = G.tile_worklist(**geo)
+    ref = G.tile_worklist_reference(**geo)
+    assert wl.n_pairs == ref.n_pairs > 0
+    for name in ("tile_ids", "gauss_ids", "ranges"):
+        assert torch.equal(getattr(wl, name), getattr(ref, name)), name
+    col, alpha = G.composite(wl, **comp)
+    col_ref, alpha_ref = G.composite_reference(wl, **comp)
+    torch.testing.assert_close(col[..., :3], col_ref[..., :3], atol=2e-4,
+                               rtol=0)
+    torch.testing.assert_close(alpha, alpha_ref, atol=2e-4, rtol=0)
+    assert G.launches["tile_worklist"] == G.launches["composite"] == 1
+
+
+def test_rasterize_pixels_launches_kernels(cuda):
+    args = splat_args(cuda, 2_000, 64, 48, 2, 0.05)
+    G.reset_launch_counts()
+    out = G.rasterize_pixels(**args)
+    assert out.colors.is_cuda and out.colors.shape == (48, 64, 4)
+    assert dict(G.launches) == {"tile_worklist": 1, "composite": 1}
+    empty = {k: (v[:0] if isinstance(v, torch.Tensor) else v)
+             for k, v in args.items()}
+    out = G.rasterize_pixels(**empty)
+    assert out.n_pairs == 0 and float(out.alpha.abs().max()) == 0.0
+
+
+def test_kernel_wrappers_check_inputs(cuda):
+    args = splat_args(cuda, 100, 32, 32, 3, 0.0)
+    strided = dict(args, u=torch.stack([args["u"], args["u"]], 1)[:, 0])
+    with pytest.raises(ValueError, match="contiguous"):
+        G.rasterize_pixels(**strided)
+    with pytest.raises(TypeError, match="float32"):
+        G.rasterize_pixels(**dict(args, v=args["v"].double()))
+    with pytest.raises(ValueError, match="tensors on"):
+        G.rasterize_pixels(**dict(args, u=args["u"].cpu()))
