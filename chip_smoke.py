@@ -17,7 +17,26 @@ Phases, one status line each; any failure raises (exit code != 0):
      at 1600x1067 that must be finite PNGs, through both kernels and never
      through the plain versions;
   4. both kernels against their plain versions at the headline frame's
-     shapes, and their times (CUDA events).
+     shapes, and their times (CUDA events);
+  5. kernel C (the compositing backward) against the plain backward with
+     seeded random cotangents on the inputs of phases 2 and 4: per field,
+     to GRAD_RTOL of the field's largest gradient, of its norm and, in the
+     median, of each splat's own gradient; its time, and the plain
+     backward's at the headline frame;
+  6. the training main path: runner.train.main on the synthetic scene from
+     scene init, configs/waymo_val_base.yaml's GS settings, 300 iterations
+     at 1600x1067 (densify at 100, 150 and 200, an opacity reset at 150,
+     eval, checkpoint and PLY at 300), then 20 more resumed from that
+     checkpoint, and runner.render.main(mode=trajectory) on it. The loss
+     must stay finite, train-view PSNR must rise, densify must change the
+     valid count, and every step must launch kernel C, never the plain
+     backward;
+  7. the train step at the shape users pay for: the 600k-splat pool in a
+     2^20-slot background pool, actors and sky of phase 3, the full loss
+     stack; median ms per step, peak memory, a per-stage split and the
+     profiler's device-busy share.
+Kernel builds, launches and comparisons raise on failure; no phase catches
+its own. TF32 is off for matmuls and cuDNN convolutions throughout.
 The last three lines: the card's name and power limit, a JSON object of
 per-kernel results, and {"ok": true, "device": {...}}.
 """
@@ -36,11 +55,27 @@ import time
 import numpy as np
 
 RGB_ALPHA_ATOL = 2e-4   # kernel B vs plain: f32, summed in another order
+# kernel C vs the plain backward, per field, three ways: the largest error
+# over the field's largest |gradient|, the error's norm over the field's
+# norm, and the median over splats of each splat's own relative error (so
+# small splats count as much as large ones). Kernel C rebuilds T by
+# division where the plain version scans with cumprod, sums the suffix in
+# another order, and adds per-splat sums with atomics in a run-dependent
+# order: f32 rounding, observed below 1e-5 of each
+GRAD_RTOL = 1e-4
 N_SMALL, W_SMALL, H_SMALL = 50_000, 384, 256
 N_HEAVY = 600_000
+BKGD_CAPACITY = 2 ** 20     # phase 7: the 600k pool inside a fixed capacity
+TRAIN_ITERS, RESUME_ITERS = 300, 20
 SOURCE = "street_crafter_tpu_torch/csrc/gs_raster.cu"
 REPLACES = {"tile_worklist": "street_crafter_tpu/ops/gs_raster_fused.py:86",
-            "composite": "street_crafter_tpu/ops/gs_raster_fused.py:255"}
+            "composite": "street_crafter_tpu/ops/gs_raster_fused.py:255",
+            "composite_backward":
+                "street_crafter_tpu/ops/gs_raster_train.py:60"}
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and
+# float32 FLOP/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def log(msg: str) -> None:
@@ -214,6 +249,410 @@ def headline_raster_args(cfg, dev):
             flat.xyz.shape[0])
 
 
+def split_args(args: dict) -> tuple[dict, dict]:
+    """(worklist, compositing) keyword arguments of raster args."""
+    return ({k: args[k] for k in ("u", "v", "radii", "depths", "valid",
+                                  "width", "height")},
+            {k: args[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
+                                  "colors", "opacities", "width", "height")})
+
+
+def compare_backward(G, args: dict, label: str, seed: int) -> dict:
+    """Kernel C against the plain backward, after kernel B's training
+    variant against the plain forward's T and last index."""
+    import torch
+    geo, comp = split_args(args)
+    wl = G.tile_worklist(**geo)
+    out, alpha, final_T, last = G.composite(wl, **comp, train=True)
+    ref = G.composite_reference(wl, **comp, train=True)
+    if not torch.equal(last, ref[3]):
+        raise AssertionError(f"{label}: kernel B's last index differs")
+    err_T = float((final_T - ref[2]).abs().max())
+    if err_T > RGB_ALPHA_ATOL:
+        raise AssertionError(f"{label}: kernel B's final T differs ({err_T})")
+    rng = np.random.default_rng(seed)
+    dev = out.device
+    gcol = torch.tensor(rng.normal(size=out.shape), dtype=torch.float32,
+                        device=dev)
+    gal = torch.tensor(rng.normal(size=alpha.shape), dtype=torch.float32,
+                       device=dev)
+    state = dict(final_T=final_T, last=last, grad_colors=gcol,
+                 grad_alpha=gal)
+    got = G.composite_backward(wl, **comp, **state)
+    want = G.composite_backward_reference(wl, **comp, grad_colors=gcol,
+                                          grad_alpha=gal)
+    torch.cuda.synchronize()
+    fields = {"u": G.GRAD_U, "v": G.GRAD_V, "a": G.GRAD_A, "b": G.GRAD_B,
+              "c": G.GRAD_C, "opacity": G.GRAD_OPACITY,
+              "absgrad": G.GRAD_ABS, "colors": slice(G.GRAD_COLORS, None)}
+    errs, worst_abs, worst_scale = {}, 0.0, 0.0
+    for name, col in fields.items():
+        errs[name] = grad_errors(got[:, col], want[:, col])
+        if errs[name]["abs"] > worst_abs:
+            worst_abs, worst_scale = errs[name]["abs"], errs[name]["max"]
+    log(f"[5] {label}: {wl.n_pairs} pairs, T err {err_T:.3g}, last equal; "
+        f"kernel C per field (error / field max, error norm / field norm, "
+        f"median per-splat relative error; median |grad|): "
+        + ", ".join(f"{k} {e['max_rel']:.2e} {e['norm_rel']:.2e} "
+                    f"{e['median_rel']:.2e}; {e['median']:.3g}"
+                    for k, e in errs.items())
+        + f" (tolerance {GRAD_RTOL} on each); largest absolute error "
+        f"{worst_abs:.3g} where the field's largest gradient is "
+        f"{worst_scale:.3g}")
+    if max(max(e["max_rel"], e["norm_rel"], e["median_rel"])
+           for e in errs.values()) > GRAD_RTOL:
+        raise AssertionError(f"{label}: kernel C disagrees with the plain "
+                             f"backward")
+    return {"wl": wl, "comp": comp, "state": state, "err": worst_abs,
+            "prefix": int(last.sum()), "pixels": last.numel()}
+
+
+def grad_errors(got, want) -> dict:
+    """Errors of one gradient field: largest absolute error, that over the
+    field's largest |gradient|, the error norm over the field's norm, and
+    the median over nonzero entries of |got - want| / |want|; also the
+    field's largest |gradient| and the median of its nonzero ones."""
+    import torch
+    diff = (got - want).abs().flatten()
+    mag = want.abs().flatten()
+    nz = mag > 0
+    top, norm = float(mag.max()), float(torch.linalg.vector_norm(want))
+    return {"abs": float(diff.max()), "max": top,
+            "median": float(mag[nz].median()) if bool(nz.any()) else 0.0,
+            "max_rel": float(diff.max()) / top if top > 0 else 0.0,
+            "norm_rel": (float(torch.linalg.vector_norm(got - want)) / norm
+                         if norm > 0 else 0.0),
+            "median_rel": (float((diff[nz] / mag[nz]).median())
+                           if bool(nz.any()) else 0.0)}
+
+
+def contributing_pairs(G, wl, comp: dict) -> int:
+    """(pixel, splat) pairs inside the image where the splat contributed
+    (not skipped) before the pixel's stop: the pairs that do the full work
+    of kernels B and C, recomputed as the plain versions do."""
+    import torch
+    height, width = comp["height"], comp["width"]
+    n = torch.zeros((), dtype=torch.int64, device=comp["u"].device)
+    for ts in G._tiles(wl, comp["u"], comp["v"], comp["conic_a"],
+                       comp["conic_b"], comp["conic_c"], comp["opacities"],
+                       width):
+        hit = (ts.keep & (ts.alpha > 0)).reshape(-1, G.TILE, G.TILE)
+        n += hit[:, :height - ts.rows.start, :width - ts.cols.start].sum()
+    return int(n)
+
+
+def bounds(n_splats: int, n_pairs: int, n_tiles: int, pixels: int,
+           prefix: int, hits: int, C: int) -> dict:
+    """Least time (ms) the card could take for each kernel's function at
+    these shapes: bytes moved (each input read once, each output written
+    once) over HBM3's rate, or float32 operations over the non-tensor-core
+    peak, whichever is larger. ``prefix``: the (pixel, splat) pairs up to
+    each pixel's last contributor, the least walk compositing needs; each
+    costs the recompute of sigma and alpha. ``hits``: those of them where
+    the splat contributed, the only ones that do the rest."""
+    def bound(nbytes, flops):
+        t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+        return ({"bound_ms": 1e3 * max(t_b, t_f),
+                 "bound_by": "bytes" if t_b >= t_f else "operations"})
+    splat_attrs = (6 + C) * 4 * n_splats        # u v a b c opacity colours
+    lists = 4 * n_pairs + 8 * n_tiles           # gauss ids, tile ranges
+    return {
+        # u, v, radii, depths (f32) and valid (u8) in; tile and splat ids
+        # per pair and the ranges out
+        "tile_worklist": bound(17 * n_splats + 8 * n_pairs + 8 * n_tiles, 0),
+        # per evaluated pair: dx, dy, sigma (11), exp, opacity, min, two
+        # gates (~15); per hit also the weight, the T update (3) and a
+        # multiply-add per channel
+        "composite": bound(splat_attrs + lists + 4 * (C + 1) * pixels,
+                           15 * prefix + hits * (3 + 2 * C)),
+        # per evaluated pair the same recompute (15); per hit also T by
+        # division, c.g_c (2C), dalpha (6), suffix (2), dcolour (C), the
+        # eight geometric gradients and |.| (~22), and the warp sums (8 + C)
+        "composite_backward": bound(
+            splat_attrs + lists + 4 * (C + 3) * pixels
+            + (8 + C) * 4 * n_splats, 15 * prefix + hits * (39 + 4 * C)),
+    }
+
+
+def train_config(cfg):
+    """configs/waymo_val_base.yaml's GS settings (diffusion off, the
+    seeded LPIPS stand-in), its schedule compressed into TRAIN_ITERS."""
+    cfg.data.split_test = 2
+    cfg.model.gaussian.sh_degree = 1
+    cfg.model.gaussian.fourier_dim = 1
+    cfg.model.gaussian.flip_prob = 0.2
+    cfg.model.nsg.opt_track = True
+    cfg.diffusion.use_diffusion = False
+    o = cfg.optim
+    o.densify_grad_threshold = 0.0006
+    o.densify_grad_abs_bkgd = True
+    o.densify_grad_abs_obj = True
+    o.min_opacity = 0.005
+    o.lambda_dssim = 0.2
+    o.lambda_reg = 0.1
+    o.lambda_sky = 0.05
+    o.lambda_depth_lidar = 0.01
+    o.lambda_lpips = 0.5
+    o.lpips_fallback = "random_features"
+    o.densify_from_iter = 100
+    o.densification_interval = 50
+    o.densify_until_iter = 200
+    o.opacity_reset_interval = 150
+    cfg.train.iterations = TRAIN_ITERS
+    cfg.train.test_iterations = [TRAIN_ITERS]
+    cfg.train.checkpoint_iterations = [TRAIN_ITERS]
+    cfg.train.save_iterations = [TRAIN_ITERS]
+    cfg.train.log_interval = 50
+    return cfg
+
+
+def n_valid(params) -> int:
+    return sum(getattr(params, p).num_valid() for p in ("bkgd", "actors",
+                                                        "sky")
+               if getattr(params, p) is not None)
+
+
+def train_main_path(G, source_path: str, tmp: str, gpu: str) -> dict:
+    """Phase 6: runner.train.main from scene init, resume, render."""
+    import torch
+    from street_crafter_tpu_torch.config import default_config, save_config
+    from street_crafter_tpu_torch.runner import create_scene
+    from street_crafter_tpu_torch.runner import render as R
+    from street_crafter_tpu_torch.runner import train as T
+    from street_crafter_tpu_torch.utils.png import read_png
+    cfg = train_config(default_config())
+    cfg.source_path = source_path
+    cfg.model_path = os.path.join(tmp, "train_model")
+    cfg.device = "cuda"
+    cfg.data.cameras = [0, 1, 2]
+    cfg.render.save_video = False
+    cfg_path = os.path.join(tmp, "train.json")
+    save_config(cfg, cfg_path)
+    fresh = cfg.clone()
+    fresh.resume = False
+    t0 = time.perf_counter()
+    init = T.GSTrainer(fresh, create_scene(fresh))
+    before = init.evaluate(cameras="train")
+    valid0 = n_valid(init.state.params)
+    cam0 = init.scene.train_cameras[0]
+    del init
+    log(f"[6] scene init in {time.perf_counter() - t0:.1f} s: "
+        f"{valid0} valid splats, train-view PSNR {before['psnr']:.3f} dB "
+        f"before training ({cam0.width}x{cam0.height})")
+
+    losses = []
+    G.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = T.main(["--config", cfg_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(G.launches)
+    after = trainer.evaluate(cameras="train")
+    valid1 = n_valid(trainer.state.params)
+    import json as _json
+    with open(os.path.join(cfg.model_path, "logs", "metrics.jsonl")) as f:
+        for line in f:
+            rec = _json.loads(line)
+            if "train/loss" in rec:
+                losses.append(rec["train/loss"])
+            if "eval/psnr" in rec:
+                evals = rec
+    log(f"[6] runner.train.main: {TRAIN_ITERS} iterations in {wall:.1f} s "
+        f"({1e3 * wall / TRAIN_ITERS:.1f} ms/iteration incl. eval, "
+        f"checkpoint and PLY); launches {counts}; card {gpu}")
+    log(f"[6] loss every 50 iterations: "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; eval at {TRAIN_ITERS}: PSNR {evals['eval/psnr']:.3f} L1 "
+        f"{evals['eval/l1']:.4f} ({evals['eval/n_pairs']:.0f} pairs/view); "
+        f"train-view PSNR {before['psnr']:.3f} -> {after['psnr']:.3f} dB; "
+        f"valid splats {valid0} -> {valid1}")
+    if not (losses and all(np.isfinite(losses))):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not after["psnr"] > before["psnr"]:
+        raise AssertionError("training did not raise the train-view PSNR")
+    if valid1 == valid0:
+        raise AssertionError("densify did not change the valid count")
+    if counts.get("composite_backward", 0) < TRAIN_ITERS or \
+            counts.get("composite_backward_reference", 0):
+        raise AssertionError(f"training missed kernel C or ran the plain "
+                             f"backward: {counts}")
+    ply = os.path.join(cfg.model_path, "point_cloud",
+                       f"iteration_{TRAIN_ITERS}", "point_cloud.ply")
+    if not os.path.getsize(ply) > 0:
+        raise AssertionError("no PLY export")
+    del trainer
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    resumed = T.main(["--config", cfg_path,
+                      f"train.iterations={TRAIN_ITERS + RESUME_ITERS}"])
+    if (resumed.start_iter, resumed.state.step) != (
+            TRAIN_ITERS + 1, TRAIN_ITERS + RESUME_ITERS):
+        raise AssertionError("resume did not continue at the checkpoint")
+    log(f"[6] resumed at {resumed.start_iter}, {RESUME_ITERS} iterations in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del resumed
+    torch.cuda.empty_cache()
+
+    G.reset_launch_counts()
+    result = R.main(["--config", cfg_path, "mode=trajectory",
+                     "render.save_video=false"])
+    render_counts = dict(G.launches)
+    if set(render_counts) != {"tile_worklist", "composite"}:
+        raise AssertionError(f"the render of the trained checkpoint ran a "
+                             f"plain version or a backward: {render_counts}")
+    rgb_dir = os.path.join(result["out_dir"], "rgb")
+    pngs = sorted(os.listdir(rgb_dir))
+    for name in pngs:
+        img = read_png(os.path.join(rgb_dir, name))
+        if img.shape != (1067, 1600, 3) or img.max() == 0:
+            raise AssertionError(f"{name}: shape {img.shape}, max "
+                                 f"{img.max()}")
+    if len(pngs) != 12:
+        raise AssertionError(f"expected 12 rgb PNGs, got {pngs}")
+    log(f"[6] render of the trained checkpoint: {len(pngs)} PNGs, "
+        f"ms/frame median {statistics.median(result['frame_ms']):.2f}, "
+        f"test PSNR {result['psnr']:.3f}; launches {render_counts}")
+    return counts
+
+
+class StageTimer:
+    """Wraps module functions so each call synchronises before and after
+    and adds its wall time to a named stage (phase 7 only)."""
+
+    def __init__(self):
+        import torch
+        self.sync = torch.cuda.synchronize
+        self.ms: dict[str, float] = {}
+        self._undo = []
+
+    def wrap(self, module, attr: str, stage: str) -> None:
+        fn = getattr(module, attr)
+
+        def timed(*a, **kw):
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.sync()
+            self.ms[stage] = self.ms.get(stage, 0.0) + \
+                1e3 * (time.perf_counter() - t0)
+            return out
+        setattr(module, attr, timed)
+        self._undo.append((module, attr, fn))
+
+    def restore(self) -> None:
+        for module, attr, fn in reversed(self._undo):
+            setattr(module, attr, fn)
+
+
+def step_time(G, cfg, dev, gpu: str) -> None:
+    """Phase 7: the trainer's own train step on the 600k pool."""
+    import torch
+    from street_crafter_tpu_torch.models.gs import renderer as RN
+    from street_crafter_tpu_torch.models.gs.params import GaussianPool
+    from street_crafter_tpu_torch.ops.lpips import random_feature_lpips
+    from street_crafter_tpu_torch.training import gs_trainer as GT
+    scene, params, cam, batch = headline_scene(cfg, dev)
+    pad = BKGD_CAPACITY - params.bkgd.capacity
+    bkgd = GaussianPool(**{
+        k: torch.cat([v, torch.zeros((pad,) + v.shape[1:], dtype=v.dtype,
+                                     device=dev)])
+        for k, v in dataclasses.asdict(params.bkgd).items()})
+    C, F, A = scene.meta.track_valid.shape
+    params = dataclasses.replace(
+        params, bkgd=bkgd, opt_trans=torch.zeros((C, F, A, 3), device=dev),
+        opt_theta=torch.zeros((C, F, A, 1), device=dev))
+    tcfg = train_config(cfg.clone())
+    state = GT.init_train_state(params)
+    step = GT.make_train_step(
+        tcfg, scene.meta, spatial_lr_scale=scene.extent,
+        lpips_fn=random_feature_lpips(device=dev), active_sh_degree=1,
+        with_obj_acc=True,
+        generator=torch.Generator(device=dev).manual_seed(0))
+
+    def one():
+        step(state, cam, batch)
+        torch.cuda.synchronize()
+
+    for _ in range(5):
+        one()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        one()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[7] train step, {N_HEAVY} splats in {BKGD_CAPACITY} bkgd slots + "
+        f"actors {tuple(params.actors.xyz.shape[:2])} + sky "
+        f"{params.sky.capacity}, {cam.width}x{cam.height}, full loss stack "
+        f"(L1, D-SSIM, LPIPS stand-in, sky, obj-acc, LiDAR depth): median "
+        f"{statistics.median(ms):.2f} ms (min {min(ms):.2f}, max "
+        f"{max(ms):.2f}) over 20 steps; max_memory_allocated "
+        f"{peak / 2 ** 30:.2f} GiB; TF32 off; card {gpu}")
+
+    timer = StageTimer()
+    timer.wrap(RN, "flatten_scene", "flatten")
+    timer.wrap(RN, "raster_inputs", "projection+SH")
+    timer.wrap(G, "tile_worklist", "kernel A")
+    timer.wrap(G, "composite", "kernel B")
+    timer.wrap(GT, "compute_train_loss", "loss (L1/SSIM/LPIPS/...)")
+    timer.wrap(G, "composite_backward", "kernel C")
+    timer.wrap(GT, "adam_update", "Adam")
+    timer.wrap(GT, "accumulate_stats", "stats")
+    n_split = 5
+    total_ms = []
+    try:
+        for _ in range(n_split):
+            t0 = time.perf_counter()
+            one()
+            total_ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        timer.restore()
+    split = {k: v / n_split for k, v in timer.ms.items()}
+    whole = statistics.mean(total_ms)
+    # what no forward, Adam or stats wrapper covers: autograd's backward
+    # (kernel C within it), plus the hooks' small ops and zeroing the grads
+    split["backward total (kernel C within it)"] = whole - sum(
+        v for k, v in split.items() if k != "kernel C")
+    log(f"[7] split, synchronised after each stage, mean of {n_split} "
+        f"steps (ms; fg, sky and objects-only passes summed): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; whole step with the syncs {whole:.2f}")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            one()
+        wall = 1e3 * (time.perf_counter() - t0)
+    # device kernels only (the op-level entries repeat their kernels' time)
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, end = 0.0, -1.0
+    for s0, s1 in spans:            # union of the kernels' intervals
+        if s1 > end:
+            busy += s1 - max(s0, end)
+            end = s1
+    by_name: dict[str, list] = {}
+    for e in kern:
+        rec = by_name.setdefault(e.name, [0.0, 0])
+        rec[0] += e.time_range.elapsed_us()
+        rec[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    if not kern:
+        log("[7] torch.profiler recorded no device kernels: busy share not "
+            "measured")
+        return
+    log(f"[7] torch.profiler over 3 steps: {len(kern)} device kernels, "
+        f"{busy / 1e3:.2f} ms busy of {wall:.2f} ms wall: device busy "
+        f"{100 * busy / 1e3 / wall:.1f}%, idle "
+        f"{100 - 100 * busy / 1e3 / wall:.1f}%; by kernel (ms, launches): "
+        + "; ".join(f"{k[:48]} {v[0] / 1e3:.2f} x{v[1]}" for k, v in top))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -249,13 +688,15 @@ def main() -> None:
     K_small = torch.tensor([[1.1 * W_SMALL, 0, W_SMALL / 2],
                             [0, 1.1 * W_SMALL, H_SMALL / 2], [0, 0, 1]],
                            device=dev)
-    compare(G, raster_args(flat, torch.eye(4, device=dev), K_small, W_SMALL,
-                           H_SMALL),
-            f"trained-like {N_SMALL} splats {W_SMALL}x{H_SMALL}", 2)
+    small_args = raster_args(flat, torch.eye(4, device=dev), K_small,
+                             W_SMALL, H_SMALL)
+    small_label = f"trained-like {N_SMALL} splats {W_SMALL}x{H_SMALL}"
+    compare(G, small_args, small_label, 2)
     wide = wide_splat_args(dev)
     n_wide = int(((wide["radii"] > 200) & wide["valid"]).sum())
-    compare(G, wide, f"wide splats ({n_wide} with radius > 200 px) "
-            f"{W_SMALL}x{H_SMALL}", 2)
+    wide_label = (f"wide splats ({n_wide} with radius > 200 px) "
+                  f"{W_SMALL}x{H_SMALL}")
+    compare(G, wide, wide_label, 2)
 
     # ---- phase 3: the main path --------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -266,15 +707,18 @@ def main() -> None:
         result = R.main(["--config", cfg_path, "mode=trajectory",
                          "render.save_video=false"])
         wall = time.perf_counter() - t0
-        counts = dict(G.launches)
+        render_counts = dict(G.launches)
         peak = torch.cuda.max_memory_allocated()
         log(f"[3] runner.render.main: {len(result['frame_ms'])} frames in "
-            f"{wall:.1f} s; launches {counts}")
-        if counts.get("tile_worklist", 0) < 1 or counts.get("composite", 0) < 1:
-            raise AssertionError(f"main path missed a kernel: {counts}")
-        if counts.get("tile_worklist_reference", 0) or \
-                counts.get("composite_reference", 0):
-            raise AssertionError(f"main path ran a plain version: {counts}")
+            f"{wall:.1f} s; launches {render_counts}")
+        if render_counts.get("tile_worklist", 0) < 1 or \
+                render_counts.get("composite", 0) < 1:
+            raise AssertionError(f"main path missed a kernel: "
+                                 f"{render_counts}")
+        if render_counts.get("tile_worklist_reference", 0) or \
+                render_counts.get("composite_reference", 0):
+            raise AssertionError(f"main path ran a plain version: "
+                                 f"{render_counts}")
         rgb_dir = os.path.join(result["out_dir"], "rgb")
         pngs = sorted(os.listdir(rgb_dir))
         if len(pngs) != 12:
@@ -313,13 +757,61 @@ def main() -> None:
                 f"({cam0.width}x{cam0.height}, {stats['pairs']} pairs; "
                 f"{gpu})")
 
+        # ---- phase 5: kernel C vs the plain backward ---------------------
+        compare_backward(G, small_args, small_label, 5)
+        compare_backward(G, wide, wide_label, 6)
+        head = compare_backward(G, args, f"headline frame {cam0.width}x"
+                                f"{cam0.height}", 7)
+        bwd = dict(head["comp"], **head["state"])
+        times["composite_backward"] = (
+            cuda_ms(lambda: G.composite_backward(head["wl"], **bwd), 20),
+            cuda_ms(lambda: G.composite_backward_reference(
+                head["wl"], **head["comp"],
+                grad_colors=bwd["grad_colors"],
+                grad_alpha=bwd["grad_alpha"]), 1, warmup=0))
+        hits = contributing_pairs(G, head["wl"], head["comp"])
+        log(f"[5] composite_backward: kernel C "
+            f"{times['composite_backward'][0]:.3f} ms, plain "
+            f"{times['composite_backward'][1]:.3f} ms ({cam0.width}x"
+            f"{cam0.height}, {head['wl'].n_pairs} pairs, "
+            f"{head['prefix']} pixel-splat pairs in the pixels' prefixes, "
+            f"{hits} of them contributing; {gpu})")
+        bound = bounds(n_splats, head["wl"].n_pairs,
+                       head["wl"].ranges.shape[0], head["pixels"],
+                       head["prefix"], hits, args["colors"].shape[1])
+        errs = {"tile_worklist": stats["worklist_err"],
+                "composite": stats["composite_err"],
+                "composite_backward": head["err"]}
+        del head, bwd
+        torch.cuda.empty_cache()
+
+        # ---- phase 6: the training main path ------------------------------
+        train_counts = train_main_path(G, cfg.source_path, tmp, gpu)
+
+        # ---- phase 7: the train step at the 600k shape --------------------
+        step_time(G, cfg, dev, gpu)
+
+    # each main path's counts, read right after its own reset; "launches"
+    # is their sum
+    by_path = {name: {"render": render_counts.get(name, 0),
+                      "train": train_counts.get(name, 0)}
+               for name in REPLACES}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": counts[name],
-         "max_abs_err": stats["worklist_err" if name == "tile_worklist"
-                              else "composite_err"],
-         "ms": round(times[name][0], 4), "plain_ms": round(times[name][1], 4)}
-        for name in ("tile_worklist", "composite")]
+         "replaces": REPLACES[name],
+         "launches": sum(by_path[name].values()),
+         "launches_by_path": by_path[name],
+         "max_abs_err": errs[name], "ms": round(times[name][0], 4),
+         "plain_ms": round(times[name][1], 4),
+         "bound_ms": round(bound[name]["bound_ms"], 6),
+         "bound_by": bound[name]["bound_by"],
+         # no single PyTorch call computes these functions
+         "library_ms": None}
+        for name in ("tile_worklist", "composite", "composite_backward")]
+    for k in kernels:
+        log(f"[7] {k['name']}: {k['ms']:.3f} ms against a bound of "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
+            f"{k['plain_ms']:.3f} ms, launches {k['launches_by_path']}")
     log(gpu)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -211,9 +211,10 @@ def load_guidance_arrays(cam: CameraInfo) -> dict[str, np.ndarray]:
 def camera_batch(cam: CameraInfo, image_hw: tuple[int, int],
                  device: torch.device | str, load_image: bool = True,
                  load_guidance: bool = True) -> dict:
-    """Per-camera batch: host indices, plus the gt image (resized to
-    ``image_hw``, the downscaled camera's size) and guidance arrays as
-    tensors on ``device``."""
+    """Per-camera batch: host indices, plus the gt image and the guidance
+    arrays as tensors on ``device``, at ``image_hw``, the downscaled
+    camera's size (the image bilinear with antialiasing, the guidance
+    nearest)."""
     batch: dict = {
         "frame_idx": int(cam.metadata["frame_idx"]),
         "frame": float(cam.metadata["frame"]),
@@ -231,7 +232,15 @@ def camera_batch(cam: CameraInfo, image_hw: tuple[int, int],
         batch["gt_image"] = img
     if load_guidance:
         for k, v in load_guidance_arrays(cam).items():
-            batch[k] = torch.tensor(v, device=device)
+            t = torch.tensor(v, device=device)
+            if tuple(t.shape[:2]) != tuple(image_hw):
+                # masks and the sparse LiDAR depth: nearest, so no value is
+                # blended with its empty neighbours
+                t = torch.nn.functional.interpolate(
+                    t.permute(2, 0, 1)[None].to(torch.float32),
+                    size=tuple(image_hw), mode="nearest")[0].permute(
+                        1, 2, 0).to(t.dtype).contiguous()
+            batch[k] = t
     return batch
 
 

@@ -43,6 +43,7 @@ class GaussianPool:
         return self.xyz.device
 
     def num_valid(self) -> int:
+        """Valid slots, summed over every slot of a stacked pool too."""
         return int(self.valid.sum())
 
     def get_scaling(self) -> torch.Tensor:
@@ -68,6 +69,17 @@ class GaussianPool:
     def get_features(self, time=0.0) -> torch.Tensor:
         """[cap, K, 3] full SH coefficient stack."""
         return torch.cat([self.get_features_dc(time), self.features_rest], 1)
+
+    def trainable_dict(self) -> dict[str, torch.Tensor]:
+        """The optimised leaves under the Adam group names."""
+        return {
+            "xyz": self.xyz, "f_dc": self.features_dc,
+            "f_rest": self.features_rest, "scaling": self.scaling,
+            "rotation": self.rotation, "opacity": self.opacity,
+        }
+
+    def replace(self, **kw) -> "GaussianPool":
+        return dataclasses.replace(self, **kw)
 
 
 def stack_pools(pools: list[GaussianPool]) -> GaussianPool:

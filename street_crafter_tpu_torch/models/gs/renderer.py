@@ -1,11 +1,16 @@
 """Scene renderer: projection + SH + rasterization + sky/colour composition
-(port of ``street_crafter_tpu/models/gs/renderer.py``, forward only).
+(port of ``street_crafter_tpu/models/gs/renderer.py``).
 
 - the foreground pass renders background + actors; a Gaussian sky is
   rendered in its own pass and blended behind: rgb += sky * (1 - acc);
 - depth rides as a fourth colour channel and is normalized by alpha;
 - one raster path (``ops.gs_raster``): exact, never drops a splat; the
-  hand-written CUDA kernels for CUDA tensors, plain torch for CPU tensors.
+  hand-written CUDA kernels for CUDA tensors, plain torch for CPU tensors;
+- differentiable end to end. The densification hooks are explicit inputs,
+  as in the JAX package: ``viewspace_zero`` [N, 2] zeros added to the
+  screen positions (u + viewspace_zero[:, 0]), whose gradient is
+  dL/d(u, v), and ``absgrad_sink`` [N, 2] zeros, whose gradient is the
+  per-splat sum of |dL/du|, |dL/dv| over pixels; ``*_sky`` for the sky pass.
 """
 
 from __future__ import annotations
@@ -54,14 +59,20 @@ def render_flat(flat: FlatGaussians, w2c: torch.Tensor, K: torch.Tensor,
                 cam_center: torch.Tensor, width: int, height: int,
                 sh_degree: int = 3, tile_size: int = 16,
                 antialiasing: bool = True, scaling_modifier: float = 1.0,
-                near_plane: float = 0.01, far_plane: float = 1e8
-                ) -> dict[str, Any]:
+                near_plane: float = 0.01, far_plane: float = 1e8,
+                viewspace_zero: torch.Tensor | None = None,
+                absgrad_sink: torch.Tensor | None = None) -> dict[str, Any]:
     """Render a flat gaussian soup. Returns rgb [H,W,3], acc, depth, radii,
     visibility and n_pairs (the (tile, splat) pairs composited)."""
     proj, args = raster_inputs(flat, w2c, K, cam_center, width, height,
                                sh_degree, antialiasing, scaling_modifier,
                                near_plane, far_plane)
-    out = rasterize_pixels(**args, tile_size=tile_size)
+    if viewspace_zero is not None:
+        # densification hook: d loss / d viewspace_zero = d loss / d (u, v)
+        args["u"] = args["u"] + viewspace_zero[:, 0]
+        args["v"] = args["v"] + viewspace_zero[:, 1]
+    out = rasterize_pixels(**args, tile_size=tile_size,
+                           absgrad_sink=absgrad_sink)
     return {
         "rgb": out.colors[..., :3],
         "acc": out.alpha,
@@ -90,6 +101,10 @@ def render_scene(
     interpolate_pose: bool = False,
     use_track_residual: bool = True,
     flip_mask: torch.Tensor | None = None,
+    viewspace_zero: torch.Tensor | None = None,
+    absgrad_sink: torch.Tensor | None = None,
+    viewspace_zero_sky: torch.Tensor | None = None,
+    absgrad_sink_sky: torch.Tensor | None = None,
     clamp: bool = False,
     white_background: bool = False,
 ) -> dict[str, Any]:
@@ -114,7 +129,9 @@ def render_scene(
         flip_mask=flip_mask)
     result = render_flat(flat, w2c, K, cam_center, camera.width,
                          camera.height, sh_degree=sh_degree,
-                         tile_size=tile_size, antialiasing=antialiasing)
+                         tile_size=tile_size, antialiasing=antialiasing,
+                         viewspace_zero=viewspace_zero,
+                         absgrad_sink=absgrad_sink)
 
     if include_sky and params.sky is not None:
         sky_flat = flatten_scene(params, meta, cam_id, frame_idx, frame,
@@ -122,7 +139,9 @@ def render_scene(
                                  include_obj=False, include_sky=True)
         sky = render_flat(sky_flat, w2c, K, cam_center, camera.width,
                           camera.height, sh_degree=sh_degree,
-                          tile_size=tile_size, antialiasing=antialiasing)
+                          tile_size=tile_size, antialiasing=antialiasing,
+                          viewspace_zero=viewspace_zero_sky,
+                          absgrad_sink=absgrad_sink_sky)
         result["rgb"] = result["rgb"] + sky["rgb"] * (1.0 - result["acc"][..., None])
         result["acc_sky"] = sky["acc"]
         result["radii_sky"] = sky["radii"]

@@ -1,10 +1,12 @@
-"""Tile-binned Gaussian rasterization, forward: worklist + compositing.
+"""Tile-binned Gaussian rasterization: worklist, compositing and its backward.
 
-Port of the TPU eval raster (``street_crafter_tpu/ops/gs_raster_fused.py``:
-K1 ``_compact_kernel`` and K2 ``_composite_kernel``) in gsplat's form rather
-than the TPU's: an exact (tile, depth)-sorted worklist over every 16x16 tile
-a splat's 3-sigma box overlaps, then front-to-back compositing per pixel. No
-capacity, so no splat is ever dropped.
+Port of the TPU raster (``street_crafter_tpu/ops/gs_raster_fused.py``: K1
+``_compact_kernel`` and K2 ``_composite_kernel``;
+``street_crafter_tpu/ops/gs_raster_train.py``: K3 ``_composite_bwd_kernel``)
+in gsplat's form rather than the TPU's: an exact (tile, depth)-sorted
+worklist over every 16x16 tile a splat's 3-sigma box overlaps, then
+front-to-back compositing per pixel, and its exact adjoint. No capacity, so
+no splat is ever dropped.
 
 Rules kept from the reference raster (``ops/gs_raster.py``):
   sigma = 0.5 (a dx^2 + c dy^2) + b dx dy, skipped when sigma < 0;
@@ -13,11 +15,17 @@ Rules kept from the reference raster (``ops/gs_raster.py``):
   rule, the train kernel's ``stop_lt``); alpha out = 1 - T.
 
 Each step has two implementations in this module:
-  * ``tile_worklist_reference`` / ``composite_reference``: plain torch, used
-    for CPU tensors (the tests) and as the oracle on the card;
-  * the CUDA kernels of ``csrc/gs_raster.cu``, used for CUDA tensors. They
-    are compiled with nvcc on first use; a failed build or launch raises.
-``launches`` counts the calls of each implementation.
+  * ``tile_worklist_reference`` / ``composite_reference`` /
+    ``composite_backward_reference``: plain torch, used for CPU tensors (the
+    tests) and as the oracle on the card;
+  * the CUDA kernels of ``csrc/gs_raster.cu`` (A, B and C), used for CUDA
+    tensors. They are compiled with nvcc on first use; a failed build or
+    launch raises.
+``launches`` counts the calls of each implementation. ``rasterize_pixels``
+is differentiable (``torch.autograd.Function``) when an input needs a
+gradient; its ``absgrad_sink`` input receives the per-splat sums of
+|dL/du| and |dL/dv| over pixels as its gradient (gsplat ``absgrad=True``,
+the JAX ``_abs_sink_hook``).
 """
 
 from __future__ import annotations
@@ -46,9 +54,14 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# calls per implementation: "tile_worklist" and "composite" (CUDA kernels
-# A and B), "tile_worklist_reference" and "composite_reference" (plain)
+# calls per implementation: "tile_worklist", "composite" and
+# "composite_backward" (CUDA kernels A, B and C), "tile_worklist_reference",
+# "composite_reference" and "composite_backward_reference" (plain)
 launches: collections.Counter = collections.Counter()
+# columns of the [N, 8 + C] gradient rows of the compositing backward
+GRAD_U, GRAD_V, GRAD_A, GRAD_B, GRAD_C, GRAD_OPACITY = range(6)
+GRAD_ABS = slice(6, 8)      # sum over pixels of |dL/du|, |dL/dv|
+GRAD_COLORS = 8             # then the C colour channels
 
 
 def reset_launch_counts() -> None:
@@ -127,18 +140,28 @@ def tile_worklist_reference(u, v, radii, depths, valid, width: int,
                         int(key.shape[0]))
 
 
-def composite_reference(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
-                        colors, opacities, width: int, height: int
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Python loop over tiles; per tile a vectorised [K, 256] alpha and an
-    inclusive transmittance scan for the stop rule."""
-    launches["composite_reference"] += 1
-    tw, th = tile_grid(width, height)
+class _TileSplats(NamedTuple):
+    """One tile's list, recomputed as kernels B and C see it: [K, 256]
+    per (splat, pixel) of the tile, pixels row-major."""
+    g: torch.Tensor          # [K] splat ids
+    dx: torch.Tensor
+    dy: torch.Tensor
+    sigma: torch.Tensor
+    raw: torch.Tensor        # opacity exp(-sigma), before the clamp
+    alpha: torch.Tensor      # 0 where skipped
+    keep: torch.Tensor       # inside the pixel's prefix (before the stop)
+    t_before: torch.Tensor   # T in front of the splat
+    t_final: torch.Tensor    # [256] T after the prefix
+    rows: slice
+    cols: slice
+
+
+def _tiles(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, opacities,
+           width: int):
+    """Yield the non-empty tiles of ``wl`` with their [K, 256] alpha and
+    the stop rule's transmittance scan."""
+    tw, _ = tile_grid(width, 1)
     dev = u.device
-    C = colors.shape[1]
-    out = torch.zeros((th * TILE, tw * TILE, C), dtype=torch.float32,
-                      device=dev)
-    trans = torch.ones((th * TILE, tw * TILE), dtype=torch.float32, device=dev)
     ly, lx = torch.meshgrid(
         torch.arange(TILE, dtype=torch.float32, device=dev) + 0.5,
         torch.arange(TILE, dtype=torch.float32, device=dev) + 0.5,
@@ -154,8 +177,8 @@ def composite_reference(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
         sigma = (0.5 * (conic_a[g][:, None] * dx * dx
                         + conic_c[g][:, None] * dy * dy)
                  + conic_b[g][:, None] * dx * dy)
-        alpha = torch.clamp(opacities[g][:, None] * torch.exp(-sigma),
-                            max=ALPHA_CLAMP)
+        raw = opacities[g][:, None] * torch.exp(-sigma)
+        alpha = torch.clamp(raw, max=ALPHA_CLAMP)
         alpha = torch.where((sigma >= 0) & (alpha >= ALPHA_MIN), alpha, 0.0)
         # T after each splat: a scan along dim 0 multiplies sequentially
         # per pixel, rounding exactly like the kernel's T *= 1 - alpha, so
@@ -163,13 +186,92 @@ def composite_reference(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
         t_after = torch.cumprod(1.0 - alpha, 0)
         keep = t_after > T_STOP                      # a prefix per pixel
         t_before = torch.cat([torch.ones_like(t_after[:1]), t_after[:-1]])
-        w = torch.where(keep, alpha * t_before, 0.0)
-        rows = slice(ty * TILE, (ty + 1) * TILE)
-        cols = slice(tx * TILE, (tx + 1) * TILE)
-        out[rows, cols] = (w.T @ colors[g]).reshape(TILE, TILE, C)
-        trans[rows, cols] = torch.where(keep, t_after, 1.0).amin(0).reshape(
-            TILE, TILE)
-    return out[:height, :width], 1.0 - trans[:height, :width]
+        t_final = torch.where(keep, t_after, 1.0).amin(0)
+        yield _TileSplats(g, dx, dy, sigma, raw, alpha, keep, t_before,
+                          t_final, slice(ty * TILE, (ty + 1) * TILE),
+                          slice(tx * TILE, (tx + 1) * TILE))
+
+
+def composite_reference(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
+                        colors, opacities, width: int, height: int,
+                        train: bool = False) -> tuple[torch.Tensor, ...]:
+    """Python loop over tiles; per tile a vectorised [K, 256] alpha and an
+    inclusive transmittance scan for the stop rule. Returns (colours [H, W,
+    C], alpha [H, W]) and, with ``train``, also the final T [H, W] and the
+    index one past the last contributing splat in the tile's list (int32
+    [H, W], 0 where none)."""
+    launches["composite_reference"] += 1
+    tw, th = tile_grid(width, height)
+    dev = u.device
+    C = colors.shape[1]
+    out = torch.zeros((th * TILE, tw * TILE, C), dtype=torch.float32,
+                      device=dev)
+    trans = torch.ones((th * TILE, tw * TILE), dtype=torch.float32, device=dev)
+    last = torch.zeros((th * TILE, tw * TILE), dtype=torch.int32, device=dev)
+    for ts in _tiles(wl, u, v, conic_a, conic_b, conic_c, opacities, width):
+        w = torch.where(ts.keep, ts.alpha * ts.t_before, 0.0)
+        out[ts.rows, ts.cols] = (w.T @ colors[ts.g]).reshape(TILE, TILE, C)
+        trans[ts.rows, ts.cols] = ts.t_final.reshape(TILE, TILE)
+        if train:
+            pos = torch.arange(1, ts.g.shape[0] + 1, dtype=torch.int32,
+                               device=dev)[:, None]
+            hit = ts.keep & (ts.alpha > 0)
+            last[ts.rows, ts.cols] = torch.where(hit, pos, 0).amax(0).reshape(
+                TILE, TILE)
+    res = (out[:height, :width], 1.0 - trans[:height, :width])
+    if train:
+        res += (trans[:height, :width].contiguous(),
+                last[:height, :width].contiguous())
+    return res
+
+
+def composite_backward_reference(wl: TileWorklist, u, v, conic_a, conic_b,
+                                 conic_c, colors, opacities, width: int,
+                                 height: int, grad_colors: torch.Tensor,
+                                 grad_alpha: torch.Tensor) -> torch.Tensor:
+    """Gradients of sum(grad_colors * colours) + sum(grad_alpha * alpha)
+    w.r.t. each splat: [N, 8 + C] rows (u, v, conic a, b, c, opacity,
+    sum |dL/du|, sum |dL/dv|, colours). Recomputes each tile as
+    ``composite_reference`` does, then per pair the adjoint of the forward:
+    dalpha_j = T_j (c_j.g_c) - (S_j - g_a T_N) / (1 - alpha_j) with S_j the
+    suffix sum of w c.g_c behind splat j; zero where a splat was skipped,
+    stopped or its alpha clamped at 0.999."""
+    launches["composite_backward_reference"] += 1
+    tw, th = tile_grid(width, height)
+    dev = u.device
+    n, C = colors.shape
+    gc = torch.zeros((th * TILE, tw * TILE, C), dtype=torch.float32,
+                     device=dev)
+    ga = torch.zeros((th * TILE, tw * TILE), dtype=torch.float32, device=dev)
+    gc[:height, :width] = grad_colors
+    ga[:height, :width] = grad_alpha
+    grads = torch.zeros((n, GRAD_COLORS + C), dtype=torch.float32, device=dev)
+    for ts in _tiles(wl, u, v, conic_a, conic_b, conic_c, opacities, width):
+        g = ts.g
+        gcp = gc[ts.rows, ts.cols].reshape(-1, C)               # [256, C]
+        gap = ga[ts.rows, ts.cols].reshape(-1)                  # [256]
+        hit = ts.keep & (ts.alpha > 0)
+        w = torch.where(hit, ts.alpha * ts.t_before, 0.0)       # [K, 256]
+        cg = colors[g] @ gcp.T                                  # c_j . g_c
+        wc = w * cg
+        suffix = torch.flip(torch.cumsum(torch.flip(wc, (0,)), 0), (0,)) - wc
+        dalpha = (ts.t_before * cg
+                  - (suffix - gap * ts.t_final) / (1.0 - ts.alpha))
+        # gate before any product: the clamp and the skips pass no gradient
+        active = hit & (ts.raw < ALPHA_CLAMP)
+        dsig = torch.where(active, -ts.alpha * dalpha, 0.0)
+        dx = torch.where(active, ts.dx, 0.0)
+        dy = torch.where(active, ts.dy, 0.0)
+        a, b, c = (x[g][:, None] for x in (conic_a, conic_b, conic_c))
+        du = torch.where(active, -dsig * (a * dx + b * dy), 0.0)
+        dv = torch.where(active, -dsig * (c * dy + b * dx), 0.0)
+        dopa = torch.where(active, dalpha * torch.exp(-ts.sigma), 0.0)
+        rows = torch.stack([
+            du.sum(1), dv.sum(1), (0.5 * dx * dx * dsig).sum(1),
+            (dx * dy * dsig).sum(1), (0.5 * dy * dy * dsig).sum(1),
+            dopa.sum(1), du.abs().sum(1), dv.abs().sum(1)], 1)
+        grads.index_add_(0, g, torch.cat([rows, w @ gcp], 1))
+    return grads
 
 
 # --------------------------------------------------------------------------
@@ -215,7 +317,10 @@ def _library() -> ctypes.CDLL:
         "sc_isect_count": [P, P, P, P, I, I, I, P, P],
         "sc_isect_emit": [P, P, P, P, P, P, I, I, I, P, P, P],
         "sc_tile_ranges": [P, ctypes.c_longlong, P, P],
-        "sc_composite": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P, P, P],
+        "sc_composite": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P, P, P,
+                         P, P],
+        "sc_composite_backward": [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                  P, P, P, P, P, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -287,13 +392,12 @@ def _tile_worklist_cuda(u, v, radii, depths, valid, width, height
                         n_pairs)
 
 
-def _composite_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
-                    colors, opacities, width, height):
-    lib = _library()
+def _splat_ptrs(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, colors,
+                opacities, width, height) -> list[int]:
     tw, th = tile_grid(width, height)
     n, C = colors.shape
     f32 = torch.float32
-    ptrs = [
+    return [
         _require(wl.ranges, "ranges", torch.int32, (tw * th, 2)),
         _require(wl.gauss_ids, "gauss_ids", torch.int32, (wl.n_pairs,)),
         _require(u, "u", f32, (n,)), _require(v, "v", f32, (n,)),
@@ -303,14 +407,54 @@ def _composite_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
         _require(colors, "colors", f32, (n, C)),
         _require(opacities, "opacities", f32, (n,)),
     ]
-    out = torch.empty((height, width, C), dtype=f32, device=u.device)
-    alpha = torch.empty((height, width), dtype=f32, device=u.device)
-    stream = torch.cuda.current_stream(u.device).cuda_stream
+
+
+def _composite_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
+                    colors, opacities, width, height, train):
+    lib = _library()
+    tw, th = tile_grid(width, height)
+    C = colors.shape[1]
+    ptrs = _splat_ptrs(wl, u, v, conic_a, conic_b, conic_c, colors,
+                       opacities, width, height)
+    dev = u.device
+    out = torch.empty((height, width, C), dtype=torch.float32, device=dev)
+    alpha = torch.empty((height, width), dtype=torch.float32, device=dev)
+    res = (out, alpha)
+    state = [None, None]
+    if train:
+        res += (torch.empty((height, width), dtype=torch.float32, device=dev),
+                torch.empty((height, width), dtype=torch.int32, device=dev))
+        state = [res[2].data_ptr(), res[3].data_ptr()]
+    stream = torch.cuda.current_stream(dev).cuda_stream
     _check(lib, lib.sc_composite(*ptrs, C, width, height, tw, th,
-                                 out.data_ptr(), alpha.data_ptr(), stream),
-           "composite")
+                                 out.data_ptr(), alpha.data_ptr(), *state,
+                                 stream), "composite")
     launches["composite"] += 1
-    return out, alpha
+    return res
+
+
+def _composite_backward_cuda(wl: TileWorklist, u, v, conic_a, conic_b,
+                             conic_c, colors, opacities, width, height,
+                             final_T, last, grad_colors, grad_alpha):
+    lib = _library()
+    tw, th = tile_grid(width, height)
+    n, C = colors.shape
+    ptrs = _splat_ptrs(wl, u, v, conic_a, conic_b, conic_c, colors,
+                       opacities, width, height)
+    ptrs += [_require(final_T, "final_T", torch.float32, (height, width)),
+             _require(last, "last", torch.int32, (height, width)),
+             _require(grad_colors, "grad_colors", torch.float32,
+                      (height, width, C)),
+             _require(grad_alpha, "grad_alpha", torch.float32,
+                      (height, width))]
+    grads = torch.zeros((n, GRAD_COLORS + C), dtype=torch.float32,
+                        device=u.device)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    _check(lib, lib.sc_composite_backward(*ptrs[:9], C, width, height, tw,
+                                          th, *ptrs[9:], grads.data_ptr(),
+                                          stream), "composite_backward")
+    launches["composite_backward"] += 1
+    return grads
 
 
 # --------------------------------------------------------------------------
@@ -328,29 +472,101 @@ def tile_worklist(u, v, radii, depths, valid, width: int, height: int
 
 
 def composite(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, colors,
-              opacities, width: int, height: int
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Front-to-back compositing of each tile's list (kernel B on CUDA)."""
+              opacities, width: int, height: int, train: bool = False
+              ) -> tuple[torch.Tensor, ...]:
+    """Front-to-back compositing of each tile's list (kernel B on CUDA).
+    With ``train`` also the final T and the last-contributor index (see
+    ``composite_reference``), the backward's starting point."""
     if _uses_kernel(u, v, conic_a, conic_b, conic_c, colors, opacities,
                     wl.ranges):
         with torch.cuda.device(u.device):
             return _composite_cuda(wl, u, v, conic_a, conic_b, conic_c,
-                                   colors, opacities, width, height)
+                                   colors, opacities, width, height, train)
     return composite_reference(wl, u, v, conic_a, conic_b, conic_c, colors,
-                               opacities, width, height)
+                               opacities, width, height, train)
+
+
+def composite_backward(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
+                       colors, opacities, width: int, height: int, final_T,
+                       last, grad_colors, grad_alpha) -> torch.Tensor:
+    """[N, 8 + C] gradient rows of compositing (kernel C on CUDA; the plain
+    version recomputes T and the stop from scratch and ignores ``final_T``
+    and ``last``)."""
+    if _uses_kernel(u, v, conic_a, conic_b, conic_c, colors, opacities,
+                    wl.ranges, grad_colors, grad_alpha):
+        with torch.cuda.device(u.device):
+            return _composite_backward_cuda(
+                wl, u, v, conic_a, conic_b, conic_c, colors, opacities,
+                width, height, final_T, last, grad_colors, grad_alpha)
+    return composite_backward_reference(wl, u, v, conic_a, conic_b, conic_c,
+                                        colors, opacities, width, height,
+                                        grad_colors, grad_alpha)
+
+
+class _Composite(torch.autograd.Function):
+    """Compositing with kernel C (or its plain version) as its backward.
+    The worklist is computed outside, without gradient. ``sink`` [N, 2] is
+    not read; its gradient is the absgrad columns."""
+
+    @staticmethod
+    def forward(ctx, wl, width, height, u, v, conic_a, conic_b, conic_c,
+                colors, opacities, sink):
+        del sink
+        out, alpha, final_T, last = composite(
+            wl, u, v, conic_a, conic_b, conic_c, colors, opacities, width,
+            height, train=True)
+        ctx.save_for_backward(u, v, conic_a, conic_b, conic_c, colors,
+                              opacities, final_T, last)
+        ctx.wl, ctx.size = wl, (width, height)
+        return out, alpha
+
+    @staticmethod
+    def backward(ctx, grad_out, grad_alpha):
+        u, v, ca, cb, cc, colors, opa, final_T, last = ctx.saved_tensors
+        width, height = ctx.size
+        if grad_out is None:
+            grad_out = torch.zeros((height, width, colors.shape[1]),
+                                   dtype=torch.float32, device=u.device)
+        if grad_alpha is None:
+            grad_alpha = torch.zeros((height, width), dtype=torch.float32,
+                                     device=u.device)
+        g = composite_backward(ctx.wl, u, v, ca, cb, cc, colors, opa, width,
+                               height, final_T, last,
+                               grad_out.contiguous(), grad_alpha.contiguous())
+        return (None, None, None, g[:, GRAD_U], g[:, GRAD_V], g[:, GRAD_A],
+                g[:, GRAD_B], g[:, GRAD_C], g[:, GRAD_COLORS:],
+                g[:, GRAD_OPACITY], g[:, GRAD_ABS])
 
 
 def rasterize_pixels(u, v, conic_a, conic_b, conic_c, colors, opacities,
                      depths, valid, radii, width: int, height: int,
-                     tile_size: int = TILE) -> RasterOutput:
+                     tile_size: int = TILE,
+                     absgrad_sink: torch.Tensor | None = None
+                     ) -> RasterOutput:
     """Composite [N] projected splats with [N, C] channels (C <= 7) into
     (colors [H, W, C], alpha [H, W]). CPU tensors take the plain versions,
-    CUDA tensors the kernels."""
+    CUDA tensors the kernels. Differentiable in u, v, the conic, colours,
+    opacities and ``absgrad_sink`` ([N, 2] zeros, whose gradient is the
+    per-splat sum over pixels of |dL/du| and |dL/dv|) when one of them
+    requires a gradient; then the forward also keeps the backward's state
+    and the backward runs kernel C. Depths, valid and radii only bin."""
     if tile_size != TILE:
         raise ValueError(f"tile_size must be {TILE}, got {tile_size}")
     if not 1 <= colors.shape[-1] <= MAX_CHANNELS:
         raise ValueError(f"1..{MAX_CHANNELS} channels, got {colors.shape}")
-    wl = tile_worklist(u, v, radii, depths, valid, width, height)
-    out, alpha = composite(wl, u, v, conic_a, conic_b, conic_c, colors,
-                           opacities, width, height)
+    diff = (u, v, conic_a, conic_b, conic_c, colors, opacities)
+    if absgrad_sink is not None:
+        diff += (absgrad_sink,)
+    with torch.no_grad():
+        wl = tile_worklist(u, v, radii, depths, valid, width, height)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in diff):
+        if absgrad_sink is None:
+            absgrad_sink = torch.zeros((u.shape[0], 2), dtype=torch.float32,
+                                       device=u.device)
+        out, alpha = _Composite.apply(wl, width, height, u, v, conic_a,
+                                      conic_b, conic_c, colors, opacities,
+                                      absgrad_sink)
+    else:
+        out, alpha = composite(wl, u, v, conic_a, conic_b, conic_c, colors,
+                               opacities, width, height)
     return RasterOutput(out, alpha, wl.n_pairs)

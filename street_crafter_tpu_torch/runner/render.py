@@ -31,7 +31,10 @@ def psnr(img: torch.Tensor, gt: torch.Tensor) -> float:
 
 
 def make_eval_render(cfg: Config, meta, sh_degree: int):
-    """Eval/trajectory render: interpolated actor poses, clamped rgb."""
+    """Eval/trajectory render: interpolated actor poses, clamped rgb. Runs
+    without autograd, so it takes kernel B's forward-only launch and keeps
+    no training buffers alive, even for parameters that require grad."""
+    @torch.no_grad()
     def eval_render(params: SceneParams, camera, batch: dict) -> dict:
         return render_scene(
             params, meta, camera,

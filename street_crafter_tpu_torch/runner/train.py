@@ -1,0 +1,303 @@
+"""3DGS training entry point, Gaussian splatting only (port of
+``street_crafter_tpu/runner/train.py`` without the diffusion hook).
+
+Host loop: camera sampling (``random.Random(cfg.seed)``, the JAX trainer's
+generator and sequence), SH-degree warm-up, the densify / opacity-reset
+schedule, eval (PSNR and L1 on the test cameras), checkpoints with the
+whole train state (``resume: true`` continues at ``it + 1``) and the 3DGS
+PLY export. Runs on ``cfg.device`` (``cuda`` unless the config says
+``cpu``).
+
+CLI: python -m street_crafter_tpu_torch.runner.train --config scene.json \
+    [k=v ...]
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import shutil
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..config import Config, default_config, load_config, merge_dotlist, \
+    save_config
+from ..models.gs.params import GaussianPool
+from ..training.gs_trainer import (GSTrainState, init_train_state,
+                                   make_densify_step, make_train_step,
+                                   reset_opacity_step)
+from ..utils.checkpoint import load_train_checkpoint, save_checkpoint
+from ..utils.metrics import MetricsLogger, ProfilerHook
+from .render import make_eval_render, psnr
+from .scene import Scene, create_scene
+
+NOT_PORTED_DIFFUSION = ("diffusion.use_diffusion (the diffusion-guided "
+                        "novel-view supervision, ROADMAP queue 1, slice 4)")
+NOT_PORTED_BATCH = ("train.batch_size > 1 (camera-DP training over several "
+                    "GPUs, ROADMAP queue 1, slice 5)")
+
+
+class GSTrainer:
+    """The training loop's state and schedules."""
+
+    def __init__(self, cfg: Config, scene: Scene,
+                 lpips_fn: Callable | None = None):
+        self.cfg = cfg
+        self.scene = scene
+        self.lpips_fn = lpips_fn
+        self.state: GSTrainState = init_train_state(scene.params)
+        self.start_iter = 1
+        self._steps: dict[tuple, Callable] = {}
+        self._eval_renders: dict[int, Callable] = {}
+        self._densify = make_densify_step(cfg)
+        self.max_sh = cfg.model.gaussian.sh_degree
+        self.rng = random.Random(cfg.seed)
+        # flip masks and split noise; the JAX trainer's jax.random key
+        self.generator = torch.Generator(device=scene.device).manual_seed(
+            int(cfg.seed))
+        if cfg.resume:
+            restored, it = load_train_checkpoint(scene.model_path,
+                                                 device=scene.device)
+            if restored is not None:
+                self.state = restored
+                self.start_iter = it + 1
+                print(f"resumed from iteration {it}")
+
+    def eval_render_fn(self, sh: int) -> Callable:
+        if sh not in self._eval_renders:
+            self._eval_renders[sh] = make_eval_render(self.cfg,
+                                                      self.scene.meta, sh)
+        return self._eval_renders[sh]
+
+    def active_sh(self, iteration: int) -> int:
+        """One more SH degree every 1000 iterations."""
+        return min(iteration // 1000, self.max_sh)
+
+    def step_fn(self, is_novel: bool, sh: int,
+                with_obj_acc: bool = False) -> Callable:
+        key = (is_novel, sh, with_obj_acc)
+        if key not in self._steps:
+            self._steps[key] = make_train_step(
+                self.cfg, self.scene.meta, spatial_lr_scale=self.scene.extent,
+                lpips_fn=self.lpips_fn, is_novel=is_novel,
+                active_sh_degree=sh, with_obj_acc=with_obj_acc,
+                generator=self.generator)
+        return self._steps[key]
+
+    def pick_camera(self, novel_pool: list) -> tuple:
+        """(cam_info, is_novel), with the novel-view probability."""
+        infos = self.scene.info.train_cameras
+        if novel_pool and self.rng.random() < self.cfg.train.novel_view_prob:
+            return self.rng.choice(novel_pool), True
+        return self.rng.choice(infos), False
+
+    def densify(self) -> dict:
+        scene = self.scene
+        return self._densify(self.state, self.generator, float(scene.extent),
+                             scene.meta.actor_bbox,
+                             scene.meta.actor_random_init,
+                             scene.meta.sphere_center,
+                             scene.meta.sphere_radius)
+
+    def run(self, log_fn: Callable[[int, dict], None] | None = None
+            ) -> GSTrainState:
+        cfg = self.cfg
+        scene = self.scene
+        o = cfg.optim
+        novel_pool: list = []   # filled by the diffusion hook (slice 4)
+        device_cams = {c.uid: cam for c, cam in
+                       zip(scene.info.train_cameras, scene.train_cameras)}
+        metrics = MetricsLogger(os.path.join(scene.model_path, "logs"))
+        profiler = ProfilerHook(cfg.profiler, scene.model_path)
+        t0 = time.perf_counter()
+        ema_loss = None
+        for iteration in range(self.start_iter, cfg.train.iterations + 1):
+            profiler.step(iteration)
+            cam_info, is_novel = self.pick_camera(novel_pool)
+            camera = device_cams[cam_info.uid]
+            batch = scene.batch_for(cam_info)
+            if "gt_image" not in batch:
+                continue
+            sh = self.active_sh(iteration)
+            # objects-only acc regulariser once densification has settled
+            with_obj_acc = (
+                not is_novel and o.lambda_reg > 0
+                and iteration % cfg.train.reg_obj_acc_every != 0
+                and iteration > o.densify_until_iter
+                and "obj_bound" in batch)
+            step = self.step_fn(is_novel, sh, with_obj_acc)
+            _, scalars = step(self.state, camera, batch)
+
+            if (o.densify_from_iter <= iteration <= o.densify_until_iter
+                    and iteration % o.densification_interval == 0):
+                self.densify()
+            if (iteration % o.opacity_reset_interval == 0
+                    and iteration <= o.densify_until_iter):
+                reset_opacity_step(self.state)
+
+            # scalars are read only at log points: a read waits for the card
+            if (iteration % cfg.train.log_interval == 0
+                    or iteration == cfg.train.iterations):
+                vals = {k: float(v) for k, v in scalars.items()}
+                if not np.isfinite(vals["loss"]):
+                    raise FloatingPointError(
+                        f"non-finite loss {vals['loss']} at iteration "
+                        f"{iteration}")
+                ema_loss = vals["loss"] if ema_loss is None else \
+                    0.6 * ema_loss + 0.4 * vals["loss"]
+                metrics.log_scalars(iteration, vals, prefix="train/")
+                if log_fn is not None:
+                    log_fn(iteration, vals)
+
+            if iteration in cfg.train.test_iterations:
+                report = self.evaluate(sh)
+                print(f"[it {iteration}] eval " + " ".join(
+                    f"{k}={v:.3f}" for k, v in report.items()))
+                metrics.log_scalars(iteration, report, prefix="eval/")
+                self._log_eval_image(metrics, iteration, sh)
+                if log_fn is not None:
+                    log_fn(iteration, report)
+
+            if (iteration in cfg.train.checkpoint_iterations
+                    or iteration == cfg.train.iterations):
+                save_checkpoint(scene.model_path, iteration,
+                                self.state.params, self.state)
+            if iteration in cfg.train.get("save_iterations", []):
+                self.export_ply(iteration)
+
+            if iteration % 100 == 0:
+                dt = time.perf_counter() - t0
+                ema_s = "n/a" if ema_loss is None else f"{ema_loss:.4f}"
+                print(f"[it {iteration}] ema_loss={ema_s} "
+                      f"({100 / dt:.1f} it/s)", flush=True)
+                t0 = time.perf_counter()
+        profiler.close()
+        metrics.close()
+        return self.state
+
+    def export_ply(self, iteration: int) -> str:
+        """3DGS PLY of every pool under point_cloud/iteration_N/."""
+        from ..utils.gs_ply import export_gaussians_ply
+        params = self.state.params
+        pools: dict[str, GaussianPool] = {}
+        if params.bkgd is not None:
+            pools["bkgd"] = params.bkgd
+        if params.actors is not None:
+            for i in range(params.actors.xyz.shape[0]):
+                pools[f"obj_{i:03d}"] = GaussianPool(**{
+                    k: getattr(params.actors, k)[i]
+                    for k in GaussianPool.__dataclass_fields__})
+        if params.sky is not None:
+            pools["sky"] = params.sky
+        path = os.path.join(self.scene.model_path, "point_cloud",
+                            f"iteration_{iteration}", "point_cloud.ply")
+        export_gaussians_ply(path, pools)
+        return path
+
+    def _log_eval_image(self, metrics: MetricsLogger, iteration: int,
+                        sh: int) -> None:
+        """First test view's render beside its ground truth, as a PNG."""
+        scene = self.scene
+        if not scene.info.test_cameras:
+            return
+        info, cam = scene.info.test_cameras[0], scene.test_cameras[0]
+        batch = scene.batch_for(info)
+        img = self.eval_render_fn(sh)(self.state.params, cam, batch)["rgb"]
+        if "gt_image" in batch:
+            img = torch.cat([img, batch["gt_image"]], 1)
+        metrics.log_image(iteration, "eval/render_vs_gt", img.cpu().numpy())
+
+    def evaluate(self, sh: int | None = None, cameras: str = "test"
+                 ) -> dict[str, float]:
+        """PSNR and L1 over the test (or train) cameras, and the mean
+        (tile, splat) pairs per render."""
+        scene = self.scene
+        sh = self.max_sh if sh is None else sh
+        render = self.eval_render_fn(sh)
+        infos = getattr(scene.info, f"{cameras}_cameras")
+        cams = getattr(scene, f"{cameras}_cameras")
+        psnrs, l1s, pairs = [], [], []
+        for info, cam in zip(infos, cams):
+            batch = scene.batch_for(info)
+            if "gt_image" not in batch:
+                continue
+            out = render(self.state.params, cam, batch)
+            psnrs.append(psnr(out["rgb"], batch["gt_image"]))
+            l1s.append(float((out["rgb"] - batch["gt_image"]).abs().mean()))
+            pairs.append(out["n_pairs"])
+        if not psnrs:
+            return {}
+        return {"psnr": float(np.mean(psnrs)), "l1": float(np.mean(l1s)),
+                "n_pairs": float(np.mean(pairs))}
+
+
+def backup_code(model_path: str) -> None:
+    """Snapshot of the port package into the run directory."""
+    src = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dst = os.path.join(model_path, "code_backup", os.path.basename(src))
+    if not os.path.exists(dst):
+        shutil.copytree(src, dst, ignore=shutil.ignore_patterns(
+            "__pycache__", "*.so", "*.pyc", "build"))
+
+
+def make_lpips(cfg: Config, device) -> Callable | None:
+    """The LPIPS term's function: converted weights, else the seeded
+    stand-in under ``optim.lpips_fallback=random_features``; raises when
+    the term is on and neither is allowed."""
+    o = cfg.optim
+    if not (o.lambda_lpips > 0 or o.lambda_novel_lpips > 0):
+        return None
+    from ..ops.lpips import load_lpips, random_feature_lpips
+    fn = load_lpips(o.get("lpips_weights") or None, device)
+    if fn is not None:
+        return fn
+    if o.get("lpips_fallback", "none") == "random_features":
+        print("WARNING: no LPIPS weights; using the seeded random-feature "
+              "stand-in (optim.lpips_fallback), NOT the reference objective")
+        return random_feature_lpips(device=device)
+    if o.get("allow_missing_lpips", False):
+        print("WARNING: no LPIPS weights; lpips terms disabled "
+              "(allow_missing_lpips=True)")
+        return None
+    raise RuntimeError(
+        "lambda_lpips/lambda_novel_lpips > 0 but no LPIPS weights are "
+        "available (optim.lpips_weights unset or missing). Convert weights "
+        "with ops.lpips.convert_lpips_torch, set the lambdas to 0, set "
+        "optim.lpips_fallback=random_features for a stand-in, or set "
+        "optim.allow_missing_lpips=True to waive.")
+
+
+def train(cfg: Config, lpips_fn: Callable | None = None) -> GSTrainer:
+    if cfg.diffusion.use_diffusion:
+        raise NotImplementedError(NOT_PORTED_DIFFUSION)
+    if int(cfg.train.get("batch_size", 1)) > 1:
+        raise NotImplementedError(NOT_PORTED_BATCH)
+    scene = create_scene(cfg)
+    backup_code(scene.model_path)
+    # the LiDAR condition PNGs are read only by the diffusion hook; they
+    # are not written (ROADMAP queue 3)
+    save_config(cfg, os.path.join(scene.model_path, "config.json"))
+    if lpips_fn is None:
+        lpips_fn = make_lpips(cfg, scene.device)
+    trainer = GSTrainer(cfg, scene, lpips_fn=lpips_fn)
+    trainer.run()
+    return trainer
+
+
+def main(argv: list[str] | None = None) -> GSTrainer:
+    import argparse
+    p = argparse.ArgumentParser(description="3DGS training (GS only)")
+    p.add_argument("--config", required=True)
+    p.add_argument("opts", nargs="*", default=[])
+    args = p.parse_args(argv)
+    cfg = default_config()
+    cfg.merge(load_config(args.config))
+    merge_dotlist(cfg, args.opts)
+    return train(cfg)
+
+
+if __name__ == "__main__":
+    main()

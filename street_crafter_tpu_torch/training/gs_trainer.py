@@ -1,0 +1,309 @@
+"""3DGS trainer: the train step, densify step and opacity reset (port of
+``street_crafter_tpu/training/gs_trainer.py``).
+
+A train step renders (foreground with posed actors, then the Gaussian sky),
+computes the loss stack, runs autograd (kernel C for the compositing
+backward on the card), applies per-group masked Adam in place and
+accumulates the densification statistics. Screen-space gradients for
+densification come from the renderer's explicit hooks: the gradient of
+``viewspace_zero`` (dL/d(u, v)) and of ``absgrad_sink`` (per-pixel
+|dL/d(u, v)| sums), scaled by 0.5 [W, H] so that the reference's
+densify_grad_threshold values carry over. The JAX package's vmap over
+actors is the stacked pool's leading dimension here. Pools keep their
+fixed capacity.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from ..config import Config
+from ..models.gs.densify import (DensifyState, accumulate_stats,
+                                 densify_and_prune, init_densify_state,
+                                 reset_opacity, sky_extent)
+from ..models.gs.losses import LossWeights, compute_train_loss
+from ..models.gs.optim import (GaussianAdamState, adam_update, init_adam,
+                               misc_lrs, pool_lrs)
+from ..models.gs.params import GaussianPool
+from ..models.gs.renderer import render_scene
+from ..models.gs.scene import SceneMeta, SceneParams
+
+POOLS = ("bkgd", "actors", "sky")
+# scene-level leaves optimised by one Adam group each (``adam_misc``)
+MISC = ("opt_trans", "opt_theta", "sky_cubemap", "color_corr",
+        "color_corr_sky", "pose_corr_quat", "pose_corr_trans")
+
+
+@dataclasses.dataclass
+class GSTrainState:
+    params: SceneParams
+    adam_bkgd: GaussianAdamState | None
+    adam_actors: GaussianAdamState | None   # batch dim: the actor axis
+    adam_sky: GaussianAdamState | None
+    adam_misc: GaussianAdamState | None
+    dstate_bkgd: DensifyState | None
+    dstate_actors: DensifyState | None      # [A, cap]
+    dstate_sky: DensifyState | None
+    step: int
+
+
+def misc_params(params: SceneParams) -> dict[str, torch.Tensor]:
+    return {k: getattr(params, k) for k in MISC
+            if getattr(params, k) is not None}
+
+
+def trainable_leaves(params: SceneParams) -> list[torch.Tensor]:
+    out = list(misc_params(params).values())
+    for name in POOLS:
+        pool = getattr(params, name)
+        if pool is not None:
+            out += list(pool.trainable_dict().values())
+    return out
+
+
+def set_trainable(params: SceneParams) -> None:
+    """Make every optimised tensor an autograd leaf (after a load)."""
+    for t in trainable_leaves(params):
+        if not t.requires_grad:
+            t.requires_grad_(True)
+
+
+def init_train_state(params: SceneParams) -> GSTrainState:
+    set_trainable(params)
+
+    def pool_state(pool: GaussianPool | None):
+        if pool is None:
+            return None, None
+        batch = tuple(pool.valid.shape[:-1])
+        return (init_adam(pool.trainable_dict(), batch),
+                init_densify_state(tuple(pool.valid.shape), pool.device))
+
+    adam_b, ds_b = pool_state(params.bkgd)
+    adam_a, ds_a = pool_state(params.actors)
+    adam_s, ds_s = pool_state(params.sky)
+    misc = misc_params(params)
+    return GSTrainState(
+        params=params, adam_bkgd=adam_b, adam_actors=adam_a, adam_sky=adam_s,
+        adam_misc=init_adam(misc) if misc else None,
+        dstate_bkgd=ds_b, dstate_actors=ds_a, dstate_sky=ds_s, step=0)
+
+
+class StepOutput(NamedTuple):
+    state: GSTrainState
+    scalars: dict[str, torch.Tensor]
+
+
+def _sizes(params: SceneParams) -> tuple[int, int, int]:
+    nb = params.bkgd.capacity if params.bkgd is not None else 0
+    A, cap = (tuple(params.actors.xyz.shape[:2]) if params.actors is not None
+              else (0, 0))
+    return nb, A, cap
+
+
+def _grads(tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {k: t.grad for k, t in tensors.items()}
+
+
+def loss_weights(cfg: Config) -> LossWeights:
+    o = cfg.optim
+    return LossWeights(**{f: float(o[f]) for f in LossWeights._fields})
+
+
+def make_train_step(cfg: Config, meta: SceneMeta | None,
+                    spatial_lr_scale: float, lpips_fn: Callable | None = None,
+                    is_novel: bool = False,
+                    active_sh_degree: int | None = None,
+                    with_obj_acc: bool = False,
+                    generator: torch.Generator | None = None) -> Callable:
+    """The train step of one camera: ``step(state, camera, batch) ->
+    StepOutput``, updating ``state`` in place. ``generator`` draws the
+    actor flip mask (``model.gaussian.flip_prob``)."""
+    weights = loss_weights(cfg)
+    tile_size = int(cfg.render.tile_size)
+    sh_degree = (active_sh_degree if active_sh_degree is not None
+                 else cfg.model.gaussian.sh_degree)
+    flip_prob = float(cfg.model.gaussian.flip_prob)
+
+    def compute_grads(params: SceneParams, camera, batch: dict[str, Any]):
+        """Loss and gradients (left in the leaves' .grad) of one camera,
+        plus the densification-stat contributions."""
+        nb, A, cap_o = _sizes(params)
+        n_flat = nb + A * cap_o     # the sky pass has its own hooks
+        dev = camera.device
+        flip_mask = None
+        if flip_prob > 0 and A > 0:
+            flip_mask = torch.rand((A, cap_o), generator=generator,
+                                   device=dev) < flip_prob
+        n_sky = params.sky.capacity if params.sky is not None else 0
+        hooks = [torch.zeros((n, 2), dtype=torch.float32, device=dev,
+                             requires_grad=True)
+                 for n in (n_flat, n_flat, n_sky, n_sky)]
+        kw = dict(frame_idx=batch["frame_idx"], frame=batch["frame"],
+                  cam_id=batch["cam_id"], timestamp=batch.get("timestamp"),
+                  sh_degree=sh_degree, tile_size=tile_size,
+                  flip_mask=flip_mask)
+        out = render_scene(
+            params, meta, camera, image_idx=batch.get("image_idx", 0),
+            viewspace_zero=hooks[0], absgrad_sink=hooks[1],
+            viewspace_zero_sky=hooks[2], absgrad_sink_sky=hooks[3],
+            white_background=bool(cfg.data.white_background), **kw)
+        acc_obj = None
+        if with_obj_acc and params.actors is not None:
+            # objects-only pass for the acc-entropy regulariser
+            acc_obj = render_scene(params, meta, camera, include_bkgd=False,
+                                   include_sky=False, **kw)["acc"]
+        loss, scalars = compute_train_loss(
+            out, batch, weights, is_novel=is_novel, lpips_fn=lpips_fn,
+            scene_scaling=(params.bkgd.get_scaling()
+                           if params.bkgd is not None else None),
+            scene_valid=params.bkgd.valid if params.bkgd is not None else None,
+            color_corr=params.color_corr, color_corr_sky=params.color_corr_sky,
+            acc_obj=acc_obj)
+        loss.backward()
+
+        # gsplat's pixel-unit screen gradients -> the reference's
+        # NDC-comparable scale
+        scale = 0.5 * torch.tensor([camera.width, camera.height],
+                                   dtype=torch.float32, device=dev)
+
+        def hook_grad(t):
+            return (t.grad if t.grad is not None
+                    else torch.zeros_like(t)) * scale
+
+        def contributions(vz, sink, vis, radii):
+            visf = vis.to(torch.float32)
+            return {"contrib": torch.linalg.norm(hook_grad(vz), dim=-1) * visf,
+                    "contrib_abs": torch.linalg.norm(hook_grad(sink), dim=-1)
+                    * visf,
+                    "visf": visf,
+                    "rad": torch.where(vis, radii.detach(), 0.0)}
+
+        stats = {"fg": contributions(hooks[0], hooks[1],
+                                     out["visibility"][:n_flat],
+                                     out["radii"][:n_flat])}
+        if params.sky is not None and "visibility_sky" in out:
+            stats["sky"] = contributions(hooks[2], hooks[3],
+                                         out["visibility_sky"],
+                                         out["radii_sky"])
+        return {k: v.detach() for k, v in scalars.items()}, stats
+
+    @torch.no_grad()
+    def apply_update(state: GSTrainState, stats) -> None:
+        params = state.params
+        nb, A, cap_o = _sizes(params)
+        lrs = pool_lrs(cfg, state.step, spatial_lr_scale)
+        fg = stats["fg"]
+        if params.bkgd is not None:
+            p = params.bkgd.trainable_dict()
+            adam_update(p, _grads(p), state.adam_bkgd, lrs,
+                        update_mask=params.bkgd.valid)
+            accumulate_stats(state.dstate_bkgd,
+                             *(fg[k][:nb] for k in
+                               ("contrib", "contrib_abs", "visf", "rad")))
+        if params.actors is not None:
+            p = params.actors.trainable_dict()
+            adam_update(p, _grads(p), state.adam_actors, lrs,
+                        update_mask=params.actors.valid)
+            accumulate_stats(state.dstate_actors,
+                             *(fg[k][nb:].reshape(A, cap_o) for k in
+                               ("contrib", "contrib_abs", "visf", "rad")))
+        if params.sky is not None:
+            p = params.sky.trainable_dict()
+            adam_update(p, _grads(p), state.adam_sky, lrs,
+                        update_mask=params.sky.valid)
+            if "sky" in stats:
+                accumulate_stats(state.dstate_sky,
+                                 *(stats["sky"][k] for k in
+                                   ("contrib", "contrib_abs", "visf", "rad")))
+        misc = misc_params(params)
+        if misc:
+            adam_update(misc, _grads(misc), state.adam_misc,
+                        misc_lrs(cfg, state.step, misc))
+        state.step += 1
+
+    def train_step(state: GSTrainState, camera, batch: dict[str, Any]
+                   ) -> StepOutput:
+        set_trainable(state.params)
+        scalars, stats = compute_grads(state.params, camera, batch)
+        apply_update(state, stats)
+        for t in trainable_leaves(state.params):
+            t.grad = None
+        return StepOutput(state, scalars)
+
+    return train_step
+
+
+def make_densify_step(cfg: Config) -> Callable:
+    """``densify(state, generator, extent, actor_bbox, actor_random_init,
+    sphere_center, sphere_radius) -> {pool: DensifyInfo}``, in place."""
+    o = cfg.optim
+    # the reference's densify_grad_abs_* = True selects the SIGNED column
+    use_abs_bkgd = not bool(o.get("densify_grad_abs_bkgd", False))
+    use_abs_obj = not bool(o.get("densify_grad_abs_obj", False))
+    thresh_bkgd = float(o.get("densify_grad_threshold_bkgd")
+                        or o.densify_grad_threshold)
+    thresh_obj = float(o.get("densify_grad_threshold_obj")
+                       or o.densify_grad_threshold)
+
+    def noise(pool: GaussianPool, generator):
+        shape = tuple(pool.valid.shape[:-1]) + (2, pool.capacity, 3)
+        return torch.randn(shape, generator=generator, device=pool.device)
+
+    def densify_step(state: GSTrainState, generator: torch.Generator,
+                     extent: float, actor_bbox=None, actor_random_init=None,
+                     sphere_center=None, sphere_radius=None) -> dict:
+        params = state.params
+        info = {}
+        if params.bkgd is not None:
+            info["bkgd"] = densify_and_prune(
+                params.bkgd, state.adam_bkgd, state.dstate_bkgd,
+                noise(params.bkgd, generator), grad_threshold=thresh_bkgd,
+                percent_dense=o.percent_dense, extent=extent,
+                min_opacity=o.min_opacity,
+                prune_big_points=bool(o.prune_big_points),
+                percent_big_ws=o.percent_big_ws,
+                max_screen_size=o.max_screen_size, use_abs=use_abs_bkgd)
+        if params.actors is not None:
+            A = params.actors.xyz.shape[0]
+            dev = params.actors.device
+            rand_init = (actor_random_init if actor_random_init is not None
+                         else torch.zeros(A, dtype=torch.bool, device=dev))
+            bbox = (actor_bbox if actor_bbox is not None
+                    else torch.full((A, 3), torch.inf, device=dev))
+            # grid-initialised actors densify on absgrad and the base
+            # threshold
+            info["actors"] = densify_and_prune(
+                params.actors, state.adam_actors, state.dstate_actors,
+                noise(params.actors, generator),
+                grad_threshold=torch.where(
+                    rand_init, float(o.densify_grad_threshold), thresh_obj),
+                percent_dense=o.percent_dense, extent=extent,
+                min_opacity=o.min_opacity, bbox=bbox,
+                use_abs=rand_init | use_abs_obj)
+        if params.sky is not None and sphere_radius is not None:
+            # own extent, pinned split origins, clamped scales, absgrad
+            ext_sky = sky_extent(params.sky, sphere_radius, o.percent_dense)
+            info["sky"] = densify_and_prune(
+                params.sky, state.adam_sky, state.dstate_sky,
+                noise(params.sky, generator),
+                grad_threshold=o.densify_grad_threshold,
+                percent_dense=o.percent_dense, extent=ext_sky,
+                min_opacity=o.min_opacity,
+                prune_big_points=bool(o.prune_big_points),
+                percent_big_ws=o.percent_big_ws,
+                max_screen_size=o.max_screen_size,
+                pin_sphere=(sphere_center, sphere_radius), use_abs=True)
+        return info
+
+    return densify_step
+
+
+def reset_opacity_step(state: GSTrainState) -> None:
+    """Opacity reset of every pool, the sky included, in place."""
+    for name in POOLS:
+        pool = getattr(state.params, name)
+        if pool is not None:
+            reset_opacity(pool, getattr(state, f"adam_{name}"))

@@ -6,7 +6,10 @@ device is present. On the GPU machine:
 
 Tolerances: the worklist must be equal; compositing agrees to atol 2e-4 on
 rgb and alpha (both decide the 1/255 and 1e-4 thresholds on identically
-rounded values; only the colour sums run in another order).
+rounded values; only the colour sums run in another order); the backward
+(kernel C) agrees per field to 1e-4 (GRAD_RTOL below) of the field's
+largest gradient, of its norm and, in the median over splats, of each
+splat's own gradient.
 """
 
 import numpy as np
@@ -80,6 +83,68 @@ def test_rasterize_pixels_launches_kernels(cuda):
              for k, v in args.items()}
     out = G.rasterize_pixels(**empty)
     assert out.n_pairs == 0 and float(out.alpha.abs().max()) == 0.0
+
+
+FIELDS = {"u": G.GRAD_U, "v": G.GRAD_V, "conic_a": G.GRAD_A,
+          "conic_b": G.GRAD_B, "conic_c": G.GRAD_C,
+          "opacity": G.GRAD_OPACITY, "absgrad": G.GRAD_ABS,
+          "colors": slice(G.GRAD_COLORS, None)}
+# kernel C against the plain backward, per field: kernel C rebuilds T by
+# division where the plain version scans with cumprod, sums the suffix in
+# another order, and adds per-splat sums with atomics in a run-dependent
+# order, so the two differ by f32 rounding only
+GRAD_RTOL = 1e-4
+
+
+@pytest.mark.parametrize("seed,wide", [(0, 0.0), (1, 0.1)])
+def test_kernel_c_matches_plain_backward(cuda, seed, wide):
+    args = splat_args(cuda, 20_000, 200, 136, seed, wide)
+    geo = {k: args[k] for k in ("u", "v", "radii", "depths", "valid",
+                                "width", "height")}
+    comp = {k: args[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
+                                 "colors", "opacities", "width", "height")}
+    wl = G.tile_worklist(**geo)
+    out, alpha, final_T, last = G.composite(wl, **comp, train=True)
+    ref = G.composite_reference(wl, **comp, train=True)
+    assert torch.equal(last, ref[3])       # the same stop decisions
+    torch.testing.assert_close(final_T, ref[2], atol=1e-6, rtol=0)
+    rng = np.random.default_rng(seed + 10)
+    gcol = torch.tensor(rng.normal(size=out.shape), dtype=torch.float32,
+                        device=cuda)
+    gal = torch.tensor(rng.normal(size=alpha.shape), dtype=torch.float32,
+                       device=cuda)
+    G.reset_launch_counts()
+    got = G.composite_backward(wl, **comp, final_T=final_T, last=last,
+                               grad_colors=gcol, grad_alpha=gal)
+    want = G.composite_backward_reference(wl, **comp, grad_colors=gcol,
+                                          grad_alpha=gal)
+    assert G.launches["composite_backward"] == 1
+    for name, col in FIELDS.items():
+        g, w = got[:, col].flatten(), want[:, col].flatten()
+        diff, mag = (g - w).abs(), w.abs()
+        scale = float(mag.max())
+        assert scale > 0 and float(diff.max()) <= GRAD_RTOL * scale, name
+        # the norm, and the median splat: small splats count too
+        assert float(torch.linalg.vector_norm(g - w)) <= \
+            GRAD_RTOL * float(torch.linalg.vector_norm(w)), name
+        nz = mag > 0
+        assert float((diff[nz] / mag[nz]).median()) <= GRAD_RTOL, name
+
+
+def test_rasterize_pixels_backward_launches_kernel_c(cuda):
+    args = splat_args(cuda, 2_000, 64, 48, 4, 0.05)
+    leaves = {k: args[k].clone().requires_grad_(True)
+              for k in ("u", "v", "conic_a", "conic_b", "conic_c", "colors",
+                        "opacities")}
+    sink = torch.zeros((2_000, 2), device=cuda, requires_grad=True)
+    G.reset_launch_counts()
+    out = G.rasterize_pixels(**dict(args, **leaves), absgrad_sink=sink)
+    (out.colors.sum() + out.alpha.sum()).backward()
+    assert dict(G.launches) == {"tile_worklist": 1, "composite": 1,
+                                "composite_backward": 1}
+    for t in list(leaves.values()) + [sink]:
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+    assert float(sink.grad.max()) > 0
 
 
 def test_kernel_wrappers_check_inputs(cuda):
