@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Phases, one status line each; any failure raises (exit code != 0):
-  1. card name and power limit; build the raster kernels from
-     street_crafter_tpu_torch/csrc with nvcc for sm_90a;
+  1. card name and power limit; build every kernel source of
+     street_crafter_tpu_torch/csrc with nvcc for sm_90a, in parallel;
   2. each kernel against its plain torch version on the card: 50k splats of
      a trained-like scene at 384x256, and a scene with splats wider than
      200 px. Kernel A's worklist must equal the plain one; kernel B must
@@ -35,6 +35,22 @@ Phases, one status line each; any failure raises (exit code != 0):
      2^20-slot background pool, actors and sky of phase 3, the full loss
      stack; median ms per step, peak memory, a per-stage split and the
      profiler's device-busy share.
+  8. kernels D (attention forward), E (the temporal stage) and F (its
+     attention) against their plain versions in bf16, first at small
+     shapes with ragged edges, then at every shape of the sampling main
+     path; the largest error within 2e-2 and the median within 2e-3 of the
+     largest |reference|;
+  9. the sampling main path: a synthetic 1920x1280 scene (26 frames,
+     camera 0) with stand-in LiDAR condition renders and its meta_info,
+     then runner.vdm_sample.main at full width (UNet 320 x (1, 2, 4, 4),
+     VAE, ViT-H/14 CLIP; 25 frames at 576x1024, bf16, CFG 2.5) with seeded
+     random weights whose zero-initialised output layers are perturbed,
+     VDM_STEPS Euler steps: finite frames in [-1, 1], exactly 15 / 5 / 11
+     launches of D / E / F per Euler step and none of the plain versions;
+ 10. times: one CFG UNet eval, wall per Euler step, the VAE encode, the
+     chunked decode, CLIP, the profiler's device-busy share of one step,
+     and per kernel at every main-path shape its CUDA-event time, bound,
+     plain time and (kernel D) scaled_dot_product_attention's time.
 Kernel builds, launches and comparisons raise on failure; no phase catches
 its own. TF32 is off for matmuls and cuDNN convolutions throughout.
 The last three lines: the card's name and power limit, a JSON object of
@@ -620,19 +636,319 @@ def step_time(G, cfg, dev, gpu: str) -> None:
         + "; ".join(f"{k} {v:.3f}" for k, v in split.items())
         + f"; whole step with the syncs {whole:.2f}")
 
+    busy, wall, n, top = busy_share(lambda: [one() for _ in range(3)])
+    if not n:
+        log("[7] torch.profiler recorded no device kernels: busy share not "
+            "measured")
+        return
+    log(f"[7] torch.profiler over 3 steps: {n} device kernels, "
+        f"{busy:.2f} ms busy of {wall:.2f} ms wall: device busy "
+        f"{100 * busy / wall:.1f}%, idle "
+        f"{100 - 100 * busy / wall:.1f}%; by kernel (ms, launches): "
+        + "; ".join(f"{k[:48]} {v[0] / 1e3:.2f} x{v[1]}" for k, v in top))
+
+
+# ---------------------------------------------------------------------------
+# phases 8-10: the video diffusion sampler (kernels D, E and F)
+# ---------------------------------------------------------------------------
+
+VDM_SOURCES = {
+    "flash_attention": "street_crafter_tpu_torch/csrc/flash_attention.cu",
+    "temporal_block_fused": "street_crafter_tpu_torch/csrc/temporal_block.cu",
+    "temporal_attention_fused":
+        "street_crafter_tpu_torch/csrc/temporal_block.cu"}
+VDM_REPLACES = {
+    "flash_attention": "street_crafter_tpu/ops/flash_attention.py:29",
+    "temporal_block_fused": "street_crafter_tpu/ops/temporal_block.py:72",
+    "temporal_attention_fused": "street_crafter_tpu/ops/temporal_block.py:138"}
+PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
+VDM_STEPS = 3                 # Euler steps of phase 9 (the work per step
+                              # does not depend on the number of steps)
+# kernels D, E and F against their plain versions, in bf16: the largest
+# error over the largest |reference| and the median error over it. The
+# kernels sum in another order, kernel D rounds its probabilities to bf16
+# against a running max (the plain version against the final one), and
+# both sides round the same bf16 intermediates, so an intermediate that
+# rounds the other way moves an output by a bf16 ulp or two
+BF16_MAX_REL, BF16_MED_REL = 2e-2, 2e-3
+# main-path shapes of one CFG UNet eval (2 x 25 frames, latents 72 x 128):
+# kernel D [B*T, S, heads, 64] at levels 0-2 (5 sites each); kernel E
+# (B, T, S, C, heads) at level 0 (5 sites); kernel F at level 1, level 2 and
+# the mid block (5 + 5 + 1 sites)
+D_SHAPES = [(50, 9216, 5, 64), (50, 2304, 10, 64), (50, 576, 20, 64)]
+E_SHAPES = [(2, 25, 9216, 320, 5)]
+F_SHAPES = [(2, 25, 2304, 640, 10), (2, 25, 576, 1280, 20),
+            (2, 25, 144, 1280, 20)]
+PER_STEP = {"flash_attention": 15, "temporal_block_fused": 5,
+            "temporal_attention_fused": 11}
+
+
+def bf16_errors(got, want) -> dict:
+    d = (got.float() - want.float()).abs()
+    top = float(want.float().abs().max())
+    return {"abs": float(d.max()), "max_rel": float(d.max()) / top,
+            "med_rel": float(d.median()) / top, "ref_max": top}
+
+
+def check_errors(label: str, e: dict, phase: int) -> None:
+    log(f"[{phase}] {label}: largest error {e['abs']:.4g} = "
+        f"{e['max_rel']:.3e} of the largest |reference| {e['ref_max']:.4g}, "
+        f"median error {e['med_rel']:.3e} of it (tolerances {BF16_MAX_REL} "
+        f"and {BF16_MED_REL})")
+    if e["max_rel"] > BF16_MAX_REL or e["med_rel"] > BF16_MED_REL:
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             f"version")
+
+
+def attn_inputs(dev, b, s, h, d, seed):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((b, s, h, d), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3)]
+
+
+def plain_attention(FA, q, k, v):
+    """Kernel D's plain version over [B, S, H, D] in chunks of batch*heads
+    (the f32 scores of one (batch, head) at S = 9216 are 340 MB)."""
+    import torch
+    out = torch.empty_like(q)
+    S = q.shape[1]
+    hc = max(1, min(q.shape[2], (2 << 30) // (S * S * 4)))
+    for b in range(q.shape[0]):
+        for h0 in range(0, q.shape[2], hc):
+            sl = (slice(b, b + 1), slice(None), slice(h0, h0 + hc))
+            out[sl] = FA.flash_attention_reference(q[sl], k[sl], v[sl])
+    return out
+
+
+def stage_inputs(dev, B, T, S, C, seed):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, sc=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * sc).to(
+            torch.bfloat16)
+    inner = 4 * C
+    w = dict(norm_in_s=1 + r(C, sc=.1), norm_in_b=r(C, sc=.1),
+             ffin_w1=r(2 * inner, C, sc=C ** -.5), ffin_b1=r(2 * inner, sc=.1),
+             ffin_w2=r(C, inner, sc=inner ** -.5), ffin_b2=r(C, sc=.1),
+             norm1_s=1 + r(C, sc=.1), norm1_b=r(C, sc=.1),
+             wqkv=r(3 * C, C, sc=C ** -.5), wout=r(C, C, sc=C ** -.5),
+             bout=r(C, sc=.1), norm3_s=1 + r(C, sc=.1), norm3_b=r(C, sc=.1),
+             ff_w1=r(2 * inner, C, sc=C ** -.5), ff_b1=r(2 * inner, sc=.1),
+             ff_w2=r(C, inner, sc=inner ** -.5), ff_b2=r(C, sc=.1))
+    return r(B * T, S, C), r(B * T, C, sc=.3), r(B, C, sc=.2), w
+
+
+def e_args(TB, dev, B, T, S, C, heads, seed):
+    h, emb, bias, w = stage_inputs(dev, B, T, S, C, seed)
+    return ((h, emb, 0.3, bias, *[w[k] for k in TB._BLOCK_WEIGHTS]),
+            dict(num_frames=T, heads=heads, dim_head=C // heads))
+
+
+def f_args(TB, dev, B, T, S, C, heads, seed):
+    h, _, bias, w = stage_inputs(dev, B, T, S, C, seed)
+    return ((h, bias, *[w[k] for k in ("norm1_s", "norm1_b", "wqkv", "wout",
+                                       "bout")]),
+            dict(num_frames=T, heads=heads, dim_head=C // heads))
+
+
+def compare_vdm_kernels() -> dict:
+    """Phase 8: kernels D, E and F against their plain versions, first at
+    small shapes with ragged edges, then at every main-path shape. Returns
+    the largest absolute error per kernel over the main-path shapes."""
+    import torch
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    dev = torch.device("cuda", 0)
+    worst = {}
+    small_d = [(2, 100, 75, 3, 64), (1, 100, 75, 2, 128),
+               (1, 75, 100, 2, 128)]
+    for i, (b, sq, skv, h, d) in enumerate(small_d):
+        q, _, _ = attn_inputs(dev, b, sq, h, d, i)
+        _, k, v = attn_inputs(dev, b, skv, h, d, i + 10)
+        e = bf16_errors(FA.flash_attention(q, k, v),
+                        FA.flash_attention_reference(q, k, v))
+        check_errors(f"kernel D q {sq} x kv {skv}, {h} heads x {d}", e, 8)
+    for i, (B, T, S, C, heads) in enumerate([(2, 25, 100, 64, 1),
+                                             (1, 25, 75, 320, 5)]):
+        args, kw = e_args(TB, dev, B, T, S, C, heads, i)
+        e = bf16_errors(TB.temporal_block_fused(*args, **kw),
+                        TB.temporal_block_fused_reference(*args, **kw))
+        check_errors(f"kernel E {B}x{T} frames, S {S}, C {C}", e, 8)
+    for i, (B, T, S, C, heads) in enumerate([(2, 25, 75, 640, 10),
+                                             (2, 25, 75, 1280, 20)]):
+        args, kw = f_args(TB, dev, B, T, S, C, heads, i)
+        e = bf16_errors(TB.temporal_attention_fused(*args, **kw),
+                        TB.temporal_attention_fused_reference(*args, **kw))
+        check_errors(f"kernel F {B}x{T} frames, S {S}, C {C}", e, 8)
+    for i, (b, s, h, d) in enumerate(D_SHAPES):
+        q, k, v = attn_inputs(dev, b, s, h, d, 100 + i)
+        e = bf16_errors(FA.flash_attention(q, k, v),
+                        plain_attention(FA, q, k, v))
+        check_errors(f"kernel D main path [{b}, {s}, {h}, {d}]", e, 8)
+        worst["flash_attention"] = max(worst.get("flash_attention", 0.0),
+                                       e["abs"])
+        del q, k, v
+    for name, shapes, make, plain in (
+            ("temporal_block_fused", E_SHAPES, e_args,
+             TB.temporal_block_fused_reference),
+            ("temporal_attention_fused", F_SHAPES, f_args,
+             TB.temporal_attention_fused_reference)):
+        for i, (B, T, S, C, heads) in enumerate(shapes):
+            args, kw = make(TB, dev, B, T, S, C, heads, 200 + i)
+            e = bf16_errors(getattr(TB, name)(*args, **kw),
+                            plain(*args, **kw))
+            check_errors(f"{name} main path [{B * T}, {S}, {C}]", e, 8)
+            worst[name] = max(worst.get(name, 0.0), e["abs"])
+            del args
+    torch.cuda.empty_cache()
+    return worst
+
+
+def vdm_clip_root(tmp: str) -> str:
+    """Phase 9's data: a synthetic scene at 1920x1280 (26 frames, camera
+    0), stand-in LiDAR condition renders (the camera image at a seeded
+    sparse mask, and the mask) and its meta_info_val.json."""
+    from street_crafter_tpu_torch.datasets.synthetic import make_scene
+    from street_crafter_tpu_torch.datasets.vdm_data import prepare_meta
+    from street_crafter_tpu_torch.utils.png import read_png, write_png
+    root = os.path.join(tmp, "vdm_data")
+    scene = make_scene(root, num_frames=26, img_hw=(1280, 1920),
+                       image_cameras=(0,))
+    rng = np.random.default_rng(0)
+    out = os.path.join(scene, "lidar", "color_render")
+    for f in range(26):
+        img = read_png(os.path.join(scene, "images", f"{f:06d}_0.png"))
+        mask = rng.random(img.shape[:2]) < 0.05
+        write_png(os.path.join(out, f"{f:06d}_0.png"),
+                  (img[..., :3] * mask[..., None]).astype(np.uint8))
+        write_png(os.path.join(out, f"{f:06d}_0_mask.png"),
+                  (mask * 255).astype(np.uint8))
+    prepare_meta(root, [os.path.basename(scene)], "meta_info_val.json")
+    return root
+
+
+def vdm_main_path(tmp: str, gpu: str) -> tuple[dict, str, float]:
+    """Phase 9: runner.vdm_sample.main at full width, seeded random weights
+    with the zero-initialised output layers perturbed, VDM_STEPS Euler
+    steps. Returns (launch counts, config path, peak GiB)."""
+    import torch
+    from street_crafter_tpu_torch.models.vdm.engine import \
+        VideoDiffusionEngine
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    from street_crafter_tpu_torch.runner import vdm_sample as VS
+    from street_crafter_tpu_torch.utils.png import read_png
+    t0 = time.perf_counter()
+    root = vdm_clip_root(tmp)
+    log(f"[9] data: 26 frames at 1920x1280 + condition renders + "
+        f"meta_info_val.json in {time.perf_counter() - t0:.1f} s")
+    cfg = {"device": "cuda", "model_path": os.path.join(tmp, "vdm_out"),
+           "diffusion": {"tiny": False, "num_steps": VDM_STEPS,
+                         "ckpt_path": "", "init_zero_layers_std": 1.0},
+           "vdm_train": {"data_root": root, "height": 576, "width": 1024,
+                         "num_frames": 25},
+           "render": {"save_video": False}}
+    cfg_path = os.path.join(tmp, "vdm.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    # the sample ends in a clamp to [-1, 1]: keep the latents and the
+    # decoded frames before it, so that their check can fail
+    seen = {}
+    decode = VideoDiffusionEngine.decode_latents_chunked
+
+    def decode_and_keep(self, z, chunk=8, overlap=3):
+        out = decode(self, z, chunk=chunk, overlap=overlap)
+        seen["latents"], seen["decoded"] = z.float(), out.float()
+        return out
+
+    FA.reset_launch_counts()
+    TB.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    VideoDiffusionEngine.decode_latents_chunked = decode_and_keep
+    t0 = time.perf_counter()
+    try:
+        res = VS.main(["--config", cfg_path])
+        torch.cuda.synchronize()
+    finally:
+        VideoDiffusionEngine.decode_latents_chunked = decode
+    wall = time.perf_counter() - t0
+    counts = {**FA.launches, **TB.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    frames = res["frames"]
+    log(f"[9] runner.vdm_sample.main: 1 clip, 25 frames at 576x1024, "
+        f"{VDM_STEPS} Euler steps, CFG 2.5, in {wall:.1f} s (sample "
+        f"{res['sample_s'][0]:.1f} s incl. encode, CLIP, decode; engine "
+        f"build and data loading outside it); launches {counts}; "
+        f"max_memory_allocated {peak:.2f} GiB; card {gpu}")
+    want = {k: v * VDM_STEPS for k, v in PER_STEP.items()}
+    if counts != want:
+        raise AssertionError(f"the main path's launches {counts} are not "
+                             f"{PER_STEP} per Euler step x {VDM_STEPS}")
+    if frames.shape != (25, 576, 1024, 3) or not np.isfinite(frames).all() \
+            or np.abs(frames).max() > 1.0:
+        raise AssertionError(f"samples: shape {frames.shape}, finite "
+                             f"{np.isfinite(frames).all()}, max |x| "
+                             f"{np.abs(frames).max()}")
+    # before the clamp: finite latents and frames, neither constant nor
+    # blown up (a saturated decode would be clamped almost everywhere)
+    z, dec = seen["latents"], seen["decoded"]
+    z_std, dec_std = float(z.std()), float(dec.std())
+    clamped = float((dec.abs() > 1.0).float().mean())
+    log(f"[9] before the clamp: latents {tuple(z.shape)} mean "
+        f"{float(z.mean()):.4f} std {z_std:.4f}; decoded std {dec_std:.4f}, "
+        f"max |x| {float(dec.abs().max()):.3f}, share clamped {clamped:.4f}")
+    if z.shape[0] != 25 or z.numel() != 25 * 72 * 128 * 4 \
+            or not bool(torch.isfinite(z).all()) \
+            or not bool(torch.isfinite(dec).all()) \
+            or not 1e-3 < z_std < 1e3 or not dec_std > 1e-3 \
+            or not clamped < 0.9:
+        raise AssertionError(
+            f"before the clamp: latents {tuple(z.shape)} std {z_std} (want "
+            f"finite, in (1e-3, 1e3)); decoded std {dec_std} (want finite, "
+            f"> 1e-3), share clamped {clamped} (want < 0.9)")
+    pngs = sorted(os.listdir(res["clips"][0]))
+    img = read_png(os.path.join(res["clips"][0], pngs[-1]))
+    if len(pngs) != 25 or img.shape != (3 * 576, 1024, 3):
+        raise AssertionError(f"{len(pngs)} PNGs, last {img.shape}")
+    log(f"[9] 25 PNGs {img.shape[1]}x{img.shape[0]} (gt | condition | "
+        f"sample); sample mean {frames.mean():.4f} std {frames.std():.4f} "
+        f"min {frames.min():.3f} max {frames.max():.3f}")
+    return counts, cfg_path, peak
+
+
+def sync_ms(fn, reps: int, warmup: int = 1) -> list[float]:
+    """Host-clock ms of ``reps`` calls, each ending in a synchronize."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def busy_share(fn) -> tuple[float, float, int, list]:
+    """torch.profiler over one call: (busy ms, wall ms, kernels, top)."""
+    import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            one()
+        fn()
+        torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    # device kernels only (the op-level entries repeat their kernels' time)
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, end = 0.0, -1.0
-    for s0, s1 in spans:            # union of the kernels' intervals
+    for s0, s1 in spans:
         if s1 > end:
             busy += s1 - max(s0, end)
             end = s1
@@ -642,15 +958,115 @@ def step_time(G, cfg, dev, gpu: str) -> None:
         rec[0] += e.time_range.elapsed_us()
         rec[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    if not kern:
-        log("[7] torch.profiler recorded no device kernels: busy share not "
+    return busy / 1e3, wall, len(kern), top
+
+
+def vdm_times(cfg_path: str, gpu: str) -> None:
+    """Phase 10, end to end: one CFG UNet eval, wall per Euler step, the
+    VAE encode of the guidance frames, the chunked decode, CLIP, and the
+    device-busy share of one step."""
+    import torch
+    from street_crafter_tpu_torch.config import default_config, load_config
+    from street_crafter_tpu_torch.models.vdm import diffusion as D
+    from street_crafter_tpu_torch.models.vdm.samplers import euler_edm_sample
+    from street_crafter_tpu_torch.runner import vdm_sample as VS
+    cfg = default_config()
+    cfg.merge(load_config(cfg_path))
+    eng = VS.build_engine(cfg, 25)
+    dev = eng.device
+    g = torch.Generator(device=dev).manual_seed(1)
+    guide = torch.rand((25, 576, 1024, 3), generator=g, device=dev) * 2 - 1
+    enc = sync_ms(lambda: eng.encode_images_chunked(guide, 8), 2)
+    clip = sync_ms(lambda: eng.clip_embed(guide[:1]), 3)
+    lat = eng.encode_images_chunked(guide, 8)
+    cond, uc = eng.build_conditioning(guide[:1])
+    cm = torch.zeros(25, device=dev)
+    cm[0] = 1.0
+    denoise = eng.make_cfg_denoise_fn(cond, uc, lat, cm)
+    x = torch.randn((25, 72, 128, 4), generator=g, device=dev)
+    sigma = torch.full((25,), 10.0, device=dev)
+    unet = sync_ms(lambda: denoise(x, sigma), 3)
+    sig2 = D.edm_sigmas(2, device=dev)          # 2 Euler steps
+    step = [t / 2 for t in sync_ms(
+        lambda: euler_edm_sample(denoise, x, sig2), 2)]
+    dec = sync_ms(lambda: eng.decode_latents_chunked(lat, 8), 1)
+    log(f"[10] CFG UNet eval (2 x 25 frames at 72x128, bf16): median "
+        f"{statistics.median(unet):.1f} ms of {[round(t, 1) for t in unet]}"
+        f"; wall per Euler step {statistics.median(step):.1f} ms; VAE encode"
+        f" of 25 guidance frames (chunks of 8) {statistics.median(enc):.1f}"
+        f" ms; chunked decode of 25 frames (8, overlap 3) {dec[0]:.1f} ms; "
+        f"CLIP {statistics.median(clip):.1f} ms; card {gpu}")
+    busy, wall, n, top = busy_share(
+        lambda: euler_edm_sample(denoise, x, D.edm_sigmas(1, device=dev)))
+    if n:
+        log(f"[10] torch.profiler over one Euler step: {n} device kernels, "
+            f"{busy:.1f} ms busy of {wall:.1f} ms wall: device busy "
+            f"{100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%"
+            f"; by kernel (ms, launches): "
+            + "; ".join(f"{k[:56]} {v[0] / 1e3:.2f} x{v[1]}"
+                        for k, v in top))
+    else:
+        log("[10] torch.profiler recorded no device kernels: busy share not "
             "measured")
-        return
-    log(f"[7] torch.profiler over 3 steps: {len(kern)} device kernels, "
-        f"{busy / 1e3:.2f} ms busy of {wall:.2f} ms wall: device busy "
-        f"{100 * busy / 1e3 / wall:.1f}%, idle "
-        f"{100 - 100 * busy / 1e3 / wall:.1f}%; by kernel (ms, launches): "
-        + "; ".join(f"{k[:48]} {v[0] / 1e3:.2f} x{v[1]}" for k, v in top))
+    del eng, denoise, cond, uc, lat, guide
+    torch.cuda.empty_cache()
+
+
+def vdm_bound(nbytes: float, flops: float) -> dict:
+    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
+    return {"bound_ms": 1e3 * max(t_b, t_f),
+            "bound_by": "bytes" if t_b >= t_f else "operations"}
+
+
+def vdm_kernel_times(gpu: str) -> dict:
+    """Phase 10, per kernel at every main-path shape: CUDA-event ms, the
+    plain version's ms, the bound and, for kernel D, one call of
+    torch.nn.functional.scaled_dot_product_attention on the same inputs
+    (timed only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    dev = torch.device("cuda", 0)
+    rows = {"flash_attention": [], "temporal_block_fused": [],
+            "temporal_attention_fused": []}
+    for i, (b, s, h, d) in enumerate(D_SHAPES):
+        q, k, v = attn_inputs(dev, b, s, h, d, 300 + i)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        rows["flash_attention"].append({
+            "shape": [b, s, h, d],
+            "ms": cuda_ms(lambda: FA.flash_attention(q, k, v), 5),
+            "plain_ms": cuda_ms(lambda: plain_attention(FA, q, k, v), 1,
+                              warmup=0),
+            "library_ms": cuda_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt), 5),
+            **vdm_bound(2 * 4 * b * s * h * d, 4 * s * s * d * b * h)})
+        del q, k, v, qt, kt, vt
+    for name, shapes, make, plain, full in (
+            ("temporal_block_fused", E_SHAPES, e_args,
+             TB.temporal_block_fused_reference, True),
+            ("temporal_attention_fused", F_SHAPES, f_args,
+             TB.temporal_attention_fused_reference, False)):
+        for i, (B, T, S, C, heads) in enumerate(shapes):
+            args, kw = make(TB, dev, B, T, S, C, heads, 400 + i)
+            cost = TB.stage_cost(B, T, S, C, full)
+            rows[name].append({
+                "shape": [B * T, S, C],
+                "ms": cuda_ms(lambda: getattr(TB, name)(*args, **kw), 5),
+                "plain_ms": cuda_ms(lambda: plain(*args, **kw), 1, warmup=0),
+                "library_ms": None,
+                **vdm_bound(cost["bytes"], cost["flops"])})
+            del args
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"[10] {name} {r['shape']}: kernel {r['ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.3f} ms ({r['bound_by']}), plain "
+                f"{r['plain_ms']:.1f} ms"
+                + (f", scaled_dot_product_attention {r['library_ms']:.3f} ms"
+                   if r["library_ms"] is not None else "")
+                + f"; {gpu}")
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> None:
@@ -661,6 +1077,7 @@ def main() -> None:
     if here not in sys.path:
         sys.path.insert(0, here)
     from street_crafter_tpu_torch.models.gs.scene import FlatGaussians
+    from street_crafter_tpu_torch.ops import cuda_build
     from street_crafter_tpu_torch.ops import gs_raster as G
     from street_crafter_tpu_torch.runner import render as R
     from street_crafter_tpu_torch.utils.png import read_png
@@ -672,13 +1089,15 @@ def main() -> None:
     log(f"[1] card: {gpu}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     t0 = time.perf_counter()
-    lib, ptxas = G.build_kernels()
+    builds = cuda_build.build()          # one nvcc per source, in parallel
     G._library()
-    log(f"[1] built {os.path.relpath(lib, here)} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for line in ptxas.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            log("    ptxas " + line.strip())
+    log(f"[1] built " + ", ".join(os.path.relpath(lib, here)
+                                  for lib, _ in builds.values())
+        + f" in {time.perf_counter() - t0:.1f} s")
+    for _, ptxas in builds.values():
+        for line in ptxas.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log("    ptxas " + line.strip())
 
     # ---- phase 2: kernels vs plain versions --------------------------------
     small = heavy_pool_in_camera(np.eye(4), dev, N_SMALL)
@@ -791,10 +1210,21 @@ def main() -> None:
         # ---- phase 7: the train step at the 600k shape --------------------
         step_time(G, cfg, dev, gpu)
 
+    # ---- phase 8: kernels D, E, F vs plain versions -----------------------
+    vdm_errs = compare_vdm_kernels()
+
+    # ---- phase 9: the sampling main path -----------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vdm_") as tmp:
+        vdm_counts, vdm_cfg, vdm_peak = vdm_main_path(tmp, gpu)
+
+        # ---- phase 10: times -----------------------------------------------
+        vdm_times(vdm_cfg, gpu)
+    vdm_rows = vdm_kernel_times(gpu)
+
     # each main path's counts, read right after its own reset; "launches"
     # is their sum
     by_path = {name: {"render": render_counts.get(name, 0),
-                      "train": train_counts.get(name, 0)}
+                      "train": train_counts.get(name, 0), "vdm_sample": 0}
                for name in REPLACES}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
@@ -812,6 +1242,26 @@ def main() -> None:
         log(f"[7] {k['name']}: {k['ms']:.3f} ms against a bound of "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
             f"{k['plain_ms']:.3f} ms, launches {k['launches_by_path']}")
+    # kernels D, E, F: the numbers at the first (largest) main-path shape;
+    # "shapes" has every main-path shape
+    for name in ("flash_attention", "temporal_block_fused",
+                 "temporal_attention_fused"):
+        head = vdm_rows[name][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": VDM_SOURCES[name],
+            "replaces": VDM_REPLACES[name],
+            "launches": vdm_counts.get(name, 0),
+            "launches_by_path": {"render": 0, "train": 0,
+                                 "vdm_sample": vdm_counts.get(name, 0)},
+            "max_abs_err": vdm_errs[name], "ms": round(head["ms"], 4),
+            "plain_ms": round(head["plain_ms"], 4),
+            "bound_ms": round(head["bound_ms"], 6),
+            "bound_by": head["bound_by"],
+            "library_ms": (None if head["library_ms"] is None
+                           else round(head["library_ms"], 4)),
+            "shapes": [{k: (round(v, 4) if isinstance(v, float) else v)
+                        for k, v in r.items()} for r in vdm_rows[name]]})
+    log(f"[10] sampling peak max_memory_allocated {vdm_peak:.2f} GiB")
     log(gpu)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

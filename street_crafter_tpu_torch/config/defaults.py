@@ -261,6 +261,13 @@ def default_config() -> Config:
             # on <=16 GB chips — see runner/diffusion.EngineParamStore).
             # "auto" = on for accelerator backends, off on CPU.
             "params_on_host": "auto",
+            # the port's sampling knobs (read by models/vdm/weights.py):
+            # chunked VAE decode (3-frame overlap) and encode
+            "decode_chunk": 8,
+            # seeded random weights when ckpt_path is empty: the std (times
+            # 1/sqrt(fan_in)) of the layers the JAX package zero-initialises
+            # (0 = zero, as there)
+            "init_zero_layers_std": 0.0,
             "masked_guidance_iter": 7000,
             "acc_masked_guidance": False,
             "cond_masked_guidance": True,

@@ -28,9 +28,12 @@ def _write_png(path, arr):
 
 def make_scene(root: str, num_frames: int = 4, seed: int = 0,
                scene_name: str = "016",
-               img_hw: tuple = (IMG_H, IMG_W)) -> str:
+               img_hw: tuple = (IMG_H, IMG_W),
+               image_cameras: tuple | None = None) -> str:
     """Create a synthetic scene under root/scene_name; returns its path.
-    ``img_hw`` scales the camera resolution (intrinsics follow)."""
+    ``img_hw`` scales the camera resolution (intrinsics follow).
+    ``image_cameras`` limits the images, masks and LiDAR depth maps written
+    to those cameras (default: all five)."""
     rng = np.random.default_rng(seed)
     IMG_H_, IMG_W_ = img_hw
     d = os.path.join(root, scene_name)
@@ -142,7 +145,8 @@ def make_scene(root: str, num_frames: int = 4, seed: int = 0,
 
     # images + masks + depth
     for f in range(num_frames):
-        for c in range(NUM_CAMS):
+        for c in (range(NUM_CAMS) if image_cameras is None
+                  else image_cameras):
             img = rng.integers(0, 255, (IMG_H_, IMG_W_, 3), dtype=np.uint8)
             _write_png(os.path.join(d, "images", f"{f:06d}_{c}.png"), img)
             sky = np.zeros((IMG_H_, IMG_W_), np.uint8)

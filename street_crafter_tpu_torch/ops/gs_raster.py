@@ -33,14 +33,11 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
+
+from . import cuda_build
 
 TILE = 16
 ALPHA_CLAMP = 0.999
@@ -48,11 +45,6 @@ ALPHA_MIN = 1.0 / 255.0
 T_STOP = 1e-4
 MAX_CHANNELS = 7
 
-_PKG = Path(__file__).resolve().parents[1]
-KERNEL_SOURCE = _PKG / "csrc" / "gs_raster.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # calls per implementation: "tile_worklist", "composite" and
 # "composite_backward" (CUDA kernels A, B and C), "tile_worklist_reference",
@@ -278,40 +270,9 @@ def composite_backward_reference(wl: TileWorklist, u, v, conic_a, conic_b,
 # CUDA kernels
 # --------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
-
-
-def build_kernels() -> tuple[Path, str]:
-    """Compile csrc/gs_raster.cu for sm_90a into BUILD_DIR (once per source
-    and flag set). Returns (library path, ptxas report of that build)."""
-    src = KERNEL_SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"gs_raster_{digest[:16]}.so"
-    log = lib.with_suffix(".log")
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_SOURCE)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    return lib, log.read_text() if log.exists() else ""
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    path, _ = build_kernels()
-    lib = ctypes.CDLL(str(path))
+    lib = cuda_build.load("gs_raster")
     P, I = ctypes.c_void_p, ctypes.c_int
     sigs = {
         "sc_isect_count": [P, P, P, P, I, I, I, P, P],
@@ -337,18 +298,8 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"{lib.sc_error_string(err).decode()} ({err})")
 
 
-def _require(t: torch.Tensor, name: str, dtype: torch.dtype,
-             shape: tuple) -> int:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {shape}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    return t.data_ptr()
+# the raster kernels read their arrays element by element: no alignment
+_require = functools.partial(cuda_build.require, align=1)
 
 
 def _tile_worklist_cuda(u, v, radii, depths, valid, width, height

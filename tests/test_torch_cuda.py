@@ -1,5 +1,6 @@
-"""The raster kernels of street_crafter_tpu_torch against their plain torch
-versions on a CUDA device. Marked ``cuda``; each test skips when no CUDA
+"""The CUDA kernels of street_crafter_tpu_torch (raster A-C, attention D,
+temporal stage E and F) against their plain torch versions on a CUDA
+device. Marked ``cuda``; each test skips when no CUDA
 device is present. On the GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -156,3 +157,103 @@ def test_kernel_wrappers_check_inputs(cuda):
         G.rasterize_pixels(**dict(args, v=args["v"].double()))
     with pytest.raises(ValueError, match="tensors on"):
         G.rasterize_pixels(**dict(args, u=args["u"].cpu()))
+
+
+# ---------------------------------------------------------------------------
+# kernels D (attention forward), E and F (the temporal stage) against their
+# plain versions, in bf16. Tolerances: the largest error within 2e-2 of the
+# largest |output| and the median within 2e-3: the kernels sum in another
+# order, kernel D rounds its probabilities against a running max, and the
+# plain versions round the same bf16 intermediates, so a bf16 ulp or two of
+# drift is expected where an intermediate rounds the other way.
+
+from street_crafter_tpu_torch.ops import flash_attention as FA  # noqa: E402
+from street_crafter_tpu_torch.ops import temporal_block as TB  # noqa: E402
+
+BF16_MAX, BF16_MED = 2e-2, 2e-3
+
+
+def bf16_errors(got, want):
+    d = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    return float(d.max()) / scale, float(d.median()) / scale
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", [(2, 100, 75, 3, 64),
+                                          (1, 300, 257, 2, 128),
+                                          (2, 576, 576, 4, 64)])
+def test_kernel_d_matches_plain_attention(cuda, b, sq, skv, h, d):
+    g = torch.Generator(device=cuda).manual_seed(sq)
+    q, k, v = (torch.randn((b, n, h, d), generator=g, device=cuda)
+               .to(torch.bfloat16) for n in (sq, skv, skv))
+    FA.reset_launch_counts()
+    got = FA.flash_attention(q, k, v)
+    want = FA.flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention"] == 1
+    worst, med = bf16_errors(got, want)
+    assert worst <= BF16_MAX and med <= BF16_MED
+
+
+def _stage_inputs(cuda, B, T, S, C, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def r(*shape, sc=1.0):
+        return (torch.randn(shape, generator=g, device=cuda) * sc).to(
+            torch.bfloat16)
+    inner = 4 * C
+    w = dict(norm_in_s=1 + r(C, sc=.1), norm_in_b=r(C, sc=.1),
+             ffin_w1=r(2 * inner, C, sc=C ** -.5), ffin_b1=r(2 * inner, sc=.1),
+             ffin_w2=r(C, inner, sc=inner ** -.5), ffin_b2=r(C, sc=.1),
+             norm1_s=1 + r(C, sc=.1), norm1_b=r(C, sc=.1),
+             wqkv=r(3 * C, C, sc=C ** -.5), wout=r(C, C, sc=C ** -.5),
+             bout=r(C, sc=.1), norm3_s=1 + r(C, sc=.1), norm3_b=r(C, sc=.1),
+             ff_w1=r(2 * inner, C, sc=C ** -.5), ff_b1=r(2 * inner, sc=.1),
+             ff_w2=r(C, inner, sc=inner ** -.5), ff_b2=r(C, sc=.1))
+    return r(B * T, S, C), r(B * T, C, sc=.3), r(B, C, sc=.2), w
+
+
+@pytest.mark.parametrize("B,T,S,C,heads", [(2, 25, 48, 64, 1),
+                                           (1, 5, 100, 320, 5),
+                                           (2, 3, 16, 32, 2)])
+def test_kernel_e_matches_plain_stage(cuda, B, T, S, C, heads):
+    h, emb, bias, w = _stage_inputs(cuda, B, T, S, C, C + S)
+    args = (h, emb, 0.3, bias, *[w[k] for k in TB._BLOCK_WEIGHTS])
+    kw = dict(num_frames=T, heads=heads, dim_head=C // heads)
+    TB.reset_launch_counts()
+    got = TB.temporal_block_fused(*args, **kw)
+    want = TB.temporal_block_fused_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert TB.launches["temporal_block_fused"] == 1
+    worst, med = bf16_errors(got, want)
+    assert worst <= BF16_MAX and med <= BF16_MED
+
+
+@pytest.mark.parametrize("B,T,S,C,heads", [(2, 25, 75, 640, 10),
+                                           (1, 25, 16, 1280, 20)])
+def test_kernel_f_matches_plain_attention_stage(cuda, B, T, S, C, heads):
+    h, _, bias, w = _stage_inputs(cuda, B, T, S, C, C + S)
+    names = ("norm1_s", "norm1_b", "wqkv", "wout", "bout")
+    args = (h, bias, *[w[k] for k in names])
+    kw = dict(num_frames=T, heads=heads, dim_head=C // heads)
+    TB.reset_launch_counts()
+    got = TB.temporal_attention_fused(*args, **kw)
+    want = TB.temporal_attention_fused_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert TB.launches["temporal_attention_fused"] == 1
+    worst, med = bf16_errors(got, want)
+    assert worst <= BF16_MAX and med <= BF16_MED
+
+
+def test_vdm_kernel_wrappers_check_inputs(cuda):
+    q = torch.zeros((1, 300, 2, 64), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FA.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(*(torch.zeros((1, 300, 2, 80), device=cuda,
+                                         dtype=torch.bfloat16),) * 3)
+    h, _, bias, w = _stage_inputs(cuda, 1, 40, 16, 64, 0)
+    with pytest.raises(ValueError, match="32 frames"):
+        TB.temporal_attention_fused(h, bias, w["norm1_s"], w["norm1_b"],
+                                    w["wqkv"], w["wout"], w["bout"],
+                                    num_frames=40, heads=1, dim_head=64)

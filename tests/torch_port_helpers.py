@@ -42,3 +42,26 @@ def jax_scene_from_numpy(params: dict, meta: dict | None):
     jm = SceneMeta(**{k: (v if k == "fourier_scale" or v is None
                           else jnp.asarray(v)) for k, v in meta.items()})
     return jp, jm
+
+
+
+def random_params(shapes, seed: int = 0):
+    """Seeded random values for a JAX parameter tree given by its shapes
+    (e.g. ``jax.eval_shape`` of an init, which is much cheaper than running
+    it): kernels N(0, 1/fan_in), norm scales 1 + N(0, 0.1^2), the rest
+    (biases, mix factors, embeddings) N(0, 0.1^2). Every layer, also those
+    the JAX package initialises to zero, carries signal in a parity test.
+    Returns nested dicts of float32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node, name):
+        if hasattr(node, "items"):
+            return {k: walk(v, k) for k, v in node.items()}
+        shape = tuple(node.shape)
+        x = rng.normal(size=shape).astype(np.float32)
+        if name == "kernel":
+            return x / np.sqrt(float(np.prod(shape[:-1])))
+        if name == "scale":
+            return 1.0 + 0.1 * x
+        return 0.1 * x
+    return walk(shapes, "")
