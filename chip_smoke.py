@@ -50,7 +50,29 @@ Phases, one status line each; any failure raises (exit code != 0):
  10. times: one CFG UNet eval, wall per Euler step, the VAE encode, the
      chunked decode, CLIP, the profiler's device-busy share of one step,
      and per kernel at every main-path shape its CUDA-event time, bound,
-     plain time and (kernel D) scaled_dot_product_attention's time.
+     plain time and (kernel D) scaled_dot_product_attention's time;
+ 11. kernel D's training form (with lse) and the attention backward
+     kernels G (dK, dV) and H (dQ) against their plain versions in bf16
+     with seeded cotangents, at small ragged shapes, then at the three
+     training shapes; phase 8's limits for each of o, lse, dq, dk, dv;
+ 12. the fine-tune main path: runner.vdm_train.main on phase 9's scene at
+     full width (25 frames at 576x1024, batch 1, bf16 compute with f32
+     masters, remat flash0, the recipe's frozen temporal layers), seeded
+     random weights as phase 9, TRAIN_STEPS steps and a checkpoint, then
+     one step resumed from it (its own checkpoint serialised into a byte
+     count only, so that the script writes under ~35 GB to disk: one
+     checkpoint is ~24 GB), then the EMA export loaded back through
+     runner.vdm_sample's loader: finite losses, spatial weights moved,
+     temporal weights bit-identical, the EMA apart from the weights, the
+     step count + 1, the export equal to the EMA in bf16, and exactly
+     25 / 15 / 15 launches of D-with-lse / G / H per step and none of D
+     without lse, E, F or any plain version;
+ 13. times: the train step (median of synchronised steps after a warm-up)
+     and its split into encode / forward / backward / optimizer + EMA, peak
+     memory, the profiler's device-busy share of one step, and per kernel
+     (D with lse, G, H) at each training shape its CUDA-event time, bound,
+     plain time and one scaled_dot_product_attention forward (D) or
+     backward (G + H together).
 Kernel builds, launches and comparisons raise on failure; no phase catches
 its own. TF32 is off for matmuls and cuDNN convolutions throughout.
 The last three lines: the card's name and power limit, a JSON object of
@@ -62,6 +84,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -94,8 +117,12 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One status line, after the seconds since the script started."""
+    print(f"{time.perf_counter() - T_START:7.1f}s {msg}", flush=True)
 
 
 def card() -> str:
@@ -1069,6 +1096,418 @@ def vdm_kernel_times(gpu: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 11-13: the video diffusion fine-tune (kernel D with lse, G and H)
+# ---------------------------------------------------------------------------
+
+BWD_REPLACES = {
+    "flash_attention_bwd_dkv": "street_crafter_tpu/ops/flash_attention.py:195",
+    "flash_attention_bwd_dq": "street_crafter_tpu/ops/flash_attention.py:246"}
+# the training shapes [B*T, S, heads, 64] at levels 0-2 (25 frames, no CFG
+# doubling; 5 sites each)
+TRAIN_SHAPES = [(25, 9216, 5, 64), (25, 2304, 10, 64), (25, 576, 20, 64)]
+# per train step under flash0: 15 forwards with lse + the 10 of levels 1-2
+# recomputed, and one G and one H per site
+TRAIN_PER_STEP = {"flash_attention_lse": 25, "flash_attention_bwd_dkv": 15,
+                  "flash_attention_bwd_dq": 15}
+TRAIN_STEPS = 3            # phase 12's first run; then 1 resumed step
+
+
+def train_attn_case(dev, b, sq, skv, h, d, seed):
+    """q, k, v and a seeded cotangent do, bf16."""
+    import torch
+    q, _, _ = attn_inputs(dev, b, sq, h, d, seed)
+    _, k, v = attn_inputs(dev, b, skv, h, d, seed + 1)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    do = torch.randn((b, sq, h, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    return q, k, v, do
+
+
+def train_kernels_vs_plain(FA, q, k, v, do, label: str) -> dict:
+    """Kernel D with lse, G and H against their plain versions on the same
+    inputs (the plain lse and delta feed both backwards). Returns the
+    largest absolute error per kernel."""
+    import torch
+    o, lse = FA._flash_cuda(q, k, v, with_lse=True)
+    o_ref, lse_ref = FA.flash_attention_lse_reference(q, k, v)
+    delta = FA.attention_delta(o_ref, do)
+    dk, dv = FA._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta)
+    dq = FA._flash_bwd_dq_cuda(q, k, v, do, lse_ref, delta)
+    dk_ref, dv_ref = FA.flash_attention_bwd_dkv_reference(q, k, v, do,
+                                                          lse_ref, delta)
+    dq_ref = FA.flash_attention_bwd_dq_reference(q, k, v, do, lse_ref,
+                                                 delta)
+    torch.cuda.synchronize()
+    worst = {}
+    for kernel, name, got, want in (
+            ("flash_attention", "o", o, o_ref),
+            ("flash_attention", "lse", lse, lse_ref),
+            ("flash_attention_bwd_dkv", "dk", dk, dk_ref),
+            ("flash_attention_bwd_dkv", "dv", dv, dv_ref),
+            ("flash_attention_bwd_dq", "dq", dq, dq_ref)):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label} {name}: not finite")
+        e = bf16_errors(got, want)
+        check_errors(f"{label} {name}", e, 11)
+        worst[kernel] = max(worst.get(kernel, 0.0), e["abs"])
+    return worst
+
+
+def compare_train_kernels() -> dict:
+    """Phase 11: D with lse, G and H at small ragged shapes, then at the
+    training shapes. Returns the largest absolute error per kernel over the
+    training shapes."""
+    import torch
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    dev = torch.device("cuda", 0)
+    for i, (b, sq, skv, h, d) in enumerate([(2, 100, 75, 3, 64),
+                                            (1, 75, 100, 2, 128),
+                                            (1, 300, 257, 2, 64)]):
+        train_kernels_vs_plain(FA, *train_attn_case(dev, b, sq, skv, h, d,
+                                                    500 + 10 * i),
+                               f"q {sq} x kv {skv}, {h} heads x {d}")
+    worst: dict = {}
+    for i, (b, s, h, d) in enumerate(TRAIN_SHAPES):
+        e = train_kernels_vs_plain(
+            FA, *train_attn_case(dev, b, s, s, h, d, 600 + 10 * i),
+            f"training shape [{b}, {s}, {h}, {d}]")
+        for kname, err in e.items():
+            worst[kname] = max(worst.get(kname, 0.0), err)
+        torch.cuda.empty_cache()
+    return worst
+
+
+def vdm_train_config(tmp: str, root: str, steps: int) -> str:
+    cfg = {"device": "cuda", "model_path": os.path.join(tmp, "vdm_train"),
+           "diffusion": {"tiny": False, "ckpt_path": "",
+                         "init_zero_layers_std": 1.0,
+                         "remat_policy": "flash0"},
+           "vdm_train": {"data_root": root, "height": 576, "width": 1024,
+                         "num_frames": 25, "batch_size": 1,
+                         "samples_per_epoch": steps, "epochs": 1,
+                         "ckpt_every": 1000, "log_every": 1,
+                         "log_images_every": 0, "num_workers": 2,
+                         "slow_temporal_layers": True,
+                         "slow_temporal_layers_scale": 0.0}}
+    path = os.path.join(tmp, "vdm_train.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+class ByteCount:
+    """A write-only stream that counts what ``torch.save`` writes to it."""
+
+    def __init__(self):
+        self.n = 0
+
+    def write(self, b) -> int:
+        self.n += len(b)
+        return len(b)
+
+    def flush(self) -> None:
+        pass
+
+
+def vdm_train_main_path(tmp: str, gpu: str) -> tuple[dict, dict]:
+    """Phase 12: runner.vdm_train.main at full width, TRAIN_STEPS steps with
+    a checkpoint, one step resumed from it, the EMA export loaded back.
+    Returns (the launch counts of both runs, {"trainer": the resumed
+    trainer, "config": its config path, "peak_gib", "step_s"})."""
+    import gc
+
+    import torch
+    from street_crafter_tpu_torch.datasets.vdm_data import prepare_meta
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    from street_crafter_tpu_torch.runner import vdm_sample as VS
+    from street_crafter_tpu_torch.runner import vdm_train as VT
+    from street_crafter_tpu_torch.training import vdm_trainer as TR
+    from street_crafter_tpu_torch.utils import checkpoint as CK
+    root = os.path.join(tmp, "vdm_data")
+    scenes = [d for d in os.listdir(root)
+              if os.path.isdir(os.path.join(root, d))]
+    prepare_meta(root, scenes, "meta_info_train.json")
+    path = vdm_train_config(tmp, root, TRAIN_STEPS)
+
+    # per-step launch counts, and the masters the first run starts from
+    per_step, start = [], {}
+    step_fn, init_fn = TR.VDMTrainer.train_step, TR.VDMTrainer.__init__
+
+    def counted_step(self, *a, **kw):
+        before = {**FA.launches, **TB.launches}
+        out = step_fn(self, *a, **kw)
+        after = {**FA.launches, **TB.launches}
+        per_step.append({k: after[k] - before.get(k, 0) for k in after
+                         if after[k] != before.get(k, 0)})
+        return out
+
+    def keeping_init(self, engine, masters=None, *a, **kw):
+        if masters is not None and not start:
+            start.update({k: m.to("cpu", copy=True)
+                          for k, m in masters.items()})
+        init_fn(self, engine, masters, *a, **kw)
+
+    # the checkpoints: the first run's is written to disk (and timed); the
+    # resumed run's is serialised into a byte count only, so that the whole
+    # script writes under ~35 GB to disk: one checkpoint of the full-width
+    # state (f32 masters, two moments, EMA) is ~24 GB
+    saves = []
+    save_fn = VT.save_vdm_checkpoint
+
+    def timed_save(model_path, step, state):
+        t = time.perf_counter()
+        out = save_fn(model_path, step, state)
+        size = os.path.getsize(os.path.join(out, CK.VDM_TRAIN_STATE_FILE))
+        saves.append((time.perf_counter() - t, size))
+        return out
+
+    def counted_save(model_path, step, state):
+        sink = ByteCount()
+        t = time.perf_counter()
+        torch.save(state.to_dict(), sink)
+        saves.append((time.perf_counter() - t, sink.n))
+        return CK.checkpoint_dir(model_path, step)
+
+    FA.reset_launch_counts()
+    TB.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    TR.VDMTrainer.train_step = counted_step
+    TR.VDMTrainer.__init__ = keeping_init
+    VT.save_vdm_checkpoint = timed_save
+    t0 = time.perf_counter()
+    try:
+        res = VT.main(["--config", path])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tr = res["trainer"]
+        with open(os.path.join(res["model_path"], "logs",
+                               "metrics.jsonl")) as f:
+            losses = [json.loads(line)["train/loss"] for line in f]
+        log(f"[12] runner.vdm_train.main: {res['steps']} steps at full width "
+            f"(25 frames at 576x1024, bf16 compute, f32 masters, flash0) in "
+            f"{first_s:.1f} s incl. engine build, data, checkpoint and EMA "
+            f"export; step s {[round(t, 2) for t in res['step_s']]}; losses "
+            f"{[round(x, 4) for x in losses]}; max_memory_allocated "
+            f"{peak:.2f} GiB; card {gpu}")
+        if res["steps"] != TRAIN_STEPS or len(losses) != TRAIN_STEPS \
+                or not all(np.isfinite(losses)):
+            raise AssertionError(f"steps {res['steps']}, losses {losses}")
+        kept = 0
+        base = [n for n, g in tr.labels.items() if g == "base"]
+        slow = [n for n, g in tr.labels.items() if g == "slow"]
+        still = []
+        for name in base:
+            if torch.equal(tr.state.masters[name].cpu(), start[name]):
+                still.append(name)
+        moved = len(base) - len(still)
+        if still:
+            log(f"[12] spatial leaves that did not move: {still[:12]}")
+        for name in slow:
+            m = tr.state.masters[name].cpu()
+            p = tr.params[name].detach().cpu()
+            kept += int(torch.equal(m, start[name])
+                        and torch.equal(p, start[name].to(p.dtype)))
+        # a length-1 context makes the cross-attention's softmax 1: its
+        # query and key projections and the norm in front of them get no
+        # gradient, in the JAX package too
+        unused = {n for n in base if re.search(
+            r"transformer_blocks\.\d+\.(attn2\.to_[qk]|norm2)\.", n)}
+        ema_apart = sum(int(not torch.equal(tr.state.ema[n],
+                                            tr.state.masters[n]))
+                        for n in base if n not in unused)
+        log(f"[12] spatial leaves moved {moved} of {len(base)} (unused by "
+            f"the length-1 cross-attention: {len(unused)}); temporal "
+            f"leaves bit-identical to their start {kept} of {len(slow)} "
+            f"(masters and bf16 weights); EMA apart from the masters in "
+            f"{ema_apart} of {len(base) - len(unused)} moved leaves")
+        if set(still) != unused or kept != len(slow) or not slow \
+                or ema_apart != len(base) - len(unused):
+            raise AssertionError("the fine-tune's parameter groups did not "
+                                 "train as the recipe says")
+        del res, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        VT.save_vdm_checkpoint = counted_save
+        t0 = time.perf_counter()
+        res = VT.main(["--config", path, "vdm_train.samples_per_epoch=1"])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    finally:
+        TR.VDMTrainer.train_step = step_fn
+        TR.VDMTrainer.__init__ = init_fn
+        VT.save_vdm_checkpoint = save_fn
+    counts = {**FA.launches, **TB.launches}
+    tr = res["trainer"]
+    log(f"[12] resumed: {res['steps']} step to step {tr.state.step} in "
+        f"{resume_s:.1f} s incl. engine build, checkpoint load and EMA "
+        f"export; checkpoints (s, bytes): written {saves[0][0]:.1f} s, "
+        f"{saves[0][1]}; serialised only {saves[-1][0]:.1f} s, "
+        f"{saves[-1][1]}; launches per step {per_step}")
+    if res["steps"] != 1 or tr.state.step != TRAIN_STEPS + 1:
+        raise AssertionError(f"resume: {res['steps']} steps to "
+                             f"{tr.state.step}")
+    if len(saves) != 2 or abs(saves[1][1] - saves[0][1]) > 1e-3 * saves[0][1]:
+        raise AssertionError(f"checkpoints {saves}: want one per run, of "
+                             f"one size")
+    for i, c in enumerate(per_step):
+        if c != TRAIN_PER_STEP:
+            raise AssertionError(f"step {i}: launches {c}, want exactly "
+                                 f"{TRAIN_PER_STEP}")
+    if len(per_step) != TRAIN_STEPS + 1:
+        raise AssertionError(f"{len(per_step)} steps counted")
+
+    from street_crafter_tpu_torch.config import default_config, load_config
+    scfg = default_config()
+    scfg.merge(load_config(path))
+    scfg.diffusion.ckpt_path = res["ema_path"]
+    eng = VS.build_engine(scfg, 25)
+    bad = [n for n, p in eng.unet.named_parameters()
+           if not torch.equal(p, tr.state.ema[n].to(p.dtype))]
+    log(f"[12] EMA export {os.path.basename(res['ema_path'])} loaded by "
+        f"runner.vdm_sample: {len(bad)} of "
+        f"{len(list(eng.unet.parameters()))} UNet weights differ from the "
+        f"trainer's EMA in bf16")
+    if bad:
+        raise AssertionError(f"EMA export differs: {bad[:5]}")
+    del eng
+    torch.cuda.empty_cache()
+    return counts, {"trainer": tr, "config": path, "peak_gib": peak}
+
+
+def vdm_train_times(train: dict, gpu: str) -> None:
+    """Phase 13, end to end: the train step (encode included) and its split,
+    peak memory and the device-busy share of one step."""
+    import torch
+    from street_crafter_tpu_torch.config import default_config, load_config
+    from street_crafter_tpu_torch.runner import vdm_train as VT
+    tr = train["trainer"]
+    cfg = default_config()
+    cfg.merge(load_config(train["config"]))
+    clip = VT.build_sampler(cfg).datasets[0][0]
+    batch_np = {k: clip[k][None] for k in ("img_seq", "guide_seq")}
+    encode = VT.make_encode_fn(tr.engine)
+    g = torch.Generator(device=tr.engine.device).manual_seed(5)
+
+    def step():
+        tr.train_step(encode(batch_np["img_seq"], batch_np["guide_seq"]),
+                      generator=g)
+
+    torch.cuda.reset_peak_memory_stats()
+    steps = sync_ms(step, 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    enc = sync_ms(lambda: encode(batch_np["img_seq"], batch_np["guide_seq"]),
+                  2)
+    # the split: synchronise around the loss (forward) and the optimizer
+    split = {"forward": [], "optimizer + EMA": []}
+    loss_fn, apply_fn = tr._loss, tr._apply
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split[name].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    batch = encode(batch_np["img_seq"], batch_np["guide_seq"])
+    tr._loss, tr._apply = timed("forward", loss_fn), timed(
+        "optimizer + EMA", apply_fn)
+    try:
+        total = sync_ms(lambda: tr.train_step(batch, generator=g), 3,
+                        warmup=0)
+    finally:
+        del tr._loss, tr._apply
+    fwd = statistics.median(split["forward"])
+    opt = statistics.median(split["optimizer + EMA"])
+    tot = statistics.median(total)
+    log(f"[13] train step (1 clip of 25 frames at 576x1024, encode "
+        f"included): median {statistics.median(steps):.1f} ms of "
+        f"{[round(t, 1) for t in steps]}; split: encode "
+        f"{statistics.median(enc):.1f} ms, forward {fwd:.1f} ms, backward "
+        f"(and the f32 gradient copies) {tot - fwd - opt:.1f} ms, optimizer "
+        f"+ EMA {opt:.1f} ms (step without encode {tot:.1f} ms); peak "
+        f"max_memory_allocated {peak:.2f} GiB (phase 12 {train['peak_gib']:.2f}"
+        f" GiB); card {gpu}")
+    busy, wall, n, top = busy_share(step)
+    if n:
+        log(f"[13] torch.profiler over one train step: {n} device kernels, "
+            f"{busy:.1f} ms busy of {wall:.1f} ms wall: device busy "
+            f"{100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%"
+            f"; by kernel (ms, launches): "
+            + "; ".join(f"{k[:56]} {v[0] / 1e3:.2f} x{v[1]}"
+                        for k, v in top))
+    else:
+        log("[13] torch.profiler recorded no device kernels: busy share not "
+            "measured")
+
+
+def vdm_train_kernel_times(gpu: str) -> dict:
+    """Phase 13, per kernel at each training shape: CUDA-event ms of D with
+    lse, G and H, their plain versions' ms, their bounds, and one
+    scaled_dot_product_attention forward (with grad, beside D) or backward
+    (dq, dk, dv in one call, beside G + H) on the same inputs (timed only;
+    the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    dev = torch.device("cuda", 0)
+    rows = {"flash_attention": [], "flash_attention_bwd_dkv": [],
+            "flash_attention_bwd_dq": []}
+    for i, (b, s, h, d) in enumerate(TRAIN_SHAPES):
+        q, k, v, do = train_attn_case(dev, b, s, s, h, d, 700 + 10 * i)
+        o, lse = FA._flash_cuda(q, k, v, with_lse=True)
+        delta = FA.attention_delta(o, do)
+        x = b * s * h * d * 2            # bytes of one [B, S, H, D] bf16
+        r = b * h * s * 4                # bytes of one [B, H, S] f32
+        ops = s * s * d * b * h
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 3)
+        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt,
+                                                                   vt), 3)
+        del out
+        for name, kern, plain, nbytes, flops, lib in (
+                ("flash_attention",
+                 lambda: FA._flash_cuda(q, k, v, with_lse=True),
+                 lambda: FA.flash_attention_lse_reference(q, k, v),
+                 4 * x + r, 4 * ops, sdpa_fwd),
+                ("flash_attention_bwd_dkv",
+                 lambda: FA._flash_bwd_dkv_cuda(q, k, v, do, lse, delta),
+                 lambda: FA.flash_attention_bwd_dkv_reference(
+                     q, k, v, do, lse, delta),
+                 6 * x + 2 * r, 8 * ops, sdpa_bwd),
+                ("flash_attention_bwd_dq",
+                 lambda: FA._flash_bwd_dq_cuda(q, k, v, do, lse, delta),
+                 lambda: FA.flash_attention_bwd_dq_reference(
+                     q, k, v, do, lse, delta),
+                 5 * x + 2 * r, 6 * ops, sdpa_bwd)):
+            rows[name].append({
+                "shape": [b, s, h, d], "ms": cuda_ms(kern, 5),
+                "plain_ms": cuda_ms(plain, 1, warmup=0),
+                "library_ms": lib, **vdm_bound(nbytes, flops)})
+        del q, k, v, do, o, lse, delta, qt, kt, vt
+        torch.cuda.empty_cache()
+    for name, rs in rows.items():
+        what = ("scaled_dot_product_attention forward with grad"
+                if name == "flash_attention" else
+                "scaled_dot_product_attention backward (dq, dk, dv: G + H)")
+        for r in rs:
+            log(f"[13] {name} (training) {r['shape']}: kernel "
+                f"{r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+                f"({r['bound_by']}), plain {r['plain_ms']:.1f} ms, {what} "
+                f"{r['library_ms']:.3f} ms; {gpu}")
+    return rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1219,12 +1658,25 @@ def main() -> None:
 
         # ---- phase 10: times -----------------------------------------------
         vdm_times(vdm_cfg, gpu)
-    vdm_rows = vdm_kernel_times(gpu)
+        vdm_rows = vdm_kernel_times(gpu)
+
+        # ---- phase 11: kernels D with lse, G, H vs plain versions ----------
+        train_errs = compare_train_kernels()
+
+        # ---- phase 12: the fine-tune main path -----------------------------
+        ft_counts, ft = vdm_train_main_path(tmp, gpu)
+
+        # ---- phase 13: times -----------------------------------------------
+        vdm_train_times(ft, gpu)
+        del ft
+        torch.cuda.empty_cache()
+    ft_rows = vdm_train_kernel_times(gpu)
 
     # each main path's counts, read right after its own reset; "launches"
     # is their sum
     by_path = {name: {"render": render_counts.get(name, 0),
-                      "train": train_counts.get(name, 0), "vdm_sample": 0}
+                      "train": train_counts.get(name, 0), "vdm_sample": 0,
+                      "vdm_train": 0}
                for name in REPLACES}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
@@ -1242,27 +1694,59 @@ def main() -> None:
         log(f"[7] {k['name']}: {k['ms']:.3f} ms against a bound of "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
             f"{k['plain_ms']:.3f} ms, launches {k['launches_by_path']}")
-    # kernels D, E, F: the numbers at the first (largest) main-path shape;
-    # "shapes" has every main-path shape
+    # kernels D, E, F: the numbers at the first (largest) sampling shape;
+    # "shapes" has every sampling shape and, for kernel D, every training
+    # shape (its form with lse); kernel D's vdm_train launches are its lse
+    # form's
+    def rounded(rows):
+        return [{k: (round(v, 4) if isinstance(v, float) else v)
+                 for k, v in r.items()} for r in rows]
+
     for name in ("flash_attention", "temporal_block_fused",
                  "temporal_attention_fused"):
         head = vdm_rows[name][0]
+        paths = {"render": 0, "train": 0,
+                 "vdm_sample": vdm_counts.get(name, 0),
+                 "vdm_train": ft_counts.get(
+                     "flash_attention_lse" if name == "flash_attention"
+                     else name, 0)}
+        shapes = rounded(vdm_rows[name])
+        if name == "flash_attention":
+            shapes += [dict(r, path="vdm_train")
+                       for r in rounded(ft_rows[name])]
         kernels.append({
             "name": name, "route": "cuda", "source": VDM_SOURCES[name],
             "replaces": VDM_REPLACES[name],
-            "launches": vdm_counts.get(name, 0),
-            "launches_by_path": {"render": 0, "train": 0,
-                                 "vdm_sample": vdm_counts.get(name, 0)},
-            "max_abs_err": vdm_errs[name], "ms": round(head["ms"], 4),
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": max(vdm_errs[name], train_errs.get(name, 0.0)),
+            "ms": round(head["ms"], 4),
             "plain_ms": round(head["plain_ms"], 4),
             "bound_ms": round(head["bound_ms"], 6),
             "bound_by": head["bound_by"],
             "library_ms": (None if head["library_ms"] is None
                            else round(head["library_ms"], 4)),
-            "shapes": [{k: (round(v, 4) if isinstance(v, float) else v)
-                        for k, v in r.items()} for r in vdm_rows[name]]})
+            "shapes": shapes})
+    # kernels G and H: the numbers at the first (largest) training shape;
+    # library_ms is one scaled_dot_product_attention backward, which
+    # computes dq, dk and dv together (G + H)
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        head = ft_rows[name][0]
+        paths = {"render": 0, "train": 0, "vdm_sample": 0,
+                 "vdm_train": ft_counts.get(name, 0)}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": VDM_SOURCES["flash_attention"],
+            "replaces": BWD_REPLACES[name],
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": train_errs[name], "ms": round(head["ms"], 4),
+            "plain_ms": round(head["plain_ms"], 4),
+            "bound_ms": round(head["bound_ms"], 6),
+            "bound_by": head["bound_by"],
+            "library_ms": round(head["library_ms"], 4),
+            "library_covers": "dq, dk and dv (G + H)",
+            "shapes": rounded(ft_rows[name])})
     log(f"[10] sampling peak max_memory_allocated {vdm_peak:.2f} GiB")
-    log(gpu)
+    print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Clip data of the video diffusion model (port of
-``street_crafter_tpu/datasets/vdm_data.py``: ``prepare_meta`` and
-``ClipDataset``; the multi-source sampler and the Vista datasets belong to
-fine-tuning and are not ported here).
+``street_crafter_tpu/datasets/vdm_data.py``: ``prepare_meta``,
+``ClipDataset`` and the fine-tune's ``MultiSourceSampler``; the Vista
+action datasets are not ported).
 
 Images are read with the port's own PNG reader (``utils/png.py``) and
 resized by ``aspect_crop_resize``, the port's copy of
@@ -17,6 +17,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import queue
+import threading
 
 import numpy as np
 
@@ -207,3 +209,78 @@ class ClipDataset:
             "motion_bucket_id": np.float32(127.0),
             "cond_aug": np.float32(0.0),
         }
+
+
+class MultiSourceSampler:
+    """Probability-weighted batches across subsets with prefetch
+    (MultiSourceSamplerDataset, dataset.py:108-141; 0.9 / 0.1 Waymo /
+    PandaSet in the reference config).
+
+    Which clips a batch holds is chosen in the parent from ``seed``
+    (deterministic); ``num_workers > 0`` decodes batches in a process pool
+    (the reference's DataLoader workers: a 25-frame 576x1024 clip is ~50
+    PNG decodes), 0 in one producer thread. The worker count does not
+    change the sample sequence."""
+
+    def __init__(self, datasets: list[ClipDataset],
+                 probs: list[float] | None = None,
+                 batch_size: int = 1, samples_per_epoch: int = 1000,
+                 seed: int = 0, prefetch: int = 2, num_workers: int = 0):
+        if not datasets:
+            raise ValueError("no datasets")
+        self.datasets = datasets
+        if probs is None:
+            probs = [len(d) for d in datasets]
+        total = float(sum(probs))
+        self.probs = [p / total for p in probs]
+        self.batch_size = batch_size
+        self.samples_per_epoch = samples_per_epoch
+        self.rng = np.random.default_rng(seed)
+        self.prefetch = prefetch
+        self.num_workers = num_workers
+
+    def _indices(self) -> list[tuple[int, int]]:
+        out = []
+        for _ in range(self.batch_size):
+            di = int(self.rng.choice(len(self.datasets), p=self.probs))
+            out.append((di, int(self.rng.integers(len(self.datasets[di])))))
+        return out
+
+    def _fetch(self, idx: list[tuple[int, int]]) -> dict:
+        items = [self.datasets[di][si] for di, si in idx]
+        return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+    def __iter__(self):
+        n = self.samples_per_epoch
+        if self.num_workers > 0:
+            import multiprocessing as mp
+            # fork: the workers share the loaded meta_info lists; they only
+            # decode PNGs (no torch, no device)
+            with mp.get_context("fork").Pool(self.num_workers) as pool:
+                draws = [self._indices() for _ in range(n)]
+                depth = max(self.prefetch, self.num_workers)
+                pending = [pool.apply_async(self._fetch, (idx,))
+                           for idx in draws[:depth]]
+                for i in range(n):
+                    batch = pending.pop(0).get()
+                    if i + depth < n:
+                        pending.append(pool.apply_async(
+                            self._fetch, (draws[i + depth],)))
+                    yield batch
+            return
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+
+        def producer():
+            try:
+                for _ in range(n):
+                    q.put(self._fetch(self._indices()))
+            except Exception as e:      # re-raised in the consumer
+                q.put(e)
+                return
+            q.put(None)
+
+        threading.Thread(target=producer, daemon=True).start()
+        while (item := q.get()) is not None:
+            if isinstance(item, Exception):
+                raise item
+            yield item

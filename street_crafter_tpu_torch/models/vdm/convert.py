@@ -18,7 +18,9 @@
   of the JAX package's name maps, inverted: Dense [in, out] -> Linear
   [out, in], Conv HWIO / DHWIO -> OIHW / OIDHW, norm scale -> weight, the
   CLIP q/k/v DenseGenerals packed into ``in_proj``. Raises on any leaf left
-  over or any port parameter missing.
+  over or any port parameter missing;
+- ``vdm_train_state_from_jax``: a JAX fine-tune state (masters, optax Adam
+  moments per param group, EMA, step) into the port trainer's state.
 """
 
 from __future__ import annotations
@@ -409,3 +411,65 @@ def state_dict_from_jax(params: Mapping, module_map: dict[str, str],
     state dict, through a torch -> flax module-path map such as
     ``unet_name_map``; raises on a leaf the map does not name."""
     return _tensors(_convert(_flatten(_params(params)), module_map, what))
+
+
+def _array_leaves(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """Like ``_flatten``, but leaves without a shape (optax's MaskedNode
+    of a parameter outside a group) are skipped."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_array_leaves(v, path))
+        elif hasattr(v, "shape"):
+            out[path] = np.asarray(v, np.float32)
+    return out
+
+
+def _adam_states(node, found: dict, group: str = "base") -> None:
+    """Collect optax ScaleByAdamState nodes by param group: inside a
+    multi_transform's ``inner_states`` under their label, elsewhere as
+    "base"."""
+    if all(hasattr(node, f) for f in ("mu", "nu", "count")):
+        found[group] = node
+    elif hasattr(node, "inner_states"):
+        for label, sub in node.inner_states.items():
+            _adam_states(sub, found, label)
+    elif hasattr(node, "inner_state"):
+        _adam_states(node.inner_state, found, group)
+    elif isinstance(node, (tuple, list)):
+        for sub in node:
+            _adam_states(sub, found, group)
+
+
+def vdm_train_state_from_jax(state, cfg):
+    """A JAX ``VDMTrainState`` (numpy or JAX leaves: unet_params,
+    opt_state of optax's clip + per-group Adam chain, ema_params, step) ->
+    the port's ``training.vdm_trainer.VDMTrainState`` (f32 CPU tensors in
+    the port's names and layouts) for an ``EngineConfig`` ``cfg``."""
+    from ...training.vdm_trainer import VDMTrainState
+    from .unet import VideoUNet
+    with torch.device("meta"):
+        shapes = {k: tuple(p.shape)
+                  for k, p in VideoUNet(cfg.unet).named_parameters()}
+    names = unet_name_map(cfg.unet)
+
+    def convert(tree, what, complete=True):
+        sd = _convert(_array_leaves(_params(tree)), names, what)
+        if complete and set(sd) != set(shapes):
+            raise ValueError(f"{what}: names differ from the port's UNet: "
+                             f"{sorted(set(sd) ^ set(shapes))[:5]}")
+        # copies: the trainer updates its state in place
+        return {k: torch.tensor(a).reshape(shapes[k]) for k, a in sd.items()}
+
+    found: dict = {}
+    _adam_states(state.opt_state, found)
+    mu, nu, count = {}, {}, {}
+    for group, adam in found.items():
+        mu.update(convert(adam.mu, f"{group} mu", complete=False))
+        nu.update(convert(adam.nu, f"{group} nu", complete=False))
+        count[group] = int(np.asarray(adam.count))
+    return VDMTrainState(masters=convert(state.unet_params, "unet"), mu=mu,
+                         nu=nu, count=count,
+                         ema=convert(state.ema_params, "ema"),
+                         step=int(np.asarray(state.step)))

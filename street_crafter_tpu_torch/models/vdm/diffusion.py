@@ -53,6 +53,27 @@ def edm_sigmas(n: int, sigma_min: float = 0.002, sigma_max: float = 700.0,
     return sigmas
 
 
+def edm_sigma_sample(shape, p_mean: float = 1.0, p_std: float = 1.6,
+                     num_frames: int = 25,
+                     generator: torch.Generator | None = None,
+                     normal: torch.Tensor | None = None,
+                     device=None) -> torch.Tensor:
+    """EDMSampling (sigma_sampling.py:8-20): a lognormal sigma per video,
+    shared by its frames. ``shape[0]`` is batch * num_frames. The standard
+    normal draws ([batch]) come from ``normal`` when given (a test feeds
+    the JAX package's), else from ``generator``."""
+    n_videos = shape[0] // num_frames
+    if normal is None:
+        normal = torch.randn((n_videos,), generator=generator, device=device)
+    sigma = torch.exp(p_mean + p_std * normal.float())
+    return sigma.repeat_interleave(num_frames)
+
+
+def v_weighting(sigma: torch.Tensor) -> torch.Tensor:
+    """VWeighting (loss_weighting.py): w = 1 + 1 / sigma^2."""
+    return 1.0 + 1.0 / sigma ** 2
+
+
 def append_dims(x: torch.Tensor, target_ndim: int) -> torch.Tensor:
     return x.reshape(x.shape + (1,) * (target_ndim - x.dim()))
 

@@ -1,6 +1,8 @@
 """Video diffusion engine (port of ``street_crafter_tpu/models/vdm/
 engine.py``): UNet + VAE + CLIP + conditioner + denoiser + sampler.
 
+- ``training_denoise_fn``: the fine-tune's denoiser D(x) of a batch of
+  clips, with gradients into the UNet;
 - ``sample``: LiDAR-conditioned sampling of one window with CFG (batch
   doubling, or two passes under ``cfg_sequential``), cond-frame
   replacement, and optionally the SDS partial denoise from renders;
@@ -61,26 +63,34 @@ def _dtype(name: Optional[str]) -> torch.dtype:
     return getattr(torch, name) if name else torch.float32
 
 
-def materialize(module: torch.nn.Module, device, dtype: torch.dtype
-                ) -> torch.nn.Module:
+def materialize(module: torch.nn.Module, device, dtype: torch.dtype,
+                trainable: bool = False) -> torch.nn.Module:
     """Allocate a meta-device module's parameters (uninitialised) on
     ``device`` in ``dtype``; the AlphaBlender ``mix_factor`` stays f32, as
-    flax keeps its parameters f32 under a bf16 compute dtype."""
+    flax keeps its parameters f32 under a bf16 compute dtype. Frozen and
+    in eval mode unless ``trainable``."""
     module.to(dtype=dtype)
     for name, p in module.named_parameters():
         if name.endswith("mix_factor"):
             p.data = p.data.float()
-    return module.to_empty(device=device).requires_grad_(False).eval()
+    module = module.to_empty(device=device).requires_grad_(trainable)
+    return module.train(trainable)
 
 
 class VideoDiffusionEngine:
-    def __init__(self, cfg: EngineConfig, device="cuda"):
+    """``training=True`` builds the UNet with gradients on (the fine-tune
+    path); the VAE and CLIP stay frozen and run under no_grad either
+    way."""
+
+    def __init__(self, cfg: EngineConfig, device="cuda",
+                 training: bool = False):
         self.cfg = cfg
         self.device = torch.device(device)
         with torch.device("meta"):
             unet, vae, clip = (VideoUNet(cfg.unet), VAE(cfg.vae),
                                CLIPVisual(cfg.clip))
-        self.unet = materialize(unet, self.device, _dtype(cfg.unet.dtype))
+        self.unet = materialize(unet, self.device, _dtype(cfg.unet.dtype),
+                                trainable=training)
         self.vae = materialize(vae, self.device, _dtype(cfg.vae.dtype))
         self.clip = materialize(clip, self.device, _dtype(cfg.clip.dtype))
 
@@ -203,6 +213,29 @@ class VideoDiffusionEngine:
             return D.vanilla_cfg(uncond, cond_out, scale)
 
         return denoise_fn
+
+    # -- training -----------------------------------------------------------
+    def training_denoise_fn(self, cond: Conditioning,
+                            guidance_latents: torch.Tensor | None,
+                            guidance_scale: torch.Tensor | None
+                            ) -> Callable:
+        """(noised, sigma, cond_mask) -> D(x) for ``loss.diffusion_loss``
+        over B whole clips: cond leaves and guidance [B*T, ...], guidance
+        scale [B*T] (``engine.py:341-357``, its clip map written out as a
+        batch)."""
+        T = self.cfg.num_frames
+
+        def fn(noised, sigma, cond_mask):
+            def model_fn(scaled_x, c_noise):
+                net_in = torch.cat([scaled_x, cond.concat.to(scaled_x.dtype)],
+                                   dim=-1)
+                return self.unet(net_in, c_noise, cond.crossattn, cond.vector,
+                                 num_frames=T, cond_mask=cond_mask,
+                                 guidance_input=guidance_latents,
+                                 guidance_scale=guidance_scale)
+            return D.denoise(model_fn, noised, sigma)
+
+        return fn
 
     # -- sampling -----------------------------------------------------------
     @torch.no_grad()

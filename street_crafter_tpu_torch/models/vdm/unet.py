@@ -21,16 +21,24 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
+from ...ops.flash_attention import SiteStore
 from .layers import (GN_EPS, Downsample, MLPEmbed, SpatialVideoTransformer,
                      Upsample, VideoResBlock, conv, group_norm,
                      timestep_embedding, zero_)
 
+REMAT_POLICIES = ("flash0", "nothing")
+
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """Hyper-parameters (configs/inference/waymo_high_res.yaml:20-41). The
-    remat fields are accepted for config compatibility and mean nothing
-    here: the port's UNet has no backward yet."""
+    """Hyper-parameters (configs/inference/waymo_high_res.yaml:20-41).
+    ``remat``: activation checkpointing of every VideoResBlock and
+    SpatialVideoTransformer while gradients are recorded (the reference
+    trains with use_checkpoint: True); ``remat_policy`` "flash0" keeps the
+    level-0 flash sites' outputs and logsumexp for the recompute,
+    "nothing" recomputes everything."""
     in_channels: int = 8
     model_channels: int = 320
     out_channels: int = 4
@@ -125,6 +133,27 @@ class VideoUNet(nn.Module):
                                  zero_(nn.Conv2d(ch, cfg.out_channels, 3,
                                                  padding=1)))
 
+    def _block_runner(self, level0_seq: int):
+        """How each res / transformer block runs: directly, or under
+        ``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat`` and
+        gradients are recorded. Under "flash0" the checkpoint's forward
+        keeps the flash sites at the level-0 sequence length (the latent's
+        H * W) and its recompute reuses them (``ops.flash_attention.
+        SiteStore``), as the JAX package saves ``flash_out_s{S}`` and
+        ``flash_lse_s{S}``."""
+        cfg = self.cfg
+        if not (cfg.remat and torch.is_grad_enabled()):
+            return lambda m, *args: m(*args)
+        if cfg.remat_policy not in REMAT_POLICIES:
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} is not ported (ROADMAP "
+                f"queue 1); the port has {REMAT_POLICIES}")
+        if cfg.remat_policy == "nothing":
+            return lambda m, *args: checkpoint(m, *args, use_reentrant=False)
+        return lambda m, *args: checkpoint(
+            m, *args, use_reentrant=False,
+            context_fn=lambda: SiteStore([level0_seq]).contexts())
+
     def forward(
         self,
         x: torch.Tensor,                  # [B*T, H, W, in_channels]
@@ -151,12 +180,14 @@ class VideoUNet(nn.Module):
         dtype = self.input_blocks[0][0].weight.dtype
         context = context.to(dtype)
 
+        block = self._block_runner(x.shape[1] * x.shape[2])
+
         def run(mods, h):
             for m in mods:
                 if isinstance(m, VideoResBlock):
-                    h = m(h, emb, num_frames)
+                    h = block(m, h, emb, num_frames)
                 elif isinstance(m, SpatialVideoTransformer):
-                    h = m(h, context, num_frames)
+                    h = block(m, h, context, num_frames)
                 else:
                     h = m(h)
             return h

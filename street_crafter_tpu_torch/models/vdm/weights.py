@@ -59,10 +59,13 @@ def engine_from_config(dcfg, training: bool = False) -> EngineConfig:
 
 
 def load_state_dicts(engine: VideoDiffusionEngine, sds: dict,
-                     strict: bool = True) -> dict[str, list[str]]:
+                     strict: bool = True,
+                     masters: dict | None = None) -> dict[str, list[str]]:
     """Copy {"unet", "vae", "clip"} state dicts into the engine (cast to
     each parameter's dtype). Raises on missing keys; returns the unknown
-    ones (an error too when ``strict``)."""
+    ones (an error too when ``strict``). ``masters``, when given, receives
+    the UNet's values in f32 on the engine's device before the cast (the
+    fine-tune's master weights)."""
     unknown = {}
     for part, module in engine.modules().items():
         sd = sds[part]
@@ -80,72 +83,91 @@ def load_state_dicts(engine: VideoDiffusionEngine, sds: dict,
                 if tuple(v.shape) != tuple(p.shape):
                     raise ValueError(f"{part}.{k}: shape {tuple(v.shape)}, "
                                      f"expected {tuple(p.shape)}")
+                if masters is not None and part == "unet":
+                    masters[k] = v.to(p.device, torch.float32).clone()
                 p.copy_(v.to(p.device, p.dtype))
     return unknown
 
 
 @torch.no_grad()
 def init_random_(engine: VideoDiffusionEngine, seed: int = 0,
-                 zero_init_std: float = 0.0) -> None:
+                 zero_init_std: float = 0.0,
+                 masters: dict | None = None) -> None:
     """Seeded random weights drawn on the engine's device, with the JAX
     package's initialisers: weights N(0, 1/fan_in) (lecun normal, not
     truncated), biases 0, norm scales 1, AlphaBlender mix factors at their
     init, CLIP embeddings N(0, 0.02^2), LoRA down N(0, 1/r^2); the
     zero-initialised output layers are 0, or N(0, zero_init_std^2 /
     fan_in) when ``zero_init_std`` > 0 (so that every layer reaches the
-    output of a randomly initialised model)."""
+    output of a randomly initialised model). ``masters``, when given,
+    receives every UNet value as drawn, in f32, before it is cast to the
+    parameter's dtype."""
     dev = engine.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     for part, module in engine.modules().items():
         norms = {n for n, m in module.named_modules()
                  if isinstance(m, (torch.nn.GroupNorm, torch.nn.LayerNorm))}
         for name, p in module.named_parameters():
-            mod, _, leaf = name.rpartition(".")
-            if leaf == "mix_factor":
-                # UNet AlphaBlenders start at merge_factor 0.5, the VAE's
-                # video blocks at 0
-                p.fill_(engine.cfg.unet.merge_factor if part == "unet"
-                        else 0.0)
-                continue
-            if mod in norms:
-                p.fill_(1.0 if leaf == "weight" else 0.0)
-                continue
-            if leaf in ("bias", "in_proj_bias"):
-                p.zero_()
-                continue
-            if part == "clip" and leaf in ("class_embedding",
-                                           "positional_embedding", "proj"):
-                std = 0.02
-            elif name.endswith("_adapter_down.weight"):
-                std = 1.0 / p.shape[0]                # 1 / rank
-            else:
-                fan_in = p[0].numel()
-                std = fan_in ** -0.5
-                if _ZERO_INIT[part] and name.endswith(_ZERO_INIT[part]):
-                    std *= zero_init_std
-            if std == 0.0:
-                p.zero_()
-                continue
-            p.copy_(torch.randn(p.shape, generator=gen, device=dev) * std)
+            value = _draw(part, name, p, norms, gen,
+                          engine.cfg.unet.merge_factor, zero_init_std)
+            p.copy_(value)
+            if masters is not None and part == "unet":
+                masters[name] = value
 
 
-def save_vdm_params(path: str, engine: VideoDiffusionEngine) -> None:
-    """The port's checkpoint: the three state dicts in one torch.save."""
-    torch.save({"format": FORMAT,
-                **{part: m.state_dict()
-                   for part, m in engine.modules().items()}}, path)
+def _draw(part: str, name: str, p: torch.Tensor, norms: set,
+          gen: torch.Generator, merge_factor: float,
+          zero_init_std: float) -> torch.Tensor:
+    """The initial value of one parameter, f32, on its device."""
+    mod, _, leaf = name.rpartition(".")
+    f32 = dict(dtype=torch.float32, device=p.device)
+    if leaf == "mix_factor":
+        # UNet AlphaBlenders start at merge_factor 0.5, the VAE's video
+        # blocks at 0
+        return torch.full(p.shape, merge_factor if part == "unet" else 0.0,
+                          **f32)
+    if mod in norms:
+        return torch.full(p.shape, 1.0 if leaf == "weight" else 0.0, **f32)
+    if leaf in ("bias", "in_proj_bias"):
+        return torch.zeros(p.shape, **f32)
+    if part == "clip" and leaf in ("class_embedding", "positional_embedding",
+                                   "proj"):
+        std = 0.02
+    elif name.endswith("_adapter_down.weight"):
+        std = 1.0 / p.shape[0]                # 1 / rank
+    else:
+        std = p[0].numel() ** -0.5            # 1 / sqrt(fan_in)
+        if _ZERO_INIT[part] and name.endswith(_ZERO_INIT[part]):
+            std *= zero_init_std
+    if std == 0.0:
+        return torch.zeros(p.shape, **f32)
+    return torch.randn(p.shape, generator=gen, **f32) * std
 
 
-def load_vdm_params(engine: VideoDiffusionEngine, dcfg) -> str:
+def save_vdm_params(path: str, engine: VideoDiffusionEngine,
+                    unet: dict | None = None) -> None:
+    """The port's checkpoint: the three state dicts in one torch.save.
+    ``unet``, when given, stands in for the UNet's own parameters (e.g. the
+    fine-tune's EMA), cast to each parameter's dtype."""
+    sds = {part: m.state_dict() for part, m in engine.modules().items()}
+    if unet is not None:
+        sds["unet"] = {k: unet[k].to(v.dtype) if k in unet else v
+                       for k, v in sds["unet"].items()}
+    torch.save({"format": FORMAT, **sds}, path)
+
+
+def load_vdm_params(engine: VideoDiffusionEngine, dcfg,
+                    masters: dict | None = None) -> str:
     """Fill the engine from ``dcfg.ckpt_path``; seeded random weights (seed
     0, as the JAX package's ``PRNGKey(0)``) when it is empty. Returns what
-    was loaded."""
+    was loaded. ``masters``, when given, receives the UNet's values in f32
+    (see ``load_state_dicts``)."""
     ckpt = dcfg.get("ckpt_path", "") or ""
     if not ckpt:
         print("WARNING: no diffusion ckpt_path set; using seeded random "
               "weights")
         init_random_(engine, 0,
-                     float(dcfg.get("init_zero_layers_std", 0.0)))
+                     float(dcfg.get("init_zero_layers_std", 0.0)), masters)
         return "random"
     if os.path.isdir(ckpt):
         raise NotImplementedError(
@@ -158,14 +180,14 @@ def load_vdm_params(engine: VideoDiffusionEngine, dcfg) -> str:
     if not ckpt.endswith(".safetensors"):
         obj = torch.load(ckpt, map_location="cpu", weights_only=False)
         if isinstance(obj, dict) and obj.get("format") == FORMAT:
-            load_state_dicts(engine, obj)
+            load_state_dicts(engine, obj, masters=masters)
             return ckpt
         del obj
     from .convert import (duplicate_time_embed, merge_lora_ema,
                           read_checkpoint, split_engine_state_dict)
     sd = duplicate_time_embed(merge_lora_ema(read_checkpoint(ckpt)))
     unknown = load_state_dicts(engine, split_engine_state_dict(sd),
-                               strict=False)
+                               strict=False, masters=masters)
     for part, keys in unknown.items():
         if keys:
             print(f"{part}: {len(keys)} unknown keys (e.g. {keys[:3]})")

@@ -6,7 +6,10 @@ Same directory layout as ``street_crafter_tpu/utils/checkpoint.py``:
 parameters as a nested dict of tensors (``models.gs.convert``), and, when
 written by the trainer, ``train_state.pt``: the rest of the train state
 (Adam moments and counts, densify statistics, step), so a run resumes at
-``it + 1``. A render loads ``params.pt`` only.
+``it + 1``. A render loads ``params.pt`` only. A video-diffusion fine-tune
+writes ``vdm_train_state.pt`` instead: the trainer's whole state
+(``training.vdm_trainer.VDMTrainState``: f32 masters, Adam moments and
+counts, EMA, step).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from ..models.gs.scene import SceneParams
 
 PARAMS_FILE = "params.pt"
 TRAIN_STATE_FILE = "train_state.pt"
+VDM_TRAIN_STATE_FILE = "vdm_train_state.pt"
 
 
 def checkpoint_dir(model_path: str, iteration: int) -> str:
@@ -74,3 +78,27 @@ def load_train_checkpoint(model_path: str, iteration: int | None = None,
     path = os.path.join(checkpoint_dir(model_path, it), TRAIN_STATE_FILE)
     rest = torch.load(path, map_location=device, weights_only=True)
     return train_state_from_dict(rest, device, params=params), it
+
+
+def save_vdm_checkpoint(model_path: str, step: int, state) -> str:
+    """A fine-tune's ``VDMTrainState`` under
+    ``model_path/checkpoints/iteration_{step}/``."""
+    path = checkpoint_dir(model_path, step)
+    os.makedirs(path, exist_ok=True)
+    torch.save(state.to_dict(), os.path.join(path, VDM_TRAIN_STATE_FILE))
+    return path
+
+
+def load_vdm_checkpoint(model_path: str, iteration: int | None = None,
+                        device: torch.device | str = "cpu"):
+    """(VDMTrainState, iteration) of the newest (or given) fine-tune
+    checkpoint, or (None, None) when there is none."""
+    from ..training.vdm_trainer import VDMTrainState
+    if iteration is None:
+        iteration = search_max_iteration(model_path)
+        if iteration is None:
+            return None, None
+    path = os.path.join(checkpoint_dir(model_path, iteration),
+                        VDM_TRAIN_STATE_FILE)
+    d = torch.load(path, map_location=device, weights_only=True)
+    return VDMTrainState.from_dict(d, device), iteration

@@ -1,4 +1,5 @@
 """The CUDA kernels of street_crafter_tpu_torch (raster A-C, attention D,
+its backward G and H,
 temporal stage E and F) against their plain torch versions on a CUDA
 device. Marked ``cuda``; each test skips when no CUDA
 device is present. On the GPU machine:
@@ -257,3 +258,72 @@ def test_vdm_kernel_wrappers_check_inputs(cuda):
         TB.temporal_attention_fused(h, bias, w["norm1_s"], w["norm1_b"],
                                     w["wqkv"], w["wout"], w["bout"],
                                     num_frames=40, heads=1, dim_head=64)
+
+
+def _attn_case(cuda, b, sq, skv, h, d, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn((b, n, h, d), generator=g, device=cuda)
+               .to(torch.bfloat16) for n in (sq, skv, skv))
+    do = torch.randn((b, sq, h, d), generator=g, device=cuda).to(
+        torch.bfloat16)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", [(2, 100, 75, 3, 64),
+                                          (1, 75, 100, 2, 128),
+                                          (1, 300, 257, 2, 64),
+                                          (2, 576, 576, 4, 64)])
+def test_attention_training_kernels_match_plain(cuda, b, sq, skv, h, d):
+    """Kernel D with lse, G and H against their plain versions on the same
+    inputs (seeded cotangents), in bf16."""
+    q, k, v, do = _attn_case(cuda, b, sq, skv, h, d, sq + skv)
+    FA.reset_launch_counts()
+    o, lse = FA._flash_cuda(q, k, v, with_lse=True)
+    o_ref, lse_ref = FA.flash_attention_lse_reference(q, k, v)
+    delta = FA.attention_delta(o_ref, do)
+    dq, dk, dv = FA._flash_backward_cuda(q, k, v, do, lse_ref, delta)
+    dk_ref, dv_ref = FA.flash_attention_bwd_dkv_reference(q, k, v, do,
+                                                          lse_ref, delta)
+    dq_ref = FA.flash_attention_bwd_dq_reference(q, k, v, do, lse_ref, delta)
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention_lse"] == 1
+    assert FA.launches["flash_attention_bwd_dkv"] == 1
+    assert FA.launches["flash_attention_bwd_dq"] == 1
+    for got, want in ((o, o_ref), (lse, lse_ref), (dq, dq_ref),
+                      (dk, dk_ref), (dv, dv_ref)):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        worst, med = bf16_errors(got, want)
+        assert worst <= BF16_MAX and med <= BF16_MED
+
+
+def test_attention_function_backward_launches_g_and_h(cuda):
+    q, k, v, do = _attn_case(cuda, 1, 300, 260, 2, 64, 5)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    FA.reset_launch_counts()
+    out = FA.flash_attention(q, k, v)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert dict(FA.launches) == {"flash_attention_lse": 1,
+                                 "flash_attention_bwd_dkv": 1,
+                                 "flash_attention_bwd_dq": 1}
+    for t in (q, k, v):
+        assert t.grad is not None and t.grad.dtype == torch.bfloat16
+        assert bool(torch.isfinite(t.grad).all())
+    with torch.no_grad():
+        FA.flash_attention(q, k, v)
+    assert FA.launches["flash_attention"] == 1
+
+
+def test_attention_training_wrappers_check_inputs(cuda):
+    q, k, v, do = _attn_case(cuda, 1, 300, 300, 2, 64, 6)
+    with pytest.raises(ValueError, match="tensors on"):
+        FA.flash_attention(q, k.cpu(), v)
+    wide = torch.zeros((1, 300, 2, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA._flash_cuda(wide[..., ::2], k, v, with_lse=True)
+    lse = torch.zeros((1, 2, 300), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FA._flash_backward_cuda(q, k, v, do.float(), lse, lse)
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros((1, 300, 2, 32), device=cuda, dtype=torch.bfloat16)
+        FA._flash_backward_cuda(x, x, x, x, lse, lse)
