@@ -5,7 +5,9 @@
 
 Phases, one status line each; any failure raises (exit code != 0):
   1. card name and power limit; build every kernel source of
-     street_crafter_tpu_torch/csrc with nvcc for sm_90a, in parallel;
+     street_crafter_tpu_torch/csrc with nvcc for sm_90a, in parallel, and
+     print each kernel's registers and spill bytes from ptxas's report,
+     with any wgmma serialisation it notes;
   2. each kernel against its plain torch version on the card: 50k splats of
      a trained-like scene at 384x256, and a scene with splats wider than
      200 px. Kernel A's worklist must equal the plain one; kernel B must
@@ -37,9 +39,11 @@ Phases, one status line each; any failure raises (exit code != 0):
      profiler's device-busy share.
   8. kernels D (attention forward), E (the temporal stage) and F (its
      attention) against their plain versions in bf16, first at small
-     shapes with ragged edges, then at every shape of the sampling main
-     path; the largest error within 2e-2 and the median within 2e-3 of the
-     largest |reference|;
+     shapes with ragged edges (for D: q x kv of 127 x 129, 129 x 1 and
+     300 x 257 at head dims 64 and 128, across its 128-row and 128-key
+     tiles), then at every shape of the sampling main path; the largest
+     error within 2e-2 and the median within 2e-3 of the largest
+     |reference| (that scale floored at 2^-8, see BF16_FLOOR);
   9. the sampling main path: a synthetic 1920x1280 scene (26 frames,
      camera 0) with stand-in LiDAR condition renders and its meta_info,
      then runner.vdm_sample.main at full width (UNet 320 x (1, 2, 4, 4),
@@ -50,11 +54,14 @@ Phases, one status line each; any failure raises (exit code != 0):
  10. times: one CFG UNet eval, wall per Euler step, the VAE encode, the
      chunked decode, CLIP, the profiler's device-busy share of one step,
      and per kernel at every main-path shape its CUDA-event time, bound,
-     plain time and (kernel D) scaled_dot_product_attention's time;
+     plain time and (kernel D) scaled_dot_product_attention's time, with
+     D's TF/s, share of its bound and ratio to that call;
  11. kernel D's training form (with lse) and the attention backward
      kernels G (dK, dV) and H (dQ) against their plain versions in bf16
-     with seeded cotangents, at small ragged shapes, then at the three
-     training shapes; phase 8's limits for each of o, lse, dq, dk, dv;
+     with seeded cotangents, at small ragged shapes (127 x 129 and 129 x 1
+     at head dims 64 and 128 among them: G's 128-key blocks and q tiles),
+     then at the three training shapes; phase 8's limits for each of o,
+     lse, dq, dk, dv;
  12. the fine-tune main path: runner.vdm_train.main on phase 9's scene at
      full width (25 frames at 576x1024, batch 1, bf16 compute with f32
      masters, remat flash0, the recipe's frozen temporal layers), seeded
@@ -72,7 +79,8 @@ Phases, one status line each; any failure raises (exit code != 0):
      memory, the profiler's device-busy share of one step, and per kernel
      (D with lse, G, H) at each training shape its CUDA-event time, bound,
      plain time and one scaled_dot_product_attention forward (D) or
-     backward (G + H together).
+     backward (G + H together), with TF/s, share of bound and ratio to
+     that call.
 Kernel builds, launches and comparisons raise on failure; no phase catches
 its own. TF32 is off for matmuls and cuDNN convolutions throughout.
 The last three lines: the card's name and power limit, a JSON object of
@@ -698,6 +706,10 @@ VDM_STEPS = 3                 # Euler steps of phase 9 (the work per step
 # both sides round the same bf16 intermediates, so an intermediate that
 # rounds the other way moves an output by a bf16 ulp or two
 BF16_MAX_REL, BF16_MED_REL = 2e-2, 2e-3
+# the floor of that scale: with one key (Skv = 1) the reference dk and dq
+# vanish (a softmax over one key has no gradient with respect to its
+# score), and both sides hold only rounding noise, ~1e-6
+BF16_FLOOR = 2.0 ** -8
 # main-path shapes of one CFG UNet eval (2 x 25 frames, latents 72 x 128):
 # kernel D [B*T, S, heads, 64] at levels 0-2 (5 sites each); kernel E
 # (B, T, S, C, heads) at level 0 (5 sites); kernel F at level 1, level 2 and
@@ -713,8 +725,9 @@ PER_STEP = {"flash_attention": 15, "temporal_block_fused": 5,
 def bf16_errors(got, want) -> dict:
     d = (got.float() - want.float()).abs()
     top = float(want.float().abs().max())
-    return {"abs": float(d.max()), "max_rel": float(d.max()) / top,
-            "med_rel": float(d.median()) / top, "ref_max": top}
+    scale = max(top, BF16_FLOOR)
+    return {"abs": float(d.max()), "max_rel": float(d.max()) / scale,
+            "med_rel": float(d.median()) / scale, "ref_max": top}
 
 
 def check_errors(label: str, e: dict, phase: int) -> None:
@@ -790,7 +803,9 @@ def compare_vdm_kernels() -> dict:
     dev = torch.device("cuda", 0)
     worst = {}
     small_d = [(2, 100, 75, 3, 64), (1, 100, 75, 2, 128),
-               (1, 75, 100, 2, 128)]
+               (1, 75, 100, 2, 128)] + [
+        (1, sq, skv, 2, d) for d in (64, 128)
+        for sq, skv in ((127, 129), (129, 1), (300, 257))]
     for i, (b, sq, skv, h, d) in enumerate(small_d):
         q, _, _ = attn_inputs(dev, b, sq, h, d, i)
         _, k, v = attn_inputs(dev, b, skv, h, d, i + 10)
@@ -961,7 +976,9 @@ def sync_ms(fn, reps: int, warmup: int = 1) -> list[float]:
 
 
 def busy_share(fn) -> tuple[float, float, int, list]:
-    """torch.profiler over one call: (busy ms, wall ms, kernels, top)."""
+    """torch.profiler over one call: (busy ms, wall ms, kernels, top): top
+    is the 8 kernels with the most device time, then every attention kernel
+    (D, G, H: "flash_" in the name) below them."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -984,7 +1001,8 @@ def busy_share(fn) -> tuple[float, float, int, list]:
         rec = by_name.setdefault(e.name, [0.0, 0])
         rec[0] += e.time_range.elapsed_us()
         rec[1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    top = ranked[:8] + [kv for kv in ranked[8:] if "flash_" in kv[0]]
     return busy / 1e3, wall, len(kern), top
 
 
@@ -1045,6 +1063,21 @@ def vdm_bound(nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if t_b >= t_f else "operations"}
 
 
+def with_rates(row: dict, flops: float) -> dict:
+    """A kernel row with its TF/s, its share of the bound (bound_ms / ms)
+    and its time over the library call's (None without one)."""
+    lib = row["library_ms"]
+    return dict(row, tflops=flops / row["ms"] / 1e9,
+                bound_share=row["bound_ms"] / row["ms"],
+                library_ratio=None if lib is None else row["ms"] / lib)
+
+
+def rates_text(r: dict, lib_name: str) -> str:
+    return (f"; {r['tflops']:.1f} TF/s, {100 * r['bound_share']:.1f}% of "
+            f"the bound" + ("" if r["library_ratio"] is None else
+                            f", {r['library_ratio']:.3f}x {lib_name}"))
+
+
 def vdm_kernel_times(gpu: str) -> dict:
     """Phase 10, per kernel at every main-path shape: CUDA-event ms, the
     plain version's ms, the bound and, for kernel D, one call of
@@ -1060,14 +1093,15 @@ def vdm_kernel_times(gpu: str) -> dict:
     for i, (b, s, h, d) in enumerate(D_SHAPES):
         q, k, v = attn_inputs(dev, b, s, h, d, 300 + i)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        rows["flash_attention"].append({
+        flops = 4 * s * s * d * b * h
+        rows["flash_attention"].append(with_rates({
             "shape": [b, s, h, d],
             "ms": cuda_ms(lambda: FA.flash_attention(q, k, v), 5),
             "plain_ms": cuda_ms(lambda: plain_attention(FA, q, k, v), 1,
                               warmup=0),
             "library_ms": cuda_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt), 5),
-            **vdm_bound(2 * 4 * b * s * h * d, 4 * s * s * d * b * h)})
+            **vdm_bound(2 * 4 * b * s * h * d, flops)}, flops))
         del q, k, v, qt, kt, vt
     for name, shapes, make, plain, full in (
             ("temporal_block_fused", E_SHAPES, e_args,
@@ -1077,12 +1111,12 @@ def vdm_kernel_times(gpu: str) -> dict:
         for i, (B, T, S, C, heads) in enumerate(shapes):
             args, kw = make(TB, dev, B, T, S, C, heads, 400 + i)
             cost = TB.stage_cost(B, T, S, C, full)
-            rows[name].append({
+            rows[name].append(with_rates({
                 "shape": [B * T, S, C],
                 "ms": cuda_ms(lambda: getattr(TB, name)(*args, **kw), 5),
                 "plain_ms": cuda_ms(lambda: plain(*args, **kw), 1, warmup=0),
                 "library_ms": None,
-                **vdm_bound(cost["bytes"], cost["flops"])})
+                **vdm_bound(cost["bytes"], cost["flops"])}, cost["flops"]))
             del args
     for name, rs in rows.items():
         for r in rs:
@@ -1091,7 +1125,7 @@ def vdm_kernel_times(gpu: str) -> dict:
                 f"{r['plain_ms']:.1f} ms"
                 + (f", scaled_dot_product_attention {r['library_ms']:.3f} ms"
                    if r["library_ms"] is not None else "")
-                + f"; {gpu}")
+                + rates_text(r, "scaled_dot_product_attention") + f"; {gpu}")
     torch.cuda.empty_cache()
     return rows
 
@@ -1163,7 +1197,11 @@ def compare_train_kernels() -> dict:
     dev = torch.device("cuda", 0)
     for i, (b, sq, skv, h, d) in enumerate([(2, 100, 75, 3, 64),
                                             (1, 75, 100, 2, 128),
-                                            (1, 300, 257, 2, 64)]):
+                                            (1, 300, 257, 2, 64),
+                                            (1, 127, 129, 2, 64),
+                                            (1, 127, 129, 2, 128),
+                                            (1, 129, 1, 2, 64),
+                                            (1, 129, 1, 2, 128)]):
         train_kernels_vs_plain(FA, *train_attn_case(dev, b, sq, skv, h, d,
                                                     500 + 10 * i),
                                f"q {sq} x kv {skv}, {h} heads x {d}")
@@ -1490,10 +1528,10 @@ def vdm_train_kernel_times(gpu: str) -> dict:
                  lambda: FA.flash_attention_bwd_dq_reference(
                      q, k, v, do, lse, delta),
                  5 * x + 2 * r, 6 * ops, sdpa_bwd)):
-            rows[name].append({
+            rows[name].append(with_rates({
                 "shape": [b, s, h, d], "ms": cuda_ms(kern, 5),
                 "plain_ms": cuda_ms(plain, 1, warmup=0),
-                "library_ms": lib, **vdm_bound(nbytes, flops)})
+                "library_ms": lib, **vdm_bound(nbytes, flops)}, flops))
         del q, k, v, do, o, lse, delta, qt, kt, vt
         torch.cuda.empty_cache()
     for name, rs in rows.items():
@@ -1504,8 +1542,49 @@ def vdm_train_kernel_times(gpu: str) -> dict:
             log(f"[13] {name} (training) {r['shape']}: kernel "
                 f"{r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
                 f"({r['bound_by']}), plain {r['plain_ms']:.1f} ms, {what} "
-                f"{r['library_ms']:.3f} ms; {gpu}")
+                f"{r['library_ms']:.3f} ms" + rates_text(r, "that call")
+                + f"; {gpu}")
     return rows
+
+
+def ptxas_entries(report: str) -> list[dict]:
+    """Per kernel of one `ptxas -v` report: its name with its template
+    arguments (flash_fwd_kernel<64, 3, 1>), registers, spill bytes and the
+    performance notes ptxas gave it (wgmma serialisation, C75xx)."""
+    out, notes = [], []
+    for line in report.splitlines():
+        m = re.search(r"\((C75\d\d)\) ([^']*)'?(\w*)'?", line)
+        if m:
+            text = m.group(2).replace("Potential Performance Loss: ", "")
+            text = re.sub(r" (for|in) the function\s*$", "", text.strip())
+            notes.append((m.group(3), f"{m.group(1)} {text}"))
+            continue
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            k = re.search(r"\d+([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?",
+                          entry)
+            kernel = entry if k is None else k.group(1) + (
+                "<" + ", ".join(re.findall(r"L[ib](\d+)E", k.group(2)))
+                + ">" if k.group(2) else "")
+            out.append({"entry": entry, "kernel": kernel, "registers": None,
+                        "spill_stores": 0, "spill_loads": 0, "notes": []})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[-1]["spill_stores"] = int(m.group(1))
+            out[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+    for fn, note in notes:
+        for e in out:
+            if fn and e["entry"] in fn:
+                e["notes"].append(note)
+    return out
 
 
 def main() -> None:
@@ -1533,10 +1612,12 @@ def main() -> None:
     log(f"[1] built " + ", ".join(os.path.relpath(lib, here)
                                   for lib, _ in builds.values())
         + f" in {time.perf_counter() - t0:.1f} s")
-    for _, ptxas in builds.values():
-        for line in ptxas.splitlines():
-            if "registers" in line or "Compiling entry" in line:
-                log("    ptxas " + line.strip())
+    for name, (_, ptxas) in builds.items():
+        for e in ptxas_entries(ptxas):
+            log(f"    ptxas {name}: {e['kernel']}: {e['registers']} "
+                f"registers, {e['spill_stores']} / {e['spill_loads']} bytes "
+                f"spilled (stores / loads)"
+                + "".join(f"; {n}" for n in e["notes"]))
 
     # ---- phase 2: kernels vs plain versions --------------------------------
     small = heavy_pool_in_camera(np.eye(4), dev, N_SMALL)

@@ -6,8 +6,9 @@
 // q, o, dq, do: [B, Sq, H, D]; k, v, dk, dv: [B, Skv, H, D]; all bf16,
 // read and written with the row stride H*D (the layout the UNet's
 // projections produce), so no transpose is needed. lse, delta: [B, H, Sq]
-// f32. Everything is non-causal, with f32 scores, softmax and accumulators,
-// on the tensor cores through mma.sync.m16n8k16 (bf16 in, f32 accumulate).
+// f32. Everything is non-causal, with f32 scores, softmax and accumulators;
+// bf16 products on the tensor cores (D and G through wgmma, H through
+// mma.sync.m16n8k16). Head dims 64 and 128.
 //
 // Kernel D replaces street_crafter_tpu/ops/flash_attention.py:29
 // _flash_kernel (K4), the TPU's online-softmax forward: q blocks over the
@@ -15,56 +16,112 @@
 // the softmax denominator out of the PV matmul, and the power-of-two scale
 // folded into q. It computes o = softmax(q k^T * scale) v per (batch, head)
 // and, in its training form (sc_flash_forward_lse), the logsumexp
-// lse = m + log(l) of each query row, which the backward needs; the
-// sampling path writes no lse (the JAX package's need_lse=False).
-//
+// lse = m + log(l) of each query row, natural log, which the backward
+// needs; the sampling path writes no lse (the JAX package's need_lse=False).
 // Bound on this card: the two products, 4 * Sq * Skv * D operations per
-// (batch, head) on the tensor cores; the bytes (q, k, v read once, o written
-// once) are ~1/500 of that at the UNet's S = 9216, so the kernel is compute
-// bound. Design (FlashAttention-2's layout, without its pipelining):
-//   - one block of 4 warps per (batch*head, 64-row q tile); each warp owns
-//     16 q rows and keeps its Q fragments in registers for the whole kv loop;
-//   - K and V tiles of 64 keys are staged through shared memory (V stored
-//     transposed so its mma B fragments are single 32-bit loads; rows past
-//     Skv are zero, so the ragged kv edge adds nothing);
-//   - S = Q K^T and O += P V on the tensor cores; the score fragments are
-//     reused in registers as the A operand of P V (the accumulator layout of
-//     two n8 tiles is the A layout of one k16 step);
-//   - the online softmax runs on the score fragments in f32: row max and
-//     row sum over the four threads that share a row (shuffles), the running
-//     output rescaled by exp(m_old - m_new) on each new tile;
-//   - columns past Skv get -inf before the max; rows past Sq are computed on
-//     zero queries and not stored (the ragged q edge).
+// (batch, head) at 989 TFLOP/s; the bytes (q, k, v read once, o written
+// once) take ~1/16 of that at the UNet's S = 9216. At head dim 64 the
+// exponentials are the second limit: 16 ex2 a clock on an SM make one
+// 128 x 128 score tile's softmax as long as its two products. Design
+// (FlashAttention-3's shape):
+//   - one block of three warpgroups per (batch*head, 128 query rows): a
+//     producer (one thread issues the TMA loads; setmaxnreg gives its
+//     registers to the others) and two consumers of 64 rows each;
+//   - Q is loaded once by TMA; K and V tiles of 128 keys go through a ring
+//     of STAGES stages in dynamic shared memory, each with a "full" mbarrier
+//     (TMA transaction bytes) and an "empty" one that both consumer
+//     warpgroups must release (256 arrivals) before it is loaded again, so
+//     loads stay in flight while the consumers compute;
+//   - TMA reads through a 4-D map over [B, S, H, D] (box {64, 1, rows, 1},
+//     128-byte swizzle): positions past S come in as zeros, never as the
+//     next batch's rows. Head dim 128 is two 64-column boxes per row (two
+//     swizzle atoms), at the same 128-row tiles;
+//   - S = Q K^T by wgmma m64n128k16, A and B from shared-memory descriptors
+//     in the TMA's 128-byte swizzle (K-major);
+//   - the online softmax runs in f32 on the accumulator fragments in base 2
+//     (scale * log2(e) folded into one multiply, ex2.approx); row max and
+//     sum over the four threads that share a row; keys past Skv get -inf;
+//   - O += P V by wgmma m64nDk16 with A = P in registers (the m64n128 f32
+//     accumulator layout packs into the register-A fragments of eight k16
+//     steps without shuffles) and B = the V tile as it lies, through the
+//     transpose bit (MN-major descriptor): V is never transposed in memory;
+//   - the exponentials run under the products twice over: within a
+//     warpgroup, tile t's S = Q K^T and tile t - 1's P V are issued
+//     together and tile t's softmax runs while P V is in flight; across
+//     the two, named barriers hand the tensor cores from one warpgroup to
+//     the other (ping-pong), so one's softmax runs under the other's
+//     products;
+//   - query rows past Sq are computed on zeros and not stored.
+// At head dim 128 the S, P and O fragments (64 + 32 + 64 registers) do not
+// fit the 168 registers ptxas allots each thread of a 384-thread block:
+// it spills a little and serialises some products (its report is printed
+// by chip_smoke.py). The UNet runs head dim 64 only.
 //
 // Kernel G replaces flash_attention.py:195 _bwd_dkv_kernel (K5): dK and dV
-// of one block of 64 keys, with q, dO, lse and delta streaming in tiles and
-// p recomputed from lse (no [Sq, Skv] tensor touches device memory):
+// of one block of 128 keys, with q, dO, lse and delta streaming in tiles of
+// BQT queries (64; 32 at head dim 128, to keep the dK and dV accumulators,
+// 128 registers there, in registers) and p recomputed from lse (no
+// [Sq, Skv] tensor touches device memory):
 //   p = exp(s * scale - lse), dV += p^T dO, dp = dO v^T,
-//   ds = p * (dp - delta) * scale, dK += ds^T q.
+//   ds = p * (dp - delta) * scale, dK += ds^T q,
+// in the TPU kernel's order (key-major: the score tile is k q^T), with p
+// and ds rounded to bf16 before their products, where K5 rounds them.
+// Bound: four products, 8 * Sq * Skv * D operations per (batch, head).
+// Design (FlashAttention-3's dK/dV pass):
+//   - one block of three warpgroups per (batch*head, 128 keys): a producer
+//     and two consumers of 64 keys each. K and V are loaded once by TMA and
+//     stay in shared memory; dK and dV stay in f32 registers, written once;
+//   - q and dO tiles stream through a TMA ring (STAGES stages, full / empty
+//     mbarriers as in D); a second producer warp copies each tile's lse
+//     (times log2(e)) and delta rows into the stage with plain loads and
+//     arrives on the same full barrier (1 + 32 arrivals);
+//   - S^T = K q^T and dP^T = V dO^T by wgmma m64nBQTk16, B the q and dO
+//     tiles as they lie (K-major);
+//   - p^T = exp2(S^T * scale * log2(e) - lse * log2(e)) and
+//     ds^T = p^T (dP^T - delta) * scale on the fragments; queries past Sq
+//     are masked explicitly (p = 0): TMA's zero fill alone would give q = 0
+//     and lse = 0, so p = 1;
+//   - dV += P^T dO and dK += dS^T q by wgmma with A from registers and B
+//     the same dO and q tiles through the transpose bit: each tile is
+//     staged once. Keys past Skv are zeros and are not stored.
+//
+// Where this goes wrong, and how the design guards against it:
+//   - a wgmma descriptor whose swizzle or byte offsets disagree with the
+//     TMA's layout gives wrong numbers, not a crash: K-major tiles use
+//     stride offset 1024 (eight 128-byte rows) and advance 32 bytes per k16
+//     step; MN-major tiles (V in D; q, dO in G) use stride offset 1024 along
+//     K, leading offset one swizzle atom along N, and advance 16 rows (2048
+//     bytes) per k16 step. Ragged shapes in the tests and chip_smoke.py
+//     cross every tile edge;
+//   - asynchronous products: wgmma.fence before each group of products,
+//     commit_group / wait_group before its fragments are read, and an
+//     empty compiler barrier on the accumulators around them; nothing but
+//     a wgmma writes an accumulator between its fence and its wait (ptxas
+//     serialises the products otherwise);
+//   - a stage is reloaded only after both consumer warpgroups have released
+//     it; a wait that lasts seconds is a deadlock and traps, so the launch
+//     fails instead of hanging the card;
+//   - the tensor map: cuTensorMapEncodeTiled lives in libcuda; it is
+//     reached through the runtime's entry-point query (no -lcuda), encoded
+//     per call on the host (microseconds) and passed as a __grid_constant__
+//     parameter. TMA needs a 16-byte aligned base and 16-byte multiple
+//     strides (H*D*2 is one for D = 64 and 128); the wrapper checks the
+//     alignment;
+//   - dynamic shared memory above 48 KB needs cudaFuncSetAttribute, whose
+//     error is returned like a refused launch's.
+//
 // Kernel H replaces flash_attention.py:246 _bwd_dq_kernel (K6): dQ of one
-// block of 64 queries, with k and v streaming: dQ += ds k.
-// Both are computed in the TPU kernels' order (G key-major, so its score
-// tile is k q^T), with p and ds rounded to bf16 before their products, as
-// the TPU kernels round them. Bounds: G does 8 * Sq * Skv * D operations
-// per (batch, head) (four products), H 6 * Sq * Skv * D (three), both on
-// the tensor cores; compute bound at the UNet's sequence lengths. Design,
-// the forward's, turned around:
-//   - G: one block of 4 warps per (batch*head, 64-key tile); each warp owns
-//     16 keys and keeps their K and V fragments in registers, the dK and dV
-//     accumulators too; each q tile (64 queries, 32 at head dim 128) is
-//     staged in shared memory twice, row-major (the B operand of k q^T and
-//     v dO^T) and transposed (the B operand of p^T dO and ds^T q), with its
-//     lse and delta. Queries past Sq are zero and their p is forced to 0
-//     (the JAX code pads lse with +1e30 and masks the rows: ragged Sq must
-//     not reach dK or dV); keys past Skv are zero and not stored;
-//   - H: one block of 4 warps per (batch*head, 64-query tile); each warp
-//     owns 16 queries and keeps their Q and dO fragments, lse and delta in
-//     registers; each kv tile (64 keys, 32 at head dim 128) is staged
-//     row-major (the B operand of q k^T and dO v^T) and K also transposed
-//     (the B operand of ds k). Keys past Skv get s = -inf, so p = 0;
-//   - delta = rowsum(dO * O) is one torch op in the wrapper (f32), as the
-//     JAX package computes it outside its kernels.
+// block of 64 queries, with k and v streaming: dQ += ds k. Bound: 6 * Sq *
+// Skv * D operations per (batch, head) (three products). Design
+// (FlashAttention-2's layout, without its pipelining): one block of 4 warps
+// per (batch*head, 64-query tile); each warp owns 16 queries and keeps
+// their Q and dO fragments, lse and delta in registers; each kv tile (64
+// keys, 32 at head dim 128) is staged row-major (the B operand of q k^T and
+// dO v^T) and K also transposed (the B operand of ds k). Keys past Skv get
+// s = -inf, so p = 0. delta = rowsum(dO * O) is one torch op in the wrapper
+// (f32), as the JAX package computes it outside its kernels.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -72,9 +129,11 @@
 
 namespace {
 
-constexpr int BQ = 64;        // q rows per block: 4 warps x 16
-constexpr int BK = 64;        // keys per kv tile
-constexpr int THREADS = 128;
+constexpr int BQ = 64;        // kernel H: q rows per block, 4 warps x 16
+constexpr int THREADS = 128;  // kernel H: threads per block
+constexpr int WG3 = 384;      // kernels D and G: producer + two consumers
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
@@ -85,6 +144,670 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// ------------------------------------------- Hopper: TMA, mbarrier, wgmma
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// One arrival that also expects `bytes` of TMA transactions.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// Wait until the phase of parity `parity` has completed. A wait of 2^34
+// cycles (~9 s) is a deadlock, not a load: trap, so the launch fails.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// TMA: the box at (c0, c1, c2, c3) of a 4-D map into shared memory at
+// `dst`, completing `bar`'s transaction bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile in TMA's 128-byte swizzle:
+// start address, leading and stride byte offsets (in 16-byte units), layout
+// type 1 (128B swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of wgmma accumulators across the
+// fence / wait instructions (the hardware writes them asynchronously).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// Named barriers 1 and 2 order the two consumer warpgroups' products
+// (ping-pong): a warpgroup waits for its turn, issues its products and hands
+// the turn to the other one, so one warpgroup's softmax runs under the
+// other's products. 256 threads: the waiter's 128 and the other's 128.
+__device__ __forceinline__ void turn_wait(int cw) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + cw) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int cw) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - cw) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// An m64nNk16 f32 accumulator as the register-A fragments of N / 16 k16
+// steps, rounded to bf16: step j is columns 16 j .. 16 j + 15, registers
+// 8 j .. 8 j + 7 (the two layouts agree, no shuffles).
+template <int K16>
+__device__ __forceinline__ void a_frags(uint32_t (&a)[K16][4],
+                                        const float (&d)[8 * K16]) {
+#pragma unroll
+  for (int j = 0; j < K16; ++j) {
+    a[j][0] = pack_bf16(d[8 * j], d[8 * j + 1]);
+    a[j][1] = pack_bf16(d[8 * j + 2], d[8 * j + 3]);
+    a[j][2] = pack_bf16(d[8 * j + 4], d[8 * j + 5]);
+    a[j][3] = pack_bf16(d[8 * j + 6], d[8 * j + 7]);
+  }
+}
+
+// Rows [row, row + box rows) of head h of batch b through a 4-D map, as NA
+// 64-column boxes (128-byte swizzle atoms) `atom` bytes apart at dst.
+template <int NA>
+__device__ __forceinline__ void tma_rows(uint32_t dst, uint32_t atom,
+                                         const CUtensorMap* map, uint32_t bar,
+                                         int h, int row, int b) {
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+    tma_load(dst + a * atom, map, bar, 64 * a, h, row, b);
+}
+
+// d (64 x 32, f32) = A (64 x 16) * B (16 x 32) (+ d if accumulate), A
+// and B from shared memory through descriptors, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) = A (64 x 16) * B (16 x 64) (+ d if accumulate), A
+// and B from shared memory through descriptors, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, f32) = A (64 x 16) * B (16 x 128) (+ d if accumulate), A
+// and B from shared memory through descriptors, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 fragments in registers) * B (16 x
+// 64) from shared memory, B MN-major (tnspB = 1): B is read as it lies,
+// N contiguous.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 fragments in registers) * B (16 x
+// 128) from shared memory, B MN-major (tnspB = 1): B is read as it lies,
+// N contiguous.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc = A B^T over rows of NA 64-column swizzle atoms (4 NA k16 steps):
+// A (64 rows) at a and B (N rows) at b as TMA wrote them, K-major, each
+// row's atoms a_atom and b_atom bytes apart. A k16 step is 32 bytes along
+// the 128-byte rows; 1024 bytes (8 rows) is the stride offset.
+template <int NA, int N>
+__device__ __forceinline__ void wgmma_abt(float (&acc)[N], uint32_t a,
+                                          uint32_t a_atom, uint32_t b,
+                                          uint32_t b_atom) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(acc, desc(a + i * a_atom + 32 * kk, 16, 1024),
+               desc(b + i * b_atom + 32 * kk, 16, 1024), i + kk > 0);
+}
+
+// acc += A B: A as K16 register fragments, B at b as TMA wrote it, MN-major
+// (read as it lies through the transpose bit): a k16 step is 16 rows of
+// 128 bytes (2048), 1024 bytes (8 rows) the stride offset, and the next 64
+// columns one atom (b_atom bytes) further, the leading offset.
+template <int K16, int N>
+__device__ __forceinline__ void wgmma_ab(float (&acc)[N],
+                                         const uint32_t (&a)[K16][4],
+                                         uint32_t b, uint32_t b_atom) {
+#pragma unroll
+  for (int j = 0; j < K16; ++j)
+    wgmma_rs(acc, a[j], desc(b + 2048 * j, b_atom, 1024));
+}
+
+// ------------------------------------------------------------- kernel D
+
+// S = Q K^T of one 128-key tile for this warpgroup's 64 rows (issued and
+// committed, not waited for): Q at qa, K at ks.
+template <int NA>
+__device__ __forceinline__ void qk_tile(float (&sc)[64], uint32_t qa,
+                                        uint32_t ks) {
+  fence_regs(sc);
+  wgmma_fence();
+  wgmma_abt<NA>(sc, qa, 128 * 128, ks, 128 * 128);
+  wgmma_commit();
+  fence_regs(sc);
+}
+
+// O += P V of one 128-key tile (issued and committed): P in registers, the
+// V tile at vs as it lies.
+template <int N>
+__device__ __forceinline__ void pv_tile(float (&acc)[N],
+                                        const uint32_t (&pa)[8][4],
+                                        uint32_t vs) {
+  fence_regs(acc);
+  wgmma_fence();
+  wgmma_ab(acc, pa, vs, 128 * 128);
+  wgmma_commit();
+  fence_regs(acc);
+}
+
+// O's rows g (registers i with (i & 2) == 0) and g + 8 times al0, al1.
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], float al0,
+                                        float al1) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= (i & 2) ? al1 : al0;
+}
+
+// The online softmax of one score tile (keys kv0 .. kv0 + 127), in base 2
+// and f32: keys past Skv get -inf; the running max m and sum l of rows g
+// and g + 8 are updated, al is O's rescale, and sc becomes p (unrounded).
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], int kv0,
+                                             int Skv, int t4, float sl2,
+                                             float& m0, float& m1, float& l0,
+                                             float& l1, float& al0,
+                                             float& al1) {
+  if (kv0 + 128 > Skv) {  // the ragged kv edge
+#pragma unroll
+    for (int r = 0; r < 64; ++r)
+      if (kv0 + 8 * (r / 4) + 2 * t4 + (r & 1) >= Skv) sc[r] = -INFINITY;
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int r = 0; r < 64; r += 4) {
+    mx0 = fmaxf(mx0, fmaxf(sc[r], sc[r + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[r + 2], sc[r + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
+  al0 = ex2(m0 - mn0);
+  al1 = ex2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int r = 0; r < 64; r += 4) {
+    sc[r] = ex2(fmaf(sc[r], sl2, -m0));
+    sc[r + 1] = ex2(fmaf(sc[r + 1], sl2, -m0));
+    sc[r + 2] = ex2(fmaf(sc[r + 2], sl2, -m1));
+    sc[r + 3] = ex2(fmaf(sc[r + 3], sl2, -m1));
+    rs0 += sc[r] + sc[r + 1];
+    rs1 += sc[r + 2] + sc[r + 3];
+  }
+  l0 = l0 * al0 + rs0;
+  l1 = l1 * al1 + rs1;
+}
+
+// Dynamic shared memory of kernel D: the alignment pad, Q, the K/V ring and
+// the barriers (q_full, STAGES full, STAGES empty).
+template <int D, int STAGES>
+constexpr int fwd_smem_bytes() {
+  return 1024 + (D / 64) * 128 * 128 * (1 + 2 * STAGES) + 8 * (1 + 2 * STAGES);
+}
+
+// o (and lse) of 128 query rows of one (batch, head): grid q_tiles * B * H.
+template <int D, int STAGES, bool LSE>
+__global__ void __launch_bounds__(WG3, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int H, int Sq, int Skv, int q_tiles, float scale_log2) {
+  constexpr int NA = D / 64;                // 64-column swizzle atoms a row
+  constexpr uint32_t ATOM = 128 * 128;      // one atom of a 128-row tile
+  constexpr uint32_t TILE = NA * ATOM;      // a 128-row tile of Q, K or V
+  extern __shared__ uint8_t smem[];
+  const uint32_t sq = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t skv = sq + TILE;           // stage s: K, then V
+  const uint32_t q_full = skv + 2 * STAGES * TILE;
+  const uint32_t kv_full = q_full + 8, kv_empty = kv_full + 8 * STAGES;
+
+  const int bh = blockIdx.x / q_tiles, qt = blockIdx.x - bh * q_tiles;
+  const int b = bh / H, h = bh - b * H;
+  const int n_kv = (Skv + 127) / 128;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(kv_full + 8 * s, 1);
+      mbar_init(kv_empty + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    regs_dec<24>();
+    if (tid == 0) {
+      mbar_expect_tx(q_full, TILE);
+      tma_rows<NA>(sq, ATOM, &tq, q_full, h, 128 * qt, b);
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(kv_empty + 8 * s, ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(kv_full + 8 * s, 2 * TILE);
+        const uint32_t ks = skv + 2 * s * TILE;
+        tma_rows<NA>(ks, ATOM, &tk, kv_full + 8 * s, h, 128 * t, b);
+        tma_rows<NA>(ks + TILE, ATOM, &tv, kv_full + 8 * s, h, 128 * t, b);
+      }
+    }
+  } else {
+    // consumers: warpgroup cw owns query rows 64 cw .. 64 cw + 63 of the tile
+    regs_inc<240>();
+    const int cw = wg - 1;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const uint32_t qa = sq + cw * 64 * 128;
+    float acc[D / 2];  // O: m64nD accumulator, rows g and g + 8 of the warp
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;  // running max (base 2, scaled)
+    float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
+    mbar_wait(q_full, 0);
+
+    // Tile t's S = Q K^T and tile t - 1's O += P V are issued together, and
+    // the softmax of tile t runs while P V is in flight (FlashAttention-3's
+    // intra-warpgroup overlap); O is rescaled between the two issues.
+    uint32_t pa[8][4];            // P of the previous tile, register-A bf16
+    float al0 = 0.f, al1 = 0.f;   // its rescale of O
+    // consumer 0 takes the first turn; consumer 1's last hand-over finds no
+    // waiter, and a named barrier's count does not outlive the block
+    if (cw == 1) turn_pass(cw);
+    {
+      mbar_wait(kv_full, 0);
+      float sc[64];
+      turn_wait(cw);
+      qk_tile<NA>(sc, qa, skv);
+      turn_pass(cw);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      softmax_tile(sc, 0, Skv, t4, scale_log2, m0, m1, l0, l1, al0, al1);
+      a_frags(pa, sc);
+    }
+    for (int t = 1; t < n_kv; ++t) {
+      const int s = t % STAGES, sp = (t - 1) % STAGES;
+      mbar_wait(kv_full + 8 * s, (t / STAGES) & 1);
+      float sc[64];
+      turn_wait(cw);
+      qk_tile<NA>(sc, qa, skv + 2 * s * TILE);
+      rescale(acc, al0, al1);
+      pv_tile(acc, pa, skv + (2 * sp + 1) * TILE);
+      turn_pass(cw);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      softmax_tile(sc, 128 * t, Skv, t4, scale_log2, m0, m1, l0, l1, al0,
+                   al1);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(kv_empty + 8 * sp);  // both products of tile t - 1 are done
+      a_frags(pa, sc);
+    }
+    rescale(acc, al0, al1);  // the last tile's P V
+    turn_wait(cw);
+    pv_tile(acc, pa, skv + (2 * ((n_kv - 1) % STAGES) + 1) * TILE);
+    turn_pass(cw);
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const int r0 = 128 * qt + 64 * cw + 16 * warp + g, r1 = r0 + 8;
+    if (LSE && t4 == 0) {  // natural log: m0 is max * scale * log2(e)
+      float* lrow = lse + (long)bh * Sq;
+      if (r0 < Sq) lrow[r0] = m0 * LN2 + logf(l0);
+      if (r1 < Sq) lrow[r1] = m1 * LN2 + logf(l1);
+    }
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    const long rs = (long)H * D;
+    __nv_bfloat16* ob = o + ((long)b * Sq * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + 2 * t4;
+      if (r0 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + r0 * rs + col) =
+            pack_bf16(acc[4 * c] * inv0, acc[4 * c + 1] * inv0);
+      if (r1 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + r1 * rs + col) =
+            pack_bf16(acc[4 * c + 2] * inv1, acc[4 * c + 3] * inv1);
+    }
+  }
+}
+
+// ------------------------------------------------------------- kernel G
+
+// Dynamic shared memory of kernel G: the alignment pad, K, V, the q / dO
+// ring, the lse / delta rows of each stage and the barriers (kv_full,
+// STAGES full, STAGES empty).
+template <int D, int BQT, int STAGES>
+constexpr int dkv_smem_bytes() {
+  return 1024 + (D / 64) * (2 * 128 * 128 + STAGES * 2 * BQT * 128) +
+         STAGES * 512 + 8 * (1 + 2 * STAGES);
+}
+
+// dK, dV of 128 keys of one (batch, head), q tiles of BQT queries: grid
+// k_tiles * B * H.
+template <int D, int BQT, int STAGES>
+__global__ void __launch_bounds__(WG3, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int H, int Sq, int Skv,
+                     int k_tiles, float scale, float scale_log2) {
+  constexpr int NA = D / 64;
+  constexpr uint32_t KATOM = 128 * 128, KTILE = NA * KATOM;  // 128 keys
+  constexpr uint32_t QATOM = BQT * 128, QTILE = NA * QATOM;  // BQT queries
+  extern __shared__ uint8_t smem[];
+  const uint32_t sk = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t sv = sk + KTILE;
+  const uint32_t ring = sv + KTILE;              // stage s: q, then dO
+  const uint32_t rows = ring + 2 * STAGES * QTILE;  // stage s: lse, delta
+  const uint32_t kv_full = rows + 512 * STAGES;
+  const uint32_t full = kv_full + 8, empty = full + 8 * STAGES;
+  float* const row_buf =
+      reinterpret_cast<float*>(smem + (rows - smem_u32(smem)));
+
+  const int bh = blockIdx.x / k_tiles, kt = blockIdx.x - bh * k_tiles;
+  const int b = bh / H, h = bh - b * H;
+  const int n_q = (Sq + BQT - 1) / BQT;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1 + 32);  // the TMA thread + the row warp
+      mbar_init(empty + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: warp 0 issues TMA, warp 1 copies the rows
+    regs_dec<24>();
+    const int warp = tid / 32, lane = tid % 32;
+    if (tid == 0) {
+      mbar_expect_tx(kv_full, 2 * KTILE);
+      tma_rows<NA>(sk, KATOM, &tk, kv_full, h, 128 * kt, b);
+      tma_rows<NA>(sv, KATOM, &tv, kv_full, h, 128 * kt, b);
+      for (int t = 0; t < n_q; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty + 8 * s, ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * QTILE);
+        const uint32_t qs = ring + 2 * s * QTILE;
+        tma_rows<NA>(qs, QATOM, &tq, full + 8 * s, h, BQT * t, b);
+        tma_rows<NA>(qs + QTILE, QATOM, &tdo, full + 8 * s, h, BQT * t, b);
+      }
+    } else if (warp == 1) {
+      const float* lrow = lse + (long)bh * Sq;
+      const float* drow = delta + (long)bh * Sq;
+      for (int t = 0; t < n_q; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty + 8 * s, ((t / STAGES) & 1) ^ 1);
+        float* lr = row_buf + 128 * s;
+        for (int i = lane; i < BQT; i += 32) {
+          const int q = BQT * t + i;
+          lr[i] = q < Sq ? lrow[q] * LOG2E : 0.f;
+          lr[64 + i] = q < Sq ? drow[q] : 0.f;
+        }
+        mbar_arrive(full + 8 * s);
+      }
+    }
+  } else {
+    // consumers: warpgroup cw owns keys 64 cw .. 64 cw + 63 of the block
+    regs_inc<240>();
+    const int cw = wg - 1;
+    const int warp = tid / 32, lane = tid % 32, t4 = lane % 4;
+    const uint32_t ka = sk + cw * 64 * 128, va = sv + cw * 64 * 128;
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int t = 0; t < n_q; ++t) {
+      const int s = t % STAGES;
+      mbar_wait(full + 8 * s, (t / STAGES) & 1);
+      const uint32_t qs = ring + 2 * s * QTILE, os = qs + QTILE;
+      const float* lr = row_buf + 128 * s;  // lse * log2(e), then delta
+
+      // S^T = K q^T and dP^T = V dO^T: 64 keys x BQT queries each
+      float st[BQT / 2], dpt[BQT / 2];
+      wgmma_fence();
+      wgmma_abt<NA>(st, ka, KATOM, qs, QATOM);
+      wgmma_abt<NA>(dpt, va, KATOM, os, QATOM);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // p^T and ds^T on the fragments; column c is query BQT t + c
+      const bool ragged = BQT * (t + 1) > Sq;
+#pragma unroll
+      for (int r = 0; r < BQT / 2; ++r) {
+        const int c = 8 * (r / 4) + 2 * t4 + (r & 1);
+        float p = ex2(fmaf(st[r], scale_log2, -lr[c]));
+        if (ragged && BQT * t + c >= Sq) p = 0.f;
+        st[r] = p;
+        dpt[r] = p * (dpt[r] - lr[64 + c]) * scale;
+      }
+
+      // dV += P^T dO and dK += dS^T q: A from registers, B the same tiles
+      // through the transpose bit
+      uint32_t pf[BQT / 16][4], sf[BQT / 16][4];
+      a_frags(pf, st);
+      a_frags(sf, dpt);
+      wgmma_fence();
+      wgmma_ab(dva, pf, os, QATOM);
+      wgmma_ab(dka, sf, qs, QATOM);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      mbar_arrive(empty + 8 * s);
+    }
+
+    const int g = lane / 4;
+    const int k0 = 128 * kt + 64 * cw + 16 * warp + g, k1 = k0 + 8;
+    const long rs = (long)H * D;
+    const long off = ((long)b * Skv * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + 2 * t4;
+      if (k0 < Skv) {
+        *reinterpret_cast<uint32_t*>(dk + off + k0 * rs + col) =
+            pack_bf16(dka[4 * c], dka[4 * c + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off + k0 * rs + col) =
+            pack_bf16(dva[4 * c], dva[4 * c + 1]);
+      }
+      if (k1 < Skv) {
+        *reinterpret_cast<uint32_t*>(dk + off + k1 * rs + col) =
+            pack_bf16(dka[4 * c + 2], dka[4 * c + 3]);
+        *reinterpret_cast<uint32_t*>(dv + off + k1 * rs + col) =
+            pack_bf16(dva[4 * c + 2], dva[4 * c + 3]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- kernel H
+
 // D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
                                          uint32_t b0, uint32_t b1) {
@@ -94,158 +817,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-template <int D, bool LSE>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int H, int Sq, int Skv, float scale) {
-  constexpr int KPAD = D + 8;   // Ks row stride (bf16): conflict-free reads
-  constexpr int VPAD = BK + 8;  // Vt row stride (bf16)
-  __shared__ __align__(16) __nv_bfloat16 Ks[BK * KPAD];
-  __shared__ __align__(16) __nv_bfloat16 Vt[D * VPAD];
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - (bh / H) * H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const long rs = (long)H * D;  // elements between consecutive positions
-  const __nv_bfloat16* qb = q + ((long)b * Sq * H + h) * D;
-  const __nv_bfloat16* kb = k + ((long)b * Skv * H + h) * D;
-  const __nv_bfloat16* vb = v + ((long)b * Skv * H + h) * D;
-  __nv_bfloat16* ob = o + ((long)b * Sq * H + h) * D;
-
-  // this thread's two q rows (g and g + 8 of the warp's 16)
-  const int r0 = blockIdx.y * BQ + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const int c = ks * 16 + 2 * t4;
-    qa[ks][0] = r0 < Sq ? ld32(qb + r0 * rs + c) : 0u;
-    qa[ks][1] = r1 < Sq ? ld32(qb + r1 * rs + c) : 0u;
-    qa[ks][2] = r0 < Sq ? ld32(qb + r0 * rs + c + 8) : 0u;
-    qa[ks][3] = r1 < Sq ? ld32(qb + r1 * rs + c + 8) : 0u;
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows r0, r1
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = threadIdx.x; idx < BK * D / 8; idx += THREADS) {
-      const int r = idx / (D / 8), c8 = (idx - r * (D / 8)) * 8;
-      const int key = kv0 + r;
-      uint4 k4 = make_uint4(0u, 0u, 0u, 0u), v4 = k4;
-      if (key < Skv) {
-        k4 = *reinterpret_cast<const uint4*>(kb + key * rs + c8);
-        v4 = *reinterpret_cast<const uint4*>(vb + key * rs + c8);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * KPAD + c8]) = k4;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&v4);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(c8 + e) * VPAD + r] = ve[e];
-    }
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const __nv_bfloat16* kr = &Ks[(nt * 8 + g) * KPAD + ks * 16 + 2 * t4];
-        mma_bf16(s[nt], qa[ks], ld32(kr), ld32(kr + 8));
-      }
-    }
-
-    // scale, mask the ragged kv edge, online softmax in f32
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + nt * 8 + 2 * t4 + (e & 1);
-        s[nt][e] = col < Skv ? s[nt][e] * scale : -INFINITY;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= al0;
-    l1 *= al1;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= al0;
-      acc[dt][1] *= al0;
-      acc[dt][2] *= al1;
-      acc[dt][3] *= al1;
-    }
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - m0);
-      s[nt][1] = expf(s[nt][1] - m0);
-      s[nt][2] = expf(s[nt][2] - m1);
-      s[nt][3] = expf(s[nt][3] - m1);
-      l0 += s[nt][0] + s[nt][1];
-      l1 += s[nt][2] + s[nt][3];
-    }
-
-    // O += P V: P (bf16) straight from the score fragments
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* vr = &Vt[(dt * 8 + g) * VPAD + j * 16 + 2 * t4];
-        mma_bf16(acc[dt], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  if (LSE && t4 == 0) {
-    float* lrow = lse + (long)bh * Sq;
-    if (r0 < Sq) lrow[r0] = m0 + logf(l0);
-    if (r1 < Sq) lrow[r1] = m1 + logf(l1);
-  }
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t4;
-    if (r0 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * rs + c) =
-          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
-    if (r1 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * rs + c) =
-          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
-  }
-}
-
-// ---------------------------------------------------------------- backward
 
 // Stage rows [r0, r0 + R) of one (batch, head) of a [B, S, H, D] tensor
 // into shared memory: row-major at `rows` (stride D + 8) and, when `cols` is
@@ -345,77 +916,6 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long rs,
   }
 }
 
-// Kernel G: dK, dV of 64 keys (16 per warp); q tiles of BQT queries stream.
-template <int D, int BQT>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int H, int Sq, int Skv,
-                     float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[BQT * (D + 8)];
-  __shared__ __align__(16) __nv_bfloat16 Qt[D * (BQT + 8)];
-  __shared__ __align__(16) __nv_bfloat16 Os[BQT * (D + 8)];   // dO
-  __shared__ __align__(16) __nv_bfloat16 Ot[D * (BQT + 8)];   // dO^T
-  __shared__ float Ls[BQT], Ds[BQT];
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - (bh / H) * H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const long rs = (long)H * D;
-  const long qoff = ((long)b * Sq * H + h) * D;
-  const long koff = ((long)b * Skv * H + h) * D;
-  const float* lrow = lse + (long)bh * Sq;
-  const float* drow = delta + (long)bh * Sq;
-
-  const int k0 = blockIdx.y * BQ + warp * 16 + g;   // this thread's keys
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a<D>(ka, k + koff, rs, k0, Skv, t4);
-  load_a<D>(va, v + koff, rs, k0, Skv, t4);
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
-
-  for (int q0 = 0; q0 < Sq; q0 += BQT) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_tile<D, BQT>(q + qoff, rs, q0, Sq, Qs, Qt);
-    stage_tile<D, BQT>(dout + qoff, rs, q0, Sq, Os, Ot);
-    for (int i = threadIdx.x; i < BQT; i += THREADS) {
-      const bool in = q0 + i < Sq;
-      Ls[i] = in ? lrow[q0 + i] : 0.f;
-      Ds[i] = in ? drow[q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // p^T = exp(k q^T * scale - lse): 16 keys x BQT queries per warp
-    float p[BQT / 8][4], dp[BQT / 8][4];
-    mma_abt<D, BQT>(p, ka, Qs, g, t4);
-    mma_abt<D, BQT>(dp, va, Os, g, t4);   // (dO v^T)^T = v dO^T
-#pragma unroll
-    for (int nt = 0; nt < BQT / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + 2 * t4 + (e & 1);
-        const float pe = q0 + c < Sq ? expf(p[nt][e] * scale - Ls[c]) : 0.f;
-        p[nt][e] = pe;
-        // ds^T = p^T (dp^T - delta) * scale, rounded to bf16 in mma_pb
-        dp[nt][e] = pe * (dp[nt][e] - Ds[c]) * scale;
-      }
-    }
-    mma_pb<D, BQT>(dva, p, Ot, g, t4);    // dV += p^T dO
-    mma_pb<D, BQT>(dka, dp, Qt, g, t4);   // dK += ds^T q
-  }
-  store_rows<D>(dk + koff, rs, dka, k0, Skv, t4);
-  store_rows<D>(dv + koff, rs, dva, k0, Skv, t4);
-}
-
 // Kernel H: dQ of 64 queries (16 per warp); kv tiles of BKT keys stream.
 template <int D, int BKT>
 __global__ void __launch_bounds__(THREADS)
@@ -481,25 +981,109 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
 
 namespace {
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, through the runtime's entry-point
+// query (so the library needs no -lcuda); null if it is not there.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D TMA map of a [B, S, H, D] bf16 tensor (dims innermost first: D,
+// H, S, B), box {64, 1, rows, 1}: 64 columns of `rows` positions of one
+// (batch, head), 128-byte swizzled; positions past S read as zeros.
+int tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+               int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D, int STAGES, bool LSE>
+int launch_forward(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int H, int Sq, int Skv, float scale,
+                   cudaStream_t st) {
+  constexpr int smem = fwd_smem_bytes<D, STAGES>();
+  auto kern = flash_fwd_kernel<D, STAGES, LSE>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap mq, mk, mv;
+  int err = tensor_map(&mq, q, B, Sq, H, D, 128);
+  if (!err) err = tensor_map(&mk, k, B, Skv, H, D, 128);
+  if (!err) err = tensor_map(&mv, v, B, Skv, H, D, 128);
+  if (err) return err;
+  const int q_tiles = (Sq + 127) / 128;
+  kern<<<(unsigned)(q_tiles * B * H), WG3, smem, st>>>(
+      mq, mk, mv, (__nv_bfloat16*)o, lse, H, Sq, Skv, q_tiles,
+      scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
 template <bool LSE>
 int forward(const void* q, const void* k, const void* v, void* o, float* lse,
             int B, int H, int Sq, int Skv, int D, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(B * H), (unsigned)((Sq + BQ - 1) / BQ));
   cudaStream_t st = (cudaStream_t)stream;
-  const auto* qp = (const __nv_bfloat16*)q;
-  const auto* kp = (const __nv_bfloat16*)k;
-  const auto* vp = (const __nv_bfloat16*)v;
-  auto* op = (__nv_bfloat16*)o;
   if (D == 64)
-    flash_fwd_kernel<64, LSE><<<grid, THREADS, 0, st>>>(qp, kp, vp, op, lse,
-                                                        H, Sq, Skv, scale);
-  else if (D == 128)
-    flash_fwd_kernel<128, LSE><<<grid, THREADS, 0, st>>>(qp, kp, vp, op, lse,
-                                                         H, Sq, Skv, scale);
-  else
-    return (int)cudaErrorInvalidValue;
+    return launch_forward<64, 3, LSE>(q, k, v, o, lse, B, H, Sq, Skv, scale,
+                                      st);
+  if (D == 128)
+    return launch_forward<128, 2, LSE>(q, k, v, o, lse, B, H, Sq, Skv, scale,
+                                       st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D, int BQT, int STAGES>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dk, void* dv,
+               int B, int H, int Sq, int Skv, float scale, cudaStream_t st) {
+  constexpr int smem = dkv_smem_bytes<D, BQT, STAGES>();
+  auto kern = flash_bwd_dkv_kernel<D, BQT, STAGES>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap mq, mk, mv, mo;
+  int err = tensor_map(&mq, q, B, Sq, H, D, BQT);
+  if (!err) err = tensor_map(&mo, dout, B, Sq, H, D, BQT);
+  if (!err) err = tensor_map(&mk, k, B, Skv, H, D, 128);
+  if (!err) err = tensor_map(&mv, v, B, Skv, H, D, 128);
+  if (err) return err;
+  const int k_tiles = (Skv + 127) / 128;
+  kern<<<(unsigned)(k_tiles * B * H), WG3, smem, st>>>(
+      mq, mk, mv, mo, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H,
+      Sq, Skv, k_tiles, scale, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -511,7 +1095,8 @@ const char* sc_flash_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// q, o: [B, Sq, H, D]; k, v: [B, Skv, H, D]; bf16, contiguous. D: 64 or 128.
+// q, o: [B, Sq, H, D]; k, v: [B, Skv, H, D]; bf16, contiguous, 16-byte
+// aligned. D: 64 or 128.
 int sc_flash_forward(const void* q, const void* k, const void* v, void* o,
                      int B, int H, int Sq, int Skv, int D, float scale,
                      void* stream) {
@@ -535,25 +1120,16 @@ int sc_flash_backward_dkv(const void* q, const void* k, const void* v,
                           int Sq, int Skv, int D, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(B * H), (unsigned)((Skv + BQ - 1) / BQ));
   cudaStream_t st = (cudaStream_t)stream;
-  const auto* qp = (const __nv_bfloat16*)q;
-  const auto* kp = (const __nv_bfloat16*)k;
-  const auto* vp = (const __nv_bfloat16*)v;
-  const auto* op = (const __nv_bfloat16*)dout;
   const auto* lp = (const float*)lse;
   const auto* dp = (const float*)delta;
-  auto* dkp = (__nv_bfloat16*)dk;
-  auto* dvp = (__nv_bfloat16*)dv;
   if (D == 64)
-    flash_bwd_dkv_kernel<64, 64><<<grid, THREADS, 0, st>>>(
-        qp, kp, vp, op, lp, dp, dkp, dvp, H, Sq, Skv, scale);
-  else if (D == 128)
-    flash_bwd_dkv_kernel<128, 32><<<grid, THREADS, 0, st>>>(
-        qp, kp, vp, op, lp, dp, dkp, dvp, H, Sq, Skv, scale);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_dkv<64, 64, 3>(q, k, v, dout, lp, dp, dk, dv, B, H, Sq,
+                                 Skv, scale, st);
+  if (D == 128)
+    return launch_dkv<128, 32, 3>(q, k, v, dout, lp, dp, dk, dv, B, H, Sq,
+                                  Skv, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Kernel H: dq [B, Sq, H, D] bf16 from the same inputs.

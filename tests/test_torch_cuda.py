@@ -166,7 +166,10 @@ def test_kernel_wrappers_check_inputs(cuda):
 # largest |output| and the median within 2e-3: the kernels sum in another
 # order, kernel D rounds its probabilities against a running max, and the
 # plain versions round the same bf16 intermediates, so a bf16 ulp or two of
-# drift is expected where an intermediate rounds the other way.
+# drift is expected where an intermediate rounds the other way. The scale
+# is floored at 2^-8: with one key (Skv = 1) the reference dk and dq vanish
+# (a softmax over one key has no gradient with respect to its score), and
+# both sides hold only rounding noise, ~1e-6.
 
 from street_crafter_tpu_torch.ops import flash_attention as FA  # noqa: E402
 from street_crafter_tpu_torch.ops import temporal_block as TB  # noqa: E402
@@ -176,24 +179,42 @@ BF16_MAX, BF16_MED = 2e-2, 2e-3
 
 def bf16_errors(got, want):
     d = (got.float() - want.float()).abs()
-    scale = float(want.float().abs().max())
+    scale = max(float(want.float().abs().max()), 2.0 ** -8)
     return float(d.max()) / scale, float(d.median()) / scale
 
 
+# kernels D and G work in tiles of 128 queries (D) and 128 keys (G), with
+# 64-query (32 at head dim 128) q tiles streaming through G: these lengths
+# sit on, just inside and just past the tile edges
+EDGES = (1, 127, 128, 129, 300)
+RAGGED = [(1, sq, skv, 2, d) for d in (64, 128) for sq in EDGES
+          for skv in EDGES]
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
 @pytest.mark.parametrize("b,sq,skv,h,d", [(2, 100, 75, 3, 64),
                                           (1, 300, 257, 2, 128),
-                                          (2, 576, 576, 4, 64)])
-def test_kernel_d_matches_plain_attention(cuda, b, sq, skv, h, d):
+                                          (2, 576, 576, 4, 64)] + RAGGED)
+def test_kernel_d_matches_plain_attention(cuda, b, sq, skv, h, d, with_lse):
+    """Kernel D, the sampling form (no lse) and the training form (o and
+    lse), against its plain version."""
     g = torch.Generator(device=cuda).manual_seed(sq)
     q, k, v = (torch.randn((b, n, h, d), generator=g, device=cuda)
                .to(torch.bfloat16) for n in (sq, skv, skv))
     FA.reset_launch_counts()
-    got = FA.flash_attention(q, k, v)
-    want = FA.flash_attention_reference(q, k, v)
+    if with_lse:
+        got = FA._flash_cuda(q, k, v, with_lse=True)
+        want = FA.flash_attention_lse_reference(q, k, v)
+    else:
+        got = (FA.flash_attention(q, k, v),)
+        want = (FA.flash_attention_reference(q, k, v),)
     torch.cuda.synchronize()
-    assert FA.launches["flash_attention"] == 1
-    worst, med = bf16_errors(got, want)
-    assert worst <= BF16_MAX and med <= BF16_MED
+    assert FA.launches["flash_attention_lse" if with_lse
+                       else "flash_attention"] == 1
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and bool(torch.isfinite(x).all())
+        worst, med = bf16_errors(x, y)
+        assert worst <= BF16_MAX and med <= BF16_MED
 
 
 def _stage_inputs(cuda, B, T, S, C, seed):
@@ -272,7 +293,7 @@ def _attn_case(cuda, b, sq, skv, h, d, seed):
 @pytest.mark.parametrize("b,sq,skv,h,d", [(2, 100, 75, 3, 64),
                                           (1, 75, 100, 2, 128),
                                           (1, 300, 257, 2, 64),
-                                          (2, 576, 576, 4, 64)])
+                                          (2, 576, 576, 4, 64)] + RAGGED)
 def test_attention_training_kernels_match_plain(cuda, b, sq, skv, h, d):
     """Kernel D with lse, G and H against their plain versions on the same
     inputs (seeded cotangents), in bf16."""
@@ -327,3 +348,23 @@ def test_attention_training_wrappers_check_inputs(cuda):
     with pytest.raises(ValueError, match="head dim"):
         x = torch.zeros((1, 300, 2, 32), device=cuda, dtype=torch.bfloat16)
         FA._flash_backward_cuda(x, x, x, x, lse, lse)
+
+
+@pytest.mark.parametrize("kernel", ["D", "D with lse", "G"])
+def test_attention_kernels_refuse_unaligned_tensors(cuda, kernel):
+    """TMA reads from a 16-byte aligned base: a contiguous tensor that
+    starts one element into its storage is refused before launch."""
+    q, k, v, do = _attn_case(cuda, 1, 130, 130, 2, 64, 7)
+    flat = torch.zeros(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:].view(q.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    lse = torch.zeros((1, 2, 130), device=cuda)
+    FA.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if kernel == "D":
+            FA.flash_attention(shifted, k, v)
+        elif kernel == "D with lse":
+            FA._flash_cuda(q, shifted, v, with_lse=True)
+        else:
+            FA._flash_bwd_dkv_cuda(q, k, v, shifted, lse, lse)
+    assert not FA.launches
