@@ -55,7 +55,12 @@ Phases, one status line each; any failure raises (exit code != 0):
      chunked decode, CLIP, the profiler's device-busy share of one step,
      and per kernel at every main-path shape its CUDA-event time, bound,
      plain time and (kernel D) scaled_dot_product_attention's time, with
-     D's TF/s, share of its bound and ratio to that call;
+     D's TF/s, share of its bound and ratio to that call; then kernels E
+     and F split: the profiler's time of each kernel in one fused call
+     (the LayerNorms, the GEMMs by epilogue, the attention over T), and
+     each GEMM launched alone by epilogue and [M, N, K] on the operands
+     the stage gives it, held against its plain version (phase 8's
+     limits) and timed beside one F.linear call on the same operands;
  11. kernel D's training form (with lse) and the attention backward
      kernels G (dK, dV) and H (dQ) against their plain versions in bf16
      with seeded cotangents, at small ragged shapes (127 x 129 and 129 x 1
@@ -975,10 +980,16 @@ def sync_ms(fn, reps: int, warmup: int = 1) -> list[float]:
     return out
 
 
+# the port's own CUDA kernels (D, G, H; E's and F's pieces) in a profiler
+# trace
+PORT_KERNEL = re.compile(
+    r"\(anonymous namespace\)::(flash_|gemm_kernel|tattn_kernel|ln_kernel)")
+
+
 def busy_share(fn) -> tuple[float, float, int, list]:
     """torch.profiler over one call: (busy ms, wall ms, kernels, top): top
-    is the 8 kernels with the most device time, then every attention kernel
-    (D, G, H: "flash_" in the name) below them."""
+    is the 8 kernels with the most device time, then every kernel of the
+    port's own (PORT_KERNEL) below them."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1002,7 +1013,7 @@ def busy_share(fn) -> tuple[float, float, int, list]:
         rec[0] += e.time_range.elapsed_us()
         rec[1] += 1
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    top = ranked[:8] + [kv for kv in ranked[8:] if "flash_" in kv[0]]
+    top = ranked[:8] + [kv for kv in ranked[8:] if PORT_KERNEL.search(kv[0])]
     return busy / 1e3, wall, len(kern), top
 
 
@@ -1118,6 +1129,15 @@ def vdm_kernel_times(gpu: str) -> dict:
                 "library_ms": None,
                 **vdm_bound(cost["bytes"], cost["flops"])}, cost["flops"]))
             del args
+    for name, shapes, full in (("temporal_block_fused", E_SHAPES, True),
+                               ("temporal_attention_fused", F_SHAPES, False)):
+        for i, (B, T, S, C, heads) in enumerate(shapes):
+            r = rows[name][i]
+            r["split"] = stage_split(TB, dev, B, T, S, C, heads, 400 + i,
+                                     full)
+            log(f"[10] {name} {r['shape']} split: "
+                + split_text(r["split"], r["ms"]) + f"; {gpu}")
+            torch.cuda.empty_cache()
     for name, rs in rows.items():
         for r in rs:
             log(f"[10] {name} {r['shape']}: kernel {r['ms']:.3f} ms, bound "
@@ -1128,6 +1148,131 @@ def vdm_kernel_times(gpu: str) -> dict:
                 + rates_text(r, "scaled_dot_product_attention") + f"; {gpu}")
     torch.cuda.empty_cache()
     return rows
+
+
+# a kernel's name in a profiler listing without its arguments
+KERNEL_NAME = re.compile(r"\w+_kernel<[^>]*>")
+
+
+def kernel_ms(fn) -> list:
+    """[(kernel, device ms, launches)] of the port's kernels in one call of
+    fn, from torch.profiler, largest first. fn runs three times and only
+    the last call is kept: on the H100 a profile of a single call once
+    recorded 2 of kernel E's 10 launches and none of F's 4, a call after
+    two warm-up steps every launch (the caller checks the count)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    events = []
+    with torch.profiler.profile(
+            activities=acts,
+            schedule=torch.profiler.schedule(wait=0, warmup=2, active=1),
+            on_trace_ready=lambda p: events.extend(p.events())) as prof:
+        for _ in range(3):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    by_name: dict[str, list] = {}
+    for e in events:
+        m = KERNEL_NAME.search(e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and m:
+            rec = by_name.setdefault(m.group(0), [0.0, 0])
+            rec[0] += e.time_range.elapsed_us() / 1e3
+            rec[1] += 1
+    return sorted(((k, v[0], v[1]) for k, v in by_name.items()),
+                  key=lambda r: -r[1])
+
+
+def stage_split(TB, dev, B, T, S, C, heads, seed, full: bool) -> list:
+    """Phase 10: kernel E's (``full``) or F's split at one shape. First the
+    device time of each kernel in one fused call, from torch.profiler (the
+    LayerNorms and the attention over T are timed only so). Then each GEMM
+    launched alone through ``temporal_gemm`` on the operands the stage
+    gives it (the chain of kernels E and F, with the plain LayerNorm and
+    attention between the GEMMs), held against its plain version on the
+    same operands, its CUDA-event ms beside one
+    torch.nn.functional.linear call (timed only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    h, emb, bias, w = stage_inputs(dev, B, T, S, C, seed)
+    BT, M = B * T, B * T * S
+    kw = dict(num_frames=T, heads=heads, dim_head=C // heads)
+    if full:
+        prof = kernel_ms(lambda: TB.temporal_block_fused(
+            h, emb, 0.3, bias, *[w[k] for k in TB._BLOCK_WEIGHTS], **kw))
+    else:
+        prof = kernel_ms(lambda: TB.temporal_attention_fused(
+            h, bias, *[w[k] for k in ("norm1_s", "norm1_b", "wqkv", "wout",
+                                      "bout")], **kw))
+    launched = sum(n for _, _, n in prof)
+    if launched != (10 if full else 4):
+        raise AssertionError(f"the profiler saw {launched} kernels of one "
+                             f"fused call: {prof}")
+    rows = [{"piece": f"{name} in the fused call", "ms": ms, "launches": n}
+            for name, ms, n in prof]
+
+    def gemm(epi, a, wname, bname, **ekw):
+        wt = w[wname]
+        b = None if bname is None else w[bname]
+        N = wt.shape[0] // 2 if epi == "geglu" else wt.shape[0]
+        out = TB.temporal_gemm(epi, a, wt, b, **ekw)
+        e = bf16_errors(out, TB.temporal_gemm_reference(epi, a, wt, b,
+                                                        **ekw))
+        shape = [M, N, a.shape[1]]
+        check_errors(f"GEMM {epi} {shape} alone", e, 10)
+        ms = cuda_ms(lambda: TB.temporal_gemm(epi, a, wt, b, **ekw), 5)
+        lin = cuda_ms(lambda: F.linear(a, wt, b), 5)
+        rows.append({"piece": f"GEMM {epi}", "shape": shape, "ms": ms,
+                     "linear_ms": lin,
+                     "tflops": 2 * M * wt.shape[0] * a.shape[1] / ms / 1e9,
+                     "linear_ratio": ms / lin, "max_rel": e["max_rel"],
+                     "med_rel": e["med_rel"]})
+        torch.cuda.empty_cache()
+        return out
+
+    def ln(x, sname, bname):
+        return TB._ln(x.reshape(BT, S, C), w[sname], w[bname])
+
+    def attn(y):
+        qkv = gemm("store", y.reshape(M, C), "wqkv", None)
+        return TB._attn_T(qkv.reshape(BT, S, 3 * C), B, T, S,
+                          heads).reshape(M, C)
+
+    if not full:
+        att = attn(ln(h, "norm1_s", "norm1_b"))
+        gemm("add_f32", att, "wout", "bout", resid=h.reshape(M, C),
+             rowbias=bias, rows_per_batch=T * S)
+        return rows
+    x = (h.float() + emb.float()[:, None]).to(torch.bfloat16).reshape(M, C)
+    g = gemm("geglu", ln(x, "norm_in_s", "norm_in_b").reshape(M, C),
+             "ffin_w1", "ffin_b1")
+    x = gemm("resid", g, "ffin_w2", "ffin_b2", resid=x)
+    att = attn(ln(x, "norm1_s", "norm1_b"))
+    x = gemm("resid_bias", att, "wout", "bout", resid=x, rowbias=bias,
+             rows_per_batch=T * S)
+    g = gemm("geglu", ln(x, "norm3_s", "norm3_b").reshape(M, C), "ff_w1",
+             "ff_b1")
+    gemm("resid_blend", g, "ff_w2", "ff_b2", resid=x,
+         blend_h=h.reshape(M, C), alpha=0.3)
+    return rows
+
+
+def split_text(rows: list, total_ms: float) -> str:
+    parts = []
+    for r in rows:
+        t = f"{r['piece']} {r['ms']:.3f} ms"
+        if "launches" in r:
+            t += f" x{r['launches']}"
+        if "shape" in r:
+            t += (f" alone {r['shape']} ({r['tflops']:.1f} TF/s; F.linear "
+                  f"{r['linear_ms']:.3f} ms, {r['linear_ratio']:.2f}x; "
+                  f"error {r['max_rel']:.2e} / {r['med_rel']:.2e})")
+        parts.append(t)
+    prof = sum(r["ms"] for r in rows if "launches" in r)
+    alone = sum(r["ms"] for r in rows if "shape" in r)
+    return (", ".join(parts) + f"; the fused call's kernels {prof:.3f} ms "
+            f"under the profiler, its GEMMs alone {alone:.3f} ms, the fused "
+            f"call {total_ms:.3f} ms by CUDA events")
 
 
 # ---------------------------------------------------------------------------
@@ -1780,7 +1925,9 @@ def main() -> None:
     # shape (its form with lse); kernel D's vdm_train launches are its lse
     # form's
     def rounded(rows):
-        return [{k: (round(v, 4) if isinstance(v, float) else v)
+        return [{k: (round(v, 4) if isinstance(v, float) else
+                     rounded(v) if isinstance(v, list) and v
+                     and isinstance(v[0], dict) else v)
                  for k, v in r.items()} for r in rows]
 
     for name in ("flash_attention", "temporal_block_fused",

@@ -7,8 +7,9 @@
 // read and written with the row stride H*D (the layout the UNet's
 // projections produce), so no transpose is needed. lse, delta: [B, H, Sq]
 // f32. Everything is non-causal, with f32 scores, softmax and accumulators;
-// bf16 products on the tensor cores (D and G through wgmma, H through
-// mma.sync.m16n8k16). Head dims 64 and 128.
+// bf16 products on the tensor cores through wgmma. Head dims 64 and 128.
+// The Hopper building blocks (mbarriers, TMA, wgmma descriptors) are in
+// hopper.cuh.
 //
 // Kernel D replaces street_crafter_tpu/ops/flash_attention.py:29
 // _flash_kernel (K4), the TPU's online-softmax forward: q blocks over the
@@ -89,10 +90,10 @@
 //   - a wgmma descriptor whose swizzle or byte offsets disagree with the
 //     TMA's layout gives wrong numbers, not a crash: K-major tiles use
 //     stride offset 1024 (eight 128-byte rows) and advance 32 bytes per k16
-//     step; MN-major tiles (V in D; q, dO in G) use stride offset 1024 along
-//     K, leading offset one swizzle atom along N, and advance 16 rows (2048
-//     bytes) per k16 step. Ragged shapes in the tests and chip_smoke.py
-//     cross every tile edge;
+//     step; MN-major tiles (V in D; q, dO in G; K in H) use stride offset
+//     1024 along K, leading offset one swizzle atom along N, and advance
+//     16 rows (2048 bytes) per k16 step. Ragged shapes in the tests and
+//     chip_smoke.py cross every tile edge;
 //   - asynchronous products: wgmma.fence before each group of products,
 //     commit_group / wait_group before its fragments are read, and an
 //     empty compiler barrier on the accumulators around them; nothing but
@@ -111,165 +112,46 @@
 //     error is returned like a refused launch's.
 //
 // Kernel H replaces flash_attention.py:246 _bwd_dq_kernel (K6): dQ of one
-// block of 64 queries, with k and v streaming: dQ += ds k. Bound: 6 * Sq *
-// Skv * D operations per (batch, head) (three products). Design
-// (FlashAttention-2's layout, without its pipelining): one block of 4 warps
-// per (batch*head, 64-query tile); each warp owns 16 queries and keeps
-// their Q and dO fragments, lse and delta in registers; each kv tile (64
-// keys, 32 at head dim 128) is staged row-major (the B operand of q k^T and
-// dO v^T) and K also transposed (the B operand of ds k). Keys past Skv get
-// s = -inf, so p = 0. delta = rowsum(dO * O) is one torch op in the wrapper
-// (f32), as the JAX package computes it outside its kernels.
+// block of 128 queries, with k and v streaming: dQ += ds k, ds = p (dp -
+// delta) scale rounded to bf16 (where K6 rounds ds_t), p = exp(s - lse) in
+// f32. Bound: three products, 6 * Sq * Skv * D operations per (batch,
+// head). Design (kernel G's, turned around):
+//   - one block of three warpgroups per (batch*head, 128 queries): a
+//     producer and two consumers of 64 queries each. Q and dO are loaded
+//     once by TMA and stay in shared memory; the row warp of the producer
+//     copies the block's lse (times log2(e)) and delta rows once; dQ stays
+//     in f32 registers, written once;
+//   - K and V tiles of BKT keys (64; 32 at head dim 128) stream through a
+//     TMA ring of STAGES stages with full / empty mbarriers, as in D;
+//   - S = Q K^T and dP = dO V^T by wgmma m64nBKTk16, both operands K-major
+//     from shared memory; p and ds on the fragments; keys past Skv are
+//     masked explicitly (TMA's zero fill gives s = 0, not -inf);
+//   - dQ += dS K by wgmma with A = dS from registers and B the K tile
+//     through the transpose bit (MN-major): K is never transposed;
+//   - tile t's S and dP are issued with tile t - 1's dS K, its exponentials
+//     run while that product is in flight, and the two consumers take the
+//     tensor cores in turns (named barriers, D's ping-pong);
+//   - BKT = 64 keeps S, dP (32 registers each), dQ (32) and the dS
+//     fragments (16) of a thread inside the 168 registers ptxas allots a
+//     384-thread block; at BKT = 128 they would need ~190;
+//   - query rows past Sq are computed on zeros and not stored.
+// delta = rowsum(dO * O) is one torch op in the wrapper (f32), as the JAX
+// package computes it outside its kernels.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // kernel H: q rows per block, 4 warps x 16
-constexpr int THREADS = 128;  // kernel H: threads per block
-constexpr int WG3 = 384;      // kernels D and G: producer + two consumers
+constexpr int WG3 = 384;      // a producer warpgroup + two consumers
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// ------------------------------------------- Hopper: TMA, mbarrier, wgmma
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-// One arrival that also expects `bytes` of TMA transactions.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-// Wait until the phase of parity `parity` has completed. A wait of 2^34
-// cycles (~9 s) is a deadlock, not a load: trap, so the launch fails.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
-
-// TMA: the box at (c0, c1, c2, c3) of a 4-D map into shared memory at
-// `dst`, completing `bar`'s transaction bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile in TMA's 128-byte swizzle:
-// start address, leading and stride byte offsets (in 16-byte units), layout
-// type 1 (128B swizzle) in bits 62-63.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups of this warpgroup are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accesses of wgmma accumulators across the
-// fence / wait instructions (the hardware writes them asynchronously).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int R>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-template <int R>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-// Named barriers 1 and 2 order the two consumer warpgroups' products
-// (ping-pong): a warpgroup waits for its turn, issues its products and hands
-// the turn to the other one, so one warpgroup's softmax runs under the
-// other's products. 256 threads: the waiter's 128 and the other's 128.
-__device__ __forceinline__ void turn_wait(int cw) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + cw) : "memory");
-}
-
-__device__ __forceinline__ void turn_pass(int cw) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - cw) : "memory");
-}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// An m64nNk16 f32 accumulator as the register-A fragments of N / 16 k16
-// steps, rounded to bf16: step j is columns 16 j .. 16 j + 15, registers
-// 8 j .. 8 j + 7 (the two layouts agree, no shuffles).
-template <int K16>
-__device__ __forceinline__ void a_frags(uint32_t (&a)[K16][4],
-                                        const float (&d)[8 * K16]) {
-#pragma unroll
-  for (int j = 0; j < K16; ++j) {
-    a[j][0] = pack_bf16(d[8 * j], d[8 * j + 1]);
-    a[j][1] = pack_bf16(d[8 * j + 2], d[8 * j + 3]);
-    a[j][2] = pack_bf16(d[8 * j + 4], d[8 * j + 5]);
-    a[j][3] = pack_bf16(d[8 * j + 6], d[8 * j + 7]);
-  }
 }
 
 // Rows [row, row + box rows) of head h of batch b through a 4-D map, as NA
@@ -281,158 +163,6 @@ __device__ __forceinline__ void tma_rows(uint32_t dst, uint32_t atom,
 #pragma unroll
   for (int a = 0; a < NA; ++a)
     tma_load(dst + a * atom, map, bar, 64 * a, h, row, b);
-}
-
-// d (64 x 32, f32) = A (64 x 16) * B (16 x 32) (+ d if accumulate), A
-// and B from shared memory through descriptors, both K-major.
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, f32) = A (64 x 16) * B (16 x 64) (+ d if accumulate), A
-// and B from shared memory through descriptors, both K-major.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 128, f32) = A (64 x 16) * B (16 x 128) (+ d if accumulate), A
-// and B from shared memory through descriptors, both K-major.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 fragments in registers) * B (16 x
-// 64) from shared memory, B MN-major (tnspB = 1): B is read as it lies,
-// N contiguous.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 128, f32) += A (64 x 16, bf16 fragments in registers) * B (16 x
-// 128) from shared memory, B MN-major (tnspB = 1): B is read as it lies,
-// N contiguous.
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// acc = A B^T over rows of NA 64-column swizzle atoms (4 NA k16 steps):
-// A (64 rows) at a and B (N rows) at b as TMA wrote them, K-major, each
-// row's atoms a_atom and b_atom bytes apart. A k16 step is 32 bytes along
-// the 128-byte rows; 1024 bytes (8 rows) is the stride offset.
-template <int NA, int N>
-__device__ __forceinline__ void wgmma_abt(float (&acc)[N], uint32_t a,
-                                          uint32_t a_atom, uint32_t b,
-                                          uint32_t b_atom) {
-#pragma unroll
-  for (int i = 0; i < NA; ++i)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss(acc, desc(a + i * a_atom + 32 * kk, 16, 1024),
-               desc(b + i * b_atom + 32 * kk, 16, 1024), i + kk > 0);
-}
-
-// acc += A B: A as K16 register fragments, B at b as TMA wrote it, MN-major
-// (read as it lies through the transpose bit): a k16 step is 16 rows of
-// 128 bytes (2048), 1024 bytes (8 rows) the stride offset, and the next 64
-// columns one atom (b_atom bytes) further, the leading offset.
-template <int K16, int N>
-__device__ __forceinline__ void wgmma_ab(float (&acc)[N],
-                                         const uint32_t (&a)[K16][4],
-                                         uint32_t b, uint32_t b_atom) {
-#pragma unroll
-  for (int j = 0; j < K16; ++j)
-    wgmma_rs(acc, a[j], desc(b + 2048 * j, b_atom, 1024));
 }
 
 // ------------------------------------------------------------- kernel D
@@ -808,205 +538,205 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ------------------------------------------------------------- kernel H
 
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Dynamic shared memory of kernel H: the alignment pad, Q, dO, the K / V
+// ring, the lse / delta rows and the barriers (q_full, STAGES full, STAGES
+// empty).
+template <int D, int BKT, int STAGES>
+constexpr int dq_smem_bytes() {
+  return 1024 + (D / 64) * (2 * 128 * 128 + STAGES * 2 * BKT * 128) + 1024 +
+         8 * (1 + 2 * STAGES);
 }
 
-// Stage rows [r0, r0 + R) of one (batch, head) of a [B, S, H, D] tensor
-// into shared memory: row-major at `rows` (stride D + 8) and, when `cols` is
-// not null, transposed at `cols` (stride R + 8). Rows past S are zero.
-template <int D, int R>
-__device__ __forceinline__ void stage_tile(const __nv_bfloat16* base,
-                                           long rs, int r0, int S,
-                                           __nv_bfloat16* rows,
-                                           __nv_bfloat16* cols) {
-  for (int idx = threadIdx.x; idx < R * D / 8; idx += THREADS) {
-    const int r = idx / (D / 8), c8 = (idx - r * (D / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S)
-      x = *reinterpret_cast<const uint4*>(base + (long)(r0 + r) * rs + c8);
-    *reinterpret_cast<uint4*>(&rows[r * (D + 8) + c8]) = x;
-    if (cols != nullptr) {
-      const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&x);
+// S = Q K^T and dP = dO V^T of one key tile for this warpgroup's 64 rows
+// (issued and committed, not waited for): Q at qa, dO at oa, the tile's K
+// at ks and V at ks + KTILE.
+template <int NA, int BKT>
+__device__ __forceinline__ void sdp_tile(float (&st)[BKT / 2],
+                                         float (&dpt)[BKT / 2], uint32_t qa,
+                                         uint32_t oa, uint32_t ks) {
+  constexpr uint32_t KATOM = BKT * 128;
+  fence_regs(st);
+  fence_regs(dpt);
+  wgmma_fence();
+  wgmma_abt<NA>(st, qa, 128 * 128, ks, KATOM);
+  wgmma_abt<NA>(dpt, oa, 128 * 128, ks + NA * KATOM, KATOM);
+  wgmma_commit();
+  fence_regs(st);
+  fence_regs(dpt);
+}
+
+// dQ += dS K of one key tile (issued and committed): dS in registers, the K
+// tile at ks as it lies (MN-major, through the transpose bit).
+template <int BKT, int N>
+__device__ __forceinline__ void dq_tile(float (&acc)[N],
+                                        const uint32_t (&sf)[BKT / 16][4],
+                                        uint32_t ks) {
+  fence_regs(acc);
+  wgmma_fence();
+  wgmma_ab(acc, sf, ks, BKT * 128);
+  wgmma_commit();
+  fence_regs(acc);
+}
+
+// p = exp2(s * scale * log2(e) - lse * log2(e)) and ds = p (dp - delta)
+// scale on the fragments of one key tile (keys kv0 .. kv0 + BKT - 1); ds
+// replaces dp. Keys past Skv are masked explicitly (p = 0): TMA's zero fill
+// gives s = 0 there, not -inf. ls and dl: lse * log2(e) and delta of rows
+// g and g + 8.
+template <int N>
+__device__ __forceinline__ void ds_tile(const float (&st)[N], float (&dpt)[N],
+                                        int kv0, int Skv, int t4, float sl2,
+                                        float scale, float ls0, float ls1,
+                                        float dl0, float dl1) {
+  const bool ragged = kv0 + 2 * N > Skv;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) cols[(c8 + e) * (R + 8) + r] = xe[e];
-    }
+  for (int r = 0; r < N; ++r) {
+    const bool hi = r & 2;
+    float p = ex2(fmaf(st[r], sl2, -(hi ? ls1 : ls0)));
+    if (ragged && kv0 + 8 * (r / 4) + 2 * t4 + (r & 1) >= Skv) p = 0.f;
+    dpt[r] = p * (dpt[r] - (hi ? dl1 : dl0)) * scale;
   }
 }
 
-// A fragments (16 rows x D) of the rows ra, ra + 8 of a [B, S, H, D] slice,
-// zero past S.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t a[D / 16][4],
-                                       const __nv_bfloat16* base, long rs,
-                                       int ra, int S, int t4) {
-  const int rb = ra + 8;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const int c = ks * 16 + 2 * t4;
-    a[ks][0] = ra < S ? ld32(base + ra * rs + c) : 0u;
-    a[ks][1] = rb < S ? ld32(base + rb * rs + c) : 0u;
-    a[ks][2] = ra < S ? ld32(base + ra * rs + c + 8) : 0u;
-    a[ks][3] = rb < S ? ld32(base + rb * rs + c + 8) : 0u;
-  }
-}
-
-// C (16 x N) = A (16 x D, fragments) * B^T, B row-major in shared memory
-// [N][D + 8]: N / 8 accumulator tiles.
-template <int D, int N>
-__device__ __forceinline__ void mma_abt(float c[N / 8][4],
-                                        const uint32_t a[D / 16][4],
-                                        const __nv_bfloat16* b, int g,
-                                        int t4) {
-#pragma unroll
-  for (int nt = 0; nt < N / 8; ++nt)
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-#pragma unroll
-    for (int nt = 0; nt < N / 8; ++nt) {
-      const __nv_bfloat16* br = &b[(nt * 8 + g) * (D + 8) + ks * 16 + 2 * t4];
-      mma_bf16(c[nt], a[ks], ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-// acc (16 x D) += P (16 x N, bf16 from accumulator tiles) * B, B stored
-// transposed in shared memory [D][N + 8].
-template <int D, int N>
-__device__ __forceinline__ void mma_pb(float acc[D / 8][4],
-                                       const float p[N / 8][4],
-                                       const __nv_bfloat16* bt, int g,
-                                       int t4) {
-#pragma unroll
-  for (int j = 0; j < N / 16; ++j) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * j][0], p[2 * j][1]),
-                            pack_bf16(p[2 * j][2], p[2 * j][3]),
-                            pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
-                            pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const __nv_bfloat16* br = &bt[(dt * 8 + g) * (N + 8) + j * 16 + 2 * t4];
-      mma_bf16(acc[dt], pa, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-// Store a 16 x D f32 accumulator as bf16 rows ra, ra + 8 (those below S).
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long rs,
-                                           const float acc[D / 8][4], int ra,
-                                           int S, int t4) {
-  const int rb = ra + 8;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t4;
-    if (ra < S)
-      *reinterpret_cast<uint32_t*>(base + ra * rs + c) =
-          pack_bf16(acc[dt][0], acc[dt][1]);
-    if (rb < S)
-      *reinterpret_cast<uint32_t*>(base + rb * rs + c) =
-          pack_bf16(acc[dt][2], acc[dt][3]);
-  }
-}
-
-// Kernel H: dQ of 64 queries (16 per warp); kv tiles of BKT keys stream.
-template <int D, int BKT>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
+// dQ of 128 query rows of one (batch, head), key tiles of BKT keys: grid
+// q_tiles * B * H.
+template <int D, int BKT, int STAGES>
+__global__ void __launch_bounds__(WG3, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dq, int H, int Sq, int Skv,
-                    float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[BKT * (D + 8)];
-  __shared__ __align__(16) __nv_bfloat16 Kt[D * (BKT + 8)];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BKT * (D + 8)];
+                    int q_tiles, float scale, float scale_log2) {
+  constexpr int NA = D / 64;
+  constexpr uint32_t QATOM = 128 * 128, QTILE = NA * QATOM;  // 128 queries
+  constexpr uint32_t KATOM = BKT * 128, KTILE = NA * KATOM;  // BKT keys
+  extern __shared__ uint8_t smem[];
+  const uint32_t sq = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t sdo = sq + QTILE;
+  const uint32_t ring = sdo + QTILE;                 // stage s: K, then V
+  const uint32_t rows = ring + 2 * STAGES * KTILE;   // lse * log2(e), delta
+  const uint32_t q_full = rows + 1024;
+  const uint32_t full = q_full + 8, empty = full + 8 * STAGES;
+  float* const row_buf =
+      reinterpret_cast<float*>(smem + (rows - smem_u32(smem)));
 
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - (bh / H) * H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const long rs = (long)H * D;
-  const long qoff = ((long)b * Sq * H + h) * D;
-  const long koff = ((long)b * Skv * H + h) * D;
-
-  const int r0 = blockIdx.y * BQ + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[D / 16][4], oa[D / 16][4];
-  load_a<D>(qa, q + qoff, rs, r0, Sq, t4);
-  load_a<D>(oa, dout + qoff, rs, r0, Sq, t4);
-  const float* lrow = lse + (long)bh * Sq;
-  const float* drow = delta + (long)bh * Sq;
-  const float ls0 = r0 < Sq ? lrow[r0] : 0.f, ls1 = r1 < Sq ? lrow[r1] : 0.f;
-  const float dl0 = r0 < Sq ? drow[r0] : 0.f, dl1 = r1 < Sq ? drow[r1] : 0.f;
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[dt][e] = 0.f;
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += BKT) {
-    __syncthreads();
-    stage_tile<D, BKT>(k + koff, rs, kv0, Skv, Ks, Kt);
-    stage_tile<D, BKT>(v + koff, rs, kv0, Skv, Vs, nullptr);
-    __syncthreads();
-
-    float p[BKT / 8][4], dp[BKT / 8][4];
-    mma_abt<D, BKT>(p, qa, Ks, g, t4);    // q k^T
-    mma_abt<D, BKT>(dp, oa, Vs, g, t4);   // dO v^T
-#pragma unroll
-    for (int nt = 0; nt < BKT / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + nt * 8 + 2 * t4 + (e & 1);
-        const float lsr = e < 2 ? ls0 : ls1, dlr = e < 2 ? dl0 : dl1;
-        const float pe = col < Skv ? expf(p[nt][e] * scale - lsr) : 0.f;
-        dp[nt][e] = pe * (dp[nt][e] - dlr) * scale;   // ds
-      }
+  const int bh = blockIdx.x / q_tiles, qt = blockIdx.x - bh * q_tiles;
+  const int b = bh / H, h = bh - b * H;
+  const int n_kv = (Skv + BKT - 1) / BKT;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1 + 32);  // the TMA thread + the row warp
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
     }
-    mma_pb<D, BKT>(dqa, dp, Kt, g, t4);   // dQ += ds k
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  store_rows<D>(dq + qoff, rs, dqa, r0, Sq, t4);
+  __syncthreads();
+
+  if (wg == 0) {  // producer: warp 0 issues TMA, warp 1 copies the rows
+    regs_dec<24>();
+    const int warp = tid / 32, lane = tid % 32;
+    if (tid == 0) {
+      mbar_expect_tx(q_full, 2 * QTILE);
+      tma_rows<NA>(sq, QATOM, &tq, q_full, h, 128 * qt, b);
+      tma_rows<NA>(sdo, QATOM, &tdo, q_full, h, 128 * qt, b);
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty + 8 * s, ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * KTILE);
+        const uint32_t ks = ring + 2 * s * KTILE;
+        tma_rows<NA>(ks, KATOM, &tk, full + 8 * s, h, BKT * t, b);
+        tma_rows<NA>(ks + KTILE, KATOM, &tv, full + 8 * s, h, BKT * t, b);
+      }
+    } else if (warp == 1) {
+      const float* lrow = lse + (long)bh * Sq;
+      const float* drow = delta + (long)bh * Sq;
+      for (int i = lane; i < 128; i += 32) {
+        const int q = 128 * qt + i;
+        row_buf[i] = q < Sq ? lrow[q] * LOG2E : 0.f;
+        row_buf[128 + i] = q < Sq ? drow[q] : 0.f;
+      }
+      mbar_arrive(q_full);
+    }
+  } else {
+    // consumers: warpgroup cw owns query rows 64 cw .. 64 cw + 63 of the tile
+    regs_inc<240>();
+    const int cw = wg - 1;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const uint32_t qa = sq + cw * 64 * 128, oa = sdo + cw * 64 * 128;
+    float acc[D / 2];  // dQ: m64nD accumulator, rows g and g + 8 of the warp
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(q_full, 0);
+    const int lr = 64 * cw + 16 * warp + g;  // row g within the block
+    const float ls0 = row_buf[lr], ls1 = row_buf[lr + 8];
+    const float dl0 = row_buf[128 + lr], dl1 = row_buf[128 + lr + 8];
+
+    // Tile t's S and dP are issued together with tile t - 1's dQ += dS K,
+    // and tile t's p and ds run while that product is in flight; named
+    // barriers hand the tensor cores from one warpgroup to the other
+    // (ping-pong), as in kernel D.
+    uint32_t sf[BKT / 16][4];  // dS of the previous tile, register-A bf16
+    if (cw == 1) turn_pass(cw);
+    {
+      mbar_wait(full, 0);
+      float st[BKT / 2], dpt[BKT / 2];
+      turn_wait(cw);
+      sdp_tile<NA, BKT>(st, dpt, qa, oa, ring);
+      turn_pass(cw);
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      ds_tile(st, dpt, 0, Skv, t4, scale_log2, scale, ls0, ls1, dl0, dl1);
+      a_frags(sf, dpt);
+    }
+    for (int t = 1; t < n_kv; ++t) {
+      const int s = t % STAGES, sp = (t - 1) % STAGES;
+      mbar_wait(full + 8 * s, (t / STAGES) & 1);
+      float st[BKT / 2], dpt[BKT / 2];
+      turn_wait(cw);
+      sdp_tile<NA, BKT>(st, dpt, qa, oa, ring + 2 * s * KTILE);
+      dq_tile<BKT>(acc, sf, ring + 2 * sp * KTILE);
+      turn_pass(cw);
+      wgmma_wait<1>();
+      fence_regs(st);
+      fence_regs(dpt);
+      ds_tile(st, dpt, BKT * t, Skv, t4, scale_log2, scale, ls0, ls1, dl0,
+              dl1);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty + 8 * sp);  // tile t - 1's products are done
+      a_frags(sf, dpt);
+    }
+    turn_wait(cw);  // the last tile's dQ += dS K
+    dq_tile<BKT>(acc, sf, ring + 2 * ((n_kv - 1) % STAGES) * KTILE);
+    turn_pass(cw);
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    const int r0 = 128 * qt + lr, r1 = r0 + 8;
+    const long rs = (long)H * D;
+    __nv_bfloat16* qb = dq + ((long)b * Sq * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + 2 * t4;
+      if (r0 < Sq)
+        *reinterpret_cast<uint32_t*>(qb + r0 * rs + col) =
+            pack_bf16(acc[4 * c], acc[4 * c + 1]);
+      if (r1 < Sq)
+        *reinterpret_cast<uint32_t*>(qb + r1 * rs + col) =
+            pack_bf16(acc[4 * c + 2], acc[4 * c + 3]);
+    }
+  }
 }
 
 }  // namespace
 
 namespace {
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, through the runtime's entry-point
-// query (so the library needs no -lcuda); null if it is not there.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // The 4-D TMA map of a [B, S, H, D] bf16 tensor (dims innermost first: D,
 // H, S, B), box {64, 1, rows, 1}: 64 columns of `rows` positions of one
@@ -1087,6 +817,28 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int D, int BKT, int STAGES>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, int B, int H,
+              int Sq, int Skv, float scale, cudaStream_t st) {
+  constexpr int smem = dq_smem_bytes<D, BKT, STAGES>();
+  auto kern = flash_bwd_dq_kernel<D, BKT, STAGES>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap mq, mk, mv, mo;
+  int err = tensor_map(&mq, q, B, Sq, H, D, 128);
+  if (!err) err = tensor_map(&mo, dout, B, Sq, H, D, 128);
+  if (!err) err = tensor_map(&mk, k, B, Skv, H, D, BKT);
+  if (!err) err = tensor_map(&mv, v, B, Skv, H, D, BKT);
+  if (err) return err;
+  const int q_tiles = (Sq + 127) / 128;
+  kern<<<(unsigned)(q_tiles * B * H), WG3, smem, st>>>(
+      mq, mk, mv, mo, lse, delta, (__nv_bfloat16*)dq, H, Sq, Skv, q_tiles,
+      scale, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1139,24 +891,16 @@ int sc_flash_backward_dq(const void* q, const void* k, const void* v,
                          float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(B * H), (unsigned)((Sq + BQ - 1) / BQ));
   cudaStream_t st = (cudaStream_t)stream;
-  const auto* qp = (const __nv_bfloat16*)q;
-  const auto* kp = (const __nv_bfloat16*)k;
-  const auto* vp = (const __nv_bfloat16*)v;
-  const auto* op = (const __nv_bfloat16*)dout;
   const auto* lp = (const float*)lse;
   const auto* dp = (const float*)delta;
-  auto* dqp = (__nv_bfloat16*)dq;
   if (D == 64)
-    flash_bwd_dq_kernel<64, 64><<<grid, THREADS, 0, st>>>(
-        qp, kp, vp, op, lp, dp, dqp, H, Sq, Skv, scale);
-  else if (D == 128)
-    flash_bwd_dq_kernel<128, 32><<<grid, THREADS, 0, st>>>(
-        qp, kp, vp, op, lp, dp, dqp, H, Sq, Skv, scale);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_dq<64, 64, 4>(q, k, v, dout, lp, dp, dq, B, H, Sq, Skv,
+                                scale, st);
+  if (D == 128)
+    return launch_dq<128, 32, 4>(q, k, v, dout, lp, dp, dq, B, H, Sq, Skv,
+                                 scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

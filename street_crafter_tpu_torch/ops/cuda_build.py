@@ -5,7 +5,8 @@ for ``sm_90a`` into ``street_crafter_tpu_torch/build/<name>_<hash>.so`` at
 first use (the hash covers the source and the flags, so an edited source
 builds anew), then loaded with ctypes. ``build()`` starts one nvcc per
 source that is not built yet, all at once, and waits for them: the sources
-build in parallel. A failed build raises with nvcc's output.
+build in parallel. A failed build raises with nvcc's output. The headers
+(``csrc/*.cuh``) are part of every source's hash.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 

@@ -17,6 +17,11 @@ Each has two implementations of one function:
 Weights are in torch Linear layout ([out, in]); ``wqkv`` is to_q, to_k and
 to_v stacked on the output axis ([3C, C]). Everything is cast to bf16, as
 the TPU kernel casts its weights. ``launches`` counts the calls of each.
+
+The GEMM that kernels E and F chain is exposed one launch at a time
+(``temporal_gemm``, by epilogue), with a plain version of its own, so that
+each product can be timed and held against plain torch alone; the main
+paths call only the fused entries above.
 """
 
 from __future__ import annotations
@@ -31,9 +36,18 @@ from . import cuda_build
 
 LN_EPS = 1e-6
 # calls per implementation: "temporal_block_fused" (kernel E),
-# "temporal_attention_fused" (kernel F) and their "*_reference" (plain)
+# "temporal_attention_fused" (kernel F), the GEMM piece "temporal_gemm",
+# and each one's "*_reference" (plain)
 launches: collections.Counter = collections.Counter()
 
+# the GEMM epilogues of csrc/temporal_block.cu (enum Epi)
+EPILOGUES = {"store": 0, "geglu": 1, "resid": 2, "resid_bias": 3,
+             "resid_blend": 4, "add_f32": 5}
+# the operands each epilogue reads besides a, w and the bias
+_EPILOGUE_NEEDS = {"store": (), "geglu": (), "resid": ("resid",),
+                   "resid_bias": ("resid", "rowbias"),
+                   "resid_blend": ("resid", "blend_h"),
+                   "add_f32": ("resid", "rowbias")}
 _BLOCK_WEIGHTS = ("norm_in_s", "norm_in_b", "ffin_w1", "ffin_b1", "ffin_w2",
                   "ffin_b2", "norm1_s", "norm1_b", "wqkv", "wout", "bout",
                   "norm3_s", "norm3_b", "ff_w1", "ff_b1", "ff_w2", "ff_b2")
@@ -137,6 +151,38 @@ def temporal_attention_fused_reference(h, bias, norm1_s, norm1_b, wqkv, wout,
     return res.to(torch.bfloat16)
 
 
+def temporal_gemm_reference(epi: str, a, w, bias=None, resid=None,
+                            rowbias=None, rows_per_batch: int = 1,
+                            blend_h=None, alpha: float = 0.0):
+    """Plain version of one GEMM piece: a [M, K] times w [N, K]^T ([2N, K]
+    for "geglu") in f32 from bf16 values, then the epilogue ``epi`` with
+    kernel E's and F's bf16 roundings (``EPILOGUES``); rowbias [M /
+    rows_per_batch, N] is added per block of rows_per_batch rows."""
+    launches["temporal_gemm_reference"] += 1
+    bf = torch.bfloat16
+    a, w = _bf16(a, w)
+    acc = _mm(a, w, None if bias is None else bias.to(bf))
+    if epi == "store":
+        return acc.to(bf)
+    if epi == "geglu":
+        u, g = acc.chunk(2, dim=-1)
+        return (u * torch.nn.functional.gelu(g, approximate="tanh")).to(bf)
+    r = resid.to(bf).float()
+    if epi == "add_f32":
+        rb = rowbias.to(bf).float().repeat_interleave(rows_per_batch, 0)
+        return (r + acc + rb).to(bf)
+    x = r + acc.to(bf).float()
+    if epi == "resid":
+        return x.to(bf)
+    x = x.to(bf).float()
+    if epi == "resid_bias":
+        rb = rowbias.to(bf).float().repeat_interleave(rows_per_batch, 0)
+        return (x + rb).to(bf)
+    if epi == "resid_blend":
+        return (alpha * blend_h.to(bf).float() + (1.0 - alpha) * x).to(bf)
+    raise ValueError(f"unknown epilogue {epi!r}")
+
+
 # --------------------------------------------------------------------------
 # dispatch
 # --------------------------------------------------------------------------
@@ -191,6 +237,52 @@ def temporal_attention_fused(h, bias, norm1_s, norm1_b, wqkv, wout, bout, *,
     return _attention_cuda(*args, **kw)
 
 
+def temporal_gemm(epi: str, a, w, bias=None, resid=None, rowbias=None,
+                  rows_per_batch: int = 1, blend_h=None,
+                  alpha: float = 0.0) -> torch.Tensor:
+    """One GEMM piece of kernels E and F, out [M, N] (see the reference).
+    CUDA tensors go through ``gemm_kernel<epi>``, CPU tensors through the
+    plain version."""
+    if epi not in EPILOGUES:
+        raise ValueError(f"unknown epilogue {epi!r}")
+    M, K = a.shape
+    needs = _EPILOGUE_NEEDS[epi]
+    given = dict(resid=resid, rowbias=rowbias, blend_h=blend_h)
+    for name in needs:
+        if given[name] is None:
+            raise ValueError(f"epilogue {epi!r} needs {name}")
+    if "rowbias" in needs and (rows_per_batch <= 0 or M % rows_per_batch):
+        raise ValueError(f"rows_per_batch {rows_per_batch} does not divide "
+                         f"M = {M}")
+    if not _on_cuda(a, w, bias, resid, rowbias, blend_h):
+        return temporal_gemm_reference(epi, a, w, bias, resid, rowbias,
+                                       rows_per_batch, blend_h, alpha)
+    N = w.shape[0] // 2 if epi == "geglu" else w.shape[0]
+    if K % 8:
+        raise ValueError(f"the GEMM takes K % 8 == 0, got {K}")
+    if epi == "geglu" and w.shape[0] % 2:
+        raise ValueError(f"a GEGLU weight stacks a and gate rows, got "
+                         f"{w.shape[0]} rows")
+    bf16 = torch.bfloat16
+    pa = cuda_build.require(a, "a", bf16)
+    pw = cuda_build.require(w, "w", bf16, (w.shape[0], K))
+
+    def opt(t, name, shape):
+        return 0 if t is None else cuda_build.require(t, name, bf16, shape)
+    pb = opt(bias, "bias", (2 * N if epi == "geglu" else N,))
+    pr = opt(resid, "resid", (M, N)) if "resid" in needs else 0
+    prb = (opt(rowbias, "rowbias", (M // rows_per_batch, N))
+           if "rowbias" in needs else 0)
+    ph = opt(blend_h, "blend_h", (M, N)) if "blend_h" in needs else 0
+    out = torch.empty((M, N), dtype=bf16, device=a.device)
+    lib = _library()
+    _raise(lib, lib.sc_temporal_gemm(
+        EPILOGUES[epi], pa, pw, out.data_ptr(), M, N, K, pb, pr, prb,
+        rows_per_batch, ph, float(alpha), _stream(a)), f"the {epi} GEMM")
+    launches["temporal_gemm"] += 1
+    return out
+
+
 # --------------------------------------------------------------------------
 # CUDA kernels
 # --------------------------------------------------------------------------
@@ -204,6 +296,10 @@ def _library() -> ctypes.CDLL:
     lib.sc_temporal_block.restype = I
     lib.sc_temporal_attention.argtypes = [P] * 11 + [I] * 5 + [P]
     lib.sc_temporal_attention.restype = I
+    L = ctypes.c_longlong
+    lib.sc_temporal_gemm.argtypes = [I, P, P, P, L, I, I, P, P, P, L, P, F,
+                                     P]
+    lib.sc_temporal_gemm.restype = I
     lib.sc_temporal_error_string.argtypes = [I]
     lib.sc_temporal_error_string.restype = ctypes.c_char_p
     return lib
@@ -225,6 +321,10 @@ def _raise(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: "
                            f"{lib.sc_temporal_error_string(err).decode()} "
                            f"({err})")
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _weights(names, values, shapes):
@@ -254,11 +354,10 @@ def _block_cuda(h, emb, alpha, bias, *weights, num_frames, heads, dim_head):
     att = torch.empty_like(x)
     big = torch.empty((M, inner), dtype=bf16, device=h.device)
     lib = _library()
-    stream = torch.cuda.current_stream(h.device).cuda_stream
     err = lib.sc_temporal_block(
         ph, pe, pb, float(alpha), *ptrs, out.data_ptr(), x.data_ptr(),
         y.data_ptr(), big.data_ptr(), att.data_ptr(), B, T, S, C, heads,
-        stream)
+        _stream(h))
     _raise(lib, err, "kernel E")
     launches["temporal_block_fused"] += 1
     return out
@@ -282,10 +381,9 @@ def _attention_cuda(h, bias, norm1_s, norm1_b, wqkv, wout, bout, *,
     att = torch.empty_like(y)
     qkv = torch.empty((M, 3 * C), dtype=bf16, device=h.device)
     lib = _library()
-    stream = torch.cuda.current_stream(h.device).cuda_stream
     err = lib.sc_temporal_attention(
         ph, pb, *ptrs, out.data_ptr(), y.data_ptr(), qkv.data_ptr(),
-        att.data_ptr(), B, T, S, C, heads, stream)
+        att.data_ptr(), B, T, S, C, heads, _stream(h))
     _raise(lib, err, "kernel F")
     launches["temporal_attention_fused"] += 1
     return out

@@ -1,8 +1,7 @@
 """The CUDA kernels of street_crafter_tpu_torch (raster A-C, attention D,
-its backward G and H,
-temporal stage E and F) against their plain torch versions on a CUDA
-device. Marked ``cuda``; each test skips when no CUDA
-device is present. On the GPU machine:
+its backward G and H, temporal stage E and F and the GEMM they chain)
+against their plain torch versions on a CUDA device. Marked ``cuda``; each
+test skips when no CUDA device is present. On the GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
@@ -235,9 +234,13 @@ def _stage_inputs(cuda, B, T, S, C, seed):
     return r(B * T, S, C), r(B * T, C, sc=.3), r(B, C, sc=.2), w
 
 
+# head dims 64, 32 and 16, and up to the 32 frames the attention pads T to
 @pytest.mark.parametrize("B,T,S,C,heads", [(2, 25, 48, 64, 1),
                                            (1, 5, 100, 320, 5),
-                                           (2, 3, 16, 32, 2)])
+                                           (2, 3, 16, 32, 2),
+                                           (2, 3, 48, 64, 2),
+                                           (2, 7, 48, 32, 2),
+                                           (2, 32, 48, 320, 5)])
 def test_kernel_e_matches_plain_stage(cuda, B, T, S, C, heads):
     h, emb, bias, w = _stage_inputs(cuda, B, T, S, C, C + S)
     args = (h, emb, 0.3, bias, *[w[k] for k in TB._BLOCK_WEIGHTS])
@@ -263,6 +266,70 @@ def test_kernel_f_matches_plain_attention_stage(cuda, B, T, S, C, heads):
     want = TB.temporal_attention_fused_reference(*args, **kw)
     torch.cuda.synchronize()
     assert TB.launches["temporal_attention_fused"] == 1
+    worst, med = bf16_errors(got, want)
+    assert worst <= BF16_MAX and med <= BF16_MED
+
+
+@pytest.mark.parametrize("kernel", ["E", "F"])
+def test_temporal_kernels_refuse_unaligned_tensors(cuda, kernel):
+    """The GEMMs of E and F read through TMA from a 16-byte aligned base:
+    an h that starts one element into its storage is refused before
+    launch."""
+    B, T, S, C, heads = 1, 5, 16, 64, 1
+    h, emb, bias, w = _stage_inputs(cuda, B, T, S, C, 9)
+    flat = torch.zeros(h.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:].view(h.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    kw = dict(num_frames=T, heads=heads, dim_head=C // heads)
+    TB.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if kernel == "E":
+            TB.temporal_block_fused(shifted, emb, 0.3, bias,
+                                    *[w[k] for k in TB._BLOCK_WEIGHTS], **kw)
+        else:
+            TB.temporal_attention_fused(
+                shifted, bias, *[w[k] for k in ("norm1_s", "norm1_b", "wqkv",
+                                                "wout", "bout")], **kw)
+    assert not TB.launches
+
+
+# the GEMM pieces of E and F run tiles of 128 rows x 128 columns (GEGLU:
+# 64) in stages of 64 along K: these M and K cross every tile edge, and N
+# (by K) is no multiple of a tile (75 is odd: the unpaired stores)
+GEMM_N = {32: 200, 64: 75, 320: 330, 1280: 136}
+
+
+@pytest.mark.parametrize("epi", list(TB.EPILOGUES))
+@pytest.mark.parametrize("M", [1, 127, 129, 300])
+@pytest.mark.parametrize("K", list(GEMM_N))
+def test_gemm_epilogues_match_plain_torch(cuda, epi, M, K):
+    """Each epilogue of the GEMM piece against its plain version (the same
+    bf16 roundings as kernel E's and F's plain versions)."""
+    N = GEMM_N[K]
+    g = torch.Generator(device=cuda).manual_seed(M * K + len(epi))
+
+    def r(*shape, sc=1.0):
+        return (torch.randn(shape, generator=g, device=cuda) * sc).to(
+            torch.bfloat16)
+    nw = 2 * N if epi == "geglu" else N
+    # kernel E's QKV product has no bias: odd M runs "store" without one
+    bias = None if epi == "store" and M % 2 else r(nw, sc=.1)
+    a, w = r(M, K), r(nw, K, sc=K ** -.5)
+    kw = {}
+    if epi != "store" and epi != "geglu":
+        kw["resid"] = r(M, N)
+    if epi in ("resid_bias", "add_f32"):
+        rpb = 100 if M == 300 else M
+        kw.update(rowbias=r(M // rpb, N, sc=.2), rows_per_batch=rpb)
+    if epi == "resid_blend":
+        kw.update(blend_h=r(M, N), alpha=0.3)
+    TB.reset_launch_counts()
+    got = TB.temporal_gemm(epi, a, w, bias, **kw)
+    want = TB.temporal_gemm_reference(epi, a, w, bias, **kw)
+    torch.cuda.synchronize()
+    assert TB.launches["temporal_gemm"] == 1
+    assert got.shape == want.shape == (M, N)
+    assert bool(torch.isfinite(got.float()).all())
     worst, med = bf16_errors(got, want)
     assert worst <= BF16_MAX and med <= BF16_MED
 
@@ -350,7 +417,7 @@ def test_attention_training_wrappers_check_inputs(cuda):
         FA._flash_backward_cuda(x, x, x, x, lse, lse)
 
 
-@pytest.mark.parametrize("kernel", ["D", "D with lse", "G"])
+@pytest.mark.parametrize("kernel", ["D", "D with lse", "G", "H"])
 def test_attention_kernels_refuse_unaligned_tensors(cuda, kernel):
     """TMA reads from a 16-byte aligned base: a contiguous tensor that
     starts one element into its storage is refused before launch."""
@@ -365,6 +432,8 @@ def test_attention_kernels_refuse_unaligned_tensors(cuda, kernel):
             FA.flash_attention(shifted, k, v)
         elif kernel == "D with lse":
             FA._flash_cuda(q, shifted, v, with_lse=True)
-        else:
+        elif kernel == "G":
             FA._flash_bwd_dkv_cuda(q, k, v, shifted, lse, lse)
+        else:
+            FA._flash_bwd_dq_cuda(q, k, v, shifted, lse, lse)
     assert not FA.launches

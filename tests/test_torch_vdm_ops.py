@@ -193,6 +193,83 @@ def test_temporal_attention_reference_matches_k8(B, T, S, C, heads):
     assert worst <= BF16_MAX and med <= BF16_MED
 
 
+def _pieces_inputs(B, T, S, C):
+    rng = np.random.default_rng(B * T + S + C)
+    bf = torch.bfloat16
+    h = torch.tensor(rng.normal(size=(B * T, S, C)), dtype=bf)
+    emb = torch.tensor(0.3 * rng.normal(size=(B * T, C)), dtype=bf)
+    bias = torch.tensor(0.2 * rng.normal(size=(B, C)), dtype=bf)
+    W = {k: v.to(bf) for k, v in _torch_layout(_block_weights(rng, C)).items()}
+    return h, emb, bias, W
+
+
+@pytest.mark.parametrize("B,T,S,C,heads", [(2, 5, 8, 64, 1),
+                                           (1, 3, 16, 32, 2)])
+def test_temporal_pieces_chain_to_kernel_e_plain_version(B, T, S, C, heads):
+    """Kernel E's GEMM pieces (each epilogue), chained with the plain
+    LayerNorm and attention over T as csrc/temporal_block.cu::
+    sc_temporal_block chains them, give E's plain version bit for bit: the
+    GEMMs chip_smoke.py times alone are the stage's."""
+    h, emb, bias, W = _pieces_inputs(B, T, S, C)
+    BT, M = B * T, B * T * S
+    PTB.reset_launch_counts()
+    x = (h.float() + emb.float()[:, None]).to(torch.bfloat16)
+    y = PTB._ln(x, W["norm_in_s"], W["norm_in_b"])
+    x = x.reshape(M, C)
+    g = PTB.temporal_gemm("geglu", y.reshape(M, C), W["ffin_w1"], W["ffin_b1"])
+    x = PTB.temporal_gemm("resid", g, W["ffin_w2"], W["ffin_b2"], resid=x)
+    y = PTB._ln(x.reshape(BT, S, C), W["norm1_s"], W["norm1_b"])
+    qkv = PTB.temporal_gemm("store", y.reshape(M, C), W["wqkv"])
+    att = PTB._attn_T(qkv.reshape(BT, S, 3 * C), B, T, S, heads)
+    x = PTB.temporal_gemm("resid_bias", att.reshape(M, C), W["wout"],
+                          W["bout"], resid=x, rowbias=bias,
+                          rows_per_batch=T * S)
+    y = PTB._ln(x.reshape(BT, S, C), W["norm3_s"], W["norm3_b"])
+    g = PTB.temporal_gemm("geglu", y.reshape(M, C), W["ff_w1"], W["ff_b1"])
+    out = PTB.temporal_gemm("resid_blend", g, W["ff_w2"], W["ff_b2"],
+                            resid=x, blend_h=h.reshape(M, C), alpha=0.3)
+    want = PTB.temporal_block_fused_reference(
+        h, emb, 0.3, bias, *[W[k] for k in PTB._BLOCK_WEIGHTS],
+        num_frames=T, heads=heads, dim_head=C // heads)
+    assert dict(PTB.launches) == {"temporal_gemm_reference": 6,
+                                  "temporal_block_fused_reference": 1}
+    assert torch.equal(out.reshape(BT, S, C), want)
+
+
+@pytest.mark.parametrize("B,T,S,C,heads", [(1, 3, 16, 640, 10),
+                                           (2, 5, 8, 64, 1)])
+def test_temporal_pieces_chain_to_kernel_f_plain_version(B, T, S, C, heads):
+    """Kernel F's GEMM pieces, chained with the plain LayerNorm and
+    attention over T as sc_temporal_attention chains them, give F's plain
+    version bit for bit."""
+    h, _, bias, W = _pieces_inputs(B, T, S, C)
+    BT, M = B * T, B * T * S
+    y = PTB._ln(h, W["norm1_s"], W["norm1_b"])
+    qkv = PTB.temporal_gemm("store", y.reshape(M, C), W["wqkv"])
+    att = PTB._attn_T(qkv.reshape(BT, S, 3 * C), B, T, S, heads)
+    out = PTB.temporal_gemm("add_f32", att.reshape(M, C), W["wout"],
+                            W["bout"], resid=h.reshape(M, C), rowbias=bias,
+                            rows_per_batch=T * S)
+    want = PTB.temporal_attention_fused_reference(
+        h, bias, *[W[k] for k in ("norm1_s", "norm1_b", "wqkv", "wout",
+                                  "bout")],
+        num_frames=T, heads=heads, dim_head=C // heads)
+    assert torch.equal(out.reshape(BT, S, C), want)
+
+
+def test_temporal_gemm_checks_its_epilogue_arguments():
+    a = torch.zeros((6, 16), dtype=torch.bfloat16)
+    w = torch.zeros((8, 16), dtype=torch.bfloat16)
+    rowbias = torch.zeros((2, 8), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unknown epilogue"):
+        PTB.temporal_gemm("gelu", a, w)
+    with pytest.raises(ValueError, match="needs resid"):
+        PTB.temporal_gemm("resid", a, w)
+    with pytest.raises(ValueError, match="rows_per_batch 4"):
+        PTB.temporal_gemm("add_f32", a, w, resid=torch.zeros((6, 8)),
+                          rowbias=rowbias, rows_per_batch=4)
+
+
 def test_stage_cost_counts_the_level0_work():
     """The bound's operation count at the UNet's level 0 (the CFG batch of
     2 x 25 frames at 72 x 128, C = 320): ~2.65 TFLOP for kernel E."""
