@@ -11,20 +11,29 @@ Phases, one status line each; any failure raises (exit code != 0):
   2. each kernel against its plain torch version on the card: 50k splats of
      a trained-like scene at 384x256, and a scene with splats wider than
      200 px. Kernel A's worklist must equal the plain one; kernel B must
-     agree to atol 2e-4 on rgb and alpha;
+     agree to atol 2e-4 on rgb and alpha, and the pack of pair records
+     inside kernels B and C must equal its plain version. Then, at 384x256,
+     kernels A, B (both forms) and C (phase 5's limits) at 1, 3, 4 and 7
+     channels (records of 32, 48 and 64 bytes) and on a tile list of more
+     than 8,000 pairs that no pixel stops in (the rings wrap many times);
   3. the main path: a synthetic 1920x1280 Waymo scene (4 frames, cameras
      0-2), scene init with the port's initialize_ply, the background pool
      replaced by a 600k-splat post-densification pool in front of camera 0,
      a port checkpoint, then runner.render.main(mode=trajectory): 12 renders
      at 1600x1067 that must be finite PNGs, through both kernels and never
      through the plain versions;
-  4. both kernels against their plain versions at the headline frame's
-     shapes, and their times (CUDA events);
+  4. kernels A and B against their plain versions at the headline frame's
+     shapes, for both of its passes: the foreground and the sky;
   5. kernel C (the compositing backward) against the plain backward with
      seeded random cotangents on the inputs of phases 2 and 4: per field,
      to GRAD_RTOL of the field's largest gradient, of its norm and, in the
-     median, of each splat's own gradient; its time, and the plain
-     backward's at the headline frame;
+     median, of each splat's own gradient (kernel B's training form first:
+     last exactly, T to 2e-4). For both passes of the headline frame: the
+     times of A, B (eval and training forms) and C (CUDA events over
+     back-to-back calls; B and C also replayed as a CUDA graph), their plain
+     versions' (one call), the tile-list lengths (median, p99, max) and
+     the pixel-splat pairs in the lists, left by the per-warp cull, in the
+     pixels' prefixes and contributing;
   6. the training main path: runner.train.main on the synthetic scene from
      scene init, configs/waymo_val_base.yaml's GS settings, 300 iterations
      at 1600x1067 (densify at 100, 150 and 200, an opacity reset at 150,
@@ -178,14 +187,27 @@ def compare(G, args: dict, label: str, phase: int) -> dict:
     col, alpha = G.composite(wl, **comp)
     col_ref, alpha_ref = G.composite_reference(wl, **comp)
     torch.cuda.synchronize()
-    err_rgb = float((col[..., :3] - col_ref[..., :3]).abs().max())
+    C = args["colors"].shape[1]
+    n = 3 if C == 4 else C       # C = 4 is rgb + depth, the main path's
+    err_rgb = float((col[..., :n] - col_ref[..., :n]).abs().max())
     err_alpha = float((alpha - alpha_ref).abs().max())
-    err_depth = float((col[..., 3] - col_ref[..., 3]).abs().max())
-    max_depth = float(args["depths"][args["valid"]].max())
-    log(f"[{phase}] {label}: {wl.n_pairs} pairs, worklist equal; "
-        f"composite max err "
-        f"rgb {err_rgb:.3g} alpha {err_alpha:.3g} (atol {RGB_ALPHA_ATOL}), "
-        f"depth channel {err_depth:.3g} (max depth {max_depth:.1f})")
+    depth = ""
+    if C == 4:
+        err_depth = float((col[..., 3] - col_ref[..., 3]).abs().max())
+        max_depth = float(args["depths"][args["valid"]].max())
+        depth = (f", depth channel {err_depth:.3g} (max depth "
+                 f"{max_depth:.1f})")
+    # the pack kernel inside kernels B and C against its plain version
+    rec_args = [comp[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
+                                  "colors", "opacities")]
+    if not torch.equal(G.pair_records(wl, *rec_args),
+                       G.pair_records_reference(wl, *rec_args)):
+        raise AssertionError(f"{label}: the pair records differ from the "
+                             f"plain pack")
+    log(f"[{phase}] {label}: {wl.n_pairs} pairs, worklist equal, pair "
+        f"records equal; composite max err "
+        f"{'rgb' if C == 4 else f'{C} channel(s)'} {err_rgb:.3g} alpha "
+        f"{err_alpha:.3g} (atol {RGB_ALPHA_ATOL}){depth}")
     if not (err_rgb <= RGB_ALPHA_ATOL and err_alpha <= RGB_ALPHA_ATOL):
         raise AssertionError(f"{label}: kernel B disagrees with the plain "
                              f"composite")
@@ -313,7 +335,8 @@ def split_args(args: dict) -> tuple[dict, dict]:
                                   "colors", "opacities", "width", "height")})
 
 
-def compare_backward(G, args: dict, label: str, seed: int) -> dict:
+def compare_backward(G, args: dict, label: str, seed: int,
+                     phase: int = 5) -> dict:
     """Kernel C against the plain backward, after kernel B's training
     variant against the plain forward's T and last index."""
     import torch
@@ -346,7 +369,8 @@ def compare_backward(G, args: dict, label: str, seed: int) -> dict:
         errs[name] = grad_errors(got[:, col], want[:, col])
         if errs[name]["abs"] > worst_abs:
             worst_abs, worst_scale = errs[name]["abs"], errs[name]["max"]
-    log(f"[5] {label}: {wl.n_pairs} pairs, T err {err_T:.3g}, last equal; "
+    log(f"[{phase}] {label}: {wl.n_pairs} pairs, T err {err_T:.3g}, last "
+        f"equal; "
         f"kernel C per field (error / field max, error norm / field norm, "
         f"median per-splat relative error; median |grad|): "
         + ", ".join(f"{k} {e['max_rel']:.2e} {e['norm_rel']:.2e} "
@@ -395,6 +419,163 @@ def contributing_pairs(G, wl, comp: dict) -> int:
         hit = (ts.keep & (ts.alpha > 0)).reshape(-1, G.TILE, G.TILE)
         n += hit[:, :height - ts.rows.start, :width - ts.cols.start].sum()
     return int(n)
+
+
+# channel counts of phase 2's extra cases: record sizes of 32, 48 and 64
+# bytes at the edges of kernels B's and C's templates (4: rgb + depth, the
+# main path's)
+CHANNEL_CASES = (1, 3, 4, 7)
+
+
+def channel_case_args(device, C: int) -> dict:
+    """wide_splat_args with C channels: rgb + depth for C = 4, else C
+    channels in [0, 1]."""
+    import torch
+    args = wide_splat_args(device, seed=10 + C)
+    if C != 4:
+        rng = np.random.default_rng(C)
+        args["colors"] = torch.tensor(rng.random((args["u"].shape[0], C)),
+                                      dtype=torch.float32, device=device)
+    return args
+
+
+def long_list_args(device, n_long: int = 8000, seed: int = 3) -> dict:
+    """wide_splat_args (2,000 splats) plus n_long small faint splats in
+    front of them inside one 16x16 tile: a list of more than 8,000 pairs
+    that no pixel stops in, so the rings of kernels B and C wrap many
+    times."""
+    import torch
+    base = wide_splat_args(device, n=2000, seed=seed)
+    rng = np.random.default_rng(seed)
+    sigma = rng.uniform(0.5, 2.0, n_long)
+    ca = 1.0 / sigma ** 2
+    depth = rng.uniform(0.5, 1.0, n_long)    # in front of the base splats
+    extra = dict(
+        u=160 + rng.uniform(0, 16, n_long), v=96 + rng.uniform(0, 16, n_long),
+        conic_a=ca, conic_b=np.zeros(n_long), conic_c=ca,
+        colors=np.concatenate([rng.random((n_long, 3)), depth[:, None]], 1),
+        opacities=rng.uniform(0.004, 0.02, n_long), depths=depth,
+        valid=np.ones(n_long, bool), radii=np.ceil(3 * sigma))
+    out = dict(width=base["width"], height=base["height"])
+    for k, x in extra.items():
+        out[k] = torch.cat([base[k], torch.tensor(x, dtype=base[k].dtype,
+                                                  device=device)])
+    return out
+
+
+def list_lengths(wl) -> dict:
+    """Median, 99th percentile and largest tile-list length, in pairs."""
+    n = (wl.ranges[:, 1] - wl.ranges[:, 0]).float()
+    return {"median": float(n.median()), "p99": float(n.quantile(0.99)),
+            "max": float(n.max())}
+
+
+def pair_counts(G, wl, comp: dict) -> dict:
+    """Pixel-splat pairs of one pass, pixels inside the image only: in the
+    tile lists (each list's length times its tile's pixels), left by the
+    per-warp cull of kernels B and C (warp_cull_reference: per pair, the
+    pixels of the warps that keep it)."""
+    import torch
+    W, H = comp["width"], comp["height"]
+    tw, th = G.tile_grid(W, H)
+    dev = comp["u"].device
+    t = torch.arange(tw * th, device=dev)
+    cols = (W - (t % tw) * G.TILE).clamp(max=G.TILE)
+    rows = H - (t // tw) * G.TILE                # rows of the tile inside
+    r0 = 2 * torch.arange(G.WARPS, device=dev)[None, :]
+    warp_px = ((r0 < rows[:, None]).long() + (r0 + 1 < rows[:, None]).long()
+               ) * cols[:, None]                 # [tiles, 8]
+    lengths = (wl.ranges[:, 1] - wl.ranges[:, 0]).long()
+    cull = G.warp_cull_reference(wl, comp["u"], comp["v"], comp["conic_a"],
+                                 comp["conic_b"], comp["conic_c"],
+                                 comp["opacities"], W)
+    kept = (~cull).long() * warp_px[wl.tile_ids.long()]
+    return {"lists": int((lengths * warp_px.sum(1)).sum()),
+            "after_cull": int(kept.sum())}
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean ms per call of ``fn`` captured once as a CUDA graph and
+    replayed (CUDA events): the device's time for the call's launches
+    without the host's time between them, which back-to-back calls of a
+    short pass cannot hide. ``fn`` must not synchronise with the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                      # warm-up off the capturing stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def headline_pass(G, args: dict, label: str, gpu: str) -> dict:
+    """One pass of the headline frame: kernels A, B (eval and training
+    forms) and C against their plain versions, each once (phase 4's and 5's
+    limits); each kernel's time (CUDA events, mean of back-to-back calls;
+    B and C also replayed as a CUDA graph: kernel A synchronises with the
+    host) and its plain version's (one call); the tile-list lengths and the
+    pixel-splat pair counts."""
+    stats = compare(G, args, label, 4)
+    head = compare_backward(G, args, label, 7)
+    geo, comp = split_args(args)
+    wl = head["wl"]
+    bwd = dict(head["comp"], **head["state"])
+    cot = {k: bwd[k] for k in ("grad_colors", "grad_alpha")}
+    runs = {  # kernel, plain version, kernel calls, plain calls
+        "tile_worklist": (lambda: G.tile_worklist(**geo),
+                          lambda: G.tile_worklist_reference(**geo), 10, 3),
+        "composite": (lambda: G.composite(wl, **comp),
+                      lambda: G.composite_reference(wl, **comp), 20, 1),
+        "composite (train)": (
+            lambda: G.composite(wl, **comp, train=True),
+            lambda: G.composite_reference(wl, **comp, train=True), 20, 1),
+        "composite_backward": (
+            lambda: G.composite_backward(wl, **bwd),
+            lambda: G.composite_backward_reference(wl, **comp, **cot), 20,
+            1)}
+    times = {}
+    for name, (kern, plain, reps, plain_reps) in runs.items():
+        times[name] = (cuda_ms(kern, reps),
+                       cuda_ms(plain, plain_reps,
+                               warmup=1 if plain_reps > 1 else 0))
+        graph = ("" if name == "tile_worklist" else
+                 f" (as a CUDA graph {graph_ms(kern, reps):.3f} ms)")
+        log(f"[5] {label}: {name}: kernel {times[name][0]:.3f} ms{graph}, "
+            f"plain {times[name][1]:.3f} ms ({wl.n_pairs} pairs; {gpu})")
+    hits = contributing_pairs(G, wl, comp)
+    counts = pair_counts(G, wl, comp)
+    n = list_lengths(wl)
+    log(f"[5] {label}: tile lists (pairs) median {n['median']:.0f}, p99 "
+        f"{n['p99']:.0f}, max {n['max']:.0f} over {wl.ranges.shape[0]} "
+        f"tiles; pixel-splat pairs: {counts['lists']} in the lists, "
+        f"{counts['after_cull']} left by the per-warp cull "
+        f"({100 * counts['after_cull'] / max(counts['lists'], 1):.1f}%), "
+        f"{head['prefix']} in the pixels' prefixes, {hits} contributing")
+    return {"wl": wl, "times": times, "hits": hits, "prefix": head["prefix"],
+            "pixels": head["pixels"], "errs": {
+                "tile_worklist": stats["worklist_err"],
+                "composite": stats["composite_err"],
+                "composite_backward": head["err"]}}
+
+
+def headline_sky_args(cfg, dev):
+    """rasterize_pixels arguments of the headline frame's sky pass (the
+    renderer's second pass, blended behind the foreground), and its
+    splat count."""
+    from street_crafter_tpu_torch.models.gs.scene import flatten_scene
+    scene, params, cam, batch = headline_scene(cfg, dev)
+    flat = flatten_scene(params, scene.meta, batch["cam_id"],
+                         batch["frame_idx"], batch["frame"],
+                         batch["timestamp"], include_bkgd=False,
+                         include_obj=False, include_sky=True)
+    return (raster_args(flat, cam.w2c, cam.K, cam.width, cam.height),
+            flat.xyz.shape[0])
 
 
 def bounds(n_splats: int, n_pairs: int, n_tiles: int, pixels: int,
@@ -1781,6 +1962,18 @@ def main() -> None:
     wide_label = (f"wide splats ({n_wide} with radius > 200 px) "
                   f"{W_SMALL}x{H_SMALL}")
     compare(G, wide, wide_label, 2)
+    for C in CHANNEL_CASES:
+        label = f"{C} channel(s), wide splats {W_SMALL}x{H_SMALL}"
+        cargs = channel_case_args(dev, C)
+        compare(G, cargs, label, 2)
+        compare_backward(G, cargs, label, 20 + C, phase=2)
+    long_args = long_list_args(dev)
+    wl_long = G.tile_worklist(**split_args(long_args)[0])
+    label = (f"a tile list of {list_lengths(wl_long)['max']:.0f} pairs "
+             f"{W_SMALL}x{H_SMALL}")
+    compare(G, long_args, label, 2)
+    compare_backward(G, long_args, label, 30, phase=2)
+    del cargs, long_args, wl_long
 
     # ---- phase 3: the main path --------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1818,55 +2011,22 @@ def main() -> None:
             f"{min(ms):.2f}); headline frame pairs {result['n_pairs'][0]}; "
             f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; card {gpu}")
 
-        # ---- phase 4: kernels vs plain at the headline frame -------------
-        args, cam0, n_splats = headline_raster_args(cfg, dev)
-        stats = compare(G, args, f"headline frame {cam0.width}x"
-                        f"{cam0.height}, {n_splats} splats", 4)
-        geo = {k: args[k] for k in ("u", "v", "radii", "depths", "valid",
-                                    "width", "height")}
-        comp = {k: args[k] for k in ("u", "v", "conic_a", "conic_b",
-                                     "conic_c", "colors", "opacities",
-                                     "width", "height")}
-        wl = G.tile_worklist(**geo)
-        times = {
-            "tile_worklist": (cuda_ms(lambda: G.tile_worklist(**geo), 10),
-                              cuda_ms(lambda: G.tile_worklist_reference(
-                                  **geo), 3)),
-            "composite": (cuda_ms(lambda: G.composite(wl, **comp), 20),
-                          cuda_ms(lambda: G.composite_reference(wl, **comp),
-                                  1, warmup=0)),
-        }
-        for name, (k_ms, p_ms) in times.items():
-            log(f"[4] {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-                f"({cam0.width}x{cam0.height}, {stats['pairs']} pairs; "
-                f"{gpu})")
-
-        # ---- phase 5: kernel C vs the plain backward ---------------------
+        # ---- phases 4-5: kernels vs plain at the headline frame ----------
+        # (kernel C first on phase 2's inputs, then both passes of the
+        # headline frame: the foreground and the sky)
         compare_backward(G, small_args, small_label, 5)
         compare_backward(G, wide, wide_label, 6)
-        head = compare_backward(G, args, f"headline frame {cam0.width}x"
-                                f"{cam0.height}", 7)
-        bwd = dict(head["comp"], **head["state"])
-        times["composite_backward"] = (
-            cuda_ms(lambda: G.composite_backward(head["wl"], **bwd), 20),
-            cuda_ms(lambda: G.composite_backward_reference(
-                head["wl"], **head["comp"],
-                grad_colors=bwd["grad_colors"],
-                grad_alpha=bwd["grad_alpha"]), 1, warmup=0))
-        hits = contributing_pairs(G, head["wl"], head["comp"])
-        log(f"[5] composite_backward: kernel C "
-            f"{times['composite_backward'][0]:.3f} ms, plain "
-            f"{times['composite_backward'][1]:.3f} ms ({cam0.width}x"
-            f"{cam0.height}, {head['wl'].n_pairs} pairs, "
-            f"{head['prefix']} pixel-splat pairs in the pixels' prefixes, "
-            f"{hits} of them contributing; {gpu})")
-        bound = bounds(n_splats, head["wl"].n_pairs,
-                       head["wl"].ranges.shape[0], head["pixels"],
-                       head["prefix"], hits, args["colors"].shape[1])
-        errs = {"tile_worklist": stats["worklist_err"],
-                "composite": stats["composite_err"],
-                "composite_backward": head["err"]}
-        del head, bwd
+        args, cam0, n_splats = headline_raster_args(cfg, dev)
+        fg = headline_pass(G, args, f"headline frame {cam0.width}x"
+                           f"{cam0.height}, {n_splats} splats", gpu)
+        sky_args, n_sky = headline_sky_args(cfg, dev)
+        headline_pass(G, sky_args, f"headline frame sky pass, {n_sky} "
+                      f"splats", gpu)
+        times, errs = fg["times"], fg["errs"]
+        bound = bounds(n_splats, fg["wl"].n_pairs, fg["wl"].ranges.shape[0],
+                       fg["pixels"], fg["prefix"], fg["hits"],
+                       args["colors"].shape[1])
+        del fg, args, sky_args
         torch.cuda.empty_cache()
 
         # ---- phase 6: the training main path ------------------------------

@@ -22,51 +22,94 @@
 // Kernel B, compositing: composite_kernel<C, kTrain>. Replaces
 // street_crafter_tpu/ops/gs_raster_fused.py::_composite_kernel (K2), which
 // composited 16x128 pixel strips with MXU matmuls, a Cholesky-factored
-// sigma and a row-granular early exit. Here one block of 256 threads owns
-// one 16x16 tile, one thread per pixel. Bound on this card: the per-pixel
-// exp and FMA chain over the tile's list (compute), and the gather of each
-// splat's attributes (latency). Design: the tile's depth-sorted list is
-// streamed in batches of 256 splats staged in shared memory (one gather per
-// splat per tile, then a broadcast read by all 256 pixels); each pixel stops
-// once its transmittance would fall to 1e-4, and the block leaves as soon as
-// all of its pixels have stopped (__syncthreads_count). The training variant
-// (kTrain) also writes each pixel's final T and the index, in its tile's
-// list, one past the last splat that contributed: kernel C's starting point.
+// sigma and a row-granular early exit. Kernel C, compositing backward:
+// composite_bwd_kernel<C>. Replaces street_crafter_tpu/ops/
+// gs_raster_train.py:60 _composite_bwd_kernel (K3), which recomputed alpha
+// and log-T per 16x128 row in two passes on the packed Cholesky layout.
 //
-// Kernel C, compositing backward: composite_bwd_kernel<C>. Replaces
-// street_crafter_tpu/ops/gs_raster_train.py:60 _composite_bwd_kernel (K3),
-// which recomputed alpha and log-T per 16x128 row in two passes (a forward
-// pass storing per-block base log-T, then a reverse pass with MXU suffix
-// sums) on the packed Cholesky layout. Here, gsplat's rasterize_to_pixels_bwd
-// layout: one 256-thread block per 16x16 tile, one thread per pixel, the
-// tile's list staged in shared memory in batches of 256 from the back. Each
-// pixel starts at its own last contributor with the forward's final T and
-// walks back, rebuilding T_j = T_{j+1} / (1 - alpha_j): a division, not a
-// forward re-walk, since alpha <= 0.999 bounds the factor by 1000 and T >=
-// 1e-4 on every contributor, so no T underflows and each step adds one
-// rounding; a forward recompute would cost a second walk per pixel. With
+// Bound on this card, both: operations. Per (pixel, splat) pair in the
+// pixels' prefixes the recompute of sigma and alpha (an exp); per
+// contributing pair the T update and a multiply-add per channel (B), or the
+// adjoint's ~40 + 4 C operations and the per-splat sums (C). The bytes (a
+// splat's attributes per pair, the image) are small beside them. What held
+// the first versions back was not the bound: 79% of the evaluated pairs
+// were skipped (alpha < 1/255), a block barrier per batch of 256 splats
+// with nothing of the next batch in flight, a long last wave of uneven
+// tiles, and in C 60 shuffles and 12 global atomics per warp and splat.
+// Tensor cores do not help: the work per pair is an exp and a sequential
+// product of T along the list, the channel sum 4 FMAs per contributing
+// pair, and rounding through TF32 or bf16 would break the exact equality of
+// `last` with the plain version and B's 2e-4 limit.
+//
+// Design, shared by B and C:
+//   - pair records: the pack (splat_records_kernel, pair_records_kernel)
+//     gathers each (tile, splat) pair's splat into one record, in list
+//     order, so a tile's list is one contiguous run of records: u, v,
+//     conic a, b, c, opacity, the cull threshold t and the C channels,
+//     padded to a multiple of 16 bytes (7 + C floats: 32 B at C = 1, 48 B
+//     at C = 2-5, 64 B at C = 6-7). The wrappers launch it before B and C
+//     (C packs anew);
+//   - a bulk-copy ring: one producer warp copies batches of records with
+//     1-D bulk copies (cp.async.bulk, mbarrier completion) into a ring of
+//     full / empty stages; the eight consumer warps, two pixel rows of the
+//     tile each, take the stages in order. No block barrier per batch. C
+//     walks each list back to front the same way. Batch and depth, as
+//     measured at the headline frame: B 256 records x 3 stages, C 128 x 2
+//     (C's per-pair registers leave fewer blocks per SM; a shorter batch
+//     keeps its ring turning);
+//   - a per-warp cull: when a batch lands, each lane tests its records (8
+//     of 256) against its warp's 16x2 pixel rectangle (warp_culls) and the
+//     warp ballots a mask; the walk visits only the set bits. A culled
+//     pair is one that every pixel of the warp skips (alpha < 1/255), and
+//     each lane still applies every skip and stop rule in list order, so
+//     B's outputs and C's per-pixel terms are the same as without it;
+//   - longest list first: a persistent grid (as many blocks as fit on the
+//     card) takes tiles through an atomic counter, in the order the wrapper
+//     gives: tiles by list length, descending.
+// B: a consumer warp whose pixels have all stopped skips the rest of the
+// tile; the producer stops loading a tile once all eight have (a count of
+// done warps in shared memory). Tiles with empty lists come last in the
+// order: the first one drawn ends the ring, and the consumer warps write
+// them (fill_empty_tile) without stages. The training variant (kTrain) also
+// writes each pixel's final T and the index, in its tile's list, one past
+// the last splat that contributed: kernel C's starting point.
+// C: gsplat's rasterize_to_pixels_bwd walk. Each pixel starts at its own
+// last contributor with the forward's final T and walks back, rebuilding
+// T_j = T_{j+1} / (1 - alpha_j): a division, not a forward re-walk, since
+// alpha <= 0.999 bounds the factor by 1000 and T >= 1e-4 on every
+// contributor, so no T underflows (each step adds two roundings: a
+// correctly rounded reciprocal, then a product). With
 // S_j the suffix sum of w c.g_c behind splat j, per pair:
 //   dalpha = T_j (c_j.g_c) - (S_j - g_a T_N) / (1 - alpha_j),
 //   dsigma = -alpha dalpha, dopacity = dalpha exp(-sigma) (0 where alpha is
 //   clamped at 0.999), du = -dsigma (a dx + b dy), dv = -dsigma (c dy + b dx),
 //   da = dx^2 dsigma / 2, db = dx dy dsigma, dc = dy^2 dsigma / 2,
 //   dcolor = w g_c, and the absgrad columns |du|, |dv| (gsplat absgrad=True).
-// sigma comes from the same rounded expression as in kernel B
-// (splat_sigma), so every skip and stop decision is the forward's. Bound on
-// this card: per pair, the warp reductions of 8 + C values and one atomicAdd
-// per value per warp into the [N, 8 + C] gradient rows (instruction issue and
-// L2 atomics; the bytes are small). Design: a warp skips the reduction of a
-// splat none of its pixels touched (__any_sync), and the walk covers only
-// the tile's list up to the largest last index of its pixels.
+// A warp walks only up to its own largest last index. Per splat that one of
+// its pixels touched, one transposed warp reduction (warp_sum16: 16
+// shuffles for the 8 + C fields, in place of 5 per field; warp_sum12, 13,
+// at C = 4) leaves each field's sum in one lane, and those lanes add them
+// to the splat's [N, 8 + C] row in device memory: one red.global.add.f32
+// instruction per warp and splat, in place of lane 0's 8 + C in a row.
+// The producer warp stages each batch's splat ids beside it. (Gradient
+// rows per batch in shared memory, flushed once per batch by the producer
+// warp, measured no faster than these direct adds: not kept.)
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kTile = 16;
-constexpr int kBlock = kTile * kTile;       // one thread per pixel of a tile
+constexpr int kBlock = kTile * kTile;       // one consumer thread per pixel
+constexpr int kConsumers = kBlock / 32;     // warps, two pixel rows each
+constexpr int kRasterThreads = kBlock + 32;  // + the producer warp
+// records per bulk copy and ring depth, of kernels B and C
+constexpr int kBatchB = 256, kStagesB = 3;
+constexpr int kBatchC = 128, kStagesC = 2;
 constexpr int kThreads1D = 256;
 constexpr float kAlphaClamp = 0.999f;
 constexpr float kAlphaMin = 1.0f / 255.0f;
@@ -159,219 +202,655 @@ __device__ __forceinline__ float splat_sigma(float a, float b, float c,
       __fmul_rn(__fmul_rn(b, dx), dy));
 }
 
-template <int C, bool kTrain>
-__global__ void __launch_bounds__(kBlock)
-composite_kernel(const int32_t* __restrict__ ranges,
-                 const int32_t* __restrict__ gids,
-                 const float* __restrict__ u, const float* __restrict__ v,
-                 const float* __restrict__ conic_a,
-                 const float* __restrict__ conic_b,
-                 const float* __restrict__ conic_c,
-                 const float* __restrict__ colors,
-                 const float* __restrict__ opacities, int width, int height,
-                 int tw, float* __restrict__ out_colors,
-                 float* __restrict__ out_alpha, float* __restrict__ out_T,
-                 int32_t* __restrict__ out_last) {
-  __shared__ float s_u[kBlock], s_v[kBlock], s_a[kBlock], s_b[kBlock],
-      s_c[kBlock], s_o[kBlock];
-  __shared__ float s_col[kBlock * C];
+// ------------------------------------------------------------ pair records
 
-  const int t = threadIdx.x;
-  const int tile = blockIdx.y * tw + blockIdx.x;
-  const int px = blockIdx.x * kTile + t % kTile;
-  const int py = blockIdx.y * kTile + t / kTile;
-  const bool inside = px < width && py < height;
-  const float fx = (float)px + 0.5f;
-  const float fy = (float)py + 0.5f;
-  const int start = ranges[2 * tile];
-  const int end = ranges[2 * tile + 1];
+// Record fields, in floats; the channels follow, then zeros to a multiple
+// of 4 floats (16 bytes, what a bulk copy needs).
+constexpr int kRU = 0, kRV = 1, kRA = 2, kRB = 3, kRC = 4, kRO = 5, kRT = 6,
+              kRCol = 7;
 
-  float T = 1.0f;
-  float acc[C];
+__host__ __device__ constexpr int record_floats(int C) {
+  return (kRCol + C + 3) / 4 * 4;
+}
+
+// The cull's margins (warp_culls). A pixel computes sigma_f with
+// splat_sigma at (dx_f, dy_f) = (fl(fx - u), fl(fy - v)); its alpha passes
+// only if fl(o expf(-sigma_f)) >= fl(1/255).
+//   - Absolute, on the alpha side: expf is within 2 ulp, the product and
+//     fl(1/255) round once each, and t's logf and its product 255 o once
+//     each: together under ~8 u = 4.8e-7 in sigma (u = 2^-24). kCullAbs,
+//     1e-5, is twenty times that.
+//   - Relative, on the sigma side: with M = |a| X^2 + |c| Y^2 + 2 |b| X Y
+//     (X, Y the largest |dx|, |dy| of the rectangle), each splat_sigma is
+//     within 2 u M of the exact quadratic at its rounded arguments; every
+//     pixel's dx_f lies in [dx_lo, dx_hi] (rounding is monotone), so the
+//     exact row minimum bounds it from below, and the vertex evaluated at a
+//     rounded dx* exceeds that minimum by O(u^2 M) only. Together 4 u M;
+//     kCullRel = 2^-20 = 16 u is four times that.
+constexpr float kCullAbs = 1e-5f;
+constexpr float kCullRel = 9.5367431640625e-07f;  // 2^-20
+
+// t = ln(255 opacity) + kCullAbs: sigma above it everywhere in the
+// rectangle (by the relative margin) means alpha < 1/255 at every pixel.
+// -inf (always culled) for an opacity below 1/255: alpha <= opacity then,
+// exactly, since expf(-sigma) <= 1 for sigma >= 0. +inf (never culled) for
+// a conic that is not positive definite.
+__device__ __forceinline__ float cull_threshold(float a, float b, float c,
+                                                float o) {
+  if (o < kAlphaMin) return -__int_as_float(0x7f800000);
+  if (!(a > 0.0f && __fsub_rn(__fmul_rn(a, c), __fmul_rn(b, b)) > 0.0f))
+    return __int_as_float(0x7f800000);
+  return __fadd_rn(logf(__fmul_rn(255.0f, o)), kCullAbs);
+}
+
+// The pack, in two passes: each splat's record into a table [N, RS]
+// (coalesced reads of the seven attribute arrays), then each pair's record
+// from the table, 16 bytes a thread (one gather of 2-4 sectors per pair in
+// place of eight scattered 4-byte loads).
+template <int C>
+__global__ void splat_records_kernel(const float* __restrict__ u,
+                                     const float* __restrict__ v,
+                                     const float* __restrict__ conic_a,
+                                     const float* __restrict__ conic_b,
+                                     const float* __restrict__ conic_c,
+                                     const float* __restrict__ colors,
+                                     const float* __restrict__ opacities,
+                                     int n, float* __restrict__ table) {
+  constexpr int RS = record_floats(C);
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= n) return;
+  float r[RS];
+  r[kRU] = u[g];
+  r[kRV] = v[g];
+  r[kRA] = conic_a[g];
+  r[kRB] = conic_b[g];
+  r[kRC] = conic_c[g];
+  r[kRO] = opacities[g];
+  r[kRT] = cull_threshold(r[kRA], r[kRB], r[kRC], r[kRO]);
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-  bool done = !inside;
-  int last = 0;  // one past the last contributor, relative to start
-
-  for (int base = start; base < end; base += kBlock) {
-    // barrier: the previous batch is fully read before it is overwritten
-    if (__syncthreads_count(done) == kBlock) break;
-    const int k = base + t;
-    if (k < end) {
-      const int g = gids[k];
-      s_u[t] = u[g];
-      s_v[t] = v[g];
-      s_a[t] = conic_a[g];
-      s_b[t] = conic_b[g];
-      s_c[t] = conic_c[g];
-      s_o[t] = opacities[g];
+  for (int c = 0; c < C; ++c) r[kRCol + c] = colors[(int64_t)g * C + c];
 #pragma unroll
-      for (int c = 0; c < C; ++c) s_col[t * C + c] = colors[(int64_t)g * C + c];
+  for (int i = kRCol + C; i < RS; ++i) r[i] = 0.0f;
+  float4* dst = reinterpret_cast<float4*>(table + (int64_t)g * RS);
+#pragma unroll
+  for (int q = 0; q < RS / 4; ++q)
+    dst[q] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
+}
+
+// Q = RS / 4 chunks of 16 bytes per record; one thread per chunk.
+template <int Q>
+__global__ void pair_records_kernel(const int32_t* __restrict__ gids,
+                                    const float4* __restrict__ table,
+                                    int64_t n_pairs,
+                                    float4* __restrict__ rec) {
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n_pairs * Q) return;
+  const int64_t pair = k / Q;
+  rec[k] = table[(int64_t)gids[pair] * Q + (k - pair * Q)];
+}
+
+// ------------------------------------------------------------ the cull
+
+// min over dx in [lo, hi] of sigma on the row at dy: the vertex
+// dx* = -b dy / a clamped to the interval (a > 0 wherever the threshold is
+// finite and above -inf).
+__device__ __forceinline__ float row_min_sigma(float a, float b, float c,
+                                               float dy, float lo, float hi) {
+  const float x = fminf(fmaxf(__fdiv_rn(-__fmul_rn(b, dy), a), lo), hi);
+  return splat_sigma(a, b, c, x, dy);
+}
+
+// True if no pixel of the warp's rectangle, columns [fx0, fx0 + 15] and
+// rows fy0, fy0 + 1 (pixel centres), can take the record: alpha < 1/255 at
+// each. Operation for operation the plain warp_cull_reference.
+__device__ __forceinline__ bool warp_culls(float u, float v, float a,
+                                           float b, float c, float t,
+                                           float fx0, float fy0) {
+  const float lo = fx0 - u;
+  const float hi = (fx0 + (float)(kTile - 1)) - u;
+  const float dy0 = fy0 - v;
+  const float dy1 = (fy0 + 1.0f) - v;
+  const float X = fmaxf(fabsf(lo), fabsf(hi));
+  const float Y = fmaxf(fabsf(dy0), fabsf(dy1));
+  const float m = __fadd_rn(
+      __fadd_rn(__fmul_rn(__fmul_rn(fabsf(a), X), X),
+                __fmul_rn(__fmul_rn(fabsf(c), Y), Y)),
+      __fmul_rn(__fmul_rn(2.0f * fabsf(b), X), Y));
+  const float thr = __fadd_rn(t, __fmul_rn(kCullRel, m));
+  // a NaN anywhere compares false: not culled
+  return row_min_sigma(a, b, c, dy0, lo, hi) > thr &&
+         row_min_sigma(a, b, c, dy1, lo, hi) > thr;
+}
+
+// Ballots of the warp: bit l of keep[k] is record 32 k + l of the batch,
+// set if it is one of the first n and the warp's rectangle may take it.
+template <int RS, int NB>
+__device__ __forceinline__ void warp_keep(const float* sb, int n, int lane,
+                                          float fx0, float fy0,
+                                          unsigned (&keep)[NB]) {
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    const int j = 32 * k + lane;
+    bool kp = false;
+    if (j < n) {
+      const float4 h0 = *reinterpret_cast<const float4*>(sb + j * RS);
+      const float4 h1 = *reinterpret_cast<const float4*>(sb + j * RS + 4);
+      kp = !warp_culls(h0.x, h0.y, h0.z, h0.w, h1.x, h1.z, fx0, fy0);
     }
-    __syncthreads();
-    const int cnt = min(kBlock, end - base);
-    for (int j = 0; j < cnt && !done; ++j) {
-      const float dx = fx - s_u[j];
-      const float dy = fy - s_v[j];
-      const float sigma = splat_sigma(s_a[j], s_b[j], s_c[j], dx, dy);
-      if (sigma < 0.0f) continue;
-      const float alpha = fminf(kAlphaClamp, s_o[j] * expf(-sigma));
-      if (alpha < kAlphaMin) continue;
-      const float next_T = T * (1.0f - alpha);
-      if (next_T <= kTStop) {  // stop; this splat is excluded
-        done = true;
-        break;
-      }
-      const float w = alpha * T;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] += s_col[j * C + c] * w;
-      T = next_T;
-      if (kTrain) last = base - start + j + 1;
-    }
+    keep[k] = __ballot_sync(0xffffffffu, kp);
   }
-  if (inside) {
+}
+
+// keep[k] without indexing local memory (k is not a compile-time
+// constant in the walks).
+template <int NB>
+__device__ __forceinline__ unsigned pick(const unsigned (&keep)[NB], int k) {
+  unsigned r = keep[0];
+#pragma unroll
+  for (int q = 1; q < NB; ++q) r = k == q ? keep[q] : r;
+  return r;
+}
+
+// ------------------------------------------------------------ kernel B
+
+// The outputs of a tile with an empty list, written by one warp: colours
+// and alpha 0, T 1, last 0.
+template <int C, bool kTrain>
+__device__ __forceinline__ void fill_empty_tile(
+    int tile, int lane, int width, int height, int tw,
+    float* __restrict__ out_colors, float* __restrict__ out_alpha,
+    float* __restrict__ out_T, int32_t* __restrict__ out_last) {
+  const int tx = tile % tw, ty = tile / tw;
+  for (int q = lane; q < kBlock; q += 32) {
+    const int px = tx * kTile + q % kTile, py = ty * kTile + q / kTile;
+    if (px >= width || py >= height) continue;
     const int64_t p = (int64_t)py * width + px;
 #pragma unroll
-    for (int c = 0; c < C; ++c) out_colors[p * C + c] = acc[c];
-    out_alpha[p] = 1.0f - T;
+    for (int c = 0; c < C; ++c) out_colors[p * C + c] = 0.0f;
+    out_alpha[p] = 0.0f;
     if (kTrain) {
-      out_T[p] = T;
-      out_last[p] = last;
+      out_T[p] = 1.0f;
+      out_last[p] = 0;
     }
   }
 }
+
+template <int C, bool kTrain>
+__global__ void __launch_bounds__(kRasterThreads)
+composite_kernel(const int32_t* __restrict__ ranges,
+                 const float* __restrict__ rec,
+                 const int64_t* __restrict__ order,
+                 int32_t* __restrict__ next_tile, int n_tiles, int width,
+                 int height, int tw, float* __restrict__ out_colors,
+                 float* __restrict__ out_alpha, float* __restrict__ out_T,
+                 int32_t* __restrict__ out_last) {
+  constexpr int RS = record_floats(C);
+  constexpr int NB = kBatchB / 32;
+  extern __shared__ __align__(16) float s_ring[];  // kStagesB x kBatchB x RS
+  __shared__ __align__(8) uint64_t s_bar[2 * kStagesB];  // full, empty
+  // per stage: tile, index in the tile's list of the batch's first record,
+  // record count, the tile's done slot; or the sentinel: -1, then the
+  // first empty tile drawn (-1 if none)
+  __shared__ int4 s_meta[kStagesB];
+  // per tile in flight (slot = tile sequence mod kStagesB + 1): its warps
+  // whose pixels have all stopped
+  __shared__ int s_done[kStagesB + 1];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const uint32_t full0 = smem_u32(s_bar);
+  const uint32_t empty0 = smem_u32(s_bar + kStagesB);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesB; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kBlock);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers) {
+    // the producer: one thread takes tiles, longest list first, and
+    // streams each list through the ring; a sentinel stage ends the block
+    if (lane != 0) return;
+    for (int seq = 0, it = 0;; ++seq) {
+      const int i = atomicAdd(next_tile, 1);
+      const int tile = i < n_tiles ? (int)order[i] : -1;
+      const int start = tile < 0 ? 0 : ranges[2 * tile];
+      const int len = tile < 0 ? 0 : ranges[2 * tile + 1] - start;
+      int s = it % kStagesB;
+      if (it >= kStagesB) mbar_wait(empty0 + 8 * s, (it / kStagesB - 1) & 1);
+      if (len == 0) {
+        // no tile left, or the first empty one: the order is by list
+        // length, descending, so every tile still to draw is empty. The
+        // consumers write them, this one first.
+        s_meta[s] = make_int4(-1, tile, 0, 0);
+        mbar_arrive(full0 + 8 * s);
+        return;
+      }
+      // a slot is reused kStagesB + 1 tiles later: by then every warp has
+      // released the stages of its previous tile, and with them its count
+      const int slot = seq % (kStagesB + 1);
+      s_done[slot] = 0;
+      for (int base = 0;;) {
+        const int cnt = min(kBatchB, len - base);
+        s_meta[s] = make_int4(tile, base, cnt, slot);
+        mbar_expect_tx(full0 + 8 * s, cnt * RS * 4);
+        bulk_load(smem_u32(s_ring + s * kBatchB * RS),
+                  rec + (int64_t)(start + base) * RS, cnt * RS * 4,
+                  full0 + 8 * s);
+        ++it;
+        base += kBatchB;
+        if (base >= len || *(volatile int*)&s_done[slot] == kConsumers)
+          break;
+        s = it % kStagesB;
+        if (it >= kStagesB) mbar_wait(empty0 + 8 * s, (it / kStagesB - 1) & 1);
+      }
+    }
+  }
+
+  const int t = threadIdx.x;
+  const int col = t % kTile;
+  const int row = t / kTile;
+  int cur = -2;  // the tile of the pixel state: none yet (-1 ends)
+  int px = 0, py = 0;
+  bool inside = false, done = true;
+  float fx = 0.0f, fy = 0.0f, fx0 = 0.0f, fy0 = 0.0f;
+  float T = 1.0f;
+  float acc[C];
+  int last = 0;  // one past the last contributor, in the tile's list
+  for (int it = 0;; ++it) {
+    const int s = it % kStagesB;
+    mbar_wait(full0 + 8 * s, (it / kStagesB) & 1);
+    const int4 m = s_meta[s];
+    if (m.x != cur) {
+      if (cur >= 0 && inside) {
+        const int64_t p = (int64_t)py * width + px;
+#pragma unroll
+        for (int c = 0; c < C; ++c) out_colors[p * C + c] = acc[c];
+        out_alpha[p] = 1.0f - T;
+        if (kTrain) {
+          out_T[p] = T;
+          out_last[p] = last;
+        }
+      }
+      if (m.x < 0) {
+        // the empty tiles: the one the producer drew, then the rest
+        int tile = warp == 0 ? m.y : -1;
+        for (;;) {
+          if (tile < 0) {
+            int i = 0;
+            if (lane == 0) i = atomicAdd(next_tile, 1);
+            i = __shfl_sync(0xffffffffu, i, 0);
+            if (i >= n_tiles) return;
+            tile = (int)order[i];
+          }
+          fill_empty_tile<C, kTrain>(tile, lane, width, height, tw,
+                                     out_colors, out_alpha, out_T, out_last);
+          tile = -1;
+        }
+      }
+      cur = m.x;
+      const int tx = cur % tw, ty = cur / tw;
+      px = tx * kTile + col;
+      py = ty * kTile + row;
+      inside = px < width && py < height;
+      fx = (float)px + 0.5f;
+      fy = (float)py + 0.5f;
+      fx0 = (float)(tx * kTile) + 0.5f;
+      fy0 = (float)(ty * kTile + 2 * warp) + 0.5f;
+      T = 1.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+      last = 0;
+      done = !inside;
+      if (__all_sync(0xffffffffu, done) && lane == 0)
+        atomicAdd(&s_done[m.w], 1);
+    }
+    if (!__all_sync(0xffffffffu, done)) {
+      const float* sb = s_ring + s * kBatchB * RS;
+      unsigned keep[NB];
+      warp_keep<RS, NB>(sb, m.z, lane, fx0, fy0, keep);
+      // the records the warp may take, in list order; each pixel applies
+      // every skip and stop rule as if it walked them all
+      for (int k = 0; k < NB && !done; ++k) {
+        unsigned bits = pick(keep, k);
+        while (bits != 0u && !done) {
+          const int j = 32 * k + __ffs(bits) - 1;
+          bits &= bits - 1u;
+          const float* r = sb + j * RS;
+          // u v a b, then c o t and a channel
+          const float4 h0 = *reinterpret_cast<const float4*>(r);
+          const float4 h1 = *reinterpret_cast<const float4*>(r + 4);
+          const float dx = fx - h0.x;
+          const float dy = fy - h0.y;
+          const float sigma = splat_sigma(h0.z, h0.w, h1.x, dx, dy);
+          if (sigma < 0.0f) continue;
+          const float alpha = fminf(kAlphaClamp, h1.y * expf(-sigma));
+          if (alpha < kAlphaMin) continue;
+          const float next_T = T * (1.0f - alpha);
+          if (next_T <= kTStop) {  // stop; this splat is excluded
+            done = true;
+            break;
+          }
+          const float w = alpha * T;
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[c] += r[kRCol + c] * w;
+          T = next_T;
+          if (kTrain) last = m.y + j + 1;
+        }
+      }
+      if (__all_sync(0xffffffffu, done) && lane == 0)
+        atomicAdd(&s_done[m.w], 1);
+    }
+    mbar_arrive(empty0 + 8 * s);
+  }
+}
+
+// ------------------------------------------------------------ kernel C
 
 // Gradient row of a splat: NG = 8 + C floats, in this order.
 constexpr int kGU = 0, kGV = 1, kGA = 2, kGB = 3, kGC = 4, kGO = 5,
               kGAbsU = 6, kGAbsV = 7, kGCol = 8;
 
+// One round of the transposed warp sum: a lane keeps W of its 2 W values
+// (the upper half if bit W of its lane is set) and adds its partner's
+// (lane ^ W) copy of the same half. Compile-time indices: x stays in
+// registers.
+template <int W>
+__device__ __forceinline__ void fold_half(float (&x)[16], int lane) {
+  const bool up = (lane & W) != 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float give = up ? x[i] : x[i + W];
+    const float keep = up ? x[i + W] : x[i];
+    x[i] = keep + __shfl_xor_sync(0xffffffffu, give, W);
+  }
+}
+
+// Transposed warp sum of 16 values: rounds of 8, 4, 2 and 1 shuffles, then
+// one more adds the two half-warps. Lane l ends with the warp's sum of
+// x[l & 15]: 16 shuffles in place of 5 per value.
+__device__ __forceinline__ float warp_sum16(float (&x)[16], int lane) {
+  fold_half<8>(x, lane);
+  fold_half<4>(x, lane);
+  fold_half<2>(x, lane);
+  fold_half<1>(x, lane);
+  return x[0] + __shfl_xor_sync(0xffffffffu, x[0], 16);
+}
+
+// The same for the 12 fields of C = 4 (the main path's rgb + depth), in 13
+// shuffles: halves of 6 and 3 (over lane bits 4 and 3), then 3 values
+// split 2 / 1 over bit 2 (lanes without it keep fields 0 and 1, lanes
+// with it field 2), halves again over bit 1 (lanes with bit 2 just add),
+// and a last sum over bit 0. Returns the sum of field *f; *add is set in
+// exactly one lane per field. Measured 7% faster kernel C than
+// warp_sum16 at the headline frame.
+__device__ __forceinline__ float warp_sum12(float (&x)[16], int lane,
+                                            int* f, bool* add) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const float give = b4 ? x[i] : x[i + 6];
+    const float keep = b4 ? x[i + 6] : x[i];
+    x[i] = keep + __shfl_xor_sync(0xffffffffu, give, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float give = b3 ? x[i] : x[i + 3];
+    const float keep = b3 ? x[i + 3] : x[i];
+    x[i] = keep + __shfl_xor_sync(0xffffffffu, give, 8);
+  }
+  const float r0 = __shfl_xor_sync(0xffffffffu, b2 ? x[0] : x[2], 4);
+  const float r1 = __shfl_xor_sync(0xffffffffu, x[1], 4);
+  float y = x[2] + r0;  // lanes with bit 2: field 2
+  if (!b2) {
+    x[0] += r0;
+    x[1] += r1;
+  }
+  const float give = b2 ? y : (b1 ? x[0] : x[1]);
+  const float keep = b2 ? y : (b1 ? x[1] : x[0]);
+  y = keep + __shfl_xor_sync(0xffffffffu, give, 2);
+  y += __shfl_xor_sync(0xffffffffu, y, 1);
+  *f = (b3 ? 3 : 0) + (b4 ? 6 : 0) + (b2 ? 2 : (b1 ? 1 : 0));
+  *add = (lane & 1) == 0 && !(b2 && b1);
+  return y;
+}
+
 template <int C>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kRasterThreads)
 composite_bwd_kernel(const int32_t* __restrict__ ranges,
                      const int32_t* __restrict__ gids,
-                     const float* __restrict__ u, const float* __restrict__ v,
-                     const float* __restrict__ conic_a,
-                     const float* __restrict__ conic_b,
-                     const float* __restrict__ conic_c,
-                     const float* __restrict__ colors,
-                     const float* __restrict__ opacities, int width,
+                     const float* __restrict__ rec,
+                     const int64_t* __restrict__ order,
+                     int32_t* __restrict__ next_tile, int n_tiles, int width,
                      int height, int tw, const float* __restrict__ final_T,
                      const int32_t* __restrict__ last,
                      const float* __restrict__ grad_colors,
                      const float* __restrict__ grad_alpha,
                      float* __restrict__ grads) {
+  constexpr int RS = record_floats(C);
   constexpr int NG = kGCol + C;
-  __shared__ float s_u[kBlock], s_v[kBlock], s_a[kBlock], s_b[kBlock],
-      s_c[kBlock], s_o[kBlock];
-  __shared__ float s_col[kBlock * C];
-  __shared__ int32_t s_gid[kBlock];
-  __shared__ int s_len;
+  constexpr int NB = kBatchC / 32;
+  static_assert(NG <= 16, "warp_sum16 sums 16 fields");
+  extern __shared__ __align__(16) float s_ring[];  // kStagesC x kBatchC x RS
+  __shared__ __align__(8) uint64_t s_bar[2 * kStagesC];  // full, empty
+  // per stage: tile (-1: no more tiles), index in the tile's list of the
+  // batch's first record, record count
+  __shared__ int4 s_meta[kStagesC];
+  __shared__ int32_t s_gid[kStagesC][kBatchC];  // the stage's splat ids
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const uint32_t full0 = smem_u32(s_bar);
+  const uint32_t empty0 = smem_u32(s_bar + kStagesC);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesC; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kBlock);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers) {
+    // the producer warp: takes tiles, longest list first, and streams
+    // each list back to front from the longest prefix any of its pixels
+    // walks, with the batch's splat ids
+    int it = 0;
+    for (;;) {
+      int i = 0;
+      if (lane == 0) i = atomicAdd(next_tile, 1);
+      i = __shfl_sync(0xffffffffu, i, 0);
+      if (i >= n_tiles) break;
+      const int tile = (int)order[i];
+      const int start = ranges[2 * tile];
+      // the order is by list length, descending: the rest are empty too
+      if (ranges[2 * tile + 1] == start) break;
+      const int tx = tile % tw, ty = tile / tw;
+      int len = 0;
+      for (int q = lane; q < kBlock; q += 32) {
+        const int px = tx * kTile + q % kTile, py = ty * kTile + q / kTile;
+        if (px < width && py < height)
+          len = max(len, last[(int64_t)py * width + px]);
+      }
+      len = __reduce_max_sync(0xffffffffu, len);
+      for (int bend = len; bend > 0; bend -= kBatchC, ++it) {
+        const int bstart = max(bend - kBatchC, 0);
+        const int cnt = bend - bstart;
+        const int s = it % kStagesC;
+        if (it >= kStagesC)
+          mbar_wait(empty0 + 8 * s, (it / kStagesC - 1) & 1);
+        for (int q = lane; q < cnt; q += 32)
+          s_gid[s][q] = gids[start + bstart + q];
+        __syncwarp();  // the ids before lane 0's arrive releases them
+        if (lane == 0) {
+          s_meta[s] = make_int4(tile, bstart, cnt, 0);
+          mbar_expect_tx(full0 + 8 * s, cnt * RS * 4);
+          bulk_load(smem_u32(s_ring + s * kBatchC * RS),
+                    rec + (int64_t)(start + bstart) * RS, cnt * RS * 4,
+                    full0 + 8 * s);
+        }
+      }
+    }
+    if (lane == 0) {
+      const int s = it % kStagesC;
+      if (it >= kStagesC)
+        mbar_wait(empty0 + 8 * s, (it / kStagesC - 1) & 1);
+      s_meta[s] = make_int4(-1, 0, 0, 0);
+      mbar_arrive(full0 + 8 * s);
+    }
+    return;
+  }
 
   const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int tile = blockIdx.y * tw + blockIdx.x;
-  const int px = blockIdx.x * kTile + t % kTile;
-  const int py = blockIdx.y * kTile + t / kTile;
-  const bool inside = px < width && py < height;
-  const float fx = (float)px + 0.5f;
-  const float fy = (float)py + 0.5f;
-  const int start = ranges[2 * tile];
-
+  const int col = t % kTile;
+  const int row = t / kTile;
+  int cur = -1;
+  int my_last = 0, wlen = 0;
+  float fx = 0.0f, fy = 0.0f, fx0 = 0.0f, fy0 = 0.0f;
   float T = 1.0f, T_N = 1.0f, g_a = 0.0f, S = 0.0f;
   float g_c[C];
-  int my_last = 0;
+  for (int it = 0;; ++it) {
+    const int s = it % kStagesC;
+    mbar_wait(full0 + 8 * s, (it / kStagesC) & 1);
+    const int4 m = s_meta[s];
+    if (m.x < 0) return;
+    if (m.x != cur) {
+      cur = m.x;
+      const int tx = cur % tw, ty = cur / tw;
+      const int px = tx * kTile + col;
+      const int py = ty * kTile + row;
+      fx = (float)px + 0.5f;
+      fy = (float)py + 0.5f;
+      fx0 = (float)(tx * kTile) + 0.5f;
+      fy0 = (float)(ty * kTile + 2 * warp) + 0.5f;
+      T_N = 1.0f;
+      my_last = 0;
+      g_a = 0.0f;
+      S = 0.0f;
 #pragma unroll
-  for (int c = 0; c < C; ++c) g_c[c] = 0.0f;
-  if (inside) {
-    const int64_t p = (int64_t)py * width + px;
-    T_N = final_T[p];
-    T = T_N;
-    my_last = last[p];
-    g_a = grad_alpha[p];
+      for (int c = 0; c < C; ++c) g_c[c] = 0.0f;
+      if (px < width && py < height) {
+        const int64_t p = (int64_t)py * width + px;
+        T_N = final_T[p];
+        my_last = last[p];
+        g_a = grad_alpha[p];
 #pragma unroll
-    for (int c = 0; c < C; ++c) g_c[c] = grad_colors[p * C + c];
-  }
-  if (t == 0) s_len = 0;
-  __syncthreads();
-  if (my_last > 0) atomicMax(&s_len, my_last);
-  __syncthreads();
-  const int len = s_len;  // the longest prefix any pixel of the tile used
-
-  for (int bend = len; bend > 0; bend -= kBlock) {
-    const int bstart = max(bend - kBlock, 0);
-    const int cnt = bend - bstart;
-    __syncthreads();  // the previous batch is fully read
-    if (t < cnt) {
-      const int g = gids[start + bstart + t];
-      s_gid[t] = g;
-      s_u[t] = u[g];
-      s_v[t] = v[g];
-      s_a[t] = conic_a[g];
-      s_b[t] = conic_b[g];
-      s_c[t] = conic_c[g];
-      s_o[t] = opacities[g];
-#pragma unroll
-      for (int c = 0; c < C; ++c) s_col[t * C + c] = colors[(int64_t)g * C + c];
+        for (int c = 0; c < C; ++c) g_c[c] = grad_colors[p * C + c];
+      }
+      T = T_N;
+      wlen = __reduce_max_sync(0xffffffffu, my_last);
     }
-    __syncthreads();
-    for (int j = cnt - 1; j >= 0; --j) {
-      float gr[NG];
+    if (m.y < wlen) {
+      const float* sb = s_ring + s * kBatchC * RS;
+      const int32_t* sg = s_gid[s];
+      unsigned keep[NB];
+      warp_keep<RS, NB>(sb, min(m.z, wlen - m.y), lane, fx0, fy0, keep);
+      for (int k = NB - 1; k >= 0; --k) {
+        unsigned bits = pick(keep, k);
+        while (bits != 0u) {
+          const int hb = 31 - __clz(bits);
+          bits ^= 1u << hb;
+          const int j = 32 * k + hb;
+          float gr[16];
 #pragma unroll
-      for (int k = 0; k < NG; ++k) gr[k] = 0.0f;
-      bool hit = false;
-      if (bstart + j < my_last) {
-        const float dx = fx - s_u[j];
-        const float dy = fy - s_v[j];
-        const float sigma = splat_sigma(s_a[j], s_b[j], s_c[j], dx, dy);
-        const float e = expf(-sigma);
-        const float raw = s_o[j] * e;
-        const float alpha = fminf(kAlphaClamp, raw);
-        if (sigma >= 0.0f && alpha >= kAlphaMin) {
-          hit = true;
-          const float one_m = 1.0f - alpha;
-          T = T / one_m;  // T before splat j
-          const float w = alpha * T;
-          float cg = 0.0f;
+          for (int q = 0; q < 16; ++q) gr[q] = 0.0f;
+          bool hit = false;
+          if (m.y + j < my_last) {
+            const float* r = sb + j * RS;
+            // u v a b, then c o t and a channel
+            const float4 h0 = *reinterpret_cast<const float4*>(r);
+            const float4 h1 = *reinterpret_cast<const float4*>(r + 4);
+            const float a = h0.z, b = h0.w, c = h1.x;
+            const float dx = fx - h0.x;
+            const float dy = fy - h0.y;
+            const float sigma = splat_sigma(a, b, c, dx, dy);
+            const float e = expf(-sigma);
+            const float raw = h1.y * e;
+            const float alpha = fminf(kAlphaClamp, raw);
+            if (sigma >= 0.0f && alpha >= kAlphaMin) {
+              hit = true;
+              const float one_m = 1.0f - alpha;
+              // one correctly rounded reciprocal for both divisions by
+              // 1 - alpha (two IEEE divisions cost ~5% of the kernel)
+              const float inv = __frcp_rn(one_m);
+              T = T * inv;  // T before splat j
+              const float w = alpha * T;
+              float cg = 0.0f;
 #pragma unroll
-          for (int c = 0; c < C; ++c) {
-            cg += s_col[j * C + c] * g_c[c];
-            gr[kGCol + c] = w * g_c[c];
+              for (int ch = 0; ch < C; ++ch) {
+                cg += r[kRCol + ch] * g_c[ch];
+                gr[kGCol + ch] = w * g_c[ch];
+              }
+              const float dalpha = T * cg - (S - g_a * T_N) * inv;
+              S += w * cg;
+              if (raw < kAlphaClamp) {  // the clamp passes no gradient
+                const float dsig = -alpha * dalpha;
+                gr[kGU] = -dsig * (a * dx + b * dy);
+                gr[kGV] = -dsig * (c * dy + b * dx);
+                gr[kGA] = 0.5f * dx * dx * dsig;
+                gr[kGB] = dx * dy * dsig;
+                gr[kGC] = 0.5f * dy * dy * dsig;
+                gr[kGO] = dalpha * e;
+                gr[kGAbsU] = fabsf(gr[kGU]);
+                gr[kGAbsV] = fabsf(gr[kGV]);
+              }
+            }
           }
-          const float dalpha = T * cg - (S - g_a * T_N) / one_m;
-          S += w * cg;
-          if (raw < kAlphaClamp) {  // the clamp passes no gradient
-            const float dsig = -alpha * dalpha;
-            gr[kGU] = -dsig * (s_a[j] * dx + s_b[j] * dy);
-            gr[kGV] = -dsig * (s_c[j] * dy + s_b[j] * dx);
-            gr[kGA] = 0.5f * dx * dx * dsig;
-            gr[kGB] = dx * dy * dsig;
-            gr[kGC] = 0.5f * dy * dy * dsig;
-            gr[kGO] = dalpha * e;
-            gr[kGAbsU] = fabsf(gr[kGU]);
-            gr[kGAbsV] = fabsf(gr[kGV]);
+          if (!__any_sync(0xffffffffu, hit)) continue;  // warp-uniform
+          // the warp's sums, one field per adding lane; the atomics'
+          // results are unused, so the warp issues one red.global.add.f32
+          float* dst = grads + (int64_t)sg[j] * NG;
+          if constexpr (NG == 12) {
+            int f;
+            bool add;
+            const float x = warp_sum12(gr, lane, &f, &add);
+            if (add) atomicAdd(dst + f, x);
+          } else {
+            const float x = warp_sum16(gr, lane);
+            if (lane < NG) atomicAdd(dst + lane, x);
           }
         }
       }
-      if (!__any_sync(0xffffffffu, hit)) continue;  // warp-uniform
-#pragma unroll
-      for (int k = 0; k < NG; ++k) {
-        float x = gr[k];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          x += __shfl_down_sync(0xffffffffu, x, off);
-        gr[k] = x;
-      }
-      if (lane == 0) {
-        float* row = grads + (int64_t)s_gid[j] * NG;
-#pragma unroll
-        for (int k = 0; k < NG; ++k) atomicAdd(row + k, gr[k]);
-      }
     }
+    mbar_arrive(empty0 + 8 * s);
   }
 }
 
 inline unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads1D - 1) / kThreads1D);
+}
+
+// A persistent grid for a raster kernel: as many blocks as fit on the card
+// at once, at most one per tile. The first call for a device raises the
+// kernel's dynamic shared memory limit to `smem` and asks for its
+// occupancy; later calls reuse the answer (a host query per call costs
+// more than a small pass's kernel). One cache per kernel: Kern is a
+// template argument, since kernels of one signature share a pointer type.
+template <auto Kern>
+cudaError_t persistent_grid(int smem, int n_tiles, int* grid) {
+  constexpr int kMaxDevices = 64;
+  static int fits[kMaxDevices] = {};  // blocks the card holds at once
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (fits[dev] == 0) {
+    e = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return e;
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kern,
+                                                      kRasterThreads, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm == 0) return cudaErrorInvalidConfiguration;
+    fits[dev] = sms * per_sm;
+  }
+  *grid = n_tiles < 1 ? 1 : (n_tiles < fits[dev] ? n_tiles : fits[dev]);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -410,30 +889,77 @@ int sc_tile_ranges(const void* keys, long long n_pairs, void* ranges,
   return (int)cudaGetLastError();
 }
 
+// records: [n_pairs, record_floats(C)] f32; table: [n, record_floats(C)]
+// f32 scratch; both 16-byte aligned.
+int sc_pair_records(const void* gids, const void* u, const void* v,
+                    const void* conic_a, const void* conic_b,
+                    const void* conic_c, const void* colors,
+                    const void* opacities, int n, long long n_pairs, int C,
+                    void* table, void* records, void* stream) {
+  if (n_pairs <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+#define SC_CASE(CH)                                                          \
+  case CH:                                                                   \
+    splat_records_kernel<CH><<<blocks_for(n), kThreads1D, 0, s>>>(           \
+        (const float*)u, (const float*)v, (const float*)conic_a,             \
+        (const float*)conic_b, (const float*)conic_c, (const float*)colors,  \
+        (const float*)opacities, n, (float*)table);                          \
+    break;
+  switch (C) {
+    SC_CASE(1)
+    SC_CASE(2)
+    SC_CASE(3)
+    SC_CASE(4)
+    SC_CASE(5)
+    SC_CASE(6)
+    SC_CASE(7)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SC_CASE
+  const int q = record_floats(C) / 4;
+  const unsigned blocks = blocks_for(n_pairs * q);
+  const int32_t* g = (const int32_t*)gids;
+  const float4* tab = (const float4*)table;
+  float4* rec = (float4*)records;
+  if (q == 2)
+    pair_records_kernel<2><<<blocks, kThreads1D, 0, s>>>(g, tab, n_pairs, rec);
+  else if (q == 3)
+    pair_records_kernel<3><<<blocks, kThreads1D, 0, s>>>(g, tab, n_pairs, rec);
+  else
+    pair_records_kernel<4><<<blocks, kThreads1D, 0, s>>>(g, tab, n_pairs, rec);
+  return (int)cudaGetLastError();
+}
+
+// records from sc_pair_records; order: [tw * th] int64, the tiles in the
+// order blocks take them; next_tile: one int32, zeroed by the caller.
 // out_T and out_last: both null (eval) or both set (training variant).
-int sc_composite(const void* ranges, const void* gids, const void* u,
-                 const void* v, const void* conic_a, const void* conic_b,
-                 const void* conic_c, const void* colors,
-                 const void* opacities, int C, int width, int height, int tw,
+int sc_composite(const void* ranges, const void* records, const void* order,
+                 void* next_tile, int C, int width, int height, int tw,
                  int th, void* out_colors, void* out_alpha, void* out_T,
                  void* out_last, void* stream) {
-  const dim3 grid(tw, th);
   cudaStream_t s = (cudaStream_t)stream;
   const bool train = out_T != nullptr;
   if (train != (out_last != nullptr)) return (int)cudaErrorInvalidValue;
-#define SC_LAUNCH(CH, TR)                                                   \
-  composite_kernel<CH, TR><<<grid, kBlock, 0, s>>>(                         \
-      (const int32_t*)ranges, (const int32_t*)gids, (const float*)u,        \
-      (const float*)v, (const float*)conic_a, (const float*)conic_b,        \
-      (const float*)conic_c, (const float*)colors, (const float*)opacities, \
-      width, height, tw, (float*)out_colors, (float*)out_alpha,             \
-      (float*)out_T, (int32_t*)out_last)
+  const int n_tiles = tw * th;
+#define SC_LAUNCH(CH, TR)                                                     \
+  {                                                                           \
+    const int smem = kStagesB * kBatchB * record_floats(CH) * 4;              \
+    int grid = 0;                                                             \
+    const cudaError_t e =                                                     \
+        persistent_grid<composite_kernel<CH, TR>>(smem, n_tiles, &grid);      \
+    if (e != cudaSuccess) return (int)e;                                      \
+    composite_kernel<CH, TR><<<grid, kRasterThreads, smem, s>>>(              \
+        (const int32_t*)ranges, (const float*)records, (const int64_t*)order, \
+        (int32_t*)next_tile, n_tiles, width, height, tw, (float*)out_colors,  \
+        (float*)out_alpha, (float*)out_T, (int32_t*)out_last);                \
+  }
 #define SC_CASE(CH)                \
   case CH:                         \
     if (train)                     \
-      SC_LAUNCH(CH, true);         \
+      SC_LAUNCH(CH, true)          \
     else                           \
-      SC_LAUNCH(CH, false);        \
+      SC_LAUNCH(CH, false)         \
     break;
   switch (C) {
     SC_CASE(1)
@@ -451,27 +977,32 @@ int sc_composite(const void* ranges, const void* gids, const void* u,
   return (int)cudaGetLastError();
 }
 
-// grads [N, 8 + C] must be zeroed by the caller (atomics add into it).
-int sc_composite_backward(const void* ranges, const void* gids, const void* u,
-                          const void* v, const void* conic_a,
-                          const void* conic_b, const void* conic_c,
-                          const void* colors, const void* opacities, int C,
-                          int width, int height, int tw, int th,
-                          const void* final_T, const void* last,
-                          const void* grad_colors, const void* grad_alpha,
-                          void* grads, void* stream) {
-  const dim3 grid(tw, th);
+// As sc_composite, plus kernel B's final T and last index and the
+// cotangents. grads [N, 8 + C] must be zeroed by the caller (atomics add
+// into it).
+int sc_composite_backward(const void* ranges, const void* gids,
+                          const void* records, const void* order,
+                          void* next_tile, int C, int width, int height,
+                          int tw, int th, const void* final_T,
+                          const void* last, const void* grad_colors,
+                          const void* grad_alpha, void* grads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define SC_CASE(CH)                                                         \
-  case CH:                                                                  \
-    composite_bwd_kernel<CH><<<grid, kBlock, 0, s>>>(                       \
-        (const int32_t*)ranges, (const int32_t*)gids, (const float*)u,      \
-        (const float*)v, (const float*)conic_a, (const float*)conic_b,      \
-        (const float*)conic_c, (const float*)colors,                        \
-        (const float*)opacities, width, height, tw, (const float*)final_T,  \
-        (const int32_t*)last, (const float*)grad_colors,                    \
-        (const float*)grad_alpha, (float*)grads);                           \
-    break;
+  const int n_tiles = tw * th;
+#define SC_CASE(CH)                                                           \
+  case CH: {                                                                  \
+    const int smem =                                                          \
+        kStagesC * kBatchC * record_floats(CH) * 4;                          \
+    int grid = 0;                                                             \
+    const cudaError_t e =                                                     \
+        persistent_grid<composite_bwd_kernel<CH>>(smem, n_tiles, &grid);      \
+    if (e != cudaSuccess) return (int)e;                                      \
+    composite_bwd_kernel<CH><<<grid, kRasterThreads, smem, s>>>(              \
+        (const int32_t*)ranges, (const int32_t*)gids, (const float*)records,  \
+        (const int64_t*)order, (int32_t*)next_tile, n_tiles, width, height,   \
+        tw, (const float*)final_T, (const int32_t*)last,                      \
+        (const float*)grad_colors, (const float*)grad_alpha, (float*)grads);  \
+    break;                                                                    \
+  }
   switch (C) {
     SC_CASE(1)
     SC_CASE(2)

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's CUDA sources:
-// mbarriers, TMA loads through tensor maps, wgmma products with
-// shared-memory descriptors in TMA's 128-byte swizzle, setmaxnreg, and the
-// host-side entry point of cuTensorMapEncodeTiled. Included once per
+// mbarriers, 1-D bulk copies, TMA loads through tensor maps, wgmma
+// products with shared-memory descriptors in TMA's 128-byte swizzle,
+// setmaxnreg, and the host-side entry point of cuTensorMapEncodeTiled.
+// Included once per
 // source (each source is its own library); everything has internal
 // linkage.
 //
@@ -66,6 +67,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   const long long t0 = clock64();
   while (!mbar_try(bar, parity))
     if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// 1-D bulk copy (TMA without a tensor map): `bytes` contiguous bytes from
+// global `src` into shared memory at `dst`, completing `bar`'s transaction
+// bytes. Both addresses 16-byte aligned, `bytes` a nonzero multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // TMA: the box at (c0, c1, c2, c3) of a 4-D map into shared memory at

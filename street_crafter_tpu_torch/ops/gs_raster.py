@@ -21,11 +21,15 @@ Each step has two implementations in this module:
   * the CUDA kernels of ``csrc/gs_raster.cu`` (A, B and C), used for CUDA
     tensors. They are compiled with nvcc on first use; a failed build or
     launch raises.
-``launches`` counts the calls of each implementation. ``rasterize_pixels``
-is differentiable (``torch.autograd.Function``) when an input needs a
-gradient; its ``absgrad_sink`` input receives the per-splat sums of
-|dL/du| and |dL/dv| over pixels as its gradient (gsplat ``absgrad=True``,
-the JAX ``_abs_sink_hook``).
+Kernels B and C read the lists as pair records (``pair_records``: one
+16-byte aligned record per (tile, splat) pair, packed by a kernel inside
+each of their calls) and skip, per warp of 16x2 pixels, the pairs that no
+pixel of the warp can take (``warp_cull_reference`` is the cull's plain
+version). ``launches`` counts the calls of each implementation.
+``rasterize_pixels`` is differentiable (``torch.autograd.Function``) when
+an input needs a gradient; its ``absgrad_sink`` input receives the
+per-splat sums of |dL/du| and |dL/dv| over pixels as its gradient (gsplat
+``absgrad=True``, the JAX ``_abs_sink_hook``).
 """
 
 from __future__ import annotations
@@ -44,6 +48,15 @@ ALPHA_CLAMP = 0.999
 ALPHA_MIN = 1.0 / 255.0
 T_STOP = 1e-4
 MAX_CHANNELS = 7
+WARPS = TILE * TILE // 32   # warps of a tile in kernels B and C, 16x2 px each
+# pair record fields (floats), then the channels, zero-padded to 16 bytes
+REC_U, REC_V, REC_A, REC_B, REC_C, REC_OPACITY, REC_THRESHOLD = range(7)
+REC_COLORS = 7
+# the cull's margins in sigma (derived beside kCullAbs / kCullRel in
+# csrc/gs_raster.cu): absolute, and relative to the rectangle's largest
+# |a| dx^2 + |c| dy^2 + 2 |b| dx dy
+CULL_ABS = 1e-5
+CULL_REL = 2.0 ** -20
 
 
 # calls per implementation: "tile_worklist", "composite" and
@@ -75,6 +88,11 @@ class RasterOutput(NamedTuple):
 
 def tile_grid(width: int, height: int) -> tuple[int, int]:
     return -(-width // TILE), -(-height // TILE)
+
+
+def record_floats(channels: int) -> int:
+    """Floats per pair record: 7 + C, rounded up to a multiple of 4."""
+    return (REC_COLORS + channels + 3) // 4 * 4
 
 
 def _uses_kernel(*tensors: torch.Tensor) -> bool:
@@ -149,9 +167,11 @@ class _TileSplats(NamedTuple):
 
 
 def _tiles(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, opacities,
-           width: int):
+           width: int, cull: torch.Tensor | None = None):
     """Yield the non-empty tiles of ``wl`` with their [K, 256] alpha and
-    the stop rule's transmittance scan."""
+    the stop rule's transmittance scan. ``cull`` ([P, 8] bool, from
+    ``warp_cull_reference``) sets alpha to 0 for every pixel of a warp
+    that culled the pair, as kernels B and C skip it."""
     tw, _ = tile_grid(width, 1)
     dev = u.device
     ly, lx = torch.meshgrid(
@@ -172,6 +192,9 @@ def _tiles(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, opacities,
         raw = opacities[g][:, None] * torch.exp(-sigma)
         alpha = torch.clamp(raw, max=ALPHA_CLAMP)
         alpha = torch.where((sigma >= 0) & (alpha >= ALPHA_MIN), alpha, 0.0)
+        if cull is not None:
+            alpha = torch.where(cull[s:e].repeat_interleave(32, 1), 0.0,
+                                alpha)
         # T after each splat: a scan along dim 0 multiplies sequentially
         # per pixel, rounding exactly like the kernel's T *= 1 - alpha, so
         # both stop at the same splat
@@ -186,12 +209,15 @@ def _tiles(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, opacities,
 
 def composite_reference(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
                         colors, opacities, width: int, height: int,
-                        train: bool = False) -> tuple[torch.Tensor, ...]:
+                        train: bool = False, *,
+                        cull: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, ...]:
     """Python loop over tiles; per tile a vectorised [K, 256] alpha and an
     inclusive transmittance scan for the stop rule. Returns (colours [H, W,
     C], alpha [H, W]) and, with ``train``, also the final T [H, W] and the
     index one past the last contributing splat in the tile's list (int32
-    [H, W], 0 where none)."""
+    [H, W], 0 where none). ``cull``: see ``_tiles`` (the tests' check that
+    the cull changes nothing)."""
     launches["composite_reference"] += 1
     tw, th = tile_grid(width, height)
     dev = u.device
@@ -200,7 +226,8 @@ def composite_reference(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
                       device=dev)
     trans = torch.ones((th * TILE, tw * TILE), dtype=torch.float32, device=dev)
     last = torch.zeros((th * TILE, tw * TILE), dtype=torch.int32, device=dev)
-    for ts in _tiles(wl, u, v, conic_a, conic_b, conic_c, opacities, width):
+    for ts in _tiles(wl, u, v, conic_a, conic_b, conic_c, opacities, width,
+                     cull):
         w = torch.where(ts.keep, ts.alpha * ts.t_before, 0.0)
         out[ts.rows, ts.cols] = (w.T @ colors[ts.g]).reshape(TILE, TILE, C)
         trans[ts.rows, ts.cols] = ts.t_final.reshape(TILE, TILE)
@@ -220,14 +247,16 @@ def composite_reference(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
 def composite_backward_reference(wl: TileWorklist, u, v, conic_a, conic_b,
                                  conic_c, colors, opacities, width: int,
                                  height: int, grad_colors: torch.Tensor,
-                                 grad_alpha: torch.Tensor) -> torch.Tensor:
+                                 grad_alpha: torch.Tensor, *,
+                                 cull: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
     """Gradients of sum(grad_colors * colours) + sum(grad_alpha * alpha)
     w.r.t. each splat: [N, 8 + C] rows (u, v, conic a, b, c, opacity,
     sum |dL/du|, sum |dL/dv|, colours). Recomputes each tile as
     ``composite_reference`` does, then per pair the adjoint of the forward:
     dalpha_j = T_j (c_j.g_c) - (S_j - g_a T_N) / (1 - alpha_j) with S_j the
     suffix sum of w c.g_c behind splat j; zero where a splat was skipped,
-    stopped or its alpha clamped at 0.999."""
+    stopped or its alpha clamped at 0.999. ``cull``: see ``_tiles``."""
     launches["composite_backward_reference"] += 1
     tw, th = tile_grid(width, height)
     dev = u.device
@@ -238,7 +267,8 @@ def composite_backward_reference(wl: TileWorklist, u, v, conic_a, conic_b,
     gc[:height, :width] = grad_colors
     ga[:height, :width] = grad_alpha
     grads = torch.zeros((n, GRAD_COLORS + C), dtype=torch.float32, device=dev)
-    for ts in _tiles(wl, u, v, conic_a, conic_b, conic_c, opacities, width):
+    for ts in _tiles(wl, u, v, conic_a, conic_b, conic_c, opacities, width,
+                     cull):
         g = ts.g
         gcp = gc[ts.rows, ts.cols].reshape(-1, C)               # [256, C]
         gap = ga[ts.rows, ts.cols].reshape(-1)                  # [256]
@@ -266,6 +296,68 @@ def composite_backward_reference(wl: TileWorklist, u, v, conic_a, conic_b,
     return grads
 
 
+def cull_threshold_reference(conic_a, conic_b, conic_c, opacities
+                             ) -> torch.Tensor:
+    """The cull threshold t of each splat, as kernel B's records hold it:
+    ln(255 opacity) + CULL_ABS, -inf (always culled) for an opacity below
+    1/255, +inf (never culled) for a conic that is not positive definite."""
+    pd = (conic_a > 0) & (conic_a * conic_c - conic_b * conic_b > 0)
+    t = torch.where(pd, torch.log(255 * opacities) + CULL_ABS, float("inf"))
+    return torch.where(opacities < ALPHA_MIN, float("-inf"), t)
+
+
+def pair_records_reference(wl: TileWorklist, u, v, conic_a, conic_b,
+                           conic_c, colors, opacities) -> torch.Tensor:
+    """[P, record_floats(C)] f32: per (tile, splat) pair in list order its
+    splat's u, v, a, b, c, opacity, cull threshold and C channels, then
+    zeros (the kernels' pack)."""
+    g = wl.gauss_ids.to(torch.int64)
+    C = colors.shape[1]
+    cols = [x[g][:, None] for x in (u, v, conic_a, conic_b, conic_c,
+                                    opacities)]
+    cols.append(cull_threshold_reference(conic_a, conic_b, conic_c,
+                                         opacities)[g][:, None])
+    rec = torch.cat(cols + [colors[g]], 1)
+    return torch.nn.functional.pad(rec, (0, record_floats(C) - rec.shape[1]))
+
+
+def warp_cull_reference(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
+                        opacities, width: int) -> torch.Tensor:
+    """[P, 8] bool, the cull of kernels B and C: True where warp w of the
+    pair's tile (pixel rows 2w and 2w + 1, 16 columns) skips the pair
+    because no pixel centre of its rectangle can reach alpha >= 1/255. Per
+    row at dy the least sigma over the columns is at the vertex -b dy / a
+    clamped to [dx_lo, dx_hi]; the pair is culled iff it exceeds the
+    threshold plus CULL_REL times the rectangle's largest |a| dx^2 + |c| dy^2
+    + 2 |b| dx dy on both rows. Operation for operation the kernels' f32
+    test, so it counts what they skip. Not on any main path."""
+    tw, _ = tile_grid(width, 1)
+    dev = u.device
+    tile = wl.tile_ids.to(torch.int64)
+    g = wl.gauss_ids.to(torch.int64)
+    fx0 = ((tile % tw) * TILE).to(torch.float32) + 0.5          # [P]
+    rows = 2 * torch.arange(WARPS, device=dev)
+    fy0 = ((tile // tw)[:, None] * TILE + rows).to(torch.float32) + 0.5
+    uu, vv = u[g][:, None], v[g][:, None]
+    a, b, c = (x[g][:, None] for x in (conic_a, conic_b, conic_c))
+    t = cull_threshold_reference(conic_a, conic_b, conic_c,
+                                 opacities)[g][:, None]
+    lo = (fx0[:, None] - uu)
+    hi = ((fx0[:, None] + (TILE - 1)) - uu)
+    dy0 = fy0 - vv
+    dy1 = (fy0 + 1.0) - vv
+    X = torch.maximum(lo.abs(), hi.abs())
+    Y = torch.maximum(dy0.abs(), dy1.abs())
+    m = (a.abs() * X * X + c.abs() * Y * Y) + 2.0 * b.abs() * X * Y
+    thr = t + CULL_REL * m
+
+    def row_min(dy):
+        x = torch.clamp(-(b * dy) / a, lo, hi)
+        return 0.5 * (a * x * x + c * dy * dy) + b * x * dy
+
+    return (row_min(dy0) > thr) & (row_min(dy1) > thr)
+
+
 # --------------------------------------------------------------------------
 # CUDA kernels
 # --------------------------------------------------------------------------
@@ -278,10 +370,11 @@ def _library() -> ctypes.CDLL:
         "sc_isect_count": [P, P, P, P, I, I, I, P, P],
         "sc_isect_emit": [P, P, P, P, P, P, I, I, I, P, P, P],
         "sc_tile_ranges": [P, ctypes.c_longlong, P, P],
-        "sc_composite": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P, P, P,
-                         P, P],
-        "sc_composite_backward": [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                                  P, P, P, P, P, P],
+        "sc_pair_records": [P, P, P, P, P, P, P, P, I, ctypes.c_longlong, I,
+                            P, P, P],
+        "sc_composite": [P, P, P, P, I, I, I, I, I, P, P, P, P, P],
+        "sc_composite_backward": [P, P, P, P, P, I, I, I, I, I, P, P, P, P,
+                                  P, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -343,21 +436,33 @@ def _tile_worklist_cuda(u, v, radii, depths, valid, width, height
                         n_pairs)
 
 
-def _splat_ptrs(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, colors,
-                opacities, width, height) -> list[int]:
-    tw, th = tile_grid(width, height)
+def _pair_records_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
+                       colors, opacities) -> torch.Tensor:
+    lib = _library()
     n, C = colors.shape
     f32 = torch.float32
-    return [
-        _require(wl.ranges, "ranges", torch.int32, (tw * th, 2)),
-        _require(wl.gauss_ids, "gauss_ids", torch.int32, (wl.n_pairs,)),
-        _require(u, "u", f32, (n,)), _require(v, "v", f32, (n,)),
-        _require(conic_a, "conic_a", f32, (n,)),
-        _require(conic_b, "conic_b", f32, (n,)),
-        _require(conic_c, "conic_c", f32, (n,)),
-        _require(colors, "colors", f32, (n, C)),
-        _require(opacities, "opacities", f32, (n,)),
-    ]
+    ptrs = [_require(wl.gauss_ids, "gauss_ids", torch.int32, (wl.n_pairs,)),
+            _require(u, "u", f32, (n,)), _require(v, "v", f32, (n,)),
+            _require(conic_a, "conic_a", f32, (n,)),
+            _require(conic_b, "conic_b", f32, (n,)),
+            _require(conic_c, "conic_c", f32, (n,)),
+            _require(colors, "colors", f32, (n, C)),
+            _require(opacities, "opacities", f32, (n,))]
+    # torch's allocations are 256-byte aligned: what the bulk copies need
+    rec = torch.empty((wl.n_pairs, record_floats(C)), dtype=f32,
+                      device=u.device)
+    table = torch.empty((n, record_floats(C)), dtype=f32, device=u.device)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    _check(lib, lib.sc_pair_records(*ptrs, n, wl.n_pairs, C,
+                                    table.data_ptr(), rec.data_ptr(),
+                                    stream), "pair_records")
+    return rec
+
+
+def _tile_order(wl: TileWorklist) -> torch.Tensor:
+    """The order in which kernels B and C take the tiles: longest list
+    first (int64)."""
+    return torch.argsort(wl.ranges[:, 1] - wl.ranges[:, 0], descending=True)
 
 
 def _composite_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
@@ -365,9 +470,12 @@ def _composite_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
     lib = _library()
     tw, th = tile_grid(width, height)
     C = colors.shape[1]
-    ptrs = _splat_ptrs(wl, u, v, conic_a, conic_b, conic_c, colors,
-                       opacities, width, height)
+    ranges = _require(wl.ranges, "ranges", torch.int32, (tw * th, 2))
+    rec = _pair_records_cuda(wl, u, v, conic_a, conic_b, conic_c, colors,
+                             opacities)
+    order = _tile_order(wl)
     dev = u.device
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     out = torch.empty((height, width, C), dtype=torch.float32, device=dev)
     alpha = torch.empty((height, width), dtype=torch.float32, device=dev)
     res = (out, alpha)
@@ -377,7 +485,8 @@ def _composite_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
                 torch.empty((height, width), dtype=torch.int32, device=dev))
         state = [res[2].data_ptr(), res[3].data_ptr()]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _check(lib, lib.sc_composite(*ptrs, C, width, height, tw, th,
+    _check(lib, lib.sc_composite(ranges, rec.data_ptr(), order.data_ptr(),
+                                 counter.data_ptr(), C, width, height, tw, th,
                                  out.data_ptr(), alpha.data_ptr(), *state,
                                  stream), "composite")
     launches["composite"] += 1
@@ -390,20 +499,24 @@ def _composite_backward_cuda(wl: TileWorklist, u, v, conic_a, conic_b,
     lib = _library()
     tw, th = tile_grid(width, height)
     n, C = colors.shape
-    ptrs = _splat_ptrs(wl, u, v, conic_a, conic_b, conic_c, colors,
-                       opacities, width, height)
-    ptrs += [_require(final_T, "final_T", torch.float32, (height, width)),
+    ranges = _require(wl.ranges, "ranges", torch.int32, (tw * th, 2))
+    state = [_require(final_T, "final_T", torch.float32, (height, width)),
              _require(last, "last", torch.int32, (height, width)),
              _require(grad_colors, "grad_colors", torch.float32,
                       (height, width, C)),
              _require(grad_alpha, "grad_alpha", torch.float32,
                       (height, width))]
+    rec = _pair_records_cuda(wl, u, v, conic_a, conic_b, conic_c, colors,
+                             opacities)
+    order = _tile_order(wl)
+    counter = torch.zeros(1, dtype=torch.int32, device=u.device)
     grads = torch.zeros((n, GRAD_COLORS + C), dtype=torch.float32,
                         device=u.device)
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    _check(lib, lib.sc_composite_backward(*ptrs[:9], C, width, height, tw,
-                                          th, *ptrs[9:], grads.data_ptr(),
-                                          stream), "composite_backward")
+    _check(lib, lib.sc_composite_backward(
+        ranges, wl.gauss_ids.data_ptr(), rec.data_ptr(), order.data_ptr(),
+        counter.data_ptr(), C, width, height, tw, th, *state,
+        grads.data_ptr(), stream), "composite_backward")
     launches["composite_backward"] += 1
     return grads
 
@@ -420,6 +533,21 @@ def tile_worklist(u, v, radii, depths, valid, width: int, height: int
             return _tile_worklist_cuda(u, v, radii, depths, valid, width,
                                        height)
     return tile_worklist_reference(u, v, radii, depths, valid, width, height)
+
+
+def pair_records(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, colors,
+                 opacities) -> torch.Tensor:
+    """The pair records kernels B and C read (see
+    ``pair_records_reference``): packed by a kernel on CUDA, which B's and
+    C's own calls launch (its time is part of theirs, and it has no launch
+    count of its own)."""
+    if _uses_kernel(u, v, conic_a, conic_b, conic_c, colors, opacities,
+                    wl.gauss_ids):
+        with torch.cuda.device(u.device):
+            return _pair_records_cuda(wl, u, v, conic_a, conic_b, conic_c,
+                                      colors, opacities)
+    return pair_records_reference(wl, u, v, conic_a, conic_b, conic_c,
+                                  colors, opacities)
 
 
 def composite(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, colors,

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from street_crafter_tpu_torch.ops import gs_raster as G
+from raster_cases import adversarial_cull_splats  # tests/raster_cases.py
 
 pytestmark = pytest.mark.cuda
 
@@ -29,7 +30,9 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def splat_args(device, n, W, H, seed, wide):
+def splat_args(device, n, W, H, seed, wide, channels=4):
+    """Random projected splats; ``channels`` 4 is rgb + depth (the main
+    path's), any other count channels in [0, 1]."""
     rng = np.random.default_rng(seed)
     sigma = rng.uniform(1.0, 8.0, n)
     k = int(wide * n)
@@ -42,20 +45,31 @@ def splat_args(device, n, W, H, seed, wide):
     def t(a, dtype=torch.float32):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
+    colors = (np.concatenate([rng.random((n, 3)), depth[:, None]], 1)
+              if channels == 4 else rng.random((n, channels)))
     return dict(u=t(rng.uniform(-40, W + 40, n)),
                 v=t(rng.uniform(-40, H + 40, n)), conic_a=t(ca),
                 conic_b=t(0.3 * np.sqrt(ca * cc) * rng.uniform(-1, 1, n)),
-                conic_c=t(cc),
-                colors=t(np.concatenate([rng.random((n, 3)),
-                                         depth[:, None]], 1)),
+                conic_c=t(cc), colors=t(colors),
                 opacities=t(rng.uniform(0.02, 1.0, n)), depths=t(depth),
                 valid=t(valid, torch.bool),
                 radii=t(np.ceil(3 * sigma) * valid), width=W, height=H)
 
 
+# channel counts: 4 is the main path's (rgb + depth); 1, 3, 7 the record
+# sizes 32, 48 and 64 bytes at the edges of the kernels' templates
+CHANNELS = (1, 3, 4, 7)
+
+
+def rgb_channels(C):
+    """The channels held to the colour limit: all but the depth of C = 4."""
+    return 3 if C == 4 else C
+
+
+@pytest.mark.parametrize("C", CHANNELS)
 @pytest.mark.parametrize("seed,wide", [(0, 0.0), (1, 0.1)])
-def test_kernels_match_plain_versions(cuda, seed, wide):
-    args = splat_args(cuda, 20_000, 200, 136, seed, wide)
+def test_kernels_match_plain_versions(cuda, seed, wide, C):
+    args = splat_args(cuda, 20_000, 200, 136, seed, wide, C)
     geo = {k: args[k] for k in ("u", "v", "radii", "depths", "valid",
                                 "width", "height")}
     comp = {k: args[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
@@ -68,10 +82,18 @@ def test_kernels_match_plain_versions(cuda, seed, wide):
         assert torch.equal(getattr(wl, name), getattr(ref, name)), name
     col, alpha = G.composite(wl, **comp)
     col_ref, alpha_ref = G.composite_reference(wl, **comp)
-    torch.testing.assert_close(col[..., :3], col_ref[..., :3], atol=2e-4,
+    n = rgb_channels(C)
+    torch.testing.assert_close(col[..., :n], col_ref[..., :n], atol=2e-4,
                                rtol=0)
     torch.testing.assert_close(alpha, alpha_ref, atol=2e-4, rtol=0)
     assert G.launches["tile_worklist"] == G.launches["composite"] == 1
+    # the pack kernel against its plain version: a gather, exact
+    rec = G.pair_records(wl, *(comp[k] for k in (
+        "u", "v", "conic_a", "conic_b", "conic_c", "colors", "opacities")))
+    ref_rec = G.pair_records_reference(wl, *(comp[k] for k in (
+        "u", "v", "conic_a", "conic_b", "conic_c", "colors", "opacities")))
+    assert rec.shape == ref_rec.shape == (wl.n_pairs, G.record_floats(C))
+    assert torch.equal(rec, ref_rec)
 
 
 def test_rasterize_pixels_launches_kernels(cuda):
@@ -97,9 +119,10 @@ FIELDS = {"u": G.GRAD_U, "v": G.GRAD_V, "conic_a": G.GRAD_A,
 GRAD_RTOL = 1e-4
 
 
+@pytest.mark.parametrize("C", CHANNELS)
 @pytest.mark.parametrize("seed,wide", [(0, 0.0), (1, 0.1)])
-def test_kernel_c_matches_plain_backward(cuda, seed, wide):
-    args = splat_args(cuda, 20_000, 200, 136, seed, wide)
+def test_kernel_c_matches_plain_backward(cuda, seed, wide, C):
+    args = splat_args(cuda, 20_000, 200, 136, seed, wide, C)
     geo = {k: args[k] for k in ("u", "v", "radii", "depths", "valid",
                                 "width", "height")}
     comp = {k: args[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
@@ -120,6 +143,12 @@ def test_kernel_c_matches_plain_backward(cuda, seed, wide):
     want = G.composite_backward_reference(wl, **comp, grad_colors=gcol,
                                           grad_alpha=gal)
     assert G.launches["composite_backward"] == 1
+    assert_grads_close(got, want)
+
+
+def assert_grads_close(got, want):
+    """Kernel C's rows against the plain backward's, per field, three
+    ways (GRAD_RTOL)."""
     for name, col in FIELDS.items():
         g, w = got[:, col].flatten(), want[:, col].flatten()
         diff, mag = (g - w).abs(), w.abs()
@@ -130,6 +159,83 @@ def test_kernel_c_matches_plain_backward(cuda, seed, wide):
             GRAD_RTOL * float(torch.linalg.vector_norm(w)), name
         nz = mag > 0
         assert float((diff[nz] / mag[nz]).median()) <= GRAD_RTOL, name
+
+
+def check_b_and_c(args, seed):
+    """Kernels A, B (both forms) and C against their plain versions:
+    the worklist and ``last`` exactly, T to 1e-6, colours and alpha to
+    2e-4, the gradient rows per field to GRAD_RTOL. Returns the
+    worklist."""
+    geo = {k: args[k] for k in ("u", "v", "radii", "depths", "valid",
+                                "width", "height")}
+    comp = {k: args[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
+                                 "colors", "opacities", "width", "height")}
+    wl = G.tile_worklist(**geo)
+    ref = G.tile_worklist_reference(**geo)
+    for name in ("tile_ids", "gauss_ids", "ranges"):
+        assert torch.equal(getattr(wl, name), getattr(ref, name)), name
+    n = rgb_channels(args["colors"].shape[1])
+    col, alpha = G.composite(wl, **comp)
+    col_t, alpha_t, final_T, last = G.composite(wl, **comp, train=True)
+    ref = G.composite_reference(wl, **comp, train=True)
+    for c, a in ((col, alpha), (col_t, alpha_t)):
+        torch.testing.assert_close(c[..., :n], ref[0][..., :n], atol=2e-4,
+                                   rtol=0)
+        torch.testing.assert_close(a, ref[1], atol=2e-4, rtol=0)
+    assert torch.equal(last, ref[3])
+    torch.testing.assert_close(final_T, ref[2], atol=1e-6, rtol=0)
+    rng = np.random.default_rng(seed)
+    dev = col.device
+    gcol = torch.tensor(rng.normal(size=col.shape), dtype=torch.float32,
+                        device=dev)
+    gal = torch.tensor(rng.normal(size=alpha.shape), dtype=torch.float32,
+                       device=dev)
+    got = G.composite_backward(wl, **comp, final_T=final_T, last=last,
+                               grad_colors=gcol, grad_alpha=gal)
+    want = G.composite_backward_reference(wl, **comp, grad_colors=gcol,
+                                          grad_alpha=gal)
+    assert_grads_close(got, want)
+    return wl
+
+
+def test_kernels_b_c_long_tile_list(cuda):
+    """One tile's list longer than 4,096 splats, with opacities low enough
+    that no pixel stops: the ring wraps many times forward (B) and back
+    (C)."""
+    rng = np.random.default_rng(7)
+    n, W, H = 6_000, 48, 48
+    sigma = rng.uniform(0.5, 2.0, n)
+    ca = 1.0 / sigma ** 2
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=cuda)
+
+    args = dict(u=t(rng.uniform(16, 32, n)), v=t(rng.uniform(16, 32, n)),
+                conic_a=t(ca), conic_b=t(np.zeros(n)), conic_c=t(ca),
+                colors=t(rng.random((n, 4))),
+                opacities=t(rng.uniform(0.004, 0.02, n)),
+                depths=t(rng.uniform(1.0, 80.0, n)),
+                valid=t(np.ones(n, bool), torch.bool),
+                radii=t(np.ceil(3 * sigma)), width=W, height=H)
+    wl = check_b_and_c(args, 7)
+    lengths = wl.ranges[:, 1] - wl.ranges[:, 0]
+    assert int(lengths.max()) > 4096
+
+
+def test_kernels_b_c_ragged_image(cuda):
+    """A 17x33 image: partial tiles on both edges."""
+    check_b_and_c(splat_args(cuda, 400, 17, 33, 8, 0.1), 8)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernels_b_c_adversarial_cull(cuda, seed):
+    """The splats at the edges of the per-warp cull (tests/raster_cases.py):
+    contours that graze pixel centres, opacities at 1/255 and one ulp
+    either side, near-degenerate conics, centres far outside. ``last``
+    exactly equal to the plain version's."""
+    d = adversarial_cull_splats(64, 48, seed)
+    args = {k: torch.tensor(x, device=cuda) for k, x in d.items()}
+    check_b_and_c(dict(args, width=64, height=48), seed)
 
 
 def test_rasterize_pixels_backward_launches_kernel_c(cuda):

@@ -10,6 +10,7 @@ import torch
 from street_crafter_tpu.ops.gs_raster import rasterize_pixels as j_raster
 from street_crafter_tpu.ops.gs_raster_fused import rasterize_pixels_fused
 from street_crafter_tpu_torch.ops import gs_raster as G
+from raster_cases import adversarial_cull_splats  # tests/raster_cases.py
 
 
 def splats(n, W, H, seed, opa_range=(0.2, 0.9), wide=0.0):
@@ -134,3 +135,89 @@ def test_raster_routing_and_counts():
     mixed[0] = mixed[0].to("meta")
     with pytest.raises(ValueError, match="tensors on"):
         G.rasterize_pixels(*mixed, width=W, height=H)
+
+
+def cull_inputs(kind, seed, wide):
+    """(tensors, W, H) of the raster: the JAX-parity splats of this file,
+    or the adversarial set of tests/raster_cases.py."""
+    if kind == "adversarial":
+        W, H = 64, 48
+        d = adversarial_cull_splats(W, H, seed)
+        return {k: torch.tensor(x) for k, x in d.items()}, W, H
+    W, H, n = 64, 48, 400
+    names = ("u", "v", "conic_a", "conic_b", "conic_c", "colors",
+             "opacities", "depths", "valid", "radii")
+    return ({k: torch.tensor(x) for k, x in
+             zip(names, splats(n, W, H, seed, wide=wide))}, W, H)
+
+
+@pytest.mark.parametrize("kind,seed,wide",
+                         [("jax", s, w) for s in (0, 1)
+                          for w in (0.0, 0.05, 0.2)]
+                         + [("adversarial", s, None) for s in (0, 1, 2)])
+def test_warp_cull_is_conservative(kind, seed, wide):
+    """The per-warp cull of kernels B and C (its plain version) removes
+    only pairs that every pixel of the warp skips: the plain compositing
+    with the culled pairs forced to alpha 0 is bit-equal to the plain
+    compositing, and so is every (pair, pixel) alpha of the tiles."""
+    t, W, H = cull_inputs(kind, seed, wide)
+    wl = G.tile_worklist_reference(t["u"], t["v"], t["radii"], t["depths"],
+                                   t["valid"], W, H)
+    comp = [t[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
+                           "colors", "opacities")]
+    geo = comp[:5] + [t["opacities"]]
+    cull = G.warp_cull_reference(wl, *geo, W)
+    assert cull.shape == (wl.n_pairs, G.WARPS) and cull.dtype == torch.bool
+    plain = G.composite_reference(wl, *comp, W, H, train=True)
+    culled = G.composite_reference(wl, *comp, W, H, train=True, cull=cull)
+    for name, a, b in zip(("colors", "alpha", "T", "last"), plain, culled):
+        assert torch.equal(a, b), name
+    start = 0
+    for ts in G._tiles(wl, *geo, W):
+        k = ts.g.shape[0]
+        hit = cull[start:start + k].repeat_interleave(32, 1) & (ts.alpha > 0)
+        assert not bool(hit.any())
+        start += k
+    # the cull removes a share of the pairs, not all of them
+    share = float(cull.float().mean())
+    assert 0.05 < share < 0.95, share
+
+
+_SIZES = {1: 32, 2: 48, 3: 48, 4: 48, 5: 48, 6: 64, 7: 64}
+
+
+@pytest.mark.parametrize("C", range(1, 8))
+def test_pair_records_layout(C):
+    """One record per (tile, splat) pair in list order: u, v, a, b, c,
+    opacity, the cull threshold, the C channels, zeros to a multiple of 16
+    bytes (what the kernels' bulk copies need)."""
+    W, H, n = 48, 32, 120
+    args = splats(n, W, H, C, wide=0.1)
+    t = [torch.tensor(a) for a in args]
+    rng = np.random.default_rng(C)
+    colors = torch.tensor(rng.uniform(0, 1, (n, C)), dtype=torch.float32)
+    opa = t[6].clone()
+    opa[:4] = torch.tensor([0.001, 0.0039, 1 / 255, 0.5])
+    cb = t[3].clone()
+    cb[4] = 2 * torch.sqrt(t[2][4] * t[4][4])       # not positive definite
+    wl = G.tile_worklist_reference(t[0], t[1], t[9], t[7], t[8], W, H)
+    assert wl.n_pairs > 0
+    rec = G.pair_records(wl, t[0], t[1], t[2], cb, t[4], colors, opa)
+    rs = G.record_floats(C)
+    assert 4 * rs == _SIZES[C] and (4 * rs) % 16 == 0
+    assert rec.shape == (wl.n_pairs, rs) and rec.dtype == torch.float32
+    assert rec.is_contiguous()
+    g = wl.gauss_ids.to(torch.int64)
+    for col, x in ((G.REC_U, t[0]), (G.REC_V, t[1]), (G.REC_A, t[2]),
+                   (G.REC_B, cb), (G.REC_C, t[4]), (G.REC_OPACITY, opa)):
+        assert torch.equal(rec[:, col], x[g]), col
+    assert torch.equal(rec[:, G.REC_COLORS:G.REC_COLORS + C], colors[g])
+    assert not bool(rec[:, G.REC_COLORS + C:].any())
+    thr = rec[:, G.REC_THRESHOLD]
+    o, a, c = opa[g], t[2][g], t[4][g]
+    assert bool((thr[o < G.ALPHA_MIN] == float("-inf")).all())
+    pd = (a > 0) & (a * c - cb[g] ** 2 > 0) & (o >= G.ALPHA_MIN)
+    assert bool((thr[(o >= G.ALPHA_MIN) & ~pd] == float("inf")).all())
+    torch.testing.assert_close(thr[pd], torch.log(255 * o[pd]) + 1e-5,
+                               atol=0, rtol=0)
+    assert bool((g == 4).any()) and bool((o < G.ALPHA_MIN).any())

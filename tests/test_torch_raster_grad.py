@@ -23,6 +23,7 @@ import torch
 from street_crafter_tpu.ops.gs_raster import rasterize_pixels as j_raster
 from street_crafter_tpu.ops.gs_raster_train import rasterize_pixels_trainable
 from street_crafter_tpu_torch.ops import gs_raster as G
+from raster_cases import adversarial_cull_splats  # tests/raster_cases.py
 
 W, H, N = 128, 64, 200
 NAMES = ["u", "v", "conic_a", "conic_b", "conic_c", "colors", "opacities",
@@ -193,3 +194,34 @@ def test_raster_autograd_routing_and_hooks():
     torch.testing.assert_close(alpha, 1.0 - final_T, atol=0, rtol=0)
     assert int(last.max()) > 0 and int(last.min()) >= 0
     assert torch.equal(last > 0, alpha > 0)
+
+
+@pytest.mark.parametrize("kind,seed", [("scene", 3), ("scene", 4),
+                                       ("adversarial", 0)])
+def test_warp_cull_leaves_backward_unchanged(kind, seed):
+    """The plain backward with the pairs of the per-warp cull (kernels B
+    and C skip them) forced to alpha 0 is bit-equal to the plain backward:
+    the cull removes only pairs that no pixel of the warp takes. Opacities
+    up to 0.99 in the scenes, so the stop rule and the 0.999 clamp act."""
+    if kind == "scene":
+        s = scene(seed, 0.1)
+        s["opacities"] = np.random.default_rng(seed).uniform(
+            0.3, 0.99, N).astype(np.float32)
+        w, h = W, H
+    else:
+        w, h = 64, 48
+        s = adversarial_cull_splats(w, h, seed)
+    t = {k: torch.tensor(x) for k, x in s.items()}
+    rng = np.random.default_rng(seed + 200)
+    gcol = torch.tensor(rng.normal(size=(h, w, 4)), dtype=torch.float32)
+    gal = torch.tensor(rng.normal(size=(h, w)), dtype=torch.float32)
+    wl = G.tile_worklist_reference(t["u"], t["v"], t["radii"], t["depths"],
+                                   t["valid"], w, h)
+    comp = [t[k] for k in DIFF]
+    cull = G.warp_cull_reference(wl, *comp[:5], t["opacities"], w)
+    assert bool(cull.any()) and not bool(cull.all())
+    plain = G.composite_backward_reference(wl, *comp, w, h, gcol, gal)
+    culled = G.composite_backward_reference(wl, *comp, w, h, gcol, gal,
+                                            cull=cull)
+    assert bool(plain.abs().sum() > 0)
+    assert torch.equal(plain, culled)
