@@ -10,12 +10,14 @@ Phases, one status line each; any failure raises (exit code != 0):
      with any wgmma serialisation it notes;
   2. each kernel against its plain torch version on the card: 50k splats of
      a trained-like scene at 384x256, and a scene with splats wider than
-     200 px. Kernel A's worklist must equal the plain one; kernel B must
-     agree to atol 2e-4 on rgb and alpha, and the pack of pair records
-     inside kernels B and C must equal its plain version. Then, at 384x256,
-     kernels A, B (both forms) and C (phase 5's limits) at 1, 3, 4 and 7
-     channels (records of 32, 48 and 64 bytes) and on a tile list of more
-     than 8,000 pairs that no pixel stops in (the rings wrap many times);
+     200 px. Kernel A's worklist (its tile order included) must equal the
+     plain one; kernel B must agree to atol 2e-4 on rgb and alpha, and the
+     pack of pair records that B and C read must equal its plain version.
+     Then, at 384x256, kernels A, B (both forms) and C (phase 5's limits)
+     at 1, 3, 4 and 7 channels (records of 32, 48 and 64 bytes) and on a
+     tile list of more than 8,000 pairs that no pixel stops in (the rings
+     wrap many times), and kernel A on 40,000 splats over one tile (a list
+     longer than a sort block holds, sorted in passes over device memory);
   3. the main path: a synthetic 1920x1280 Waymo scene (4 frames, cameras
      0-2), scene init with the port's initialize_ply, the background pool
      replaced by a 600k-splat post-densification pool in front of camera 0,
@@ -23,16 +25,22 @@ Phases, one status line each; any failure raises (exit code != 0):
      at 1600x1067 that must be finite PNGs, through both kernels and never
      through the plain versions;
   4. kernels A and B against their plain versions at the headline frame's
-     shapes, for both of its passes: the foreground and the sky;
+     shapes, for both of its passes: the foreground and the sky; kernel A
+     exactly, its tile order included;
   5. kernel C (the compositing backward) against the plain backward with
      seeded random cotangents on the inputs of phases 2 and 4: per field,
      to GRAD_RTOL of the field's largest gradient, of its norm and, in the
      median, of each splat's own gradient (kernel B's training form first:
-     last exactly, T to 2e-4). For both passes of the headline frame: the
-     times of A, B (eval and training forms) and C (CUDA events over
-     back-to-back calls; B and C also replayed as a CUDA graph), their plain
-     versions' (one call), the tile-list lengths (median, p99, max) and
-     the pixel-splat pairs in the lists, left by the per-warp cull, in the
+     last exactly, T to 2e-4); at the headline frame's passes B and C read
+     pair records packed once, as the main path hands them: B's outputs
+     must equal those of B packing its own, bit for bit. For both passes
+     of the headline frame: the times of A, the pack, B (eval and training
+     forms) and C (CUDA events over back-to-back calls; the pack, B and C
+     also replayed as a CUDA graph, and A's part after its host
+     synchronisation), their plain versions' (one call), one
+     torch.sort(stable=True) of A's pairs' 64-bit keys (A's yardstick,
+     timed only), the tile-list lengths (median, p99, max) and the
+     pixel-splat pairs in the lists, left by the per-warp cull, in the
      pixels' prefixes and contributing;
   6. the training main path: runner.train.main on the synthetic scene from
      scene init, configs/waymo_val_base.yaml's GS settings, 300 iterations
@@ -40,8 +48,9 @@ Phases, one status line each; any failure raises (exit code != 0):
      eval, checkpoint and PLY at 300), then 20 more resumed from that
      checkpoint, and runner.render.main(mode=trajectory) on it. The loss
      must stay finite, train-view PSNR must rise, densify must change the
-     valid count, and every step must launch kernel C, never the plain
-     backward;
+     valid count, every step must launch kernel C, never the plain
+     backward, and kernel C must read the records its forward packed (no
+     more packs than kernel B calls);
   7. the train step at the shape users pay for: the 600k-splat pool in a
      2^20-slot background pool, actors and sky of phase 3, the full loss
      stack; median ms per step, peak memory, a per-stage split and the
@@ -94,7 +103,18 @@ Phases, one status line each; any failure raises (exit code != 0):
      (D with lse, G, H) at each training shape its CUDA-event time, bound,
      plain time and one scaled_dot_product_attention forward (D) or
      backward (G + H together), with TF/s, share of bound and ratio to
-     that call.
+     that call;
+ 14. kernel A's variant bench (street_crafter_tpu_torch/scripts/
+     bench_phase1_variants.py): K1's row compaction of [117, 4096, 11]
+     candidates into 8 per-row lists by the four kernels of
+     csrc/row_compact.cu (base, rowbatch with blocks of 128 and 256, bf16,
+     count_only), each once with the launch counts set to 0 before and
+     read after, then each against its plain version (counts, kept slots
+     and checksums exactly equal) and timed beside it;
+ 15. kernel A's split at both headline passes (phase 4's inputs, kept):
+     each kernel's device time and the device's idle gaps in one call,
+     from torch.profiler (here and not in phase 5: a profiler session
+     before phase 10 once left phase 10's scheduled profile empty).
 Kernel builds, launches and comparisons raise on failure; no phase catches
 its own. TF32 is off for matmuls and cuDNN convolutions throughout.
 The last three lines: the card's name and power limit, a JSON object of
@@ -130,9 +150,20 @@ BKGD_CAPACITY = 2 ** 20     # phase 7: the 600k pool inside a fixed capacity
 TRAIN_ITERS, RESUME_ITERS = 300, 20
 SOURCE = "street_crafter_tpu_torch/csrc/gs_raster.cu"
 REPLACES = {"tile_worklist": "street_crafter_tpu/ops/gs_raster_fused.py:86",
+            # the pack of pair records B and C read: the first part of
+            # compositing on this card
+            "pair_records": "street_crafter_tpu/ops/gs_raster_fused.py:255",
             "composite": "street_crafter_tpu/ops/gs_raster_fused.py:255",
             "composite_backward":
                 "street_crafter_tpu/ops/gs_raster_train.py:60"}
+# kernel A's own kernels, as torch.profiler names them (phase 15)
+A_KERNELS = ("worklist_count_kernel", "tile_scan_kernel", "tile_order_kernel",
+             "worklist_emit_kernel", "tile_sort_kernel")
+VARIANT_SOURCE = "street_crafter_tpu_torch/csrc/row_compact.cu"
+VARIANT_REPLACES = {"base": "scripts/bench_phase1_variants.py:45",
+                    "rowbatch": "scripts/bench_phase1_variants.py:115",
+                    "bf16": "scripts/bench_phase1_variants.py:45",
+                    "count_only": "scripts/bench_phase1_variants.py:45"}
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -170,6 +201,19 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def check_worklist(wl, ref, label: str) -> None:
+    """Kernel A's worklist bit-equal to the plain one, tile order included."""
+    import torch
+    if wl.n_pairs != ref.n_pairs:
+        raise AssertionError(f"{label}: kernel A has {wl.n_pairs} pairs, the "
+                             f"plain worklist {ref.n_pairs}")
+    for name in ("tile_ids", "gauss_ids", "ranges", "order"):
+        a, b = getattr(wl, name), getattr(ref, name)
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{label}: kernel A {name} differs from the "
+                                 f"plain worklist")
+
+
 def compare(G, args: dict, label: str, phase: int) -> dict:
     """Kernel A and B against their plain versions on the same inputs."""
     import torch
@@ -177,11 +221,7 @@ def compare(G, args: dict, label: str, phase: int) -> dict:
                                 "width", "height")}
     wl = G.tile_worklist(**geo)
     ref = G.tile_worklist_reference(**geo)
-    for name in ("tile_ids", "gauss_ids", "ranges"):
-        a, b = getattr(wl, name), getattr(ref, name)
-        if a.shape != b.shape or not torch.equal(a, b):
-            raise AssertionError(f"{label}: kernel A {name} differs from the "
-                                 f"plain worklist")
+    check_worklist(wl, ref, label)
     comp = {k: args[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
                                  "colors", "opacities", "width", "height")}
     col, alpha = G.composite(wl, **comp)
@@ -204,7 +244,8 @@ def compare(G, args: dict, label: str, phase: int) -> dict:
                        G.pair_records_reference(wl, *rec_args)):
         raise AssertionError(f"{label}: the pair records differ from the "
                              f"plain pack")
-    log(f"[{phase}] {label}: {wl.n_pairs} pairs, worklist equal, pair "
+    log(f"[{phase}] {label}: {wl.n_pairs} pairs, worklist and tile order "
+        f"equal, pair "
         f"records equal; composite max err "
         f"{'rgb' if C == 4 else f'{C} channel(s)'} {err_rgb:.3g} alpha "
         f"{err_alpha:.3g} (atol {RGB_ALPHA_ATOL}){depth}")
@@ -336,13 +377,28 @@ def split_args(args: dict) -> tuple[dict, dict]:
 
 
 def compare_backward(G, args: dict, label: str, seed: int,
-                     phase: int = 5) -> dict:
+                     phase: int = 5, shared: bool = False) -> dict:
     """Kernel C against the plain backward, after kernel B's training
-    variant against the plain forward's T and last index."""
+    variant against the plain forward's T and last index. ``shared``: B
+    and C read records packed once, as the main path hands them, and B's
+    outputs must equal those of B packing its own, bit for bit."""
     import torch
     geo, comp = split_args(args)
     wl = G.tile_worklist(**geo)
-    out, alpha, final_T, last = G.composite(wl, **comp, train=True)
+    rec = None
+    if shared:
+        rec = G.pair_records(wl, *(comp[k] for k in (
+            "u", "v", "conic_a", "conic_b", "conic_c", "colors",
+            "opacities")))
+    out, alpha, final_T, last = G.composite(wl, **comp, train=True,
+                                            records=rec)
+    if shared:
+        own = G.composite(wl, **comp, train=True)
+        if not all(torch.equal(a, b) for a, b in
+                   zip((out, alpha, final_T, last), own)):
+            raise AssertionError(f"{label}: kernel B on shared records "
+                                 f"differs from kernel B packing its own")
+        del own
     ref = G.composite_reference(wl, **comp, train=True)
     if not torch.equal(last, ref[3]):
         raise AssertionError(f"{label}: kernel B's last index differs")
@@ -357,7 +413,7 @@ def compare_backward(G, args: dict, label: str, seed: int,
                        device=dev)
     state = dict(final_T=final_T, last=last, grad_colors=gcol,
                  grad_alpha=gal)
-    got = G.composite_backward(wl, **comp, **state)
+    got = G.composite_backward(wl, **comp, **state, records=rec)
     want = G.composite_backward_reference(wl, **comp, grad_colors=gcol,
                                           grad_alpha=gal)
     torch.cuda.synchronize()
@@ -371,7 +427,9 @@ def compare_backward(G, args: dict, label: str, seed: int,
             worst_abs, worst_scale = errs[name]["abs"], errs[name]["max"]
     log(f"[{phase}] {label}: {wl.n_pairs} pairs, T err {err_T:.3g}, last "
         f"equal; "
-        f"kernel C per field (error / field max, error norm / field norm, "
+        + ("records packed once: kernel B equal to B packing its own; "
+           if shared else "")
+        + f"kernel C per field (error / field max, error norm / field norm, "
         f"median per-splat relative error; median |grad|): "
         + ", ".join(f"{k} {e['max_rel']:.2e} {e['norm_rel']:.2e} "
                     f"{e['median_rel']:.2e}; {e['median']:.3g}"
@@ -384,7 +442,8 @@ def compare_backward(G, args: dict, label: str, seed: int,
         raise AssertionError(f"{label}: kernel C disagrees with the plain "
                              f"backward")
     return {"wl": wl, "comp": comp, "state": state, "err": worst_abs,
-            "prefix": int(last.sum()), "pixels": last.numel()}
+            "records": rec, "prefix": int(last.sum()),
+            "pixels": last.numel()}
 
 
 def grad_errors(got, want) -> dict:
@@ -463,6 +522,22 @@ def long_list_args(device, n_long: int = 8000, seed: int = 3) -> dict:
     return out
 
 
+def forced_list_args(device, n: int = 40_000, seed: int = 5) -> dict:
+    """Kernel A's geometry: n small splats inside tile (1, 1) of a 48x48
+    image, each also spilling into its neighbours: a list of n pairs,
+    longer than a sort block holds."""
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return dict(u=t(rng.uniform(16, 32, n)), v=t(rng.uniform(16, 32, n)),
+                radii=t(rng.uniform(0.5, 2.0, n)),
+                depths=t(rng.uniform(1.0, 80.0, n)),
+                valid=t(np.ones(n, bool), torch.bool), width=48, height=48)
+
+
 def list_lengths(wl) -> dict:
     """Median, 99th percentile and largest tile-list length, in pairs."""
     n = (wl.ranges[:, 1] - wl.ranges[:, 0]).float()
@@ -516,38 +591,60 @@ def graph_ms(fn, reps: int = 20) -> float:
 
 def headline_pass(G, args: dict, label: str, gpu: str) -> dict:
     """One pass of the headline frame: kernels A, B (eval and training
-    forms) and C against their plain versions, each once (phase 4's and 5's
-    limits); each kernel's time (CUDA events, mean of back-to-back calls;
-    B and C also replayed as a CUDA graph: kernel A synchronises with the
-    host) and its plain version's (one call); the tile-list lengths and the
-    pixel-splat pair counts."""
+    forms) and C against their plain versions, each once, B and C on
+    records packed once (phase 4's and 5's limits); each kernel's time
+    (CUDA events, mean of back-to-back calls; the pack, B and C also
+    replayed as a CUDA graph, and A's part after its host synchronisation)
+    and its plain version's (one call); torch.sort of A's keys; the
+    tile-list lengths and the pixel-splat pair counts."""
+    import torch
+    from street_crafter_tpu_torch.scripts.worklist_split import emission_keys
     stats = compare(G, args, label, 4)
-    head = compare_backward(G, args, label, 7)
+    head = compare_backward(G, args, label, 7, shared=True)
     geo, comp = split_args(args)
-    wl = head["wl"]
+    wl, rec = head["wl"], head["records"]
     bwd = dict(head["comp"], **head["state"])
     cot = {k: bwd[k] for k in ("grad_colors", "grad_alpha")}
+    pack = [comp[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
+                              "colors", "opacities")]
     runs = {  # kernel, plain version, kernel calls, plain calls
         "tile_worklist": (lambda: G.tile_worklist(**geo),
                           lambda: G.tile_worklist_reference(**geo), 10, 3),
-        "composite": (lambda: G.composite(wl, **comp),
+        "pair_records": (lambda: G.pair_records(wl, *pack),
+                         lambda: G.pair_records_reference(wl, *pack), 20, 1),
+        "composite": (lambda: G.composite(wl, **comp, records=rec),
                       lambda: G.composite_reference(wl, **comp), 20, 1),
         "composite (train)": (
-            lambda: G.composite(wl, **comp, train=True),
+            lambda: G.composite(wl, **comp, train=True, records=rec),
             lambda: G.composite_reference(wl, **comp, train=True), 20, 1),
         "composite_backward": (
-            lambda: G.composite_backward(wl, **bwd),
+            lambda: G.composite_backward(wl, **bwd, records=rec),
             lambda: G.composite_backward_reference(wl, **comp, **cot), 20,
             1)}
-    times = {}
+    times, graphs = {}, {}
     for name, (kern, plain, reps, plain_reps) in runs.items():
         times[name] = (cuda_ms(kern, reps),
                        cuda_ms(plain, plain_reps,
                                warmup=1 if plain_reps > 1 else 0))
-        graph = ("" if name == "tile_worklist" else
-                 f" (as a CUDA graph {graph_ms(kern, reps):.3f} ms)")
+        if name == "tile_worklist":
+            # the part after the host synchronisation: emit and sort
+            bins = G._worklist_bins(**geo)
+            graphs[name] = graph_ms(lambda: G._worklist_lists(bins),
+                                    reps)
+            graph = (f" (its part after the host synchronisation as a CUDA "
+                     f"graph {graphs[name]:.3f} ms)")
+            del bins
+        else:
+            graphs[name] = graph_ms(kern, reps)
+            graph = f" (as a CUDA graph {graphs[name]:.3f} ms)"
         log(f"[5] {label}: {name}: kernel {times[name][0]:.3f} ms{graph}, "
             f"plain {times[name][1]:.3f} ms ({wl.n_pairs} pairs; {gpu})")
+    keys = emission_keys(**geo)
+    sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True), 10)
+    log(f"[5] {label}: torch.sort(stable=True) of the {keys.shape[0]} "
+        f"64-bit (tile << 32 | depth bits) keys alone, kernel A's "
+        f"yardstick (the port never calls it): {sort_ms:.3f} ms; {gpu}")
+    del keys
     hits = contributing_pairs(G, wl, comp)
     counts = pair_counts(G, wl, comp)
     n = list_lengths(wl)
@@ -557,9 +654,11 @@ def headline_pass(G, args: dict, label: str, gpu: str) -> dict:
         f"{counts['after_cull']} left by the per-warp cull "
         f"({100 * counts['after_cull'] / max(counts['lists'], 1):.1f}%), "
         f"{head['prefix']} in the pixels' prefixes, {hits} contributing")
-    return {"wl": wl, "times": times, "hits": hits, "prefix": head["prefix"],
-            "pixels": head["pixels"], "errs": {
+    return {"wl": wl, "times": times, "graphs": graphs, "sort_ms": sort_ms,
+            "hits": hits, "prefix": head["prefix"],
+            "pixels": head["pixels"], "geo": geo, "errs": {
                 "tile_worklist": stats["worklist_err"],
+                "pair_records": 0.0,
                 "composite": stats["composite_err"],
                 "composite_backward": head["err"]}}
 
@@ -595,8 +694,13 @@ def bounds(n_splats: int, n_pairs: int, n_tiles: int, pixels: int,
     lists = 4 * n_pairs + 8 * n_tiles           # gauss ids, tile ranges
     return {
         # u, v, radii, depths (f32) and valid (u8) in; tile and splat ids
-        # per pair and the ranges out
-        "tile_worklist": bound(17 * n_splats + 8 * n_pairs + 8 * n_tiles, 0),
+        # per pair, the ranges and the tile order out
+        "tile_worklist": bound(17 * n_splats + 8 * n_pairs + 16 * n_tiles,
+                               0),
+        # splat ids per pair and each splat's attributes in, a record of
+        # record_floats(C) floats per pair out
+        "pair_records": bound(4 * n_pairs + splat_attrs
+                              + 4 * n_pairs * ((7 + C + 3) // 4 * 4), 0),
         # per evaluated pair: dx, dy, sigma (11), exp, opacity, min, two
         # gates (~15); per hit also the weight, the T update (3) and a
         # multiply-add per channel
@@ -713,6 +817,10 @@ def train_main_path(G, source_path: str, tmp: str, gpu: str) -> dict:
             counts.get("composite_backward_reference", 0):
         raise AssertionError(f"training missed kernel C or ran the plain "
                              f"backward: {counts}")
+    # one pack per kernel B call at most: kernel C reads the records its
+    # forward packed and packs none of its own
+    if not 0 < counts.get("pair_records", 0) <= counts.get("composite", 0):
+        raise AssertionError(f"kernel C packed its own records: {counts}")
     ply = os.path.join(cfg.model_path, "point_cloud",
                        f"iteration_{TRAIN_ITERS}", "point_cloud.ply")
     if not os.path.getsize(ply) > 0:
@@ -735,7 +843,7 @@ def train_main_path(G, source_path: str, tmp: str, gpu: str) -> dict:
     result = R.main(["--config", cfg_path, "mode=trajectory",
                      "render.save_video=false"])
     render_counts = dict(G.launches)
-    if set(render_counts) != {"tile_worklist", "composite"}:
+    if set(render_counts) != {"tile_worklist", "pair_records", "composite"}:
         raise AssertionError(f"the render of the trained checkpoint ran a "
                              f"plain version or a backward: {render_counts}")
     rgb_dir = os.path.join(result["out_dir"], "rgb")
@@ -832,6 +940,7 @@ def step_time(G, cfg, dev, gpu: str) -> None:
     timer.wrap(RN, "flatten_scene", "flatten")
     timer.wrap(RN, "raster_inputs", "projection+SH")
     timer.wrap(G, "tile_worklist", "kernel A")
+    timer.wrap(G, "pair_records", "pack (shared by B and C)")
     timer.wrap(G, "composite", "kernel B")
     timer.wrap(GT, "compute_train_loss", "loss (L1/SSIM/LPIPS/...)")
     timer.wrap(G, "composite_backward", "kernel C")
@@ -1913,6 +2022,65 @@ def ptxas_entries(report: str) -> list[dict]:
     return out
 
 
+def variant_bench(dev, gpu: str) -> tuple[list, dict]:
+    """Phase 14: K1's row-compaction variants (kernel A's variant bench) at
+    [117, 4096, 11]: each kernel once with the counts set to 0 just before
+    and read just after, then each against its plain version and timed
+    beside it (street_crafter_tpu_torch/scripts/bench_phase1_variants.py)."""
+    import torch
+    from street_crafter_tpu_torch.ops import row_compact as RC
+    from street_crafter_tpu_torch.scripts import bench_phase1_variants as PV
+    cand = torch.tensor(PV.make_cand(0), device=dev)
+    RC.reset_launch_counts()
+    for _, variant, kb in PV.RUNS:
+        RC.compact_rows(cand, variant, kb)
+    torch.cuda.synchronize()
+    counts = dict(RC.launches)
+    if counts != {name: 1 for name, _, _ in PV.RUNS}:
+        raise AssertionError(f"the variant bench's launches: {counts}")
+    rows = PV.run_variants(dev, cand, PEAK_BYTES_S)
+    for r in rows:
+        log(f"[14] {r['name']} (kb {r['kb']}) on {r['shape']}: "
+            f"{'equal' if r['equal'] else 'DIFFERS'} (counts, kept slots, "
+            f"checksums; largest checksum error {r['max_abs_err']}); "
+            f"{r['kept']} kept, longest count {r['counts_max']}; kernel "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes), plain "
+            f"{r['plain_ms']:.3f} ms; launches {counts}; {gpu}")
+    bad = [r["name"] for r in rows if not r["equal"]]
+    if bad:
+        raise AssertionError(f"variant kernels differ from their plain "
+                             f"versions: {bad}")
+    return rows, counts
+
+
+def worklist_split(G, inputs: dict, gpu: str) -> dict:
+    """Phase 15: kernel A's device split at the headline passes, from
+    torch.profiler (scripts/worklist_split.py's device_split)."""
+    from street_crafter_tpu_torch.scripts.worklist_split import device_split
+    out = {}
+    for label, geo in inputs.items():
+        sp = device_split(lambda: G.tile_worklist(**geo))
+        acts = {}
+        for a in sp["activities"]:
+            k = next((k for k in A_KERNELS if k in a["name"]), a["name"])
+            acts[k] = round(a["ms"], 4)
+        out[label] = {"kernels_ms": acts, "busy_ms": sp["busy_ms"],
+                      "span_ms": sp["span_ms"], "gaps": sp["gaps"]}
+        log(f"[15] kernel A, headline {label} pass, device ms per call "
+            f"(torch.profiler, mean of {sp['calls_traced']} calls): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in acts.items())
+            + f"; busy {sp['busy_ms']:.4f} of a {sp['span_ms']:.4f} ms span; "
+            f"largest idle gaps "
+            + ", ".join(f"{g['ms']:.4f} ms before {g['before'][:40]}"
+                        for g in sp["gaps"][:2]) + f"; {gpu}")
+    missing = [k for k in A_KERNELS
+               if k not in out.get("foreground", {}).get("kernels_ms", {})]
+    if missing:
+        log(f"[15] torch.profiler recorded none of {missing}: the split is "
+            f"not measured")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1974,6 +2142,14 @@ def main() -> None:
     compare(G, long_args, label, 2)
     compare_backward(G, long_args, label, 30, phase=2)
     del cargs, long_args, wl_long
+    forced = forced_list_args(dev)
+    check_worklist(G.tile_worklist(**forced),
+                   G.tile_worklist_reference(**forced), "forced list")
+    log(f"[2] kernel A on {forced['u'].shape[0]} splats over one tile "
+        f"{forced['width']}x{forced['height']}: a list of 40000 pairs, "
+        f"sorted in passes over device memory; worklist and tile order "
+        f"equal")
+    del forced
 
     # ---- phase 3: the main path --------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1989,6 +2165,7 @@ def main() -> None:
         log(f"[3] runner.render.main: {len(result['frame_ms'])} frames in "
             f"{wall:.1f} s; launches {render_counts}")
         if render_counts.get("tile_worklist", 0) < 1 or \
+                render_counts.get("pair_records", 0) < 1 or \
                 render_counts.get("composite", 0) < 1:
             raise AssertionError(f"main path missed a kernel: "
                                  f"{render_counts}")
@@ -2020,13 +2197,18 @@ def main() -> None:
         fg = headline_pass(G, args, f"headline frame {cam0.width}x"
                            f"{cam0.height}, {n_splats} splats", gpu)
         sky_args, n_sky = headline_sky_args(cfg, dev)
-        headline_pass(G, sky_args, f"headline frame sky pass, {n_sky} "
-                      f"splats", gpu)
+        sky = headline_pass(G, sky_args, f"headline frame sky pass, {n_sky} "
+                            f"splats", gpu)
         times, errs = fg["times"], fg["errs"]
         bound = bounds(n_splats, fg["wl"].n_pairs, fg["wl"].ranges.shape[0],
                        fg["pixels"], fg["prefix"], fg["hits"],
                        args["colors"].shape[1])
-        del fg, args, sky_args
+        # phase 15 splits kernel A on these inputs, after phase 13
+        split_inputs = {"foreground": fg["geo"], "sky": sky["geo"]}
+        headline = {"graphs": fg["graphs"], "sort_ms": fg["sort_ms"],
+                    "sky": {k: sky[k] for k in ("times", "graphs",
+                                                "sort_ms")}}
+        del fg, sky, args, sky_args
         torch.cuda.empty_cache()
 
         # ---- phase 6: the training main path ------------------------------
@@ -2058,6 +2240,12 @@ def main() -> None:
         torch.cuda.empty_cache()
     ft_rows = vdm_train_kernel_times(gpu)
 
+    # ---- phase 14: kernel A's variant bench --------------------------------
+    variant_rows, variant_counts = variant_bench(dev, gpu)
+
+    # ---- phase 15: kernel A's split ------------------------------------------
+    a_split = worklist_split(G, split_inputs, gpu)
+
     # each main path's counts, read right after its own reset; "launches"
     # is their sum
     by_path = {name: {"render": render_counts.get(name, 0),
@@ -2073,9 +2261,22 @@ def main() -> None:
          "plain_ms": round(times[name][1], 4),
          "bound_ms": round(bound[name]["bound_ms"], 6),
          "bound_by": bound[name]["bound_by"],
-         # no single PyTorch call computes these functions
-         "library_ms": None}
-        for name in ("tile_worklist", "composite", "composite_backward")]
+         # no single PyTorch call computes these functions (for kernel A,
+         # torch.sort of its keys does a part of it: "library_part_ms")
+         "library_ms": None,
+         "graph_ms": round(headline["graphs"][name], 4),
+         "sky": {"ms": round(headline["sky"]["times"][name][0], 4),
+                 "plain_ms": round(headline["sky"]["times"][name][1], 4),
+                 "graph_ms": round(headline["sky"]["graphs"][name], 4)}}
+        for name in ("tile_worklist", "pair_records", "composite",
+                     "composite_backward")]
+    a_row = kernels[0]
+    a_row["graph_of"] = "the part after the host synchronisation"
+    a_row["library_part_ms"] = round(headline["sort_ms"], 4)
+    a_row["library_part"] = "torch.sort(stable=True) of the 64-bit keys"
+    a_row["sky"]["library_part_ms"] = round(headline["sky"]["sort_ms"], 4)
+    a_row["kernels"] = list(A_KERNELS)
+    a_row["split"] = a_split
     for k in kernels:
         log(f"[7] {k['name']}: {k['ms']:.3f} ms against a bound of "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
@@ -2133,6 +2334,19 @@ def main() -> None:
             "library_ms": round(head["library_ms"], 4),
             "library_covers": "dq, dk and dv (G + H)",
             "shapes": rounded(ft_rows[name])})
+    # kernel A's variant bench (phase 14): its own run's launches
+    for r in variant_rows:
+        kernels.append({
+            "name": f"row_compact_{r['name']}", "route": "cuda",
+            "source": VARIANT_SOURCE,
+            "replaces": VARIANT_REPLACES[r["variant"]],
+            "launches": variant_counts.get(r["name"], 0),
+            "launches_by_path": {"variant_bench": variant_counts.get(
+                r["name"], 0)},
+            "max_abs_err": r["max_abs_err"], "ms": round(r["ms"], 4),
+            "plain_ms": round(r["plain_ms"], 4),
+            "bound_ms": round(r["bound_ms"], 6), "bound_by": r["bound_by"],
+            "library_ms": None, "shape": r["shape"], "kb": r["kb"]})
     log(f"[10] sampling peak max_memory_allocated {vdm_peak:.2f} GiB")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

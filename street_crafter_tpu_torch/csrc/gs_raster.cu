@@ -6,18 +6,46 @@
 // nothing, does not synchronise and returns cudaGetLastError().
 //
 // ---------------------------------------------------------------------------
-// Kernel A, the tile worklist: isect_count_kernel, isect_emit_kernel and
-// tile_ranges_kernel (a stable torch.sort of the keys runs between emit and
-// ranges). Replaces street_crafter_tpu/ops/gs_raster_fused.py::_compact_kernel
-// (K1), which compacted each 128-px coarse tile's depth-selected candidates
-// into per-16-px-row lists under fixed VMEM capacities. Here every splat
-// emits one (tile << 32 | depth bits) key for EVERY 16x16 tile its 3-sigma
-// box overlaps, so no tile drops a splat and wide splats keep their interior
-// tiles. Bound on this card: memory traffic and atomics-free scatter of
-// 12 bytes per pair (key + id); the count pass reads 13 bytes per splat.
-// Design: one thread per splat, a prefix sum gives each splat its own
-// output slice (no atomics, deterministic order), and the range pass is one
-// thread per sorted pair comparing its tile with its left neighbour.
+// Kernel A, the tile worklist: worklist_count_kernel, tile_scan_kernel,
+// tile_order_kernel, worklist_emit_kernel and tile_sort_kernel. Replaces
+// street_crafter_tpu/ops/gs_raster_fused.py::_compact_kernel (K1), which
+// compacted each 128-px coarse tile's depth-selected candidates into
+// per-16-px-row lists under fixed VMEM capacities. Here every splat is
+// listed in EVERY 16x16 tile its 3-sigma box overlaps, so no tile drops a
+// splat and wide splats keep their interior tiles; each list is in (depth,
+// splat id) order, and the tiles come with the order kernels B and C take
+// them in (list length descending, tile ascending). Bound on this card:
+// bytes (17 read per splat, a tile id and a splat id written per pair, the
+// ranges and the order per tile); between them lies a sort of 64-bit keys,
+// which the first port left to torch.sort (CUB's radix sort over every
+// pair, 0.23 of its 0.40 ms). Design, gsplat's binning turned around so
+// that one long sort of every pair becomes a short sort per tile:
+//   - count: persistent blocks of 512 take the splats a block-width at a
+//     time and spread each step's (splat, tile) pairs evenly over their
+//     threads (block_pairs: a few splats near the camera cover thousands of
+//     tiles each); each block counts per tile in shared memory and adds its
+//     nonzero counts to the bins once;
+//   - scan: one block turns the bins into each tile's range, its key for
+//     the tile order, the pair total and the longest list, and zeroes the
+//     bins for the emit. The host reads the total (the one synchronisation:
+//     it sizes the lists) while the order kernel runs;
+//   - tile order: one block, a stable radix sort of the lengths (8 bits a
+//     pass, as many passes as the longest list needs);
+//   - emit: the count's walk again, twice: each block counts its pairs per
+//     tile, takes each tile's run of bucket slots with one atomic, then
+//     writes each pair's (depth bits << 32 | splat id) key at a slot handed
+//     out in shared memory;
+//   - sort: persistent blocks take tiles longest list first. A list of up
+//     to 512 keys goes to one warp, a longer one to a group of warps (named
+//     barriers), all 16 past 8,192 keys. Each thread holds 16 keys and
+//     sorts them in registers (a bitonic network), then runs are merged
+//     pairwise through shared memory along merge paths (group_sort_regs);
+//     a list longer than a block holds is sorted in passes over its segment
+//     in device memory (group_sort). Keys are unique, so the result does
+//     not depend on the atomics' order: it is the stable (tile, depth) sort
+//     of the pairs in splat order, bit for bit. The sort also zeroes each
+//     tile's bucket counter, and the emit the tile counter, so the part
+//     after the synchronisation can be replayed (a CUDA graph).
 //
 // Kernel B, compositing: composite_kernel<C, kTrain>. Replaces
 // street_crafter_tpu/ops/gs_raster_fused.py::_composite_kernel (K2), which
@@ -132,63 +160,642 @@ __device__ __forceinline__ bool tile_range(float u, float v, float r,
   return tx1 > tx0 && ty1 > ty0;
 }
 
-__global__ void isect_count_kernel(const float* __restrict__ u,
-                                   const float* __restrict__ v,
-                                   const float* __restrict__ radii,
-                                   const uint8_t* __restrict__ valid, int n,
-                                   int tw, int th, int32_t* __restrict__ counts) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int tx0, tx1, ty0, ty1;
-  counts[i] = tile_range(u[i], v[i], radii[i], valid[i] != 0, tw, th, tx0,
-                         tx1, ty0, ty1)
-                  ? (tx1 - tx0) * (ty1 - ty0)
-                  : 0;
+// ------------------------------------------------------------ kernel A
+
+constexpr int kBinThreads = 512;     // count and emit blocks
+constexpr int kScanThreads = 1024;   // tile_scan_kernel (one block)
+constexpr int kScanStage = 49152;    // bins the scan stages in shared memory
+constexpr int kPrivTiles = 8192;     // bins a block keeps in shared memory
+constexpr int kSortKeys = 16;        // keys a thread holds in sorts
+constexpr int kSortThreads = 512;    // tile sort and order blocks
+constexpr int kSortCap = kSortThreads * kSortKeys;  // keys a block sorts
+constexpr int kWarpCap = 32 * kSortKeys;  // lists one warp sorts alone
+constexpr uint64_t kNoKey = ~0ull;   // above every key (ids are < 2^31)
+
+__host__ __device__ inline int pow2ceil(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
 }
 
-// offsets: inclusive prefix sum of the counts (int64).
-__global__ void isect_emit_kernel(const float* __restrict__ u,
-                                  const float* __restrict__ v,
-                                  const float* __restrict__ radii,
-                                  const uint8_t* __restrict__ valid,
-                                  const float* __restrict__ depths,
-                                  const int64_t* __restrict__ offsets, int n,
-                                  int tw, int th, int64_t* __restrict__ keys,
-                                  int32_t* __restrict__ gids) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int tx0, tx1, ty0, ty1;
-  if (!tile_range(u[i], v[i], radii[i], valid[i] != 0, tw, th, tx0, tx1, ty0,
-                  ty1))
+// Exclusive prefix sum of x over the block's threads in thread order, and
+// the block's total. blockDim.x a multiple of 32.
+__device__ long long block_exclusive_sum(long long x, long long* total) {
+  __shared__ long long s_warp[32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  long long inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) s_warp[w] = inc;
+  __syncthreads();
+  if (w == 0) {
+    long long wv = lane < nw ? s_warp[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, wv, o);
+      if (lane >= o) wv += y;
+    }
+    s_warp[lane] = wv;  // inclusive over the warps
+  }
+  __syncthreads();
+  const long long before = w ? s_warp[w - 1] : 0;
+  *total = s_warp[nw - 1];
+  __syncthreads();  // s_warp is reused by the next call
+  return before + inc - x;
+}
+
+__device__ int block_max(int x) {
+  __shared__ int s_max[32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  x = __reduce_max_sync(0xffffffffu, x);
+  if (lane == 0) s_max[w] = x;
+  __syncthreads();
+  int m = 0;
+  for (int q = 0; q < (int)(blockDim.x >> 5); ++q) m = max(m, s_max[q]);
+  __syncthreads();
+  return m;
+}
+
+// Bins -> per tile its range [start, end) ([0, 0) when empty, as the plain
+// version has it) and its order key (~length << 32 | tile: ascending is
+// length descending, tile ascending); info = (pairs, longest list). The
+// bins are read through L2 (other blocks' atomics) and left at zero; with
+// `stage` (room for n_tiles ints) they are read once, coalesced, into
+// shared memory, each thread scans its run of tiles there and leaves each
+// tile's start in place of its count, and the outputs are written
+// coalesced (a tile's count: the next start less its own). One SM writing
+// a thread's run of tiles at a time (a 56-byte stride across a warp) took
+// ~17 us at 6,700 tiles whatever the counts.
+__device__ void scan_tiles(int32_t* bins, int n_tiles, int* stage,
+                           int32_t* ranges, uint64_t* order_keys,
+                           int64_t* info) {
+  if (stage != nullptr) {
+    // four loads in flight a thread, then their stores
+    for (int t0 = threadIdx.x; t0 < n_tiles; t0 += 4 * blockDim.x) {
+      int c[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int t = t0 + q * blockDim.x;
+        c[q] = t < n_tiles ? __ldcg(bins + t) : 0;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int t = t0 + q * blockDim.x;
+        if (t < n_tiles) {
+          stage[t] = c[q];
+          bins[t] = 0;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  const int per = (n_tiles + blockDim.x - 1) / blockDim.x;
+  const int b0 = min((int)threadIdx.x * per, n_tiles);
+  const int b1 = min(b0 + per, n_tiles);
+  long long sum = 0;
+  int longest = 0;
+  for (int t = b0; t < b1; ++t) {
+    const int c = stage ? stage[t] : __ldcg(bins + t);
+    sum += c;
+    longest = max(longest, c);
+  }
+  long long total;
+  long long start = block_exclusive_sum(sum, &total);
+  longest = block_max(longest);
+  if (threadIdx.x == 0) {
+    info[0] = total;
+    info[1] = longest;
+  }
+  if (stage != nullptr) {
+    // starts wrap as the int32 ranges do (the host refuses 2^31 pairs)
+    for (int t = b0; t < b1; ++t) {
+      const int c = stage[t];
+      stage[t] = (int)start;
+      start += c;
+    }
+    __syncthreads();
+    int2* pairs = reinterpret_cast<int2*>(ranges);  // 8-byte aligned rows
+    for (int t = threadIdx.x; t < n_tiles; t += blockDim.x) {
+      const int s0 = stage[t];
+      const int c = (t + 1 < n_tiles ? stage[t + 1] : (int)total) - s0;
+      pairs[t] = c ? make_int2(s0, s0 + c) : make_int2(0, 0);
+      order_keys[t] = ((uint64_t)(~(uint32_t)c) << 32) | (uint32_t)t;
+    }
     return;
-  // depth > near_plane > 0, so the raw f32 bits sort like the values
-  const int64_t dbits = (int64_t)__float_as_uint(depths[i]);
-  int64_t k = i ? offsets[i - 1] : 0;
-  for (int ty = ty0; ty < ty1; ++ty) {
-    for (int tx = tx0; tx < tx1; ++tx, ++k) {
-      keys[k] = ((int64_t)(ty * tw + tx) << 32) | dbits;
-      gids[k] = i;
+  }
+  for (int t = b0; t < b1; ++t) {
+    const int c = __ldcg(bins + t);
+    bins[t] = 0;
+    ranges[2 * t] = c ? (int32_t)start : 0;
+    ranges[2 * t + 1] = c ? (int32_t)(start + c) : 0;
+    order_keys[t] = ((uint64_t)(~(uint32_t)c) << 32) | (uint32_t)t;
+    start += c;
+  }
+}
+
+// A splat's tile rectangle as block_pairs takes it.
+__device__ __forceinline__ int splat_tiles(int i, int n,
+                                           const float* __restrict__ u,
+                                           const float* __restrict__ v,
+                                           const float* __restrict__ radii,
+                                           const uint8_t* __restrict__ valid,
+                                           int tw, int th, int& tx0, int& nx,
+                                           int& ty0) {
+  int tx1 = 0, ty1 = 0;
+  tx0 = ty0 = 0;
+  nx = 1;
+  if (i >= n || !tile_range(u[i], v[i], radii[i], valid[i] != 0, tw, th, tx0,
+                            tx1, ty0, ty1))
+    return 0;
+  nx = tx1 - tx0;
+  return nx * (ty1 - ty0);
+}
+
+// The (splat, tile) pairs of this block's share of the splats, with every
+// thread of the block busy whatever the splats' sizes: a persistent grid
+// takes the splats a block-width at a time; per step the block scans its
+// splats' tile counts, and each thread takes an equal run of the step's
+// pairs: it finds the splat of its first pair (the last whose exclusive
+// offset is <= it, a binary search in shared memory) and walks on through
+// that splat's tiles, row-major in its rectangle, and the next splats'.
+// f(tile, key) runs once per pair, the key (depth bits << 32 | splat id)
+// only when `depths` is given. Every thread of the block must call it.
+// `step`: the kernel's shared memory for it.
+struct PairStep {
+  int off[kBinThreads];
+  struct {
+    int tx0, nx, ty0;
+    uint64_t key;
+  } splat[kBinThreads];
+};
+
+template <typename F>
+__device__ __forceinline__ void block_pairs(
+    PairStep& step, int n, const float* __restrict__ u,
+    const float* __restrict__ v, const float* __restrict__ radii,
+    const uint8_t* __restrict__ valid, const float* __restrict__ depths,
+    int tw, int th, F&& f) {
+  int* s_off = step.off;
+  for (int b = blockIdx.x * blockDim.x; b < n; b += gridDim.x * blockDim.x) {
+    const int i = b + threadIdx.x;
+    int tx0, nx, ty0;
+    const int cnt = splat_tiles(i, n, u, v, radii, valid, tw, th, tx0, nx,
+                                ty0);
+    long long total;
+    const int off = (int)block_exclusive_sum(cnt, &total);
+    s_off[threadIdx.x] = off;
+    // the raw f32 bits, as unsigned, order the depths as the plain
+    // version's keys do (depth > near plane > 0: like the values)
+    step.splat[threadIdx.x] = {
+        tx0, nx, ty0,
+        cnt && depths != nullptr
+            ? ((uint64_t)__float_as_uint(depths[i]) << 32) | (uint32_t)i
+            : 0};
+    __syncthreads();
+    const int per = ((int)total + blockDim.x - 1) / blockDim.x;
+    int q = threadIdx.x * per;
+    const int q_end = min(q + per, (int)total);
+    if (q < q_end) {
+      int j = 0, hi = blockDim.x - 1;
+      while (j < hi) {
+        const int mid = (j + hi + 1) >> 1;
+        if (s_off[mid] <= q)
+          j = mid;
+        else
+          hi = mid - 1;
+      }
+      // splat j has pairs (the last with offset <= q); its end
+      const int last = blockDim.x - 1;
+      int end = j < last ? s_off[j + 1] : (int)total;
+      auto sp = step.splat[j];
+      const int k = q - s_off[j];
+      int ty = k / sp.nx, tx = k - ty * sp.nx;
+      for (; q < q_end; ++q) {
+        if (q == end) {  // the next splat with pairs
+          do {
+            ++j;
+          } while (j < last && s_off[j + 1] <= q);
+          end = j < last ? s_off[j + 1] : (int)total;
+          sp = step.splat[j];
+          tx = ty = 0;
+        }
+        f((sp.ty0 + ty) * tw + sp.tx0 + tx, sp.key);
+        if (++tx == sp.nx) {
+          tx = 0;
+          ++ty;
+        }
+      }
+    }
+    __syncthreads();  // `step` is free for the next step
+  }
+}
+
+// bins [n_tiles] zeroed by the caller. priv: the block counts in shared
+// memory (n_tiles <= kPrivTiles) and adds its nonzero bins once, so that a
+// tile many splats overlap sees one atomic per block, not one per pair;
+// else atomics straight to the bins.
+__global__ void __launch_bounds__(kBinThreads)
+worklist_count_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                      const float* __restrict__ radii,
+                      const uint8_t* __restrict__ valid, int n, int tw, int th,
+                      bool priv, int32_t* __restrict__ bins) {
+  __shared__ int s_bins[kPrivTiles];
+  __shared__ PairStep step;
+  const int n_tiles = tw * th;
+  if (priv) {
+    for (int t = threadIdx.x; t < n_tiles; t += blockDim.x) s_bins[t] = 0;
+    __syncthreads();
+  }
+  block_pairs(step, n, u, v, radii, valid, nullptr, tw, th,
+              [&](int t, uint64_t) {
+                if (priv)
+                  atomicAdd(s_bins + t, 1);
+                else
+                  atomicAdd(bins + t, 1);
+              });
+  if (priv) {
+    __syncthreads();
+    for (int t = threadIdx.x; t < n_tiles; t += blockDim.x)
+      if (s_bins[t]) atomicAdd(bins + t, s_bins[t]);
+  }
+}
+
+// One block: the bins scanned (scan_tiles), staged in dynamic shared memory
+// when `stage` (room for n_tiles ints).
+__global__ void __launch_bounds__(kScanThreads)
+tile_scan_kernel(int32_t* __restrict__ bins, int n_tiles, bool stage,
+                 int32_t* __restrict__ ranges,
+                 uint64_t* __restrict__ order_keys, int64_t* __restrict__ info) {
+  extern __shared__ int s_stage[];
+  scan_tiles(bins, n_tiles, stage ? s_stage : nullptr, ranges, order_keys,
+             info);
+}
+
+// fill: [n_tiles] bucket counters at zero (scan_tiles leaves them so).
+// Each key goes to its tile's bucket at a slot taken with an atomic. priv:
+// the block counts its pairs per tile in shared memory, takes each tile's
+// run of slots with one atomic, then hands the slots out in shared memory.
+__global__ void __launch_bounds__(kBinThreads)
+worklist_emit_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                     const float* __restrict__ radii,
+                     const uint8_t* __restrict__ valid,
+                     const float* __restrict__ depths, int n, int tw, int th,
+                     bool priv, const int32_t* __restrict__ ranges,
+                     int32_t* __restrict__ fill, int32_t* __restrict__ next_tile,
+                     uint64_t* __restrict__ keys) {
+  __shared__ int s_slot[kPrivTiles];
+  __shared__ PairStep step;
+  const int n_tiles = tw * th;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *next_tile = 0;  // the sort's
+  if (!priv) {
+    block_pairs(step, n, u, v, radii, valid, depths, tw, th,
+                [&](int t, uint64_t k) {
+                  keys[ranges[2 * t] + atomicAdd(fill + t, 1)] = k;
+                });
+    return;
+  }
+  for (int t = threadIdx.x; t < n_tiles; t += blockDim.x) s_slot[t] = 0;
+  __syncthreads();
+  block_pairs(step, n, u, v, radii, valid, nullptr, tw, th,
+              [&](int t, uint64_t) { atomicAdd(s_slot + t, 1); });
+  __syncthreads();
+  // each tile's run of slots: four atomics in flight a thread
+  for (int t0 = threadIdx.x; t0 < n_tiles; t0 += 4 * blockDim.x) {
+    int c[4], first[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int t = t0 + q * blockDim.x;
+      c[q] = t < n_tiles ? s_slot[t] : 0;
+      first[q] = c[q] ? ranges[2 * t] + atomicAdd(fill + t, c[q]) : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (c[q]) s_slot[t0 + q * blockDim.x] = first[q];
+  }
+  __syncthreads();
+  block_pairs(step, n, u, v, radii, valid, depths, tw, th,
+              [&](int t, uint64_t k) { keys[atomicAdd(s_slot + t, 1)] = k; });
+}
+
+// ---- sorts of 64-bit keys (kernel A's per-tile sort). A group of T
+// threads (one warp, or G warps of a block with a named barrier) sorts up
+// to 16 T keys, blocked: thread t holds keys 16 t .. 16 t + 15 in x, +inf
+// past the list. Each thread sorts its 16 in registers (the bitonic network
+// in its flip form: key e against its mirror e ^ (k - 1) in each block of
+// k, then e ^ j for j = k / 4 .. 1, the smaller key to the lower index;
+// compile-time indices), then runs of 16, 32, ... are merged pairwise
+// through shared memory: each thread finds where its 16 outputs start on
+// its merge path (a binary search) and merges them serially (CUB's block
+// merge sort). Real keys are unique; ties (the padding) take the left run
+// first.
+
+constexpr int kKeys = kSortKeys;
+
+// shared-memory slot of key e: one slot of skew per 16 keys, so that the
+// threads' rows of 16 fall on different banks
+__device__ __forceinline__ int padded(int e) { return e + e / kKeys; }
+constexpr int kPadded = 32 * (kKeys + 1);  // slots a warp's keys take
+
+__device__ __forceinline__ void cas(uint64_t& a, uint64_t& b) {
+  const uint64_t lo = a < b ? a : b;
+  b = a < b ? b : a;
+  a = lo;
+}
+
+template <int M>  // partner r ^ M inside the thread
+__device__ __forceinline__ void thread_stage(uint64_t (&x)[kKeys]) {
+#pragma unroll
+  for (int r = 0; r < kKeys; ++r)
+    if ((r ^ M) > r) cas(x[r], x[r ^ M]);
+}
+
+__device__ __forceinline__ void thread_sort(uint64_t (&x)[kKeys]) {
+  static_assert(kKeys == 8 || kKeys == 16, "the network sorts 8 or 16 keys");
+  thread_stage<1>(x);  // k = 2
+  thread_stage<3>(x);  // k = 4
+  thread_stage<1>(x);
+  thread_stage<7>(x);  // k = 8
+  thread_stage<2>(x);
+  thread_stage<1>(x);
+  if constexpr (kKeys == 16) {
+    thread_stage<15>(x);  // k = 16
+    thread_stage<4>(x);
+    thread_stage<2>(x);
+    thread_stage<1>(x);
+  }
+}
+
+// The barrier of a group of `threads` threads: a warp's, or named barrier
+// 1 + id.
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  if (threads == 32)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id + 1), "r"(threads) : "memory");
+}
+
+// Sorts the group's keys in x (t: the thread's index in the group of T,
+// bar: its barrier, s: its 17 T / 16 slots of shared memory); P, a power
+// of two, bounds the real keys. Threads past P only keep the barriers.
+__device__ void group_sort_regs(uint64_t (&x)[kKeys], uint64_t* s, int t,
+                                int T, int bar, int P) {
+  thread_sort(x);
+  const int e0 = t * kKeys;
+  for (int R = kKeys; R < P; R <<= 1) {
+#pragma unroll
+    for (int r = 0; r < kKeys; ++r) s[padded(e0 + r)] = x[r];
+    group_sync(bar, T);
+    if (e0 < P) {
+      const int a0 = e0 & ~(2 * R - 1);  // the left run, then the right
+      const int b0 = a0 + R;
+      const int d = e0 - a0;             // outputs of the pair before mine
+      int lo = max(0, d - R), hi = min(d, R);
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (s[padded(a0 + mid)] <= s[padded(b0 + d - 1 - mid)])
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      int i = lo, j = d - lo;
+      uint64_t a = i < R ? s[padded(a0 + i)] : 0;
+      uint64_t b = j < R ? s[padded(b0 + j)] : 0;
+#pragma unroll
+      for (int r = 0; r < kKeys; ++r) {
+        const bool take_a = j >= R || (i < R && a <= b);
+        x[r] = take_a ? a : b;
+        if (take_a) {
+          ++i;
+          a = i < R ? s[padded(a0 + i)] : 0;
+        } else {
+          ++j;
+          b = j < R ? s[padded(b0 + j)] : 0;
+        }
+      }
+    }
+    group_sync(bar, T);
+  }
+}
+
+__device__ __forceinline__ void load_keys(uint64_t (&x)[kKeys],
+                                          const uint64_t* g, int n, int t) {
+#pragma unroll
+  for (int r = 0; r < kKeys; ++r) {
+    const int e = t * kKeys + r;
+    x[r] = e < n ? g[e] : kNoKey;
+  }
+}
+
+__device__ __forceinline__ void store_keys(const uint64_t (&x)[kKeys],
+                                           uint64_t* g, int n, int t) {
+#pragma unroll
+  for (int r = 0; r < kKeys; ++r) {
+    const int e = t * kKeys + r;
+    if (e < n) g[e] = x[r];
+  }
+}
+
+// One stage of the flip-form bitonic network over n keys of g in device
+// memory (merge k's strides of kSortCap and more, for a list longer than a
+// block holds), every pair with its upper key past n skipped (+inf).
+__device__ __forceinline__ void global_stage(uint64_t* g, int n, int P,
+                                             bool flip, int m) {
+  for (int i = threadIdx.x; i < (P >> 1); i += blockDim.x) {
+    const int o = i & (m - 1);
+    const int base = (i - o) << 1;
+    const int lo = base + o;
+    const int hi = flip ? base + 2 * m - 1 - o : lo + m;
+    if (hi < n) {
+      const uint64_t a = g[lo], b = g[hi];
+      if (a > b) {
+        g[lo] = b;
+        g[hi] = a;
+      }
     }
   }
 }
 
-// ranges [n_tiles, 2] must be zeroed by the caller (empty tiles stay [0,0)).
-__global__ void tile_ranges_kernel(const int64_t* __restrict__ keys,
-                                   int64_t n_pairs,
-                                   int32_t* __restrict__ ranges) {
-  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n_pairs) return;
-  const int tile = (int)(keys[k] >> 32);
-  if (k == 0) {
-    ranges[2 * tile] = 0;
-  } else {
-    const int prev = (int)(keys[k - 1] >> 32);
-    if (prev != tile) {
-      ranges[2 * prev + 1] = (int32_t)k;
-      ranges[2 * tile] = (int32_t)k;
-    }
+// Sorts n keys of g ascending with a group (as group_sort_regs). n <= 16 T:
+// in registers, left in x; returns true. Longer (only the whole block, T =
+// kSortThreads): in place in g, in passes: each chunk of kSortCap keys
+// sorted as above, then for each larger merge k of the flip-form bitonic
+// network its strides of kSortCap and more over g, after which each chunk
+// holds its final keys and is sorted again in registers; returns false.
+__device__ bool group_sort(uint64_t* g, int n, uint64_t* s,
+                           uint64_t (&x)[kKeys], int t, int T, int bar) {
+  if (n <= T * kKeys) {
+    load_keys(x, g, n, t);
+    group_sort_regs(x, s, t, T, bar, pow2ceil(n));
+    return true;
   }
-  if (k == n_pairs - 1) ranges[2 * tile + 1] = (int32_t)n_pairs;
+  constexpr int C = kSortCap;
+  const int P = pow2ceil(n);
+  for (int k = C; k <= P; k <<= 1) {
+    for (int j = k >> 1; j >= C; j >>= 1) {
+      global_stage(g, n, P, j == (k >> 1), j);
+      group_sync(bar, T);
+    }
+    for (int c0 = 0; c0 < n; c0 += C) {
+      load_keys(x, g + c0, n - c0, t);
+      group_sort_regs(x, s, t, T, bar, pow2ceil(min(C, n - c0)));
+      store_keys(x, g + c0, n - c0, t);
+    }
+    group_sync(bar, T);
+  }
+  return false;
+}
+
+// The tile order: a stable LSD radix sort of scan_tiles's keys by the low
+// bits of ~length (8 a pass, as many as the longest list needs: the bits
+// above are all ones), so that ties keep tile order; one block, keys
+// ping-ponged between `keys` and `order`, then order[i] = the tile. Per
+// pass each warp takes one run of the keys in order, counts its digits
+// (a match per 32 keys, the first lane of each digit adds), the counts are
+// scanned digit-major then warp-major, and the warp scatters in the same
+// order.
+constexpr int kOrderWarps = kSortThreads / 32;
+
+__global__ void __launch_bounds__(kSortThreads)
+tile_order_kernel(uint64_t* keys, int n_tiles, const int64_t* info,
+                  int64_t* order) {
+  __shared__ int s_cnt[256][kOrderWarps];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int longest = (int)info[1];
+  const int bits = longest ? 32 - __clz(longest) : 0;
+  const int per = (n_tiles + kOrderWarps - 1) / kOrderWarps;
+  const int r0 = min(w * per, n_tiles), r1 = min(r0 + per, n_tiles);
+  const unsigned below = (1u << lane) - 1u;
+  uint64_t* src = keys;
+  uint64_t* dst = (uint64_t*)order;
+  for (int shift = 32; shift < 32 + bits; shift += 8) {
+    for (int q = threadIdx.x; q < 256 * kOrderWarps; q += blockDim.x)
+      (&s_cnt[0][0])[q] = 0;
+    __syncthreads();
+    for (int e0 = r0; e0 < r1; e0 += 32) {
+      const int e = e0 + lane;
+      const int d = e < r1 ? (int)((src[e] >> shift) & 0xFF) : 256;
+      const unsigned peers = __match_any_sync(0xffffffffu, d);
+      if (d < 256 && (peers & below) == 0) s_cnt[d][w] += __popc(peers);
+    }
+    __syncthreads();
+    // exclusive offsets, digit-major: thread q scans 8 counters
+    long long sum = 0;
+    int* flat = &s_cnt[0][0];
+    const int q0 = threadIdx.x * (256 * kOrderWarps / kSortThreads);
+    for (int q = 0; q < 256 * kOrderWarps / kSortThreads; ++q)
+      sum += flat[q0 + q];
+    long long total;
+    int off = (int)block_exclusive_sum(sum, &total);
+    for (int q = 0; q < 256 * kOrderWarps / kSortThreads; ++q) {
+      const int c = flat[q0 + q];
+      flat[q0 + q] = off;
+      off += c;
+    }
+    __syncthreads();
+    for (int e0 = r0; e0 < r1; e0 += 32) {
+      const int e = e0 + lane;
+      const uint64_t key = e < r1 ? src[e] : 0;
+      const int d = e < r1 ? (int)((key >> shift) & 0xFF) : 256;
+      const unsigned peers = __match_any_sync(0xffffffffu, d);
+      if (d < 256) {
+        const int base = s_cnt[d][w];
+        dst[base + __popc(peers & below)] = key;
+      }
+      __syncwarp();
+      if (d < 256 && (peers & below) == 0) s_cnt[d][w] += __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    uint64_t* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  // the result is in src (keys, or order after an odd number of passes)
+  for (int e = threadIdx.x; e < n_tiles; e += blockDim.x)
+    order[e] = (int64_t)(uint32_t)src[e];
+}
+
+// Persistent blocks take tiles in `order` (longest list first) through the
+// counter next_tile (zeroed by the emit) and sort each tile's bucket of
+// keys. A list of up to kWarpCap keys goes to one warp: the first block to
+// draw one hands it to its warp 0, and from then on each of its warps draws
+// its own (every tile still to draw is as short); an empty list ends the
+// drawing warp. A longer list goes to a group of G = pow2ceil(len) /
+// kWarpCap warps (all 16 past kSortCap keys), and the block draws 16 / G
+// tiles at once, one for each group of its warps: every later tile is as
+// short, so each group's list fits it. Each tile's fill counter is set
+// back to zero.
+__global__ void __launch_bounds__(kSortThreads)
+tile_sort_kernel(uint64_t* __restrict__ keys, const int32_t* __restrict__ ranges,
+                 const int64_t* __restrict__ order, int32_t* next_tile,
+                 int32_t* __restrict__ fill, int n_tiles,
+                 int32_t* __restrict__ tile_ids,
+                 int32_t* __restrict__ gauss_ids) {
+  constexpr int kWarps = kSortThreads / 32;
+  extern __shared__ __align__(16) uint64_t s_skeys[];  // kPadded a warp
+  __shared__ int s_draw[3];  // first index drawn, first extra index, G
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint64_t x[kKeys];
+  for (;;) {
+    if (threadIdx.x == 0) {
+      const int i = atomicAdd(next_tile, 1);
+      int G = 1;
+      if (i < n_tiles) {
+        const int tile = (int)order[i];
+        const int len = ranges[2 * tile + 1] - ranges[2 * tile];
+        if (len > kWarpCap) G = min(kWarps, pow2ceil(len) / kWarpCap);
+      }
+      s_draw[0] = i;
+      s_draw[1] = G > 1 ? atomicAdd(next_tile, kWarps / G - 1) : n_tiles;
+      s_draw[2] = G;
+    }
+    __syncthreads();
+    const int first = s_draw[0], extra = s_draw[1], G = s_draw[2];
+    __syncthreads();  // every thread has read s_draw
+    if (first >= n_tiles) return;
+    const int group = warp / G;
+    // warps on their own (G = 1): warp 0 takes the tile drawn, the others
+    // draw theirs
+    int idx = group == 0 ? first : (G > 1 ? extra + group - 1 : -1);
+    for (;;) {
+      if (idx < 0) {
+        if (lane == 0) idx = atomicAdd(next_tile, 1);
+        idx = __shfl_sync(0xffffffffu, idx, 0);
+      }
+      if (idx >= n_tiles) break;
+      const int tile = (int)order[idx];
+      const int start = ranges[2 * tile];
+      const int len = ranges[2 * tile + 1] - start;
+      if (len == 0) break;  // every later tile is empty too
+      const int T = 32 * G;
+      const int t = threadIdx.x - group * T;
+      uint64_t* s = s_skeys + group * G * kPadded;
+      if (group_sort(keys + start, len, s, x, t, T, group)) {
+#pragma unroll
+        for (int r = 0; r < kKeys; ++r) {
+          const int e = t * kKeys + r;
+          if (e < len) {
+            gauss_ids[start + e] = (int32_t)(uint32_t)x[r];
+            tile_ids[start + e] = tile;
+          }
+        }
+      } else {
+        for (int e = t; e < len; e += T) {
+          gauss_ids[start + e] = (int32_t)(uint32_t)keys[start + e];
+          tile_ids[start + e] = tile;
+        }
+      }
+      if (t == 0) fill[tile] = 0;
+      if (G > 1) break;
+      idx = -1;
+    }
+    if (G == 1) return;
+  }
 }
 
 // sigma = 0.5 (a dx dx + c dy dy) + b dx dy, rounded after every operation
@@ -853,6 +1460,49 @@ cudaError_t persistent_grid(int smem, int n_tiles, int* grid) {
   return cudaSuccess;
 }
 
+// Blocks of Kern the card holds at once with `smem` bytes of dynamic shared
+// memory each (one size per kernel: 0 or the one given), asked once per
+// device and cached; the first ask with smem > 0 raises the kernel's limit.
+template <auto Kern>
+cudaError_t resident_blocks(int threads, int smem, int* blocks) {
+  constexpr int kMaxDevices = 64;
+  static int fits[kMaxDevices][2] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int& f = fits[dev][smem > 0];
+  if (f == 0) {
+    if (smem > 0) {
+      e = cudaFuncSetAttribute(
+          Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+    }
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kern, threads,
+                                                      smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm == 0) return cudaErrorInvalidConfiguration;
+    f = sms * per_sm;
+  }
+  *blocks = f;
+  return cudaSuccess;
+}
+
+// A persistent grid over n splats: at most the resident blocks, at most
+// one per kBinThreads splats, at least one.
+template <auto Kern>
+cudaError_t bin_grid(int n, int* grid) {
+  int fit = 0;
+  const cudaError_t e = resident_blocks<Kern>(kBinThreads, 0, &fit);
+  if (e != cudaSuccess) return e;
+  const int need = (n + kBinThreads - 1) / kBinThreads;
+  *grid = need < 1 ? 1 : (need < fit ? need : fit);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -861,31 +1511,85 @@ const char* sc_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int sc_isect_count(const void* u, const void* v, const void* radii,
-                   const void* valid, int n, int tw, int th, void* counts,
-                   void* stream) {
-  isect_count_kernel<<<blocks_for(n), kThreads1D, 0, (cudaStream_t)stream>>>(
+// Kernel A before the host's synchronisation: the count and the scan.
+// scratch: [n_tiles + 1] int32 (the bins, then the sort's tile counter),
+// zeroed here; ranges [n_tiles, 2] int32, order_keys [n_tiles] uint64 and
+// info [2] int64 (pairs, longest list) are written.
+int sc_worklist_count(const void* u, const void* v, const void* radii,
+                      const void* valid, int n, int tw, int th, void* scratch,
+                      void* ranges, void* order_keys, void* info,
+                      void* stream) {
+  constexpr int kMaxDevices = 64;
+  static bool raised[kMaxDevices] = {};
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n_tiles = tw * th;
+  int32_t* bins = (int32_t*)scratch;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    e = cudaFuncSetAttribute(tile_scan_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kScanStage * (int)sizeof(int));
+    if (e != cudaSuccess) return (int)e;
+    raised[dev] = true;
+  }
+  e = cudaMemsetAsync(bins, 0, (size_t)(n_tiles + 1) * sizeof(int32_t), s);
+  if (e != cudaSuccess) return (int)e;
+  int grid = 0;
+  e = bin_grid<worklist_count_kernel>(n, &grid);
+  if (e != cudaSuccess) return (int)e;
+  worklist_count_kernel<<<grid, kBinThreads, 0, s>>>(
       (const float*)u, (const float*)v, (const float*)radii,
-      (const uint8_t*)valid, n, tw, th, (int32_t*)counts);
+      (const uint8_t*)valid, n, tw, th, n_tiles <= kPrivTiles, bins);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const bool stage = n_tiles <= kScanStage;
+  tile_scan_kernel<<<1, kScanThreads, stage ? n_tiles * sizeof(int) : 0, s>>>(
+      bins, n_tiles, stage, (int32_t*)ranges, (uint64_t*)order_keys,
+      (int64_t*)info);
   return (int)cudaGetLastError();
 }
 
-int sc_isect_emit(const void* u, const void* v, const void* radii,
-                  const void* valid, const void* depths, const void* offsets,
-                  int n, int tw, int th, void* keys, void* gids, void* stream) {
-  isect_emit_kernel<<<blocks_for(n), kThreads1D, 0, (cudaStream_t)stream>>>(
-      (const float*)u, (const float*)v, (const float*)radii,
-      (const uint8_t*)valid, (const float*)depths, (const int64_t*)offsets, n,
-      tw, th, (int64_t*)keys, (int32_t*)gids);
+// The tile order from sc_worklist_count's order_keys (sorted in place) and
+// info: order [n_tiles] int64.
+int sc_tile_order(void* order_keys, int n_tiles, const void* info,
+                  void* order, void* stream) {
+  tile_order_kernel<<<1, kSortThreads, 0, (cudaStream_t)stream>>>(
+      (uint64_t*)order_keys, n_tiles, (const int64_t*)info, (int64_t*)order);
   return (int)cudaGetLastError();
 }
 
-int sc_tile_ranges(const void* keys, long long n_pairs, void* ranges,
-                   void* stream) {
-  tile_ranges_kernel<<<blocks_for(n_pairs), kThreads1D, 0,
-                       (cudaStream_t)stream>>>((const int64_t*)keys,
-                                               (int64_t)n_pairs,
-                                               (int32_t*)ranges);
+// Kernel A after the synchronisation: the emit into buckets and the
+// per-tile sort. scratch, ranges and order from the two calls above;
+// keys [n_pairs] uint64 scratch; tile_ids and gauss_ids [n_pairs] int32
+// out. The sort's grid is persistent.
+int sc_worklist_emit(const void* u, const void* v, const void* radii,
+                     const void* valid, const void* depths, int n, int tw,
+                     int th, void* scratch, const void* ranges,
+                     const void* order, void* keys, void* tile_ids,
+                     void* gauss_ids, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n_tiles = tw * th;
+  int32_t* fill = (int32_t*)scratch;
+  int grid = 0;
+  cudaError_t e = bin_grid<worklist_emit_kernel>(n, &grid);
+  if (e != cudaSuccess) return (int)e;
+  worklist_emit_kernel<<<grid, kBinThreads, 0, s>>>(
+      (const float*)u, (const float*)v, (const float*)radii,
+      (const uint8_t*)valid, (const float*)depths, n, tw, th,
+      n_tiles <= kPrivTiles, (const int32_t*)ranges, fill, fill + n_tiles,
+      (uint64_t*)keys);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int smem = kSortThreads / 32 * kPadded * (int)sizeof(uint64_t);
+  e = resident_blocks<tile_sort_kernel>(kSortThreads, smem, &grid);
+  if (e != cudaSuccess) return (int)e;
+  tile_sort_kernel<<<n_tiles < grid ? n_tiles : grid, kSortThreads, smem,
+                     s>>>((uint64_t*)keys, (const int32_t*)ranges,
+                          (const int64_t*)order, fill + n_tiles, fill,
+                          n_tiles, (int32_t*)tile_ids, (int32_t*)gauss_ids);
   return (int)cudaGetLastError();
 }
 

@@ -21,11 +21,13 @@ Each step has two implementations in this module:
   * the CUDA kernels of ``csrc/gs_raster.cu`` (A, B and C), used for CUDA
     tensors. They are compiled with nvcc on first use; a failed build or
     launch raises.
-Kernels B and C read the lists as pair records (``pair_records``: one
-16-byte aligned record per (tile, splat) pair, packed by a kernel inside
-each of their calls) and skip, per warp of 16x2 pixels, the pairs that no
-pixel of the warp can take (``warp_cull_reference`` is the cull's plain
-version). ``launches`` counts the calls of each implementation.
+Kernel A also gives the order in which B and C take the tiles (longest
+list first). Kernels B and C read the lists as pair records
+(``pair_records``: one 16-byte aligned record per (tile, splat) pair,
+packed by a kernel once per rasterization and shared by B and C) and skip,
+per warp of 16x2 pixels, the pairs that no pixel of the warp can take
+(``warp_cull_reference`` is the cull's plain version). ``launches`` counts
+the calls of each implementation.
 ``rasterize_pixels`` is differentiable (``torch.autograd.Function``) when
 an input needs a gradient; its ``absgrad_sink`` input receives the
 per-splat sums of |dL/du| and |dL/dv| over pixels as its gradient (gsplat
@@ -59,9 +61,10 @@ CULL_ABS = 1e-5
 CULL_REL = 2.0 ** -20
 
 
-# calls per implementation: "tile_worklist", "composite" and
-# "composite_backward" (CUDA kernels A, B and C), "tile_worklist_reference",
-# "composite_reference" and "composite_backward_reference" (plain)
+# calls per implementation: "tile_worklist", "pair_records", "composite"
+# and "composite_backward" (CUDA kernels A, the pack, B and C),
+# "tile_worklist_reference", "composite_reference" and
+# "composite_backward_reference" (plain)
 launches: collections.Counter = collections.Counter()
 # columns of the [N, 8 + C] gradient rows of the compositing backward
 GRAD_U, GRAD_V, GRAD_A, GRAD_B, GRAD_C, GRAD_OPACITY = range(6)
@@ -78,6 +81,9 @@ class TileWorklist(NamedTuple):
     gauss_ids: torch.Tensor  # [P] int32, depth order within a tile
     ranges: torch.Tensor     # [tiles_y * tiles_x, 2] int32 [start, end)
     n_pairs: int
+    # [tiles_y * tiles_x] int64: the tiles by list length descending, tile
+    # index ascending on ties (the order kernels B and C take them in)
+    order: torch.Tensor
 
 
 class RasterOutput(NamedTuple):
@@ -118,7 +124,8 @@ def _depth_bits(depths: torch.Tensor) -> torch.Tensor:
 
 def tile_worklist_reference(u, v, radii, depths, valid, width: int,
                             height: int) -> TileWorklist:
-    """Vectorised bbox-overlap test (per axis) + stable (tile, depth) sort."""
+    """Vectorised bbox-overlap test (per axis) + stable (tile, depth) sort;
+    the tile order is a stable descending sort of the list lengths."""
     launches["tile_worklist_reference"] += 1
     tw, th = tile_grid(width, height)
     dev = u.device
@@ -146,8 +153,9 @@ def tile_worklist_reference(u, v, radii, depths, valid, width: int,
     end = torch.cumsum(per_tile, 0)
     ranges = torch.stack([end - per_tile, end], 1) * (per_tile > 0)[:, None]
     ranges = ranges.to(torch.int32)     # empty tiles: [0, 0)
+    by_length = torch.sort(per_tile, descending=True, stable=True)[1]
     return TileWorklist(tile_ids, gid[order].to(torch.int32), ranges,
-                        int(key.shape[0]))
+                        int(key.shape[0]), by_length)
 
 
 class _TileSplats(NamedTuple):
@@ -367,9 +375,9 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load("gs_raster")
     P, I = ctypes.c_void_p, ctypes.c_int
     sigs = {
-        "sc_isect_count": [P, P, P, P, I, I, I, P, P],
-        "sc_isect_emit": [P, P, P, P, P, P, I, I, I, P, P, P],
-        "sc_tile_ranges": [P, ctypes.c_longlong, P, P],
+        "sc_worklist_count": [P, P, P, P, I, I, I, P, P, P, P, P],
+        "sc_tile_order": [P, I, P, P, P],
+        "sc_worklist_emit": [P, P, P, P, P, I, I, I, P, P, P, P, P, P, P],
         "sc_pair_records": [P, P, P, P, P, P, P, P, I, ctypes.c_longlong, I,
                             P, P, P],
         "sc_composite": [P, P, P, P, I, I, I, I, I, P, P, P, P, P],
@@ -395,45 +403,85 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
 _require = functools.partial(cuda_build.require, align=1)
 
 
-def _tile_worklist_cuda(u, v, radii, depths, valid, width, height
-                        ) -> TileWorklist:
+class _Bins(NamedTuple):
+    """Kernel A up to its host synchronisation (``_worklist_bins``), and
+    what the rest needs, taken before the synchronisation so that the host
+    does little between it and the emit's launch."""
+    scratch: torch.Tensor    # [tiles + 1] int32: bucket counters, tile counter
+    ranges: torch.Tensor
+    order: torch.Tensor
+    n_pairs: int
+    # the emit's first arguments: the pointers of u, v, radii, valid and
+    # depths (their caller keeps them until the emit is launched), n, tw, th
+    emit_args: tuple
+
+
+def _geometry(u, v, radii, depths, valid) -> list[int]:
+    n = u.shape[0]
+    f32 = torch.float32
+    return [_require(u, "u", f32, (n,)), _require(v, "v", f32, (n,)),
+            _require(radii, "radii", f32, (n,)),
+            _require(valid, "valid", torch.bool, (n,)),
+            _require(depths, "depths", f32, (n,))]
+
+
+def _worklist_bins(u, v, radii, depths, valid, width, height) -> _Bins:
+    """Count and scan (every tile's range and the pair total), then the
+    tile order, launched after the copy of the total to the host so that
+    it runs while the host waits: the one synchronisation of kernel A."""
     lib = _library()
     tw, th = tile_grid(width, height)
     n = u.shape[0]
-    f32 = torch.float32
-    pu = _require(u, "u", f32, (n,))
-    pv = _require(v, "v", f32, (n,))
-    pr = _require(radii, "radii", f32, (n,))
-    pd = _require(depths, "depths", f32, (n,))
-    pm = _require(valid, "valid", torch.bool, (n,))
+    geometry = _geometry(u, v, radii, depths, valid)
     dev = u.device
-    ranges = torch.zeros((tw * th, 2), dtype=torch.int32, device=dev)
-    empty = TileWorklist(torch.empty(0, dtype=torch.int32, device=dev),
-                         torch.empty(0, dtype=torch.int32, device=dev),
-                         ranges, 0)
-    if n == 0:
-        return empty
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    counts = torch.empty(n, dtype=torch.int32, device=dev)
-    _check(lib, lib.sc_isect_count(pu, pv, pr, pm, n, tw, th,
-                                   counts.data_ptr(), stream), "isect_count")
+    scratch = torch.empty(tw * th + 1, dtype=torch.int32, device=dev)
+    ranges = torch.empty((tw * th, 2), dtype=torch.int32, device=dev)
+    order_keys = torch.empty(tw * th, dtype=torch.int64, device=dev)
+    order = torch.empty(tw * th, dtype=torch.int64, device=dev)
+    info = torch.empty(2, dtype=torch.int64, device=dev)
+    host = torch.empty(2, dtype=torch.int64, pin_memory=True)
+    stream = torch.cuda.current_stream(dev)
+    _check(lib, lib.sc_worklist_count(
+        *geometry[:4], n, tw, th, scratch.data_ptr(), ranges.data_ptr(),
+        order_keys.data_ptr(), info.data_ptr(), stream.cuda_stream),
+        "worklist_count")
     launches["tile_worklist"] += 1
-    offsets = torch.cumsum(counts, 0)                       # int64, inclusive
-    n_pairs = int(offsets[-1])                              # host sync
+    host.copy_(info, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(stream)
+    _check(lib, lib.sc_tile_order(order_keys.data_ptr(), tw * th,
+                                  info.data_ptr(), order.data_ptr(),
+                                  stream.cuda_stream), "tile_order")
+    copied.synchronize()             # the host sync: the total sizes lists
+    n_pairs = host.tolist()[0]
     if n_pairs >= 2 ** 31:
         raise RuntimeError(f"{n_pairs} (tile, splat) pairs exceed int32 ids")
-    if n_pairs == 0:
-        return empty
-    keys = torch.empty(n_pairs, dtype=torch.int64, device=dev)
-    gids = torch.empty(n_pairs, dtype=torch.int32, device=dev)
-    _check(lib, lib.sc_isect_emit(pu, pv, pr, pm, pd, offsets.data_ptr(), n,
-                                  tw, th, keys.data_ptr(), gids.data_ptr(),
-                                  stream), "isect_emit")
-    keys, order = torch.sort(keys, stable=True)
-    _check(lib, lib.sc_tile_ranges(keys.data_ptr(), n_pairs,
-                                   ranges.data_ptr(), stream), "tile_ranges")
-    return TileWorklist((keys >> 32).to(torch.int32), gids[order], ranges,
-                        n_pairs)
+    return _Bins(scratch, ranges, order, n_pairs, (*geometry, n, tw, th))
+
+
+def _worklist_lists(bins: _Bins) -> TileWorklist:
+    """The emit into per-tile buckets and the per-tile sort: no host
+    synchronisation, and replayable (a CUDA graph) on the same ``bins``
+    while the inputs it was counted from live."""
+    dev = bins.ranges.device
+    tile_ids = torch.empty(bins.n_pairs, dtype=torch.int32, device=dev)
+    gauss_ids = torch.empty(bins.n_pairs, dtype=torch.int32, device=dev)
+    if bins.n_pairs:
+        keys = torch.empty(bins.n_pairs, dtype=torch.int64, device=dev)
+        lib = _library()
+        _check(lib, lib.sc_worklist_emit(
+            *bins.emit_args, bins.scratch.data_ptr(), bins.ranges.data_ptr(),
+            bins.order.data_ptr(), keys.data_ptr(), tile_ids.data_ptr(),
+            gauss_ids.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+            "worklist_emit")
+    return TileWorklist(tile_ids, gauss_ids, bins.ranges, bins.n_pairs,
+                        bins.order)
+
+
+def _tile_worklist_cuda(u, v, radii, depths, valid, width, height
+                        ) -> TileWorklist:
+    return _worklist_lists(_worklist_bins(u, v, radii, depths, valid, width,
+                                          height))
 
 
 def _pair_records_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
@@ -456,24 +504,33 @@ def _pair_records_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
     _check(lib, lib.sc_pair_records(*ptrs, n, wl.n_pairs, C,
                                     table.data_ptr(), rec.data_ptr(),
                                     stream), "pair_records")
+    if wl.n_pairs:                   # no pairs: nothing was launched
+        launches["pair_records"] += 1
     return rec
 
 
-def _tile_order(wl: TileWorklist) -> torch.Tensor:
-    """The order in which kernels B and C take the tiles: longest list
-    first (int64)."""
-    return torch.argsort(wl.ranges[:, 1] - wl.ranges[:, 0], descending=True)
+def _records(rec, wl: TileWorklist, u, v, conic_a, conic_b, conic_c, colors,
+             opacities) -> torch.Tensor:
+    """The pair records B and C read: ``rec`` checked (16-byte aligned, for
+    the bulk copies), or a new pack when the caller has none. The caller
+    keeps the tensor until its kernel is launched."""
+    if rec is None:
+        return _pair_records_cuda(wl, u, v, conic_a, conic_b, conic_c,
+                                  colors, opacities)
+    _require(rec, "records", torch.float32,
+             (wl.n_pairs, record_floats(colors.shape[1])), align=16)
+    return rec
 
 
 def _composite_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
-                    colors, opacities, width, height, train):
+                    colors, opacities, width, height, train, records):
     lib = _library()
     tw, th = tile_grid(width, height)
     C = colors.shape[1]
     ranges = _require(wl.ranges, "ranges", torch.int32, (tw * th, 2))
-    rec = _pair_records_cuda(wl, u, v, conic_a, conic_b, conic_c, colors,
-                             opacities)
-    order = _tile_order(wl)
+    order = _require(wl.order, "order", torch.int64, (tw * th,))
+    rec = _records(records, wl, u, v, conic_a, conic_b, conic_c, colors,
+                   opacities)
     dev = u.device
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     out = torch.empty((height, width, C), dtype=torch.float32, device=dev)
@@ -485,7 +542,7 @@ def _composite_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
                 torch.empty((height, width), dtype=torch.int32, device=dev))
         state = [res[2].data_ptr(), res[3].data_ptr()]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _check(lib, lib.sc_composite(ranges, rec.data_ptr(), order.data_ptr(),
+    _check(lib, lib.sc_composite(ranges, rec.data_ptr(), order,
                                  counter.data_ptr(), C, width, height, tw, th,
                                  out.data_ptr(), alpha.data_ptr(), *state,
                                  stream), "composite")
@@ -495,7 +552,7 @@ def _composite_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
 
 def _composite_backward_cuda(wl: TileWorklist, u, v, conic_a, conic_b,
                              conic_c, colors, opacities, width, height,
-                             final_T, last, grad_colors, grad_alpha):
+                             final_T, last, grad_colors, grad_alpha, records):
     lib = _library()
     tw, th = tile_grid(width, height)
     n, C = colors.shape
@@ -506,15 +563,15 @@ def _composite_backward_cuda(wl: TileWorklist, u, v, conic_a, conic_b,
                       (height, width, C)),
              _require(grad_alpha, "grad_alpha", torch.float32,
                       (height, width))]
-    rec = _pair_records_cuda(wl, u, v, conic_a, conic_b, conic_c, colors,
-                             opacities)
-    order = _tile_order(wl)
+    order = _require(wl.order, "order", torch.int64, (tw * th,))
+    rec = _records(records, wl, u, v, conic_a, conic_b, conic_c, colors,
+                   opacities)
     counter = torch.zeros(1, dtype=torch.int32, device=u.device)
     grads = torch.zeros((n, GRAD_COLORS + C), dtype=torch.float32,
                         device=u.device)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     _check(lib, lib.sc_composite_backward(
-        ranges, wl.gauss_ids.data_ptr(), rec.data_ptr(), order.data_ptr(),
+        ranges, wl.gauss_ids.data_ptr(), rec.data_ptr(), order,
         counter.data_ptr(), C, width, height, tw, th, *state,
         grads.data_ptr(), stream), "composite_backward")
     launches["composite_backward"] += 1
@@ -527,7 +584,8 @@ def _composite_backward_cuda(wl: TileWorklist, u, v, conic_a, conic_b,
 
 def tile_worklist(u, v, radii, depths, valid, width: int, height: int
                   ) -> TileWorklist:
-    """Exact per-16x16-tile splat lists, depth-sorted (kernel A on CUDA)."""
+    """Exact per-16x16-tile splat lists, depth-sorted, and the tile order
+    (kernel A on CUDA: one host synchronisation, to size the lists)."""
     if _uses_kernel(u, v, radii, depths, valid):
         with torch.cuda.device(u.device):
             return _tile_worklist_cuda(u, v, radii, depths, valid, width,
@@ -538,9 +596,9 @@ def tile_worklist(u, v, radii, depths, valid, width: int, height: int
 def pair_records(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, colors,
                  opacities) -> torch.Tensor:
     """The pair records kernels B and C read (see
-    ``pair_records_reference``): packed by a kernel on CUDA, which B's and
-    C's own calls launch (its time is part of theirs, and it has no launch
-    count of its own)."""
+    ``pair_records_reference``): packed by a kernel on CUDA. A
+    rasterization packs once and hands the records to B and C; B and C
+    pack themselves when called without them."""
     if _uses_kernel(u, v, conic_a, conic_b, conic_c, colors, opacities,
                     wl.gauss_ids):
         with torch.cuda.device(u.device):
@@ -551,32 +609,39 @@ def pair_records(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, colors,
 
 
 def composite(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, colors,
-              opacities, width: int, height: int, train: bool = False
+              opacities, width: int, height: int, train: bool = False, *,
+              records: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, ...]:
     """Front-to-back compositing of each tile's list (kernel B on CUDA).
     With ``train`` also the final T and the last-contributor index (see
-    ``composite_reference``), the backward's starting point."""
+    ``composite_reference``), the backward's starting point. ``records``:
+    ``pair_records`` of these inputs (packed here when not given; the plain
+    version reads none)."""
     if _uses_kernel(u, v, conic_a, conic_b, conic_c, colors, opacities,
                     wl.ranges):
         with torch.cuda.device(u.device):
             return _composite_cuda(wl, u, v, conic_a, conic_b, conic_c,
-                                   colors, opacities, width, height, train)
+                                   colors, opacities, width, height, train,
+                                   records)
     return composite_reference(wl, u, v, conic_a, conic_b, conic_c, colors,
                                opacities, width, height, train)
 
 
 def composite_backward(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
                        colors, opacities, width: int, height: int, final_T,
-                       last, grad_colors, grad_alpha) -> torch.Tensor:
+                       last, grad_colors, grad_alpha, *,
+                       records: torch.Tensor | None = None) -> torch.Tensor:
     """[N, 8 + C] gradient rows of compositing (kernel C on CUDA; the plain
-    version recomputes T and the stop from scratch and ignores ``final_T``
-    and ``last``)."""
+    version recomputes T and the stop from scratch and ignores ``final_T``,
+    ``last`` and ``records``). ``records``: those kernel B read in the
+    forward (packed here when not given)."""
     if _uses_kernel(u, v, conic_a, conic_b, conic_c, colors, opacities,
                     wl.ranges, grad_colors, grad_alpha):
         with torch.cuda.device(u.device):
             return _composite_backward_cuda(
                 wl, u, v, conic_a, conic_b, conic_c, colors, opacities,
-                width, height, final_T, last, grad_colors, grad_alpha)
+                width, height, final_T, last, grad_colors, grad_alpha,
+                records)
     return composite_backward_reference(wl, u, v, conic_a, conic_b, conic_c,
                                         colors, opacities, width, height,
                                         grad_colors, grad_alpha)
@@ -585,18 +650,22 @@ def composite_backward(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
 class _Composite(torch.autograd.Function):
     """Compositing with kernel C (or its plain version) as its backward.
     The worklist is computed outside, without gradient. ``sink`` [N, 2] is
-    not read; its gradient is the absgrad columns."""
+    not read; its gradient is the absgrad columns. On CUDA the forward
+    packs the pair records once; B reads them, and the backward's C reads
+    the same records and the worklist's tile order."""
 
     @staticmethod
     def forward(ctx, wl, width, height, u, v, conic_a, conic_b, conic_c,
                 colors, opacities, sink):
         del sink
+        rec = (pair_records(wl, u, v, conic_a, conic_b, conic_c, colors,
+                            opacities) if u.is_cuda else None)
         out, alpha, final_T, last = composite(
             wl, u, v, conic_a, conic_b, conic_c, colors, opacities, width,
-            height, train=True)
+            height, train=True, records=rec)
         ctx.save_for_backward(u, v, conic_a, conic_b, conic_c, colors,
                               opacities, final_T, last)
-        ctx.wl, ctx.size = wl, (width, height)
+        ctx.wl, ctx.size, ctx.records = wl, (width, height), rec
         return out, alpha
 
     @staticmethod
@@ -611,7 +680,8 @@ class _Composite(torch.autograd.Function):
                                      device=u.device)
         g = composite_backward(ctx.wl, u, v, ca, cb, cc, colors, opa, width,
                                height, final_T, last,
-                               grad_out.contiguous(), grad_alpha.contiguous())
+                               grad_out.contiguous(), grad_alpha.contiguous(),
+                               records=ctx.records)
         return (None, None, None, g[:, GRAD_U], g[:, GRAD_V], g[:, GRAD_A],
                 g[:, GRAD_B], g[:, GRAD_C], g[:, GRAD_COLORS:],
                 g[:, GRAD_OPACITY], g[:, GRAD_ABS])

@@ -1,11 +1,14 @@
-"""The CUDA kernels of street_crafter_tpu_torch (raster A-C, attention D,
+"""The CUDA kernels of street_crafter_tpu_torch (raster A-C and kernel A's
+row-compaction variants, attention D,
 its backward G and H, temporal stage E and F and the GEMM they chain)
 against their plain torch versions on a CUDA device. Marked ``cuda``; each
 test skips when no CUDA device is present. On the GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Tolerances: the worklist must be equal; compositing agrees to atol 2e-4 on
+Tolerances: the worklist (with its tile order) must be equal; compositing
+with records shared from the forward must equal compositing that packs its
+own; compositing agrees to atol 2e-4 on
 rgb and alpha (both decide the 1/255 and 1e-4 thresholds on identically
 rounded values; only the colour sums run in another order); the backward
 (kernel C) agrees per field to 1e-4 (GRAD_RTOL below) of the field's
@@ -18,6 +21,8 @@ import pytest
 import torch
 
 from street_crafter_tpu_torch.ops import gs_raster as G
+from street_crafter_tpu_torch.ops import row_compact as RC
+from street_crafter_tpu_torch.scripts import bench_phase1_variants as PV
 from raster_cases import adversarial_cull_splats  # tests/raster_cases.py
 
 pytestmark = pytest.mark.cuda
@@ -78,7 +83,7 @@ def test_kernels_match_plain_versions(cuda, seed, wide, C):
     wl = G.tile_worklist(**geo)
     ref = G.tile_worklist_reference(**geo)
     assert wl.n_pairs == ref.n_pairs > 0
-    for name in ("tile_ids", "gauss_ids", "ranges"):
+    for name in ("tile_ids", "gauss_ids", "ranges", "order"):
         assert torch.equal(getattr(wl, name), getattr(ref, name)), name
     col, alpha = G.composite(wl, **comp)
     col_ref, alpha_ref = G.composite_reference(wl, **comp)
@@ -101,7 +106,8 @@ def test_rasterize_pixels_launches_kernels(cuda):
     G.reset_launch_counts()
     out = G.rasterize_pixels(**args)
     assert out.colors.is_cuda and out.colors.shape == (48, 64, 4)
-    assert dict(G.launches) == {"tile_worklist": 1, "composite": 1}
+    assert dict(G.launches) == {"tile_worklist": 1, "pair_records": 1,
+                                "composite": 1}
     empty = {k: (v[:0] if isinstance(v, torch.Tensor) else v)
              for k, v in args.items()}
     out = G.rasterize_pixels(**empty)
@@ -172,7 +178,7 @@ def check_b_and_c(args, seed):
                                  "colors", "opacities", "width", "height")}
     wl = G.tile_worklist(**geo)
     ref = G.tile_worklist_reference(**geo)
-    for name in ("tile_ids", "gauss_ids", "ranges"):
+    for name in ("tile_ids", "gauss_ids", "ranges", "order"):
         assert torch.equal(getattr(wl, name), getattr(ref, name)), name
     n = rgb_channels(args["colors"].shape[1])
     col, alpha = G.composite(wl, **comp)
@@ -247,8 +253,9 @@ def test_rasterize_pixels_backward_launches_kernel_c(cuda):
     G.reset_launch_counts()
     out = G.rasterize_pixels(**dict(args, **leaves), absgrad_sink=sink)
     (out.colors.sum() + out.alpha.sum()).backward()
-    assert dict(G.launches) == {"tile_worklist": 1, "composite": 1,
-                                "composite_backward": 1}
+    # one pack, in the forward: kernel C reads the records kernel B read
+    assert dict(G.launches) == {"tile_worklist": 1, "pair_records": 1,
+                                "composite": 1, "composite_backward": 1}
     for t in list(leaves.values()) + [sink]:
         assert t.grad is not None and bool(torch.isfinite(t.grad).all())
     assert float(sink.grad.max()) > 0
@@ -263,6 +270,168 @@ def test_kernel_wrappers_check_inputs(cuda):
         G.rasterize_pixels(**dict(args, v=args["v"].double()))
     with pytest.raises(ValueError, match="tensors on"):
         G.rasterize_pixels(**dict(args, u=args["u"].cpu()))
+
+
+def geometry(device, u, v, radii, depths, valid, W, H):
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    return dict(u=t(u), v=t(v), radii=t(radii), depths=t(depths),
+                valid=t(valid, torch.bool), width=W, height=H)
+
+
+def worklist_case(device, case):
+    """Kernel A's inputs for one named case (see test_kernel_a_matches_plain
+    for what each exercises)."""
+    rng = np.random.default_rng(len(case))
+    if case.startswith("ragged"):
+        n, W, H = {"ragged_1": (1, 17, 33), "ragged_37": (37, 200, 136),
+                   "ragged_20k": (20_000, 200, 136)}[case]
+        return geometry(device, rng.uniform(-40, W + 40, n),
+                        rng.uniform(-40, H + 40, n),
+                        np.ceil(3 * rng.uniform(1.0, 30.0, n)),
+                        rng.uniform(1.0, 80.0, n), rng.random(n) > 0.05, W, H)
+    if case == "equal_depths":
+        n, W, H = 3_000, 128, 96
+        return geometry(device, rng.uniform(0, W, n), rng.uniform(0, H, n),
+                        np.ceil(3 * rng.uniform(1.0, 20.0, n)),
+                        np.full(n, 5.0), np.ones(n, bool), W, H)
+    if case == "all_invalid":
+        n, W, H = 500, 64, 48
+        return geometry(device, rng.uniform(0, W, n), rng.uniform(0, H, n),
+                        np.full(n, 9.0), rng.uniform(1.0, 9.0, n),
+                        np.zeros(n, bool), W, H)
+    if case == "one_splat_every_tile":
+        W, H = 200, 136
+        return geometry(device, [100.0], [68.0], [400.0], [3.0], [True], W, H)
+    if case == "list_past_shared_memory":
+        # 40,000 splats over one tile: a list longer than a sort block's
+        # shared memory, sorted by passes over device memory
+        n, W, H = 40_000, 48, 48
+        return geometry(device, rng.uniform(16, 32, n), rng.uniform(16, 32, n),
+                        rng.uniform(0.5, 2.0, n), rng.uniform(1.0, 80.0, n),
+                        np.ones(n, bool), W, H)
+    if case == "many_tiles":
+        # 132 x 132 tiles: more than the order block holds in shared memory
+        n, W, H = 5_000, 2100, 2100
+        return geometry(device, rng.uniform(0, W, n), rng.uniform(0, H, n),
+                        np.ceil(3 * rng.uniform(1.0, 40.0, n)),
+                        rng.uniform(1.0, 80.0, n), np.ones(n, bool), W, H)
+    if case == "scan_unstaged":
+        # 250 x 250 tiles: more bins than the scan stages in shared memory
+        n, W, H = 3_000, 4000, 4000
+        return geometry(device, rng.uniform(0, W, n), rng.uniform(0, H, n),
+                        np.ceil(3 * rng.uniform(1.0, 60.0, n)),
+                        rng.uniform(1.0, 80.0, n), np.ones(n, bool), W, H)
+    raise ValueError(case)
+
+
+WORKLIST_CASES = ("ragged_1", "ragged_37", "ragged_20k", "equal_depths",
+                  "all_invalid", "one_splat_every_tile",
+                  "list_past_shared_memory", "many_tiles", "scan_unstaged")
+
+
+@pytest.mark.parametrize("case", WORKLIST_CASES)
+def test_kernel_a_matches_plain(cuda, case):
+    """Kernel A bit-equal to the plain worklist, its tile order included:
+    ragged image and splat counts, equal depths (ties broken by splat id),
+    no valid splat, one splat over every tile, a list longer than shared
+    memory holds, more tiles than the order block holds, more than the scan
+    stages in shared memory; lists of every
+    sort route (a warp's registers, a block's shared memory, device
+    memory)."""
+    geo = worklist_case(cuda, case)
+    G.reset_launch_counts()
+    wl = G.tile_worklist(**geo)
+    ref = G.tile_worklist_reference(**geo)
+    assert G.launches["tile_worklist"] == 1
+    assert wl.n_pairs == ref.n_pairs
+    for name in ("tile_ids", "gauss_ids", "ranges", "order"):
+        got, want = getattr(wl, name), getattr(ref, name)
+        assert got.dtype == want.dtype and torch.equal(got, want), name
+    lengths = ref.ranges[:, 1] - ref.ranges[:, 0]
+    if case == "list_past_shared_memory":
+        assert int(lengths.max()) == 40_000
+    if case == "all_invalid":
+        assert wl.n_pairs == 0
+    if case == "one_splat_every_tile":
+        assert bool((lengths == 1).all())
+
+
+def test_kernel_a_replays_after_its_sync(cuda):
+    """The part of kernel A after its host synchronisation (emit and sort)
+    run twice on one count gives the same lists: it leaves its counters at
+    zero (what a CUDA graph replay needs)."""
+    geo = worklist_case(cuda, "ragged_20k")
+    bins = G._worklist_bins(**geo)
+    first = G._worklist_lists(bins)
+    second = G._worklist_lists(bins)
+    for name in ("tile_ids", "gauss_ids"):
+        assert torch.equal(getattr(first, name), getattr(second, name))
+
+
+@pytest.mark.parametrize("C", (3, 4))
+def test_kernels_b_c_read_shared_records(cuda, C):
+    """Records packed once and handed to B (both forms) and C: B's outputs
+    equal those of B packing its own, bit for bit, and C is within its
+    limits of the plain backward; one pack in all."""
+    args = splat_args(cuda, 20_000, 200, 136, 5, 0.1, C)
+    geo = {k: args[k] for k in ("u", "v", "radii", "depths", "valid",
+                                "width", "height")}
+    comp = {k: args[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
+                                 "colors", "opacities", "width", "height")}
+    wl = G.tile_worklist(**geo)
+    G.reset_launch_counts()
+    rec = G.pair_records(wl, *(comp[k] for k in (
+        "u", "v", "conic_a", "conic_b", "conic_c", "colors", "opacities")))
+    shared = G.composite(wl, **comp, train=True, records=rec)
+    eval_shared = G.composite(wl, **comp, records=rec)
+    assert dict(G.launches) == {"pair_records": 1, "composite": 2}
+    own = G.composite(wl, **comp, train=True)
+    for a, b in zip(shared, own):
+        assert torch.equal(a, b)
+    for a, b in zip(eval_shared, own[:2]):
+        assert torch.equal(a, b)
+    rng = np.random.default_rng(C)
+    gcol = torch.tensor(rng.normal(size=own[0].shape), dtype=torch.float32,
+                        device=cuda)
+    gal = torch.tensor(rng.normal(size=own[1].shape), dtype=torch.float32,
+                       device=cuda)
+    G.reset_launch_counts()
+    got = G.composite_backward(wl, **comp, final_T=shared[2], last=shared[3],
+                               grad_colors=gcol, grad_alpha=gal, records=rec)
+    assert dict(G.launches) == {"composite_backward": 1}
+    want = G.composite_backward_reference(wl, **comp, grad_colors=gcol,
+                                          grad_alpha=gal)
+    assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("name,variant,kb", list(PV.RUNS))
+def test_row_compaction_kernels_match_plain(cuda, name, variant, kb, capped):
+    """K1's row-compaction variants (kernel A's variant bench) against their
+    plain version on 13 coarse tiles of make_cand(0): the counts, every
+    kept slot and the checksums exactly; ``capped``: a third of the
+    candidates span the whole coarse tile (rows outgrow kf = 1024) and tile
+    2 holds a dead candidate in its third block of 128 (its walks stop
+    there)."""
+    cand = PV.make_cand(0, 13)
+    if capped:
+        wide = np.random.default_rng(2).random(cand.shape[:2]) < 0.33
+        cand[..., RC.Y0] = np.where(wide, -1.0, cand[..., RC.Y0])
+        cand[..., RC.Y1] = np.where(wide, 1000.0, cand[..., RC.Y1])
+        cand[2, 300, RC.DEPTH] = 2e10
+    x = torch.tensor(cand, device=cuda)
+    RC.reset_launch_counts()
+    comp, counts = RC.compact_rows(x, variant, kb)
+    assert dict(RC.launches) == {name: 1}
+    ref_comp, ref_counts = RC.compact_rows_reference(x, variant, kb)
+    assert torch.equal(counts, ref_counts)
+    if comp is not None:
+        assert PV.kept_equal(comp, ref_comp, ref_counts)
+    assert torch.equal(RC.checksums(comp, counts, variant),
+                       RC.checksums(ref_comp, ref_counts, variant))
+    if capped:
+        assert int(ref_counts.max()) > RC.KF
 
 
 # ---------------------------------------------------------------------------
