@@ -43,10 +43,12 @@ Phases, one status line each; any failure raises (exit code != 0):
      pixel-splat pairs in the lists, left by the per-warp cull, in the
      pixels' prefixes and contributing;
   6. the training main path: runner.train.main on the synthetic scene from
-     scene init, configs/waymo_val_base.yaml's GS settings, 300 iterations
-     at 1600x1067 (densify at 100, 150 and 200, an opacity reset at 150,
-     eval, checkpoint and PLY at 300), then 20 more resumed from that
-     checkpoint, and runner.render.main(mode=trajectory) on it. The loss
+     scene init, configs/waymo_val_base.yaml's GS settings, 150 iterations
+     at 1600x1067 (densify at 50, 75 and 100, an opacity reset at 75,
+     eval, checkpoint and PLY at 150), then 10 more resumed from that
+     checkpoint, and runner.render.main(mode=trajectory) on it; the LiDAR
+     condition PNGs of the train and test cameras are rendered (kernels A,
+     the pack and B, 4 channels) before the training run. The loss
      must stay finite, train-view PSNR must rise, densify must change the
      valid count, every step must launch kernel C, never the plain
      backward, and kernel C must read the records its forward packed (no
@@ -114,7 +116,29 @@ Phases, one status line each; any failure raises (exit code != 0):
  15. kernel A's split at both headline passes (phase 4's inputs, kept):
      each kernel's device time and the device's idle gaps in one call,
      from torch.profiler (here and not in phase 5: a profiler session
-     before phase 10 once left phase 10's scheduled profile empty).
+     before phase 10 once left phase 10's scheduled profile empty);
+ 16. distillation: phase 9's synthetic 1920x1280 scene (26 frames, camera
+     0, one 2 m lane-shift trajectory of 26 novel cameras) with its
+     background LiDAR rewritten at LIDAR_POINTS a frame (a condition render
+     aggregates up to 21 frames, ~2.1 M points), configs/
+     waymo_val_base.yaml's GS and diffusion settings and the engine at
+     full width with phase 9's seeded random weights (DISTILL_STEPS Euler
+     steps); runner.train.main to DISTILL_ITERS with events at
+     DISTILL_EVENTS, 2 more iterations resumed from the checkpoint at 6
+     (which runs the event again), runner.render.main(mode=diffusion) on
+     the checkpoint. Each event: every novel frame filled, finite,
+     576x1024, its PNG written and its batch rebuilt; 15 / 5 / 11 launches
+     of D / E / F per Euler step the SDS schedule runs, over both windows,
+     and no plain version; the weights off the card after it
+     (memory_allocated falls by their bytes). Every condition render: one
+     launch each of A, the pack and B with 4 channels. GS steps: novel
+     views after the first event, kernel C in every step on its forward's
+     records. Then one novel camera's condition render through the
+     kernels against their plain versions (the worklist exactly, rgb and
+     acc to RGB_ALPHA_ATOL, z to RGB_ALPHA_ATOL of the largest z, the PNGs
+     within 1), its list lengths and the pairs past 512 a tile, the
+     kernels' times and bounds, the first event's wall split, GS ms a step
+     before and after it and the peak memory.
 Kernel builds, launches and comparisons raise on failure; no phase catches
 its own. TF32 is off for matmuls and cuDNN convolutions throughout.
 The last three lines: the card's name and power limit, a JSON object of
@@ -127,6 +151,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -147,7 +172,9 @@ GRAD_RTOL = 1e-4
 N_SMALL, W_SMALL, H_SMALL = 50_000, 384, 256
 N_HEAVY = 600_000
 BKGD_CAPACITY = 2 ** 20     # phase 7: the 600k pool inside a fixed capacity
-TRAIN_ITERS, RESUME_ITERS = 300, 20
+# phase 6's depth (300 and 20 until phase 16 came: cut to keep the script
+# inside its time limit)
+TRAIN_ITERS, RESUME_ITERS = 150, 10
 SOURCE = "street_crafter_tpu_torch/csrc/gs_raster.cu"
 REPLACES = {"tile_worklist": "street_crafter_tpu/ops/gs_raster_fused.py:86",
             # the pack of pair records B and C read: the first part of
@@ -735,15 +762,15 @@ def train_config(cfg):
     o.lambda_depth_lidar = 0.01
     o.lambda_lpips = 0.5
     o.lpips_fallback = "random_features"
-    o.densify_from_iter = 100
-    o.densification_interval = 50
-    o.densify_until_iter = 200
-    o.opacity_reset_interval = 150
+    o.densify_from_iter = TRAIN_ITERS // 3
+    o.densification_interval = TRAIN_ITERS // 6
+    o.densify_until_iter = 2 * TRAIN_ITERS // 3
+    o.opacity_reset_interval = TRAIN_ITERS // 2
     cfg.train.iterations = TRAIN_ITERS
     cfg.train.test_iterations = [TRAIN_ITERS]
     cfg.train.checkpoint_iterations = [TRAIN_ITERS]
     cfg.train.save_iterations = [TRAIN_ITERS]
-    cfg.train.log_interval = 50
+    cfg.train.log_interval = TRAIN_ITERS // 6
     return cfg
 
 
@@ -776,10 +803,28 @@ def train_main_path(G, source_path: str, tmp: str, gpu: str) -> dict:
     before = init.evaluate(cameras="train")
     valid0 = n_valid(init.state.params)
     cam0 = init.scene.train_cameras[0]
-    del init
     log(f"[6] scene init in {time.perf_counter() - t0:.1f} s: "
         f"{valid0} valid splats, train-view PSNR {before['psnr']:.3f} dB "
         f"before training ({cam0.width}x{cam0.height})")
+    # the condition PNGs runner.train writes first when lambda_depth_lidar
+    # > 0, rendered here so that the training run's time and launches are
+    # those of GS training alone
+    cams = init.scene.info.train_cameras + init.scene.info.test_cameras
+    todo = sum(not all(os.path.exists(c.metadata[f"guidance_{k}_path"])
+                       for k in ("rgb", "mask")) for c in cams)
+    G.reset_launch_counts()
+    t0 = time.perf_counter()
+    init.scene.render_conditions(cams)
+    torch.cuda.synchronize()
+    cond = dict(G.launches)
+    log(f"[6] condition renders of {todo} of the {len(cams)} train and "
+        f"test cameras in {time.perf_counter() - t0:.1f} s; launches "
+        f"{cond}; card {gpu}")
+    if cond != {k: todo for k in ("tile_worklist", "pair_records",
+                                  "composite") if todo}:
+        raise AssertionError(f"a condition render missed a kernel or ran a "
+                             f"plain version: {cond}")
+    del init
 
     losses = []
     G.reset_launch_counts()
@@ -801,7 +846,7 @@ def train_main_path(G, source_path: str, tmp: str, gpu: str) -> dict:
     log(f"[6] runner.train.main: {TRAIN_ITERS} iterations in {wall:.1f} s "
         f"({1e3 * wall / TRAIN_ITERS:.1f} ms/iteration incl. eval, "
         f"checkpoint and PLY); launches {counts}; card {gpu}")
-    log(f"[6] loss every 50 iterations: "
+    log(f"[6] loss every {TRAIN_ITERS // 6} iterations: "
         + ", ".join(f"{x:.4f}" for x in losses)
         + f"; eval at {TRAIN_ITERS}: PSNR {evals['eval/psnr']:.3f} L1 "
         f"{evals['eval/l1']:.4f} ({evals['eval/n_pairs']:.0f} pairs/view); "
@@ -1444,12 +1489,23 @@ def vdm_kernel_times(gpu: str) -> dict:
 KERNEL_NAME = re.compile(r"\w+_kernel<[^>]*>")
 
 
-def kernel_ms(fn) -> list:
+# host seconds between the profiler's window edges and the profiled call.
+# With none, profiles of one fused call of kernel E or F on the H100 miss
+# some of its kernels now and then (10 of 520, some with none at all);
+# with 10 ms, none of 520 did (street_crafter_tpu_torch/scripts/
+# profile_window.py counts them). The likely cause: device activity that
+# the profiler's clock places outside its window is dropped.
+PROFILE_GAP_S = 0.01
+
+
+def kernel_ms(fn, gap_s: float = PROFILE_GAP_S) -> list:
     """[(kernel, device ms, launches)] of the port's kernels in one call of
     fn, from torch.profiler, largest first. fn runs three times and only
     the last call is kept: on the H100 a profile of a single call once
     recorded 2 of kernel E's 10 launches and none of F's 4, a call after
-    two warm-up steps every launch (the caller checks the count)."""
+    two warm-up steps every launch (the caller checks the count). The host
+    waits ``gap_s`` after the window opens before it launches the call,
+    and again after the call has finished before the window closes."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1459,8 +1515,10 @@ def kernel_ms(fn) -> list:
             schedule=torch.profiler.schedule(wait=0, warmup=2, active=1),
             on_trace_ready=lambda p: events.extend(p.events())) as prof:
         for _ in range(3):
+            time.sleep(gap_s)
             fn()
             torch.cuda.synchronize()
+            time.sleep(gap_s)
             prof.step()
     by_name: dict[str, list] = {}
     for e in events:
@@ -1471,6 +1529,19 @@ def kernel_ms(fn) -> list:
             rec[1] += 1
     return sorted(((k, v[0], v[1]) for k, v in by_name.items()),
                   key=lambda r: -r[1])
+
+
+def fused_stage_call(TB, h, emb, bias, w, T: int, heads: int, full: bool):
+    """One call of kernel E's (``full``) or F's fused stage on
+    stage_inputs' tensors, and the number of kernels it launches."""
+    C = h.shape[-1]
+    kw = dict(num_frames=T, heads=heads, dim_head=C // heads)
+    if full:
+        return (lambda: TB.temporal_block_fused(
+            h, emb, 0.3, bias, *[w[k] for k in TB._BLOCK_WEIGHTS], **kw)), 10
+    return (lambda: TB.temporal_attention_fused(
+        h, bias, *[w[k] for k in ("norm1_s", "norm1_b", "wqkv", "wout",
+                                  "bout")], **kw)), 4
 
 
 def stage_split(TB, dev, B, T, S, C, heads, seed, full: bool) -> list:
@@ -1486,18 +1557,12 @@ def stage_split(TB, dev, B, T, S, C, heads, seed, full: bool) -> list:
     import torch.nn.functional as F
     h, emb, bias, w = stage_inputs(dev, B, T, S, C, seed)
     BT, M = B * T, B * T * S
-    kw = dict(num_frames=T, heads=heads, dim_head=C // heads)
-    if full:
-        prof = kernel_ms(lambda: TB.temporal_block_fused(
-            h, emb, 0.3, bias, *[w[k] for k in TB._BLOCK_WEIGHTS], **kw))
-    else:
-        prof = kernel_ms(lambda: TB.temporal_attention_fused(
-            h, bias, *[w[k] for k in ("norm1_s", "norm1_b", "wqkv", "wout",
-                                      "bout")], **kw))
-    launched = sum(n for _, _, n in prof)
-    if launched != (10 if full else 4):
-        raise AssertionError(f"the profiler saw {launched} kernels of one "
-                             f"fused call: {prof}")
+    call, want = fused_stage_call(TB, h, emb, bias, w, T, heads, full)
+    prof = kernel_ms(call)
+    seen = sum(n for _, _, n in prof)
+    if seen != want:
+        raise AssertionError(f"the profiler saw {seen} of the {want} "
+                             f"kernels of one fused call: {prof}")
     rows = [{"piece": f"{name} in the fused call", "ms": ms, "launches": n}
             for name, ms, n in prof]
 
@@ -2081,6 +2146,541 @@ def worklist_split(G, inputs: dict, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: distillation (the diffusion hook in GS training)
+# ---------------------------------------------------------------------------
+
+LIDAR_POINTS = 100_000     # background returns a frame (a Waymo top-LiDAR
+# sweep holds ~64 x 2,650 = ~170k before processing)
+DISTILL_ITERS = 8
+DISTILL_EVENTS = [3, 6]    # the sampling events; the checkpoint at 6
+DISTILL_STEPS = 5          # Euler steps (cut from 50): SDS scales 0.7 and
+# 0.3 run int(5 x scale) = 3 and 1 of them
+DISTILL_WINDOWS = 2        # 26 novel frames in windows of 24, step 20
+JAX_TILE_CAP = 512         # JAX's condition raster keeps 512 splats a tile
+
+
+def distill_scene(tmp: str) -> str:
+    """Phase 16's data: phase 9's synthetic 1920x1280 scene (26 frames,
+    camera 0) with its background LiDAR rewritten at LIDAR_POINTS a frame,
+    ground and walls placed as datasets/synthetic.py places them."""
+    from street_crafter_tpu_torch.datasets.synthetic import make_scene
+    from street_crafter_tpu_torch.utils.ply import write_ply
+    scene = make_scene(os.path.join(tmp, "distill_data"), num_frames=26,
+                       img_hw=(1280, 1920), image_cameras=(0,))
+    rng = np.random.default_rng(16)
+    n_g = LIDAR_POINTS * 4 // 5
+    n_w = LIDAR_POINTS - n_g
+    for f in range(26):
+        ground = np.stack([rng.uniform(-5 + 2 * f, 25 + 2 * f, n_g),
+                           rng.uniform(-8, 8, n_g), np.zeros(n_g)], -1)
+        wall = np.stack([rng.uniform(-5 + 2 * f, 25 + 2 * f, n_w),
+                         np.full(n_w, 8.0), rng.uniform(0, 4, n_w)], -1)
+        pts = np.concatenate([ground, wall]).astype(np.float32)
+        write_ply(os.path.join(scene, "lidar", "background", f"{f:06d}.ply"),
+                  pts, rng.uniform(0.2, 1.0, (len(pts), 3)).astype(
+                      np.float32), np.ones(len(pts), bool))
+    return scene
+
+
+def distill_config(tmp: str, source: str):
+    """configs/waymo_val_base.yaml's GS and diffusion settings (phase 6's
+    GS settings; lambda_depth_lidar 0.01, novel_view_prob 0.4, sds_scales
+    [0.7, 0.3], window_size 4, params_on_host auto), the engine at full
+    width with phase 9's seeded random weights, DISTILL_ITERS iterations
+    with events at DISTILL_EVENTS, densify off."""
+    from street_crafter_tpu_torch.config import default_config
+    cfg = train_config(default_config())
+    cfg.source_path = source
+    cfg.model_path = os.path.join(tmp, "distill_model")
+    cfg.device = "cuda"
+    cfg.data.cameras = [0]
+    # the reader counts frames by five cameras' images; camera 0's only
+    cfg.data.selected_frames = [0, 25]
+    cfg.render.novel_view.shift = [2.0]
+    cfg.render.save_video = False
+    t = cfg.train
+    t.iterations = DISTILL_ITERS
+    t.test_iterations = []
+    t.checkpoint_iterations = [DISTILL_EVENTS[-1]]
+    t.save_iterations = []
+    t.log_interval = 1
+    t.novel_view_prob = 0.4
+    cfg.optim.densify_from_iter = 10 ** 6
+    cfg.optim.opacity_reset_interval = 10 ** 6
+    d = cfg.diffusion
+    d.use_diffusion = True
+    d.tiny = False
+    d.ckpt_path = ""
+    d.init_zero_layers_std = 1.0
+    d.num_steps = DISTILL_STEPS
+    d.sample_iterations = list(DISTILL_EVENTS)
+    d.sds_scales = [0.7, 0.3]
+    d.window_size = 4
+    d.params_on_host = "auto"
+    d.height, d.width, d.sample_frames, d.cfg_scale = 576, 1024, 25, 2.5
+    return cfg
+
+
+def counts_now() -> dict:
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    from street_crafter_tpu_torch.ops import gs_raster as G
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    return {**G.launches, **FA.launches, **TB.launches}
+
+
+def counts_since(before: dict) -> dict:
+    now = counts_now()
+    return {k: now.get(k, 0) - before.get(k, 0) for k in now
+            if now.get(k, 0) != before.get(k, 0)}
+
+
+class DistillProbe:
+    """Phase 16's instruments around the port's own functions: a stage
+    timer (synchronised), the sampling events (launches, frames, PNGs,
+    the weights' moves and the card's memory at release), each condition
+    render's launches and channel count, the GS steps' kind, time and
+    kernel C launches."""
+
+    def __init__(self, gpu: str):
+        import torch
+        from street_crafter_tpu_torch.data_processor import pointcloud as PC
+        from street_crafter_tpu_torch.models.gs import params as PM
+        from street_crafter_tpu_torch.models.vdm import engine as EN
+        from street_crafter_tpu_torch.ops import gs_raster as G
+        from street_crafter_tpu_torch.runner import diffusion as DR
+        from street_crafter_tpu_torch.runner import render as R
+        from street_crafter_tpu_torch.runner import scene as SC
+        from street_crafter_tpu_torch.runner import train as T
+        from street_crafter_tpu_torch.runner import vdm_sample as VS
+        self.torch, self.G, self.T, self.gpu = torch, G, T, gpu
+        self.timer = StageTimer()
+        tm = self.timer
+        tm.wrap(PC.PointCloudProcessor, "render_condition", "condition")
+        tm.wrap(PC.PointCloudProcessor, "_splat", "condition splat")
+        tm.wrap(DR.DiffusionRunner, "load_guidance", "guide PNG load")
+        tm.wrap(DR.DiffusionRunner, "load_cond_image", "cond image load")
+        tm.wrap(EN.VideoDiffusionEngine, "encode_images", "encode")
+        tm.wrap(EN.VideoDiffusionEngine, "clip_embed", "CLIP")
+        tm.wrap(EN.VideoDiffusionEngine, "decode_latents_chunked", "decode")
+        tm.wrap(EN, "euler_edm_sample_sds", "Euler steps")
+        tm.wrap(EN, "euler_edm_sample", "Euler steps")
+        # the runs' set-up
+        tm.wrap(T, "create_scene", "scene build")
+        tm.wrap(R, "create_scene", "scene build")
+        tm.wrap(PC.PointCloudProcessor, "initialize_ply", "initialize_ply")
+        tm.wrap(PM, "mean_dist2_knn3", "scene init KNN")
+        tm.wrap(SC.Scene, "render_conditions", "train/test conditions")
+        tm.wrap(VS, "build_engine", "engine build")
+        tm.wrap(VS, "load_vdm_params", "engine weights init")
+        tm.wrap(DR.EngineParamStore, "__init__", "pinned host copy")
+        tm.wrap(T.GSTrainer, "__init__", "trainer init")
+        self._patch(T, "make_eval_render", self._eval_render)
+        self.events, self.renders, self.steps, self.picks = [], [], [], []
+        self.stores = []
+        self._patch(PC.PointCloudProcessor, "_splat", self._splat)
+        self._patch(G, "composite", self._composite)
+        self._patch(T, "make_diffusion_hook", self._make_hook)
+        self._patch(T.GSTrainer, "pick_camera", self._pick)
+        self._patch(T.GSTrainer, "step_fn", self._step_fn)
+        self._channels = None
+        self._freed = 0
+
+    def _patch(self, owner, attr, make):
+        orig = getattr(owner, attr)
+        self.timer._undo.append((owner, attr, orig))
+        setattr(owner, attr, make(orig))
+
+    def restore(self) -> None:
+        self.timer.restore()
+
+    # -- condition renders: launches and channels
+    def _splat(self, orig):
+        def splat(proc, *a, **kw):
+            before = counts_now()
+            self._channels = []
+            out = orig(proc, *a, **kw)
+            self.renders.append((counts_since(before), self._channels))
+            self._channels = None
+            return out
+        return splat
+
+    def _composite(self, orig):
+        def composite(wl, u, v, a, b, c, colors, *rest, **kw):
+            if self._channels is not None:
+                self._channels.append(int(colors.shape[1]))
+            return orig(wl, u, v, a, b, c, colors, *rest, **kw)
+        return composite
+
+    # -- the SDS renders (the trainer's eval renders: only the hook's)
+    def _eval_render(self, orig):
+        torch, tm = self.torch, self.timer
+
+        def make(*a, **kw):
+            fn = orig(*a, **kw)
+
+            def render(*ra, **rkw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*ra, **rkw)
+                torch.cuda.synchronize()
+                tm.ms["SDS render"] = tm.ms.get("SDS render", 0.0) + \
+                    1e3 * (time.perf_counter() - t0)
+                return out
+            return render
+        return make
+
+    # -- GS steps
+    def _pick(self, orig):
+        def pick(trainer, pool):
+            info, is_novel = orig(trainer, pool)
+            self.picks.append((is_novel, counts_now().get(
+                "composite_backward", 0)))
+            return info, is_novel
+        return pick
+
+    def _step_fn(self, orig):
+        torch = self.torch
+
+        def step_fn(trainer, is_novel, *a, **kw):
+            step = orig(trainer, is_novel, *a, **kw)
+
+            def timed(*sa, **skw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*sa, **skw)
+                torch.cuda.synchronize()
+                self.steps.append((is_novel, 1e3 * (time.perf_counter()
+                                                    - t0)))
+                return out
+            return timed
+        return step_fn
+
+    # -- sampling events
+    def _make_hook(self, orig):
+        torch = self.torch
+
+        def make(cfg):
+            hook = orig(cfg)
+            store = hook.param_store
+            release = store.release
+
+            def checked_release():
+                torch.cuda.synchronize()
+                m0 = torch.cuda.memory_allocated()
+                release()
+                torch.cuda.synchronize()
+                self._freed = m0 - torch.cuda.memory_allocated()
+            store.release = checked_release
+            self.stores.append({"nbytes": store.nbytes,
+                                "on_host": store.on_host})
+
+            def event(trainer, iteration, scale):
+                before, ms0 = counts_now(), dict(self.timer.ms)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hook(trainer, iteration, scale)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                self.events.append(self._check_event(
+                    trainer, cfg, iteration, scale, wall,
+                    counts_since(before),
+                    {k: v - ms0.get(k, 0.0) for k, v in self.timer.ms.items()
+                     if v != ms0.get(k, 0.0)}, store))
+            return event
+        return make
+
+    def _check_event(self, trainer, cfg, iteration, scale, wall, counts,
+                     stages, store) -> dict:
+        torch = self.torch
+        steps = int(DISTILL_STEPS * scale)
+        want = {k: v * steps * DISTILL_WINDOWS for k, v in PER_STEP.items()}
+        got = {k: counts.get(k, 0) for k in PER_STEP}
+        plain = {k: v for k, v in counts.items() if k.endswith("_reference")}
+        if got != want or plain:
+            raise AssertionError(
+                f"event at {iteration}: launches {counts}, want {want} "
+                f"({steps} Euler steps x {DISTILL_WINDOWS} windows) and no "
+                f"plain version")
+        novel = trainer.scene.info.novel_view_cameras
+        version = {c.metadata.get("diffusion_version", 0) for c in novel}
+        out_dir = os.path.join(trainer.scene.model_path, "diffusion")
+        hw = (cfg.diffusion.height, cfg.diffusion.width, 3)
+        for c in novel:
+            img = c._image
+            if img is None or img.shape != hw or \
+                    not np.isfinite(img).all():
+                raise AssertionError(f"event at {iteration}: novel frame "
+                                     f"{c.image_name} not filled")
+            png = os.path.join(out_dir, f"{c.image_name}_scale{scale}.png")
+            if not os.path.getsize(png) > 0:
+                raise AssertionError(f"no diffusion PNG {png}")
+            gt = trainer.scene.batch_for(c)["gt_image"]
+            if not torch.equal(gt.cpu(), torch.from_numpy(img)):
+                raise AssertionError(f"event at {iteration}: the batch of "
+                                     f"{c.image_name} was not rebuilt")
+        if len(version) != 1:
+            raise AssertionError(f"diffusion_version differs: {version}")
+        if store.on_host and not (store.host_resident
+                                  and self._freed >= store.nbytes):
+            raise AssertionError(
+                f"event at {iteration}: the engine's weights stayed on the "
+                f"card (freed {self._freed} of {store.nbytes} bytes)")
+        ev = {"iteration": iteration, "scale": scale, "steps": steps,
+              "wall_s": wall, "launches": counts, "stages_ms": stages,
+              "moves_s": dict(store.move_s), "freed": self._freed,
+              "nbytes": store.nbytes, "version": version.pop(),
+              "novel": len(novel)}
+        log(f"[16] event at iteration {iteration}: SDS scale {scale:.3f}, "
+            f"{steps} Euler steps x {DISTILL_WINDOWS} windows, {len(novel)} "
+            f"novel frames {hw[1]}x{hw[0]} filled and finite, PNGs written, "
+            f"diffusion_version {ev['version']}, batches rebuilt; wall "
+            f"{wall:.2f} s; D / E / F launches {got['flash_attention']} / "
+            f"{got['temporal_block_fused']} / "
+            f"{got['temporal_attention_fused']}; weights "
+            f"{store.nbytes / 2 ** 30:.2f} GiB moved to the card in "
+            f"{store.move_s['acquire']:.2f} s and dropped in "
+            f"{store.move_s['release']:.3f} s (memory_allocated fell "
+            f"{self._freed / 2 ** 30:.2f} GiB); {self.gpu}")
+        return ev
+
+
+def event_split(ev: dict) -> str:
+    """The wall split of one sampling event, from the stage timer."""
+    st = ev["stages_ms"]
+    cond = st.get("condition", 0.0)
+    splat = st.get("condition splat", 0.0)
+    parts = [("condition renders on the card", splat),
+             ("host LiDAR aggregation + condition PNG writes", cond - splat),
+             ("guide / cond PNG reads + crop-resize",
+              st.get("guide PNG load", 0.0) + st.get("cond image load", 0.0)),
+             ("SDS renders", st.get("SDS render", 0.0)),
+             ("engine host->card move", 1e3 * ev["moves_s"]["acquire"]),
+             ("engine card release", 1e3 * ev["moves_s"]["release"]),
+             ("VAE encode", st.get("encode", 0.0)),
+             ("CLIP", st.get("CLIP", 0.0)),
+             ("Euler steps", st.get("Euler steps", 0.0)),
+             ("decode", st.get("decode", 0.0))]
+    rest = 1e3 * ev["wall_s"] - sum(v for _, v in parts)
+    return ", ".join(f"{k} {v:.1f}" for k, v in parts) + \
+        f", rest {rest:.1f} (ms, of {1e3 * ev['wall_s']:.1f})"
+
+
+def condition_render_vs_plain(G, scene, gpu: str) -> dict:
+    """One novel camera's condition render through kernels A, the pack and
+    B against their plain versions on the same CUDA tensors, its PNGs, its
+    statistics and the kernels' times and bounds."""
+    import torch
+    from street_crafter_tpu_torch.ops.point_raster import gaussian_splats
+    proc = scene.processor
+    novel = scene.info.novel_view_cameras
+    cam = novel[len(novel) // 2]
+    t0 = time.perf_counter()
+    ply = proc.condition_cloud(cam, scene.info.metadata["obj_meta"])
+    host_ms = 1e3 * (time.perf_counter() - t0)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                               device=proc.device)
+
+    args = gaussian_splats(t(cam.c2w), t(cam.K), t(ply[:, :3]),
+                           t(ply[:, 3:6]), cam.height, cam.width)
+    geo, comp = split_args(args)
+    wl = G.tile_worklist(**geo)
+    check_worklist(wl, G.tile_worklist_reference(**geo),
+                   "condition render")
+    pack = [comp[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
+                              "colors", "opacities")]
+    rec = G.pair_records(wl, *pack)
+    if not torch.equal(rec, G.pair_records_reference(wl, *pack)):
+        raise AssertionError("condition render: the pair records differ "
+                             "from the plain pack")
+    col, alpha = G.composite(wl, **comp, records=rec)
+    # the plain composite takes seconds here: its one call is also its time
+    plain = {}
+
+    def plain_composite():
+        plain["out"] = G.composite_reference(wl, **comp)
+    plain_composite_ms = cuda_ms(plain_composite, 1, warmup=0)
+    col_ref, alpha_ref = plain.pop("out")
+    zmax = float(args["depths"][args["valid"]].max())
+    err = {"rgb": float((col[..., :3] - col_ref[..., :3]).abs().max()),
+           "acc": float((alpha - alpha_ref).abs().max()),
+           "z": float((col[..., 3] - col_ref[..., 3]).abs().max())}
+    png = {}
+    for name, a, b in (("rgb", col[..., :3], col_ref[..., :3]),
+                       ("mask", alpha, alpha_ref)):
+        a8 = (a.cpu().numpy() * 255).astype(np.uint8).astype(int)
+        b8 = (b.cpu().numpy() * 255).astype(np.uint8).astype(int)
+        png[name] = int(np.abs(a8 - b8).max())
+    lengths = (wl.ranges[:, 1] - wl.ranges[:, 0]).long()
+    n = list_lengths(wl)
+    beyond = int((lengths - JAX_TILE_CAP).clamp(min=0).sum())
+    counts = pair_counts(G, wl, comp)
+    hits = contributing_pairs(G, wl, comp)
+    _, _, _, last = G.composite(wl, **comp, train=True, records=rec)
+    prefix = int(last.sum())
+    log(f"[16] condition render of {cam.image_name} "
+        f"({cam.width}x{cam.height}): {len(ply)} points "
+        f"({int(args['valid'].sum())} in front of the camera), "
+        f"{wl.n_pairs} (tile, point) pairs over {wl.ranges.shape[0]} tiles; "
+        f"lists median {n['median']:.0f}, p99 {n['p99']:.0f}, max "
+        f"{n['max']:.0f}; {int((lengths > 8192).sum())} lists past 8,192 "
+        f"(sorted in passes over device memory); {beyond} pairs beyond 512 "
+        f"in a tile (what JAX's capped condition raster drops); pixel-splat "
+        f"pairs {counts['lists']} in the lists, {counts['after_cull']} left "
+        f"by the per-warp cull, {prefix} in the pixels' prefixes, {hits} "
+        f"contributing; host aggregation {host_ms:.1f} ms; {gpu}")
+    log(f"[16] kernels vs plain at the condition render: worklist and tile "
+        f"order equal, pair records equal; rgb {err['rgb']:.3g}, acc "
+        f"{err['acc']:.3g} (atol {RGB_ALPHA_ATOL}), z {err['z']:.3g} (atol "
+        f"{RGB_ALPHA_ATOL} x max z {zmax:.1f}); PNGs within "
+        f"{max(png.values())} in uint8")
+    if not (err["rgb"] <= RGB_ALPHA_ATOL and err["acc"] <= RGB_ALPHA_ATOL
+            and err["z"] <= RGB_ALPHA_ATOL * zmax and max(png.values()) <= 1):
+        raise AssertionError(f"condition render: kernels disagree with the "
+                             f"plain versions: {err}, PNGs {png}")
+    runs = {"tile_worklist": (lambda: G.tile_worklist(**geo),
+                              lambda: G.tile_worklist_reference(**geo), 10),
+            "pair_records": (lambda: G.pair_records(wl, *pack),
+                             lambda: G.pair_records_reference(wl, *pack),
+                             20),
+            "composite": (lambda: G.composite(wl, **comp, records=rec),
+                          None, 20)}
+    bound = bounds(len(ply), wl.n_pairs, wl.ranges.shape[0],
+                   cam.width * cam.height, prefix, hits, 4)
+    rows = {}
+    for name, (kern, plain, reps) in runs.items():
+        ms = cuda_ms(kern, reps)
+        plain_ms = (plain_composite_ms if plain is None
+                    else cuda_ms(plain, 1, warmup=0))
+        rows[name] = {"ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                      "bound_ms": round(bound[name]["bound_ms"], 6),
+                      "bound_by": bound[name]["bound_by"],
+                      "shape": f"{len(ply)} points, {wl.n_pairs} pairs, "
+                               f"{cam.width}x{cam.height}, 4 channels"}
+        log(f"[16] condition render, {name}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound[name]['bound_ms']:.4f} ms "
+            f"({bound[name]['bound_by']}); {gpu}")
+    rows["_errs"] = max(err["rgb"], err["acc"])
+    return rows
+
+
+def distill_main_path(G, tmp: str, gpu: str) -> tuple[dict, dict]:
+    """Phase 16: runner.train.main with the diffusion hook at full width,
+    a resume from the checkpoint at 6 that runs the event again, and
+    runner.render.main(mode=diffusion) on the checkpoint. Returns (the
+    path's launch counts, the condition render's kernel rows)."""
+    import torch
+    from street_crafter_tpu_torch.config import save_config
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    from street_crafter_tpu_torch.runner import render as R
+    from street_crafter_tpu_torch.runner import train as T
+    from street_crafter_tpu_torch.utils.checkpoint import checkpoint_dir
+    from street_crafter_tpu_torch.utils.png import read_png
+    t0 = time.perf_counter()
+    source = distill_scene(tmp)
+    cfg = distill_config(tmp, source)
+    path = os.path.join(tmp, "distill.json")
+    save_config(cfg, path)
+    log(f"[16] data: 26 frames at 1920x1280, {LIDAR_POINTS} LiDAR points a "
+        f"frame, in {time.perf_counter() - t0:.1f} s")
+    probe = DistillProbe(gpu)
+    G.reset_launch_counts()
+    FA.reset_launch_counts()
+    TB.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        trainer = T.main(["--config", path])
+        torch.cuda.synchronize()
+        wall_train = time.perf_counter() - t0
+        picks, steps = list(probe.picks), list(probe.steps)
+        c_total = counts_now().get("composite_backward", 0)
+        shutil.rmtree(checkpoint_dir(cfg.model_path, DISTILL_ITERS))
+        probe.picks.clear()
+        t0 = time.perf_counter()
+        resumed = T.main(["--config", path, "resume=true"])
+        torch.cuda.synchronize()
+        wall_resume = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rendered = R.main(["--config", path, "mode=diffusion",
+                           "render.save_video=false"])
+        torch.cuda.synchronize()
+        wall_render = time.perf_counter() - t0
+        counts = counts_now()
+    finally:
+        probe.restore()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    events = probe.events
+    log(f"[16] runner.train.main: {DISTILL_ITERS} iterations with events "
+        f"at {DISTILL_EVENTS} in {wall_train:.1f} s; resumed at "
+        f"{resumed.start_iter} ({DISTILL_ITERS - resumed.start_iter + 1} "
+        f"iterations) in {wall_resume:.1f} s; runner.render.main("
+        f"mode=diffusion) in {wall_render:.1f} s; launches {counts}; "
+        f"max_memory_allocated {peak:.2f} GiB; {gpu}")
+    # the events: 3 and 6, then 7 on the resume (the event of 6 again),
+    # then the render mode's one (not a hook)
+    its = [e["iteration"] for e in events]
+    if its != DISTILL_EVENTS + [DISTILL_EVENTS[-1] + 1]:
+        raise AssertionError(f"sampling events at {its}")
+    if [e["version"] for e in events] != [1, 2, 1]:
+        raise AssertionError("diffusion_version did not rise per event")
+    if (resumed.start_iter, resumed.state.step) != (
+            DISTILL_EVENTS[-1] + 1, DISTILL_ITERS):
+        raise AssertionError("the resume did not continue at 6")
+    # the GS steps: novel views after the first event, kernel C in every
+    # step, reading its forward's records
+    novel_after = sum(n for n, _ in picks[DISTILL_EVENTS[0] - 1:])
+    c_per_step = [b - a for (_, a), (_, b) in
+                  zip(picks, picks[1:] + [(None, c_total)])]
+    if not novel_after or min(c_per_step) < 1 or \
+            counts.get("composite_backward_reference", 0) or \
+            not 0 < counts.get("pair_records", 0) <= counts.get(
+                "composite", 0):
+        raise AssertionError(
+            f"GS steps: {novel_after} novel after the first event, kernel C "
+            f"launches per step {c_per_step}, counts {counts}")
+    # every condition render: one A, one pack, one B with 4 channels
+    one = {"tile_worklist": 1, "pair_records": 1, "composite": 1}
+    bad = [r for r in probe.renders if r[0] != one or r[1] != [4]]
+    if bad or not probe.renders:
+        raise AssertionError(f"condition renders: {len(probe.renders)}, "
+                             f"off the kernels or not 4 channels: {bad[:3]}")
+    frames = rendered["frames"]
+    img = read_png(frames[0])
+    if len(frames) != 26 or img.shape != (cfg.diffusion.height,
+                                          cfg.diffusion.width, 3):
+        raise AssertionError(f"render mode diffusion: {len(frames)} frames, "
+                             f"{img.shape}")
+    before = [ms for (_, ms) in steps[:DISTILL_EVENTS[0] - 1]]
+    after = [ms for (_, ms) in steps[DISTILL_EVENTS[0] - 1:]]
+    cam = resumed.scene.train_cameras[0]
+    log(f"[16] GS steps at {cam.width}x{cam.height} ({len(steps)} in the "
+        f"first run): "
+        f"median {statistics.median(before):.1f} ms before the first event, "
+        f"{statistics.median(after):.1f} ms after it ({novel_after} novel-"
+        f"view steps after it); kernel C launches per step {c_per_step}; "
+        f"{len(probe.renders)} condition renders, each one A, one pack and "
+        f"one B with 4 channels; render mode: {len(frames)} PNGs "
+        f"{img.shape[1]}x{img.shape[0]}; {gpu}")
+    log(f"[16] the first event's wall split: {event_split(events[0])}")
+    st = probe.timer.ms
+    log(f"[16] the phase's set-up, summed over its three runs (ms): "
+        + ", ".join(f"{k} {st.get(k, 0.0):.1f}" for k in (
+            "scene build", "initialize_ply", "scene init KNN",
+            "trainer init", "train/test conditions", "engine build",
+            "engine weights init", "pinned host copy"))
+        + f"; events {sum(1e3 * e['wall_s'] for e in events):.1f}")
+    del trainer
+    torch.cuda.empty_cache()
+    rows = condition_render_vs_plain(G, resumed.scene, gpu)
+    del resumed
+    torch.cuda.empty_cache()
+    return counts, rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2246,11 +2846,16 @@ def main() -> None:
     # ---- phase 15: kernel A's split ------------------------------------------
     a_split = worklist_split(G, split_inputs, gpu)
 
+    # ---- phase 16: distillation ----------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_distill_") as tmp:
+        distill_counts, cond_rows = distill_main_path(G, tmp, gpu)
+
     # each main path's counts, read right after its own reset; "launches"
     # is their sum
     by_path = {name: {"render": render_counts.get(name, 0),
                       "train": train_counts.get(name, 0), "vdm_sample": 0,
-                      "vdm_train": 0}
+                      "vdm_train": 0,
+                      "distill": distill_counts.get(name, 0)}
                for name in REPLACES}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
@@ -2270,6 +2875,12 @@ def main() -> None:
                  "graph_ms": round(headline["sky"]["graphs"][name], 4)}}
         for name in ("tile_worklist", "pair_records", "composite",
                      "composite_backward")]
+    # kernels A, the pack and B at one condition render (phase 16)
+    for k in kernels:
+        if k["name"] in cond_rows:
+            k["condition_render"] = cond_rows[k["name"]]
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"],
+                                    cond_rows["_errs"])
     a_row = kernels[0]
     a_row["graph_of"] = "the part after the host synchronisation"
     a_row["library_part_ms"] = round(headline["sort_ms"], 4)
@@ -2298,7 +2909,8 @@ def main() -> None:
                  "vdm_sample": vdm_counts.get(name, 0),
                  "vdm_train": ft_counts.get(
                      "flash_attention_lse" if name == "flash_attention"
-                     else name, 0)}
+                     else name, 0),
+                 "distill": distill_counts.get(name, 0)}
         shapes = rounded(vdm_rows[name])
         if name == "flash_attention":
             shapes += [dict(r, path="vdm_train")
@@ -2321,7 +2933,8 @@ def main() -> None:
     for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         head = ft_rows[name][0]
         paths = {"render": 0, "train": 0, "vdm_sample": 0,
-                 "vdm_train": ft_counts.get(name, 0)}
+                 "vdm_train": ft_counts.get(name, 0),
+                 "distill": distill_counts.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": VDM_SOURCES["flash_attention"],
@@ -2342,7 +2955,7 @@ def main() -> None:
             "replaces": VARIANT_REPLACES[r["variant"]],
             "launches": variant_counts.get(r["name"], 0),
             "launches_by_path": {"variant_bench": variant_counts.get(
-                r["name"], 0)},
+                r["name"], 0), "distill": 0},
             "max_abs_err": r["max_abs_err"], "ms": round(r["ms"], 4),
             "plain_ms": round(r["plain_ms"], 4),
             "bound_ms": round(r["bound_ms"], 6), "bound_by": r["bound_by"],

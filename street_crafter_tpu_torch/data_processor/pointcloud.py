@@ -1,9 +1,12 @@
-"""Scene-init point clouds (host part of
+"""Scene-init point clouds and the LiDAR condition renders (port of
 ``street_crafter_tpu/data_processor/pointcloud.py``).
 
 Per-frame LiDAR clouds are loaded host-side (numpy), aggregated and written
-as ``input_ply/points3D_{lidar,bkgd,obj_*,sky}.ply``. The LiDAR condition
-renders need the point-raster kernel and come in a later slice.
+as ``input_ply/points3D_{lidar,bkgd,obj_*,sky}.ply``. The condition render
+of a camera aggregates the clouds of +-``delta_frames`` frames, poses the
+actors by the frame's boxes and splats them on the processor's device
+(``ops.point_raster``: kernels A, the pack and B on CUDA), then writes the
+rgb and mask PNGs. Point counts are not padded.
 """
 
 from __future__ import annotations
@@ -11,12 +14,14 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from ..datasets import waymo_layout as layout
 from ..datasets.waymo import ObjectInfo, png_size
+from ..ops.point_raster import render_pointcloud_gaussian
 from ..utils.ply import (read_ply, remove_radius_outliers, voxel_downsample,
                          write_ply)
-from ..utils.png import read_png
+from ..utils.png import read_png, write_png
 
 FLIP_AXIS = 1
 
@@ -33,6 +38,15 @@ def project_visible_np(points: np.ndarray, K: np.ndarray, w2c: np.ndarray,
     return (z > 0) & (u >= 0) & (u < W) & (v >= 0) & (v < H)
 
 
+def box_pose(box: dict) -> np.ndarray:
+    """[4, 4] pose of a LiDAR box: its heading about z, then its centre."""
+    c, s = np.cos(box["heading"]), np.sin(box["heading"])
+    pose = np.eye(4)
+    pose[:3, :3] = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
+    pose[:3, 3] = [box["center_x"], box["center_y"], box["center_z"]]
+    return pose
+
+
 def sphere_norm(points: np.ndarray) -> tuple[np.ndarray, float]:
     """Center + bounding radius (base_readers.get_Sphere_Norm analog)."""
     center = points.mean(axis=0)
@@ -41,12 +55,14 @@ def sphere_norm(points: np.ndarray) -> tuple[np.ndarray, float]:
 
 
 class PointCloudProcessor:
-    """Base: aggregation, posing, scene-init ply writing."""
+    """Base: aggregation, posing, scene-init ply writing, condition renders
+    on ``device``."""
 
     def __init__(self, datadir: str, cameras=(0, 1, 2),
                  selected_frames: tuple[int, int] | None = None,
-                 delta_frames: int = 10):
+                 delta_frames: int = 10, device: str = "cuda"):
         self.datadir = datadir
+        self.device = torch.device(device)
         self.cams = list(cameras)
         self.delta_frames = delta_frames
         (self.intrinsics, self.extrinsics, self.ego_frame_poses,
@@ -275,6 +291,64 @@ class PointCloudProcessor:
             return None
         write_ply(sky_path, np.concatenate(pts), np.concatenate(cols))
         return sky_path
+
+    # -- condition rendering ---------------------------------------------------
+    def render_condition(self, camera, objects_info: list[ObjectInfo],
+                         scale: float = 0.01, use_ndc_scale: bool = True,
+                         force: bool = False) -> None:
+        """Render and save the LiDAR condition rgb and mask PNGs of one
+        CameraInfo (waymo_processor.py:178-242), unless both exist and not
+        ``force``."""
+        rgb_path = camera.metadata["guidance_rgb_path"]
+        mask_path = camera.metadata["guidance_mask_path"]
+        if (os.path.exists(rgb_path) and os.path.exists(mask_path)
+                and not force):
+            return
+        rgb, acc = self._splat(self.condition_cloud(camera, objects_info),
+                               camera, scale, use_ndc_scale)
+        write_png(rgb_path, (rgb * 255).astype(np.uint8))
+        write_png(mask_path, (acc * 255).astype(np.uint8))
+
+    def condition_cloud(self, camera, objects_info: list[ObjectInfo]
+                        ) -> np.ndarray:
+        """[N, 6] xyz-rgb world cloud of a camera's condition render: the
+        background of +-``delta_frames`` frames and the actors of its frame
+        posed by their LiDAR boxes."""
+        frame = camera.metadata["frame"]
+        start = max(self.start_frame, frame - self.delta_frames)
+        end = min(self.end_frame, frame + self.delta_frames)
+        actor_ids = [o.track_id for o in objects_info
+                     if o.start_frame <= frame <= o.end_frame]
+        agg = self.make_lidar_ply(start, end, actor_ids)
+        parts = [agg.pop("background")]
+
+        track_info_frame = self.track_info[f"{frame:06d}"]
+        for actor_id, ply in agg.items():
+            if actor_id not in track_info_frame:
+                continue
+            box = track_info_frame[actor_id]["lidar_box"]
+            pose = np.asarray(camera.metadata["ego_pose"]) @ box_pose(box)
+            parts.append(self.transform_lidar_ply(ply, pose))
+        return np.concatenate(parts)
+
+    def _splat(self, ply: np.ndarray, camera, scale: float,
+               use_ndc_scale: bool) -> tuple[np.ndarray, np.ndarray]:
+        """(rgb [H, W, 3], acc [H, W]) of an [N, 6] xyz-rgb cloud seen by
+        ``camera`` (c2w, K, height, width), splatted as Gaussians
+        (``ops.point_raster.render_pointcloud_gaussian``)."""
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                   device=self.device)
+
+        out = render_pointcloud_gaussian(
+            t(camera.c2w), t(camera.K), t(ply[:, :3]), t(ply[:, 3:6]),
+            camera.height, camera.width, scale=scale,
+            use_ndc_scale=use_ndc_scale)
+        return out.rgb.cpu().numpy(), out.acc.cpu().numpy()
+
+    def render_conditions(self, cameras, objects_info, **kw) -> None:
+        for cam in cameras:
+            self.render_condition(cam, objects_info, **kw)
 
 
 class WaymoPointCloudProcessor(PointCloudProcessor):

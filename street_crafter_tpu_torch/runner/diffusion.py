@@ -1,0 +1,325 @@
+"""Diffusion distillation runner: sliding-window conditioned sampling (port
+of ``street_crafter_tpu/runner/diffusion.py``).
+
+For each lane-shift trajectory: slide windows of ``sample_frames - 1``
+novel frames (step ``sample_frames - 1 - window_size``), prepend the
+nearest train camera as the conditioning frame 0, sample the
+LiDAR-conditioned VDM (SDS-initialised from the current 3DGS render when a
+``render_fn`` is given) and attach the frames to the novel cameras as their
+supervision (``CameraInfo._image``, ``metadata["diffusion_version"]``
+bumped). Every window draws its noise from a ``torch.Generator`` seeded
+with ``seed`` afresh, as the reference seeds every call with 23.
+
+Novel views render directly at the diffusion resolution: the aspect crop
+and resize of the sample are folded into the camera's intrinsics
+(``diffusion_camera``), so no resampling op runs in the training loop.
+
+``EngineParamStore`` keeps the engine's weights in (pinned) host memory
+between sampling events and moves them to the card for one event, so that
+GS training has the card's memory to itself between events (the
+reference's ``--low_vram`` offload).
+
+The reference's masked guidance is not a parameter here: its consumption is
+commented out in the reference's sampler, and the JAX runner accepts the
+flag and drops it, so ``diffusion.{masked_guidance_iter,
+acc_masked_guidance, cond_masked_guidance}`` have no effect.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..datasets.cameras import Camera
+from ..datasets.readers import CameraInfo
+from ..datasets.vdm_data import aspect_crop_resize
+from ..utils.png import read_png
+from ..visualizers.visualizer import save_image
+
+SEED = 23   # the reference seeds every sampling call with 23
+
+
+def crop_resize_K(K: np.ndarray, h: int, w: int, th: int, tw: int
+                  ) -> np.ndarray:
+    """The intrinsics of ``aspect_crop_resize`` (bottom crop) from an
+    h x w image to th x tw."""
+    K = np.asarray(K, np.float64).copy()
+    left, top = 0.0, 0.0
+    ch, cw = h, w
+    if w / h > tw / th:
+        cw = int(tw / th * h)
+        left = (w - cw) // 2
+    elif w / h < tw / th:
+        ch = int(th / tw * w)
+        top = h - ch
+    K[0, 2] -= left
+    K[1, 2] -= top
+    K[0] *= tw / cw
+    K[1] *= th / ch
+    return K
+
+
+def diffusion_camera(info: CameraInfo, th: int, tw: int,
+                     device: torch.device | str = "cpu") -> Camera:
+    """Device camera of ``info`` rendering at the diffusion resolution."""
+    w2c = np.eye(4)
+    w2c[:3, :3] = info.R.T
+    w2c[:3, 3] = info.T
+    K = crop_resize_K(info.K, info.height, info.width, th, tw)
+    return Camera.from_extrinsic(
+        w2c.astype(np.float32), K.astype(np.float32), tw, th, device=device,
+        id=info.uid, frame=info.metadata.get("frame", -1),
+        cam=info.metadata.get("cam", 0),
+        timestamp=float(info.metadata.get("timestamp", 0.0)),
+        image_name=info.image_name)
+
+
+def _load_rgb(path: str) -> np.ndarray:
+    img = np.asarray(read_png(path), np.float32) / 255.0
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, -1)
+    return img[..., :3]
+
+
+def resolve_params_on_host(dcfg, device: torch.device | str) -> bool:
+    """``diffusion.params_on_host``: true / false, or "auto": on when the
+    engine runs on ``cuda`` (on the CPU the weights are host memory
+    already)."""
+    v = dcfg.get("params_on_host", "auto")
+    if isinstance(v, str):
+        if v.lower() == "auto":
+            return torch.device(device).type == "cuda"
+        return v.lower() in ("1", "true", "yes", "on")
+    return bool(v)
+
+
+class EngineParamStore:
+    """Where the engine's (frozen) weights live between sampling events.
+    With ``on_host`` the only copy rests in host memory (pinned when the
+    engine is on ``cuda``, so that the copies run at the link's rate);
+    ``acquire()`` copies it to the engine's device for one event and
+    ``release()`` drops the device copy. The weights are never written, so
+    nothing is copied back. ``move_s`` holds the last acquire's and
+    release's wall seconds; ``nbytes`` the weights' size."""
+
+    def __init__(self, engine, on_host: bool):
+        self.engine = engine
+        self.on_host = bool(on_host)
+        self.on_device = True
+        self.nbytes = sum(t.numel() * t.element_size()
+                          for m in engine.modules().values()
+                          for t in list(m.parameters()) + list(m.buffers()))
+        self.move_s = {"acquire": 0.0, "release": 0.0}
+        self._host: dict[str, list[torch.Tensor]] = {}
+        if self.on_host:
+            pin = engine.device.type == "cuda"
+            for name, module in engine.modules().items():
+                kept = self._host[name] = []
+
+                def to_host(t, kept=kept):
+                    h = t.detach().to("cpu")
+                    h = h.pin_memory() if pin else h.clone()
+                    kept.append(h)
+                    return h
+                module._apply(to_host)
+            self.on_device = False
+            self._sync()
+
+    def _sync(self) -> None:
+        if self.engine.device.type == "cuda":
+            torch.cuda.synchronize(self.engine.device)
+
+    def acquire(self):
+        """The engine with its weights on its device, for one event."""
+        if self.on_host and not self.on_device:
+            t0 = time.perf_counter()
+            dev = self.engine.device
+            for module in self.engine.modules().values():
+                module._apply(lambda t: t.to(dev, non_blocking=True))
+            self._sync()
+            self.on_device = True
+            self.move_s["acquire"] = time.perf_counter() - t0
+        return self.engine
+
+    def release(self) -> None:
+        """Point the modules back at the host copy; the device copy is
+        freed (no-op when the weights stay on the device)."""
+        if self.on_host and self.on_device:
+            t0 = time.perf_counter()
+            self._sync()
+            for name, module in self.engine.modules().items():
+                it = iter(self._host[name])
+                module._apply(lambda t: next(it))
+            self.on_device = False
+            self.move_s["release"] = time.perf_counter() - t0
+
+    @property
+    def host_resident(self) -> bool:
+        """True iff the weights rest on the host and no device copy is
+        staged."""
+        return self.on_host and not self.on_device and all(
+            t.device.type == "cpu" for m in self.engine.modules().values()
+            for t in list(m.parameters()) + list(m.buffers()))
+
+
+class DiffusionRunner:
+    """Bridges the VDM engine to the GS scene. ``render_fn(camera_info) ->
+    {"rgb": [H, W, 3] tensor in [0, 1], ...}`` renders the current 3DGS
+    at the diffusion resolution (the SDS init). ``scene`` (None in unit
+    use) gives the processor that writes missing condition PNGs."""
+
+    def __init__(self, scene, engine, height: int = 576, width: int = 1024,
+                 window_size: int = 4, num_steps: int | None = None,
+                 cfg_scale: float | None = None,
+                 save_dir: str | None = None, seed: int = SEED):
+        self.scene = scene
+        self.engine = engine
+        self.th, self.tw = height, width
+        self.window_size = window_size
+        self.sample_frames = engine.cfg.num_frames
+        self.num_steps = num_steps
+        self.cfg_scale = cfg_scale
+        self.save_dir = save_dir
+        self.seed = seed
+
+    def _sample(self, guide_images: np.ndarray, cond_images: np.ndarray,
+                render_images: torch.Tensor | None, sds_scale: float | None,
+                cond_indices: tuple[int, ...] = (0,)) -> np.ndarray:
+        """One window: [T, th, tw, 3] in [-1, 1]."""
+        dev = self.engine.device
+        out = self.engine.sample(
+            guide_images=torch.from_numpy(guide_images).to(dev),
+            cond_image=torch.from_numpy(cond_images).to(dev),
+            generator=torch.Generator(device=dev).manual_seed(self.seed),
+            render_images=render_images, sds_scale=sds_scale,
+            cfg_scale=self.cfg_scale, num_steps=self.num_steps,
+            cond_indices=cond_indices)
+        return out.float().cpu().numpy()
+
+    def _render_conditions(self, cameras: list[CameraInfo]) -> None:
+        if self.scene is not None and self.scene.processor is not None:
+            self.scene.processor.render_conditions(
+                cameras, self.scene.info.metadata["obj_meta"])
+
+    # -- data assembly ---------------------------------------------------
+    def load_guidance(self, cam: CameraInfo) -> np.ndarray:
+        """The LiDAR condition image at the diffusion size, in [-1, 1]."""
+        rgb = _load_rgb(cam.metadata["guidance_rgb_path"])
+        return aspect_crop_resize(rgb, self.th, self.tw) * 2.0 - 1.0
+
+    def load_cond_image(self, cam: CameraInfo) -> np.ndarray:
+        img = aspect_crop_resize(cam.load_image(), self.th, self.tw)
+        return img * 2.0 - 1.0
+
+    def _attach(self, cameras: list[CameraInfo], frames: np.ndarray,
+                name: Callable[[CameraInfo], str]) -> None:
+        for cam, img in zip(cameras, frames):
+            cam._image = img
+            # a new version: Scene.batch_for builds the batch anew
+            cam.metadata["diffusion_version"] = \
+                cam.metadata.get("diffusion_version", 0) + 1
+            if self.save_dir:
+                save_image(os.path.join(self.save_dir, name(cam)), img)
+
+    # -- entry points ------------------------------------------------------
+    def run(self, novel_cameras: list[CameraInfo],
+            train_cameras: list[CameraInfo],
+            render_fn: Callable | None = None, scale: float = 0.3) -> None:
+        """``run_sequence`` over each lane-shift trajectory of the front
+        camera."""
+        cams = [c for c in novel_cameras if c.metadata["cam"] == 0]
+        for novel_id in sorted({c.metadata["novel_view_id"] for c in cams}):
+            seq = sorted((c for c in cams
+                          if c.metadata["novel_view_id"] == novel_id),
+                         key=lambda c: c.metadata["frame"])
+            self.run_sequence(seq, train_cameras, render_fn, scale)
+
+    def run_sequence(self, cameras: list[CameraInfo],
+                     train_cameras: list[CameraInfo],
+                     render_fn: Callable | None = None,
+                     scale: float = 0.3) -> np.ndarray:
+        """Sliding windows over one trajectory; returns its frames [n, th,
+        tw, 3] in [0, 1]."""
+        self._render_conditions(cameras)
+        frames = [c.metadata["frame"] for c in cameras]
+        train_frames = np.array([c.metadata["frame"] for c in train_cameras])
+        n = len(frames)
+        win = self.sample_frames - 1
+        if n < win:
+            raise ValueError(f"not enough frames for sampling: {n} < {win}")
+        step = win - self.window_size
+
+        guides = [self.load_guidance(c) for c in cameras]
+        renders = None
+        if render_fn is not None:
+            renders = [render_fn(c)["rgb"].float() * 2.0 - 1.0
+                       for c in cameras]
+
+        filled = np.zeros(n, bool)
+        result = np.zeros((n, self.th, self.tw, 3), np.float32)
+        for start in range(0, n, step):
+            end = min(start + win, n)
+            start = end - win
+            cond_cam = train_cameras[
+                int(np.abs(train_frames - frames[start]).argmin())]
+            self._render_conditions([cond_cam])
+            guide_seq = np.stack([self.load_guidance(cond_cam)]
+                                 + guides[start:end]).astype(np.float32)
+            cond_image = self.load_cond_image(cond_cam)[None].astype(
+                np.float32)
+            render_seq = None
+            if renders is not None:
+                dev = renders[0].device
+                render_seq = torch.cat([
+                    torch.from_numpy(cond_image).to(dev),
+                    torch.stack(renders[start:end])])
+            out = self._sample(guide_seq, cond_image, render_seq,
+                               scale if render_seq is not None else None)
+            result[start:end] = (out[1:] + 1.0) / 2.0
+            filled[start:end] = True
+        assert filled.all(), "not all frames were sampled"
+        self._attach(cameras, result,
+                     lambda c: f"{c.image_name}_scale{scale}.png")
+        return result
+
+    def run_interleaved(self, test_cameras: list[CameraInfo],
+                        train_cameras: list[CameraInfo]) -> np.ndarray:
+        """Condition on every train frame inside each window and fill the
+        test frames between them. Returns the test frames [len(test), th,
+        tw, 3] in [0, 1]."""
+        cameras = sorted(test_cameras + train_cameras,
+                         key=lambda c: c.metadata["frame"])
+        train_frames = {c.metadata["frame"] for c in train_cameras}
+        self._render_conditions(cameras)
+        n = len(cameras)
+        T = self.sample_frames
+        if n < T:
+            raise ValueError(f"not enough frames: {n} < {T}")
+        step = T - self.window_size
+
+        guides = [self.load_guidance(c) for c in cameras]
+        filled = np.zeros(n, bool)
+        result = np.zeros((n, self.th, self.tw, 3), np.float32)
+        for start in range(0, n, step):
+            end = min(start + T, n)
+            start = end - T
+            window = cameras[start:end]
+            cond_indices = tuple(
+                i for i, c in enumerate(window)
+                if c.metadata["frame"] in train_frames)
+            cond_images = np.stack(
+                [self.load_cond_image(window[i]) for i in cond_indices])
+            out = self._sample(np.stack(guides[start:end]).astype(np.float32),
+                               cond_images.astype(np.float32), None, None,
+                               cond_indices=cond_indices)
+            result[start:end] = (out + 1.0) / 2.0
+            filled[start:end] = True
+        assert filled.all(), "not all frames were sampled"
+        self._attach(cameras, result, lambda c: f"{c.image_name}.png")
+        test_set = {id(c) for c in test_cameras}
+        return np.stack([result[i] for i, c in enumerate(cameras)
+                         if id(c) in test_set])

@@ -3,7 +3,10 @@
 Modes:
 - ``trajectory``: all train+test cameras in id order; pngs per stream
   (rgb, acc, depth, gt, diff) and, with ``render.save_video``, videos;
-- ``novel_view``: each lane-shift trajectory.
+- ``novel_view``: each lane-shift trajectory;
+- ``diffusion``: the VDM over every lane-shift trajectory, SDS-initialised
+  from the checkpoint's render at the smallest SDS scale; PNG frames under
+  ``diffusion_{it}/`` and, with ``render.save_video``, a video per shift.
 
 CLI: python -m street_crafter_tpu_torch.runner.render --config scene.json \
     [mode=trajectory] [k=v ...]
@@ -131,7 +134,50 @@ def render_novel_view(cfg: Config) -> dict:
     return res
 
 
-MODES = {"trajectory": render_trajectory, "novel_view": render_novel_view}
+def render_diffusion(cfg: Config) -> dict:
+    """The conditioned VDM over the novel trajectories of a trained scene
+    (the reference's render.py:78-107). Returns {"videos": "shift_S" ->
+    path, "out_dir", "frames": the PNG paths}."""
+    from .diffusion import DiffusionRunner, diffusion_camera
+    from .vdm_sample import build_engine
+    d = cfg.diffusion
+    scene = create_scene(cfg, init_params=False)
+    params, it = load_trained_state(cfg, scene)
+    engine = build_engine(cfg, int(d.sample_frames))
+    out_dir = os.path.join(scene.model_path, f"diffusion_{it}")
+    runner = DiffusionRunner(scene, engine, height=d.height, width=d.width,
+                             window_size=d.window_size,
+                             num_steps=d.num_steps, cfg_scale=d.cfg_scale,
+                             save_dir=out_dir)
+    eval_render = make_eval_render(cfg, scene.meta,
+                                   cfg.model.gaussian.sh_degree)
+
+    def render_fn(info):
+        cam = diffusion_camera(info, d.height, d.width, scene.device)
+        return eval_render(params, cam, scene.batch_for(info))
+
+    runner.run(scene.info.novel_view_cameras, scene.info.train_cameras,
+               render_fn=render_fn, scale=min(d.sds_scales))
+    res = {"videos": {}, "out_dir": out_dir, "frames": sorted(
+        os.path.join(out_dir, f) for f in os.listdir(out_dir))}
+    if cfg.render.get("save_video", False):
+        from ..visualizers import save_video
+        for shift in sorted({i.metadata["novel_view_id"]
+                             for i in scene.info.novel_view_cameras}):
+            frames = [c._image for c in sorted(
+                (c for c in scene.info.novel_view_cameras
+                 if c.metadata["novel_view_id"] == shift
+                 and c._image is not None),
+                key=lambda c: c.metadata["frame"])]
+            if frames:
+                res["videos"][f"shift_{shift:.2f}"] = save_video(
+                    os.path.join(out_dir, f"diffusion_shift_{shift:.2f}.mp4"),
+                    frames, fps=cfg.render.fps)
+    return res
+
+
+MODES = {"trajectory": render_trajectory, "novel_view": render_novel_view,
+         "diffusion": render_diffusion}
 
 
 def main(argv: list[str] | None = None) -> dict:

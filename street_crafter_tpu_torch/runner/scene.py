@@ -12,6 +12,7 @@ from __future__ import annotations
 import os
 from glob import glob
 
+import numpy as np
 import torch
 
 from ..config import Config
@@ -63,7 +64,7 @@ class Scene:
                 cameras=list(cfg.data.cameras),
                 selected_frames=(start,
                                  start + self.info.metadata["num_frames"] - 1),
-                delta_frames=cfg.data.delta_frames)
+                delta_frames=cfg.data.delta_frames, device=self.device)
             ply_paths = self.processor.initialize_ply(
                 self.model_path, self.info.metadata["obj_meta"])
         else:
@@ -100,21 +101,43 @@ class Scene:
         return float(self.info.metadata["scene_radius"])
 
     def batch_for(self, cam_info: CameraInfo) -> dict:
-        """Per-camera batch, cached per camera identity. Novel-view cameras
-        have no ground-truth image on disk; the gt image is resized to the
-        downscaled camera."""
+        """Per-camera batch, cached per camera identity and
+        ``diffusion_version``. A train or test view's gt image is resized
+        to the downscaled camera. A novel view has no image on disk: its gt
+        is the diffusion sample (``_image``, at the diffusion resolution,
+        which its device camera renders at: ``runner.diffusion.
+        diffusion_camera``), once a sampling event has attached one; each
+        event bumps ``diffusion_version``, so its batch is built anew."""
         is_novel = cam_info.metadata.get("is_novel_view", False)
         load_img = self.load_images and (not is_novel
                                          or cam_info._image is not None)
-        key = (cam_info.uid, cam_info.image_name, load_img)
+        key = (cam_info.uid, cam_info.image_name, load_img,
+               cam_info.metadata.get("diffusion_version", 0))
         if key not in self._batch_cache:
-            scale = 1.0 / self.downscale
+            if is_novel and load_img:
+                hw = tuple(np.shape(cam_info._image)[:2])
+            else:
+                scale = 1.0 / self.downscale
+                hw = (int(round(cam_info.height * scale)),
+                      int(round(cam_info.width * scale)))
             self._batch_cache[key] = camera_batch(
-                cam_info, (int(round(cam_info.height * scale)),
-                           int(round(cam_info.width * scale))),
-                self.device, load_image=load_img,
+                cam_info, hw, self.device, load_image=load_img,
                 load_guidance=not is_novel)
         return self._batch_cache[key]
+
+    def render_conditions(self, cameras: list[CameraInfo] | None = None,
+                          force: bool = False) -> None:
+        """Write the LiDAR condition PNGs of ``cameras`` (default: train,
+        test and novel) that do not exist yet, or all with ``force``."""
+        if self.processor is None:
+            raise RuntimeError("scene built without a pointcloud processor")
+        cams = cameras if cameras is not None else (
+            self.info.train_cameras + self.info.test_cameras
+            + self.info.novel_view_cameras)
+        self.processor.render_conditions(
+            cams, self.info.metadata["obj_meta"],
+            scale=self.cfg.render.scale,
+            use_ndc_scale=bool(self.cfg.render.use_ndc_scale), force=force)
 
 
 def create_scene(cfg: Config, **kw) -> Scene:

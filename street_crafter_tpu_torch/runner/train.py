@@ -1,12 +1,19 @@
-"""3DGS training entry point, Gaussian splatting only (port of
-``street_crafter_tpu/runner/train.py`` without the diffusion hook).
+"""3DGS training entry point with the diffusion distillation (port of
+``street_crafter_tpu/runner/train.py``).
 
 Host loop: camera sampling (``random.Random(cfg.seed)``, the JAX trainer's
-generator and sequence), SH-degree warm-up, the densify / opacity-reset
-schedule, eval (PSNR and L1 on the test cameras), checkpoints with the
-whole train state (``resume: true`` continues at ``it + 1``) and the 3DGS
-PLY export. Runs on ``cfg.device`` (``cuda`` unless the config says
-``cpu``).
+generator and sequence; novel views with ``train.novel_view_prob`` once a
+sampling event has filled them), SH-degree warm-up, the densify /
+opacity-reset schedule, the sampling events of ``diffusion.
+sample_iterations`` (``make_diffusion_hook``: the VDM samples the
+lane-shifted novel views, SDS-initialised from the current render, at an
+SDS scale interpolated between ``sds_scales``' max and min; a resume just
+after an event runs it again, since novel images are not checkpointed),
+eval (PSNR and L1 on the test cameras), checkpoints with the whole train
+state (``resume: true`` continues at ``it + 1``) and the 3DGS PLY export.
+The LiDAR condition PNGs of the train and test cameras are written first
+when the diffusion or the LiDAR depth loss needs them. Runs on
+``cfg.device`` (``cuda`` unless the config says ``cpu``).
 
 CLI: python -m street_crafter_tpu_torch.runner.train --config scene.json \
     [k=v ...]
@@ -25,17 +32,21 @@ import torch
 
 from ..config import Config, default_config, load_config, merge_dotlist, \
     save_config
+from ..datasets.cameras import Camera
+from ..datasets.readers import CameraInfo
 from ..models.gs.params import GaussianPool
 from ..training.gs_trainer import (GSTrainState, init_train_state,
                                    make_densify_step, make_train_step,
                                    reset_opacity_step)
 from ..utils.checkpoint import load_train_checkpoint, save_checkpoint
 from ..utils.metrics import MetricsLogger, ProfilerHook
+from .diffusion import diffusion_camera
 from .render import make_eval_render, psnr
 from .scene import Scene, create_scene
 
-NOT_PORTED_DIFFUSION = ("diffusion.use_diffusion (the diffusion-guided "
-                        "novel-view supervision, ROADMAP queue 1, slice 4)")
+# (trainer, iteration, sds_scale): attaches diffusion samples to the novel
+# views (CameraInfo._image) and bumps their diffusion_version
+DiffusionHook = Callable[["GSTrainer", int, float], None]
 NOT_PORTED_BATCH = ("train.batch_size > 1 (camera-DP training over several "
                     "GPUs, ROADMAP queue 1, slice 5)")
 
@@ -58,6 +69,7 @@ class GSTrainer:
         # flip masks and split noise; the JAX trainer's jax.random key
         self.generator = torch.Generator(device=scene.device).manual_seed(
             int(cfg.seed))
+        self._novel_cams: dict[tuple, Camera] = {}
         if cfg.resume:
             restored, it = load_train_checkpoint(scene.model_path,
                                                  device=scene.device)
@@ -102,12 +114,42 @@ class GSTrainer:
                              scene.meta.sphere_center,
                              scene.meta.sphere_radius)
 
-    def run(self, log_fn: Callable[[int, dict], None] | None = None
+    def sds_schedule(self, iteration: int, sample_iters: list[int],
+                     scales: list[float]) -> float | None:
+        """The SDS scale of a sampling event at ``iteration``, or None when
+        no event runs: linear from max(scales) at the first sample
+        iteration to min(scales) at the last. An event also runs at the
+        first iteration of a resume that lands just after one, with that
+        event's scale."""
+        restarting = (iteration == self.start_iter
+                      and (iteration - 1) in sample_iters)
+        if iteration not in sample_iters and not restarting:
+            return None
+        eff_it = iteration - int(restarting)
+        lo, hi = min(sample_iters), max(sample_iters)
+        smin, smax = min(scales), max(scales)
+        return (smin - smax) * (eff_it - lo) / max(hi - lo, 1) + smax
+
+    def novel_camera(self, info: CameraInfo) -> Camera:
+        """The device camera of a novel view, at the diffusion resolution
+        its supervision has."""
+        key = (info.uid, info.image_name)
+        if key not in self._novel_cams:
+            d = self.cfg.diffusion
+            self._novel_cams[key] = diffusion_camera(info, d.height, d.width,
+                                                     self.scene.device)
+        return self._novel_cams[key]
+
+    def run(self, diffusion_hook: DiffusionHook | None = None,
+            log_fn: Callable[[int, dict], None] | None = None
             ) -> GSTrainState:
         cfg = self.cfg
         scene = self.scene
         o = cfg.optim
-        novel_pool: list = []   # filled by the diffusion hook (slice 4)
+        sample_iters = list(cfg.diffusion.sample_iterations) \
+            if cfg.diffusion.use_diffusion else []
+        scales = list(cfg.diffusion.sds_scales)
+        novel_pool: list = []
         device_cams = {c.uid: cam for c, cam in
                        zip(scene.info.train_cameras, scene.train_cameras)}
         metrics = MetricsLogger(os.path.join(scene.model_path, "logs"))
@@ -116,8 +158,16 @@ class GSTrainer:
         ema_loss = None
         for iteration in range(self.start_iter, cfg.train.iterations + 1):
             profiler.step(iteration)
+            scale = self.sds_schedule(iteration, sample_iters, scales)
+            if diffusion_hook is not None and scale is not None:
+                diffusion_hook(self, iteration, scale)
+                novel_pool = [
+                    c for c in scene.info.novel_view_cameras
+                    if not c.metadata.get("skip_camera", False)
+                    and c._image is not None]
             cam_info, is_novel = self.pick_camera(novel_pool)
-            camera = device_cams[cam_info.uid]
+            camera = (self.novel_camera(cam_info) if is_novel
+                      else device_cams[cam_info.uid])
             batch = scene.batch_for(cam_info)
             if "gt_image" not in batch:
                 continue
@@ -270,26 +320,69 @@ def make_lpips(cfg: Config, device) -> Callable | None:
         "optim.allow_missing_lpips=True to waive.")
 
 
-def train(cfg: Config, lpips_fn: Callable | None = None) -> GSTrainer:
-    if cfg.diffusion.use_diffusion:
-        raise NotImplementedError(NOT_PORTED_DIFFUSION)
+def make_diffusion_hook(cfg: Config) -> DiffusionHook:
+    """The sampling event: the VDM engine of ``cfg.diffusion`` (built once;
+    its weights rest on the host between events under
+    ``diffusion.params_on_host``) and a ``DiffusionRunner`` over the novel
+    trajectories, SDS-initialised from the current 3DGS render at the
+    diffusion resolution. ``hook.param_store`` is the weights' store."""
+    from .diffusion import (DiffusionRunner, EngineParamStore,
+                            resolve_params_on_host)
+    from .vdm_sample import build_engine
+    d = cfg.diffusion
+    engine = build_engine(cfg, int(d.sample_frames))
+    store = EngineParamStore(engine,
+                             resolve_params_on_host(d, engine.device))
+
+    def hook(trainer: GSTrainer, iteration: int, scale: float) -> None:
+        scene = trainer.scene
+        eval_render = trainer.eval_render_fn(trainer.active_sh(iteration))
+
+        def render_fn(info):
+            return eval_render(trainer.state.params,
+                               trainer.novel_camera(info),
+                               scene.batch_for(info))
+
+        try:
+            runner = DiffusionRunner(
+                scene, store.acquire(), height=d.height, width=d.width,
+                window_size=d.window_size, num_steps=d.num_steps,
+                cfg_scale=d.cfg_scale,
+                save_dir=os.path.join(scene.model_path, "diffusion")
+                if d.save_diffusion_render else None)
+            runner.run(scene.info.novel_view_cameras,
+                       scene.info.train_cameras, render_fn=render_fn,
+                       scale=scale)
+        finally:
+            store.release()
+
+    hook.param_store = store
+    return hook
+
+
+def train(cfg: Config, diffusion_hook: DiffusionHook | None = None,
+          lpips_fn: Callable | None = None) -> GSTrainer:
     if int(cfg.train.get("batch_size", 1)) > 1:
         raise NotImplementedError(NOT_PORTED_BATCH)
     scene = create_scene(cfg)
     backup_code(scene.model_path)
-    # the LiDAR condition PNGs are read only by the diffusion hook; they
-    # are not written (ROADMAP queue 3)
+    if cfg.diffusion.use_diffusion or cfg.optim.lambda_depth_lidar > 0:
+        # the condition PNGs the sampling events read
+        scene.render_conditions(scene.info.train_cameras
+                                + scene.info.test_cameras)
     save_config(cfg, os.path.join(scene.model_path, "config.json"))
+    if diffusion_hook is None and cfg.diffusion.use_diffusion:
+        diffusion_hook = make_diffusion_hook(cfg)
     if lpips_fn is None:
         lpips_fn = make_lpips(cfg, scene.device)
     trainer = GSTrainer(cfg, scene, lpips_fn=lpips_fn)
-    trainer.run()
+    trainer.run(diffusion_hook=diffusion_hook)
     return trainer
 
 
 def main(argv: list[str] | None = None) -> GSTrainer:
     import argparse
-    p = argparse.ArgumentParser(description="3DGS training (GS only)")
+    p = argparse.ArgumentParser(description="3DGS distillation training")
     p.add_argument("--config", required=True)
     p.add_argument("opts", nargs="*", default=[])
     args = p.parse_args(argv)

@@ -1,5 +1,6 @@
-"""The CUDA kernels of street_crafter_tpu_torch (raster A-C and kernel A's
-row-compaction variants, attention D,
+"""The CUDA kernels of street_crafter_tpu_torch (raster A-C, also at the
+LiDAR condition render's shape, and kernel A's row-compaction variants,
+attention D,
 its backward G and H, temporal stage E and F and the GEMM they chain)
 against their plain torch versions on a CUDA device. Marked ``cuda``; each
 test skips when no CUDA device is present. On the GPU machine:
@@ -367,6 +368,100 @@ def test_kernel_a_replays_after_its_sync(cuda):
     second = G._worklist_lists(bins)
     for name in ("tile_ids", "gauss_ids"):
         assert torch.equal(getattr(first, name), getattr(second, name))
+
+
+def lidar_condition_args(device, n=300_000, W=320, H=240, seed=0):
+    """The condition render's shape (ops.point_raster.
+    render_pointcloud_gaussian): a LiDAR-like cloud (a ground plane from 1
+    m to 60 m and two walls, in the camera's frame) as isotropic splats of
+    the constant pixel sigma 6.4 (0.01 x 0.5 x 1280), radius 3 sigma,
+    opacity 1, channels rgb and z. 78 of the 300 tiles hold lists past
+    8,192 pairs (the sort's passes over device memory), the longest
+    68,408."""
+    rng = np.random.default_rng(seed)
+    n_g = n * 4 // 5
+    ground = np.stack([rng.uniform(-20, 20, n_g),
+                       1.6 + rng.normal(0, 0.02, n_g),
+                       rng.uniform(1.0, 60, n_g)], -1)
+    n_w = n - n_g
+    wall = np.stack([rng.choice([-8.0, 8.0], n_w), rng.uniform(-4, 1.6, n_w),
+                     rng.uniform(1.0, 60, n_w)], -1)
+    pts = np.concatenate([ground, wall]).astype(np.float32)
+    fx, z = 0.6 * W, pts[:, 2]
+    sigma = 0.01 * 0.5 * 1280
+    inv = np.full(n, 1.0 / sigma ** 2)
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return dict(u=t(fx * pts[:, 0] / z + W / 2),
+                v=t(fx * pts[:, 1] / z + H / 2), conic_a=t(inv),
+                conic_b=t(np.zeros(n)), conic_c=t(inv),
+                colors=t(np.concatenate([rng.uniform(0.1, 0.9, (n, 3)),
+                                         z[:, None]], 1)),
+                opacities=t(np.ones(n)), depths=t(z),
+                valid=t(z > 0.2, torch.bool), radii=t(np.full(n, 3 * sigma)),
+                width=W, height=H)
+
+
+def test_kernels_at_the_condition_render_shape(cuda):
+    """Kernels A, the pack and B on the condition render's shape (4
+    channels, opacity 1, lists far past 8,192) against their plain
+    versions: the worklist and the records equal, rgb and alpha to atol
+    2e-4 and the z channel to 2e-4 of the largest z (phase 2's limits)."""
+    args = lidar_condition_args(cuda)
+    geo = {k: args[k] for k in ("u", "v", "radii", "depths", "valid",
+                                "width", "height")}
+    comp = {k: args[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
+                                 "colors", "opacities", "width", "height")}
+    wl = G.tile_worklist(**geo)
+    ref = G.tile_worklist_reference(**geo)
+    assert wl.n_pairs == ref.n_pairs
+    for name in ("tile_ids", "gauss_ids", "ranges", "order"):
+        assert torch.equal(getattr(wl, name), getattr(ref, name)), name
+    lengths = ref.ranges[:, 1] - ref.ranges[:, 0]
+    assert int((lengths > 8192).sum()) >= 50
+    pack = [comp[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
+                              "colors", "opacities")]
+    rec = G.pair_records(wl, *pack)
+    assert torch.equal(rec, G.pair_records_reference(wl, *pack))
+    col, alpha = G.composite(wl, **comp, records=rec)
+    col_ref, alpha_ref = G.composite_reference(wl, **comp)
+    torch.testing.assert_close(col[..., :3], col_ref[..., :3], atol=2e-4,
+                               rtol=0)
+    torch.testing.assert_close(alpha, alpha_ref, atol=2e-4, rtol=0)
+    zmax = float(args["depths"].max())
+    torch.testing.assert_close(col[..., 3], col_ref[..., 3],
+                               atol=2e-4 * zmax, rtol=0)
+    assert float(alpha.mean()) > 0.5
+
+
+def test_condition_render_launches_kernels(cuda):
+    """render_pointcloud_gaussian on CUDA tensors: one launch each of A,
+    the pack and B, none of a plain version; the image as on CPU tensors
+    (the plain versions) to PSNR > 50 dB (the CPU's exp and the card's
+    expf can put a pair on the other side of the 1/255 gate)."""
+    from street_crafter_tpu_torch.ops.point_raster import \
+        render_pointcloud_gaussian
+    rng = np.random.default_rng(4)
+    n = 20_000
+    pts = np.stack([rng.uniform(-10, 10, n), np.full(n, 1.6),
+                    rng.uniform(2, 40, n)], -1).astype(np.float32)
+    cols = rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32)
+    K = np.array([[120.0, 0, 96], [0, 120.0, 64], [0, 0, 1]], np.float32)
+    inputs = [np.eye(4, dtype=np.float32), K, pts, cols]
+    G.reset_launch_counts()
+    got = render_pointcloud_gaussian(*(torch.tensor(a, device=cuda)
+                                       for a in inputs), 128, 192)
+    assert dict(G.launches) == {"tile_worklist": 1, "pair_records": 1,
+                                "composite": 1}
+    want = render_pointcloud_gaussian(*(torch.tensor(a) for a in inputs),
+                                      128, 192)
+    for a, b in ((got.rgb, want.rgb), (got.acc, want.acc)):
+        mse = float(((a.cpu() - b) ** 2).mean())
+        assert -10 * np.log10(mse + 1e-20) > 50.0
+    # the ground below the horizon (0.432 in the plain version)
+    assert float(got.acc[64:].mean()) > 0.4
 
 
 @pytest.mark.parametrize("C", (3, 4))

@@ -246,9 +246,9 @@ def test_render_main_novel_view_and_unported_modes(port_model):
     assert len(res["out_dirs"]) == 1
     assert len(os.listdir(os.path.join(res["out_dirs"][0], "rgb"))) == \
         len(scene.info.novel_view_cameras)
-    for mode in ("diffusion", "virtual_warp"):
-        with pytest.raises(NotImplementedError, match="trajectory"):
-            main(["--config", path, f"mode={mode}"])
+    # mode diffusion is ported (tests/test_torch_distill.py)
+    with pytest.raises(NotImplementedError, match="trajectory"):
+        main(["--config", path, "mode=virtual_warp"])
     with pytest.raises(NotImplementedError, match="cubemap"):
         main(["--config", path, "model.sky.use_cube_map=true"])
 

@@ -337,8 +337,6 @@ def test_render_of_trained_checkpoint(trained):
 def test_unported_options_raise(trained):
     from street_crafter_tpu_torch.runner.train import main
     path = trained["path"]
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        main(["--config", path, "diffusion.use_diffusion=true"])
     with pytest.raises(NotImplementedError, match="slice 5"):
         main(["--config", path, "train.batch_size=2"])
     with pytest.raises(RuntimeError, match="LPIPS"):
@@ -352,6 +350,10 @@ import sys
 from street_crafter_tpu_torch.runner import train  # noqa: F401
 from street_crafter_tpu_torch.training import gs_trainer  # noqa: F401
 from street_crafter_tpu_torch.utils import gs_ply, metrics  # noqa: F401
+from street_crafter_tpu_torch.runner import diffusion, render  # noqa: F401
+from street_crafter_tpu_torch.ops import point_raster  # noqa: F401
+from street_crafter_tpu_torch.data_processor import (  # noqa: F401
+    pointcloud, render_lidar)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "street_crafter_tpu"))
 assert not bad, bad
