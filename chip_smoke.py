@@ -139,6 +139,24 @@ Phases, one status line each; any failure raises (exit code != 0):
      within 1), its list lengths and the pairs past 512 a tile, the
      kernels' times and bounds, the first event's wall split, GS ms a step
      before and after it and the peak memory.
+ 17. the rest of the 3DGS features: phase 3's synthetic scene with a
+     COLMAP text model of its background LiDAR points (jittered, written
+     by the port's write_text_model where data.use_colmap reads it), phase
+     6's GS settings with the cubemap sky (6x1024x1024) in place of the
+     Gaussian sky pool, the pose-conditioned colour MLP and its sky MLP;
+     runner.train.main for SKY_ITERS iterations from scene init, a resume
+     of SKY_RESUME, then runner.render.main(mode=virtual_warp) on the
+     checkpoint (front camera, WARP_STEPS steps, WARP_SHIFT m). The loss
+     finite; the cubemap and every leaf of the colour MLP moved (the sky's
+     MLP, read only by the regulariser at its minimum, stays at its init);
+     the 512x1024 latlong PNG beside the PLY; the COLMAP points in the
+     init PLY; every GS step one pass (two where the objects-only
+     regulariser runs its own), each launching A, the pack, B and C once
+     and no plain version; the warps' PNGs at the render's size with masks
+     neither empty nor full, through A, the pack and B once a view. Then
+     phase 7's train step with the cubemap and the MLPs in place of the
+     sky pool: median, peak memory and the split beside phase 7's, and the
+     cubemap lookup and the MLPs alone (forward, backward) by CUDA events.
 Kernel builds, launches and comparisons raise on failure; no phase catches
 its own. TF32 is off for matmuls and cuDNN convolutions throughout.
 The last three lines: the card's name and power limit, a JSON object of
@@ -742,9 +760,9 @@ def bounds(n_splats: int, n_pairs: int, n_tiles: int, pixels: int,
     }
 
 
-def train_config(cfg):
+def train_config(cfg, iters: int = TRAIN_ITERS):
     """configs/waymo_val_base.yaml's GS settings (diffusion off, the
-    seeded LPIPS stand-in), its schedule compressed into TRAIN_ITERS."""
+    seeded LPIPS stand-in), its schedule compressed into ``iters``."""
     cfg.data.split_test = 2
     cfg.model.gaussian.sh_degree = 1
     cfg.model.gaussian.fourier_dim = 1
@@ -762,15 +780,15 @@ def train_config(cfg):
     o.lambda_depth_lidar = 0.01
     o.lambda_lpips = 0.5
     o.lpips_fallback = "random_features"
-    o.densify_from_iter = TRAIN_ITERS // 3
-    o.densification_interval = TRAIN_ITERS // 6
-    o.densify_until_iter = 2 * TRAIN_ITERS // 3
-    o.opacity_reset_interval = TRAIN_ITERS // 2
-    cfg.train.iterations = TRAIN_ITERS
-    cfg.train.test_iterations = [TRAIN_ITERS]
-    cfg.train.checkpoint_iterations = [TRAIN_ITERS]
-    cfg.train.save_iterations = [TRAIN_ITERS]
-    cfg.train.log_interval = TRAIN_ITERS // 6
+    o.densify_from_iter = iters // 3
+    o.densification_interval = iters // 6
+    o.densify_until_iter = 2 * iters // 3
+    o.opacity_reset_interval = iters // 2
+    cfg.train.iterations = iters
+    cfg.train.test_iterations = [iters]
+    cfg.train.checkpoint_iterations = [iters]
+    cfg.train.save_iterations = [iters]
+    cfg.train.log_interval = iters // 6
     return cfg
 
 
@@ -935,24 +953,17 @@ class StageTimer:
             setattr(module, attr, fn)
 
 
-def step_time(G, cfg, dev, gpu: str) -> None:
-    """Phase 7: the trainer's own train step on the 600k pool."""
+def timed_train_step(G, tcfg, scene, params, cam, batch, dev) -> dict:
+    """The trainer's own train step (the objects-only regulariser on, the
+    LPIPS stand-in) on ``params``: 5 warm-up steps, the median of 20
+    synchronised ones, the peak memory, then a split over 5 more steps with
+    every stage synchronised before and after (the cubemap lookup and the
+    colour MLPs' forwards among them, where the scene has them). Returns
+    the numbers and ``one``, a synchronised step."""
     import torch
     from street_crafter_tpu_torch.models.gs import renderer as RN
-    from street_crafter_tpu_torch.models.gs.params import GaussianPool
     from street_crafter_tpu_torch.ops.lpips import random_feature_lpips
     from street_crafter_tpu_torch.training import gs_trainer as GT
-    scene, params, cam, batch = headline_scene(cfg, dev)
-    pad = BKGD_CAPACITY - params.bkgd.capacity
-    bkgd = GaussianPool(**{
-        k: torch.cat([v, torch.zeros((pad,) + v.shape[1:], dtype=v.dtype,
-                                     device=dev)])
-        for k, v in dataclasses.asdict(params.bkgd).items()})
-    C, F, A = scene.meta.track_valid.shape
-    params = dataclasses.replace(
-        params, bkgd=bkgd, opt_trans=torch.zeros((C, F, A, 3), device=dev),
-        opt_theta=torch.zeros((C, F, A, 1), device=dev))
-    tcfg = train_config(cfg.clone())
     state = GT.init_train_state(params)
     step = GT.make_train_step(
         tcfg, scene.meta, spatial_lr_scale=scene.extent,
@@ -973,13 +984,6 @@ def step_time(G, cfg, dev, gpu: str) -> None:
         one()
         ms.append(1e3 * (time.perf_counter() - t0))
     peak = torch.cuda.max_memory_allocated()
-    log(f"[7] train step, {N_HEAVY} splats in {BKGD_CAPACITY} bkgd slots + "
-        f"actors {tuple(params.actors.xyz.shape[:2])} + sky "
-        f"{params.sky.capacity}, {cam.width}x{cam.height}, full loss stack "
-        f"(L1, D-SSIM, LPIPS stand-in, sky, obj-acc, LiDAR depth): median "
-        f"{statistics.median(ms):.2f} ms (min {min(ms):.2f}, max "
-        f"{max(ms):.2f}) over 20 steps; max_memory_allocated "
-        f"{peak / 2 ** 30:.2f} GiB; TF32 off; card {gpu}")
 
     timer = StageTimer()
     timer.wrap(RN, "flatten_scene", "flatten")
@@ -987,6 +991,10 @@ def step_time(G, cfg, dev, gpu: str) -> None:
     timer.wrap(G, "tile_worklist", "kernel A")
     timer.wrap(G, "pair_records", "pack (shared by B and C)")
     timer.wrap(G, "composite", "kernel B")
+    if params.sky_cubemap is not None:
+        timer.wrap(RN, "sample_cubemap", "cubemap lookup forward")
+    if params.color_mlp is not None:
+        timer.wrap(RN, "apply_color_mlp", "colour MLPs forward")
     timer.wrap(GT, "compute_train_loss", "loss (L1/SSIM/LPIPS/...)")
     timer.wrap(G, "composite_backward", "kernel C")
     timer.wrap(GT, "adam_update", "Adam")
@@ -1006,21 +1014,54 @@ def step_time(G, cfg, dev, gpu: str) -> None:
     # (kernel C within it), plus the hooks' small ops and zeroing the grads
     split["backward total (kernel C within it)"] = whole - sum(
         v for k, v in split.items() if k != "kernel C")
-    log(f"[7] split, synchronised after each stage, mean of {n_split} "
-        f"steps (ms; fg, sky and objects-only passes summed): "
-        + "; ".join(f"{k} {v:.3f}" for k, v in split.items())
-        + f"; whole step with the syncs {whole:.2f}")
+    return {"ms": ms, "median": statistics.median(ms),
+            "peak_gib": peak / 2 ** 30, "split": split, "whole": whole,
+            "n_split": n_split, "one": one}
+
+
+def step_time(G, cfg, dev, gpu: str) -> dict:
+    """Phase 7: the trainer's own train step on the 600k pool. Returns
+    the step's numbers (phase 17 prints its split beside them)."""
+    import torch
+    from street_crafter_tpu_torch.models.gs.params import GaussianPool
+    scene, params, cam, batch = headline_scene(cfg, dev)
+    pad = BKGD_CAPACITY - params.bkgd.capacity
+    bkgd = GaussianPool(**{
+        k: torch.cat([v, torch.zeros((pad,) + v.shape[1:], dtype=v.dtype,
+                                     device=dev)])
+        for k, v in dataclasses.asdict(params.bkgd).items()})
+    C, F, A = scene.meta.track_valid.shape
+    params = dataclasses.replace(
+        params, bkgd=bkgd, opt_trans=torch.zeros((C, F, A, 3), device=dev),
+        opt_theta=torch.zeros((C, F, A, 1), device=dev))
+    tcfg = train_config(cfg.clone())
+    res = timed_train_step(G, tcfg, scene, params, cam, batch, dev)
+    log(f"[7] train step, {N_HEAVY} splats in {BKGD_CAPACITY} bkgd slots + "
+        f"actors {tuple(params.actors.xyz.shape[:2])} + sky "
+        f"{params.sky.capacity}, {cam.width}x{cam.height}, full loss stack "
+        f"(L1, D-SSIM, LPIPS stand-in, sky, obj-acc, LiDAR depth): median "
+        f"{res['median']:.2f} ms (min {min(res['ms']):.2f}, max "
+        f"{max(res['ms']):.2f}) over 20 steps; max_memory_allocated "
+        f"{res['peak_gib']:.2f} GiB; TF32 off; card {gpu}")
+    log(f"[7] split, synchronised after each stage, mean of "
+        f"{res['n_split']} steps (ms; fg, sky and objects-only passes "
+        f"summed): " + "; ".join(f"{k} {v:.3f}"
+                                 for k, v in res["split"].items())
+        + f"; whole step with the syncs {res['whole']:.2f}")
+    one = res.pop("one")
 
     busy, wall, n, top = busy_share(lambda: [one() for _ in range(3)])
     if not n:
         log("[7] torch.profiler recorded no device kernels: busy share not "
             "measured")
-        return
+        return res
+    res["busy_share"] = busy / wall
     log(f"[7] torch.profiler over 3 steps: {n} device kernels, "
         f"{busy:.2f} ms busy of {wall:.2f} ms wall: device busy "
         f"{100 * busy / wall:.1f}%, idle "
         f"{100 - 100 * busy / wall:.1f}%; by kernel (ms, launches): "
         + "; ".join(f"{k[:48]} {v[0] / 1e3:.2f} x{v[1]}" for k, v in top))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2267,7 +2308,6 @@ class DistillProbe:
         tm.wrap(EN, "euler_edm_sample", "Euler steps")
         # the runs' set-up
         tm.wrap(T, "create_scene", "scene build")
-        tm.wrap(R, "create_scene", "scene build")
         tm.wrap(PC.PointCloudProcessor, "initialize_ply", "initialize_ply")
         tm.wrap(PM, "mean_dist2_knn3", "scene init KNN")
         tm.wrap(SC.Scene, "render_conditions", "train/test conditions")
@@ -2681,6 +2721,422 @@ def distill_main_path(G, tmp: str, gpu: str) -> tuple[dict, dict]:
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the cubemap sky, the colour MLPs, COLMAP points, virtual_warp
+# ---------------------------------------------------------------------------
+
+SKY_ITERS, SKY_RESUME = 30, 10
+COLMAP_POINTS = 50_000     # at most; the scene's LiDAR holds 20,000
+WARP_STEPS, WARP_SHIFT = 5, 2.0
+# one pass a step: the cubemap replaces the Gaussian sky's pass
+ONE_PASS = {"tile_worklist": 1, "pair_records": 1, "composite": 1,
+            "composite_backward": 1}
+
+
+def sky_color_config(tmp: str, source: str):
+    """Phase 6's GS settings (configs/waymo_val_base.yaml's) at SKY_ITERS,
+    with the cubemap sky at model.sky.resolution (1024), the colour MLP and
+    its sky MLP, COLMAP points, diffusion off; lambda_color_correction 0.1,
+    since only the regulariser reads the sky's MLP."""
+    from street_crafter_tpu_torch.config import default_config
+    cfg = train_config(default_config(), SKY_ITERS)
+    cfg.source_path = source
+    cfg.model_path = os.path.join(tmp, "sky_model")
+    cfg.device = "cuda"
+    cfg.data.cameras = [0, 1, 2]
+    cfg.data.use_colmap = True
+    cfg.optim.capacity_obj = 8192       # phase 3's, so phase 7 compares
+    cfg.model.sky.use_cube_map = True
+    cfg.model.use_color_correction = True
+    cfg.model.color_correction.use_mlp = True
+    cfg.model.color_correction.use_sky = True
+    cfg.optim.lambda_color_correction = 0.1
+    cfg.render.save_video = False
+    nv = cfg.render.novel_view
+    nv.steps, nv.shift = WARP_STEPS, [WARP_SHIFT]
+    return cfg
+
+
+def write_colmap_model(cfg) -> np.ndarray:
+    """A triangulated COLMAP text model under the scene's model path, as
+    the known-pose driver leaves it: the train cameras' poses, and up to
+    COLMAP_POINTS of the scene's background LiDAR points jittered by 5 cm
+    (triangulation noise) as its points. Returns their xyz (float32)."""
+    from street_crafter_tpu_torch.datasets.waymo import read_waymo_scene
+    from street_crafter_tpu_torch.utils.colmap_io import write_text_model
+    from street_crafter_tpu_torch.utils.ply import read_ply
+    lidar = os.path.join(cfg.source_path, "lidar", "background")
+    clouds = [read_ply(os.path.join(lidar, f))
+              for f in sorted(os.listdir(lidar))]
+    xyz = np.concatenate([c.points for c in clouds])
+    rgb = np.concatenate([c.colors for c in clouds])
+    rng = np.random.default_rng(17)
+    keep = rng.permutation(len(xyz))[:COLMAP_POINTS]
+    xyz = (xyz[keep] + rng.normal(0, 0.05, (len(keep), 3))).astype(
+        np.float32)
+    rgb = np.round(rgb[keep] * 255).astype(np.uint8)
+    info = read_waymo_scene(cfg.source_path, cameras=list(cfg.data.cameras),
+                            split_test=cfg.data.split_test)
+    cameras, images = {}, {}
+    for i, c in enumerate(info.train_cameras):
+        cam = c.metadata["cam"]
+        cameras[cam] = {"model": "SIMPLE_PINHOLE", "width": c.width,
+                        "height": c.height,
+                        "params": [c.K[0, 0], c.K[0, 2], c.K[1, 2]]}
+        w2c = np.eye(4)
+        w2c[:3, :3] = c.R.T
+        w2c[:3, 3] = c.T
+        images[i + 1] = {"name": f"cam_{cam}/{c.image_name}.png",
+                         "camera_id": cam, "w2c": w2c}
+    write_text_model(os.path.join(cfg.model_path, "colmap", "triangulated",
+                                  "sparse", "model"), cameras, images,
+                     points=(xyz, rgb, np.full(len(xyz), 0.5)))
+    return xyz
+
+
+class SkyProbe:
+    """Phase 17's instruments around the port's own functions: each GS
+    step's launches, time and passes (one, or two where the objects-only
+    regulariser runs its own), the launches of the train and test views'
+    condition renders, and the set-up's stages (synchronised)."""
+
+    def __init__(self):
+        import torch
+        from street_crafter_tpu_torch.data_processor import pointcloud as PC
+        from street_crafter_tpu_torch.models.gs import params as PM
+        from street_crafter_tpu_torch.runner import scene as SC
+        from street_crafter_tpu_torch.runner import train as T
+        self.torch = torch
+        self.timer = StageTimer()
+        tm = self.timer
+        tm.wrap(T, "create_scene", "scene build")
+        tm.wrap(PC.PointCloudProcessor, "initialize_ply", "initialize_ply")
+        tm.wrap(PM, "mean_dist2_knn3", "scene init KNN")
+        tm.wrap(T.GSTrainer, "__init__", "trainer init")
+        self.steps, self.conditions = [], []
+        self._patch(T.GSTrainer, "step_fn", self._step_fn)
+        self._patch(SC.Scene, "render_conditions", self._conditions)
+
+    def _patch(self, owner, attr, make):
+        orig = getattr(owner, attr)
+        self.timer._undo.append((owner, attr, orig))
+        setattr(owner, attr, make(orig))
+
+    def restore(self) -> None:
+        self.timer.restore()
+
+    def _conditions(self, orig):
+        def render_conditions(scene, *a, **kw):
+            before = counts_now()
+            out = orig(scene, *a, **kw)
+            self.conditions.append(counts_since(before))
+            return out
+        return render_conditions
+
+    def _step_fn(self, orig):
+        torch = self.torch
+
+        def step_fn(trainer, is_novel, sh, with_obj_acc=False):
+            step = orig(trainer, is_novel, sh, with_obj_acc)
+
+            def probed(*sa, **skw):
+                before = counts_now()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*sa, **skw)
+                torch.cuda.synchronize()
+                self.steps.append({
+                    "ms": 1e3 * (time.perf_counter() - t0),
+                    "passes": 1 + int(with_obj_acc),
+                    "launches": counts_since(before)})
+                return out
+            return probed
+        return step_fn
+
+
+def cubemap_lookup_ms(params, cam, gpu: str) -> None:
+    """The cubemap lookup and the colour MLPs alone at the step's shapes
+    (every pixel's ray into the trained texture), 10 calls under
+    torch.profiler: device-busy and wall ms a call of the forward, of the
+    forward + backward into the texture (index_add_ of 4 taps a pixel),
+    and of both MLPs' forward + backward into their weights."""
+    import torch
+    from street_crafter_tpu_torch.models.gs.color_mlp import apply_color_mlp
+    from street_crafter_tpu_torch.ops.cubemap import sample_cubemap
+    from street_crafter_tpu_torch.ops.maths import get_rays
+    w2c = cam.w2c
+    _, dirs = get_rays(cam.K, torch.linalg.inv(w2c), cam.height, cam.width)
+    tex = params.sky_cubemap.detach().clone().requires_grad_(True)
+    g = torch.rand((cam.height, cam.width, 3), device=tex.device)
+    mlps = [{k: v.detach().clone().requires_grad_(True) for k, v in
+             m.items()} for m in (params.color_mlp, params.color_mlp_sky)]
+
+    def lookup_fwd():
+        with torch.no_grad():
+            sample_cubemap(tex, dirs)
+
+    def lookup_fwd_bwd():
+        sample_cubemap(tex, dirs).backward(g)
+
+    def mlps_fwd_bwd():
+        sum(apply_color_mlp(m, w2c).sum() for m in mlps).backward()
+
+    out = {}
+    for name, fn in (("lookup forward", lookup_fwd),
+                     ("lookup forward + backward", lookup_fwd_bwd),
+                     ("MLPs forward + backward", mlps_fwd_bwd)):
+        fn()
+        busy, wall, n, _ = busy_share(lambda fn=fn: [fn() for _ in
+                                                     range(10)])
+        out[name] = {"device_ms": busy / 10, "wall_ms": wall / 10,
+                     "kernels": n // 10}
+    log(f"[17] alone, 10 calls under torch.profiler, device-busy / wall ms "
+        f"a call (kernels a call): "
+        + "; ".join(f"{k} {v['device_ms']:.3f} / {v['wall_ms']:.3f} "
+                    f"({v['kernels']})" for k, v in out.items())
+        + f"; the lookup: {cam.width}x{cam.height} rays into 6x"
+        f"{tex.shape[1]}x{tex.shape[2]}x3; {gpu}")
+
+
+def sky_color_main_path(G, tmp: str, gpu: str, phase7: dict) -> dict:
+    """Phase 17: runner.train.main from scene init with the cubemap sky,
+    the colour MLPs and COLMAP points, a resume, runner.render.main(
+    mode=virtual_warp) on the checkpoint, then the train step at phase 7's
+    shape with the cubemap and the MLPs. Returns the path's launches."""
+    import torch
+    from street_crafter_tpu_torch.config import save_config
+    from street_crafter_tpu_torch.datasets.synthetic import make_scene
+    from street_crafter_tpu_torch.models.gs.color_mlp import init_color_mlp
+    from street_crafter_tpu_torch.runner import render as R
+    from street_crafter_tpu_torch.runner import train as T
+    from street_crafter_tpu_torch.utils.ply import read_ply
+    from street_crafter_tpu_torch.utils.png import read_png
+    t0 = time.perf_counter()
+    source = make_scene(os.path.join(tmp, "sky_data"), num_frames=4,
+                        img_hw=(1280, 1920))
+    cfg = sky_color_config(tmp, source)
+    colmap_xyz = write_colmap_model(cfg)
+    path = os.path.join(tmp, "sky.json")
+    save_config(cfg, path)
+    log(f"[17] data: phase 3's synthetic scene (4 frames, cameras 0-2, "
+        f"1920x1280) and a COLMAP text model of {len(colmap_xyz)} points, "
+        f"in {time.perf_counter() - t0:.1f} s")
+    probe = SkyProbe()
+    G.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        trainer = T.main(["--config", path])
+        torch.cuda.synchronize()
+        wall_train = time.perf_counter() - t0
+        train_steps, setup = list(probe.steps), dict(probe.timer.ms)
+        peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
+        probe.steps.clear()
+        t0 = time.perf_counter()
+        resumed = T.main(["--config", path,
+                          f"train.iterations={SKY_ITERS + SKY_RESUME}"])
+        torch.cuda.synchronize()
+        wall_resume = time.perf_counter() - t0
+        resume_steps = list(probe.steps)
+        train_counts = dict(G.launches)
+        G.reset_launch_counts()
+        t0 = time.perf_counter()
+        warp = R.main(["--config", path, "mode=virtual_warp"])
+        torch.cuda.synchronize()
+        wall_warp = time.perf_counter() - t0
+        warp_counts = dict(G.launches)
+    finally:
+        probe.restore()
+    steps = train_steps + resume_steps
+    conditions = probe.conditions
+    cam = resumed.scene.train_cameras[0]
+    # every step: one pass (two with the objects-only regulariser), each
+    # launching A, the pack, B and C once; no plain version, and C on its
+    # forward's records (one pack a pass)
+    bad = [(i, s) for i, s in enumerate(steps)
+           if s["launches"] != {k: s["passes"] for k in ONE_PASS}]
+    if bad or len(steps) != SKY_ITERS + SKY_RESUME:
+        raise AssertionError(f"{len(steps)} GS steps; off one pass's "
+                             f"launches: {bad[:3]}")
+    plain = {k: v for k, v in train_counts.items()
+             if k.endswith("_reference")}
+    if plain:
+        raise AssertionError(f"the training path ran a plain version: "
+                             f"{plain}")
+    with open(os.path.join(cfg.model_path, "logs", "metrics.jsonl")) as f:
+        losses = [json.loads(x)["train/loss"] for x in f if "train/loss" in x]
+    if not (losses and np.isfinite(losses).all()):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    # the cubemap and every MLP leaf moved from their init
+    p = resumed.state.params
+    r = int(cfg.model.sky.resolution)
+    if p.sky is not None or p.sky_cubemap is None or \
+            tuple(p.sky_cubemap.shape) != (6, r, r, 3):
+        raise AssertionError("no cubemap sky, or a Gaussian sky pool")
+    moved = {"sky_cubemap": float((p.sky_cubemap.detach() - 0.5).abs().max())}
+    for name, seed in (("color_mlp", 0), ("color_mlp_sky", 1)):
+        init = init_color_mlp(torch.Generator().manual_seed(seed),
+                              p.sky_cubemap.device)
+        for k, v in getattr(p, name).items():
+            moved[f"{name}.{k}"] = float((v.detach() - init[k]).abs().max())
+    # the sky's MLP feeds only the colour regulariser |A - I|, which its
+    # zero output layer holds at its minimum, where torch's |x| passes no
+    # gradient (JAX's passes 1): it stays at its init, as in the reference
+    sky_mlp = {k: v for k, v in moved.items()
+               if k.startswith("color_mlp_sky.")}
+    still = [k for k, v in moved.items() if not v > 0 and k not in sky_mlp]
+    if still or any(sky_mlp.values()):
+        raise AssertionError(f"leaves that did not move: {still}; the sky "
+                             f"MLP's change {sky_mlp}")
+    ply_dir = os.path.join(cfg.model_path, "point_cloud",
+                           f"iteration_{SKY_ITERS}")
+    ll = read_png(os.path.join(ply_dir, "sky_latlong.png"))
+    if ll.shape != (512, 1024, 3) or not os.path.getsize(
+            os.path.join(ply_dir, "point_cloud.ply")) > 0:
+        raise AssertionError(f"latlong {ll.shape}, or no PLY")
+    inp = os.path.join(cfg.model_path, "input_ply")
+    col = read_ply(os.path.join(inp, "points3D_colmap.ply")).points
+    lidar = read_ply(os.path.join(inp, "points3D_lidar.ply")).points
+    bkgd = read_ply(os.path.join(inp, "points3D_bkgd.ply")).points
+    if not (np.array_equal(col, colmap_xyz)
+            and len(lidar) < len(bkgd) <= len(lidar) + len(col)):
+        raise AssertionError(f"the init PLY lacks the COLMAP points: lidar "
+                             f"{len(lidar)}, colmap {len(col)}, bkgd "
+                             f"{len(bkgd)}")
+    one_pass = sum(s["passes"] == 1 for s in steps)
+    ms1 = [s["ms"] for s in steps if s["passes"] == 1]
+    ms2 = [s["ms"] for s in steps if s["passes"] == 2]
+    log(f"[17] runner.train.main: {SKY_ITERS} iterations from scene init "
+        f"in {wall_train:.1f} s ({1e3 * wall_train / SKY_ITERS:.1f} "
+        f"ms/iteration incl. scene init, condition renders, eval, "
+        f"checkpoint, PLY and latlong), resumed at {resumed.start_iter} for "
+        f"{SKY_RESUME} in {wall_resume:.1f} s; GS steps at {cam.width}x"
+        f"{cam.height}: {one_pass} with one pass, median "
+        f"{statistics.median(ms1):.1f} ms, {len(ms2)} with the objects-only "
+        f"regulariser's second pass"
+        + (f", median {statistics.median(ms2):.1f} ms" if ms2 else "")
+        + f"; each pass one A, one pack, one B and one C, no plain "
+        f"version; max_memory_allocated {peak_train:.2f} GiB; {gpu}")
+    log(f"[17] loss every {cfg.train.log_interval} iterations: "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; cubemap |change| max {moved['sky_cubemap']:.4g}, every leaf "
+        f"of the colour MLP moved (least "
+        f"{min(v for k, v in moved.items() if k not in sky_mlp):.3g}), the "
+        f"sky's MLP at its init (no gradient); sky_latlong.png "
+        f"{ll.shape[1]}x{ll.shape[0]}; init PLY: {len(lidar)} LiDAR + "
+        f"{len(bkgd) - len(lidar)} of {len(col)} COLMAP points in the "
+        f"background; condition renders {conditions}")
+    log(f"[17] set-up of the two training runs (ms, synchronised): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in setup.items())
+        + f" (first run only); train wall {1e3 * wall_train:.1f}")
+
+    # virtual_warp: one source view and WARP_STEPS - 1 targets a front
+    # train camera, each rendered once (A, the pack and B), no backward
+    n_src = len(warp["out_dirs"])
+    n_views = n_src * WARP_STEPS
+    if not n_src or warp_counts != {"tile_worklist": n_views,
+                                    "pair_records": n_views,
+                                    "composite": n_views}:
+        raise AssertionError(f"virtual_warp: {n_src} sources, launches "
+                             f"{warp_counts}")
+    shares = []
+    for d in warp["out_dirs"].values():
+        for i in range(1, WARP_STEPS):
+            rgb = read_png(os.path.join(d, f"{i:04d}.png"))
+            cond = read_png(os.path.join(d, f"{i:04d}_condition.png"))
+            mask = read_png(os.path.join(d, f"{i:04d}_mask.png"))
+            if rgb.shape != (cam.height, cam.width, 3) or \
+                    cond.shape != rgb.shape or \
+                    mask.shape[:2] != rgb.shape[:2]:
+                raise AssertionError(f"virtual_warp PNG shapes {rgb.shape}, "
+                                     f"{cond.shape}, {mask.shape}")
+            share = float((mask > 0).mean())
+            if not 0.0 < share < 1.0:
+                raise AssertionError(f"virtual_warp mask {d} {i}: {share}")
+            shares.append(share)
+    log(f"[17] runner.render.main(mode=virtual_warp): {n_src} front source "
+        f"views x {WARP_STEPS - 1} targets (shift {WARP_SHIFT} m) at "
+        f"{cam.width}x{cam.height} in {wall_warp:.1f} s; ms per target view "
+        f"(its render and "
+        f"the warp, synchronised) "
+        + ", ".join(f"{x:.2f}" for x in warp["view_ms"])
+        + f"; valid-mask share {min(shares):.3f}-{max(shares):.3f}; "
+        f"launches {warp_counts}; {gpu}")
+    del trainer
+
+    # the train step at phase 7's shape, the cubemap and the colour MLPs in
+    # place of the Gaussian sky
+    sky_step_time(G, cfg, resumed, gpu, phase7)
+    cubemap_lookup_ms(p, cam, gpu)
+    del resumed
+    torch.cuda.empty_cache()
+    counts = {k: train_counts.get(k, 0) + warp_counts.get(k, 0)
+              for k in set(train_counts) | set(warp_counts)}
+    return counts
+
+
+def sky_step_time(G, cfg, trainer, gpu: str, phase7: dict) -> None:
+    """Phase 7's train step (the 600k pool in 2^20 background slots, the
+    actors, frame 0 of camera 0, the full loss stack) with the trained
+    cubemap and colour MLPs in place of the Gaussian sky pool; its split
+    beside phase 7's."""
+    import torch
+    from street_crafter_tpu_torch.models.gs.params import GaussianPool
+    scene = trainer.scene
+    dev = scene.device
+    infos = scene.info.train_cameras
+    i = min(range(len(infos)), key=lambda k: infos[k].uid)
+    cam, batch = scene.train_cameras[i], scene.batch_for(infos[i])
+    heavy = heavy_pool_in_camera(infos[i].c2w, dev, N_HEAVY)
+    pad = BKGD_CAPACITY - heavy.capacity
+    bkgd = GaussianPool(**{
+        k: torch.cat([v, torch.zeros((pad,) + v.shape[1:], dtype=v.dtype,
+                                     device=dev)])
+        for k, v in dataclasses.asdict(heavy).items()})
+    p = trainer.state.params
+
+    def leaf(x):
+        return ({k: v.detach().clone() for k, v in x.items()}
+                if isinstance(x, dict) else x.detach().clone())
+
+    C, F, A = scene.meta.track_valid.shape
+    params = dataclasses.replace(
+        p, bkgd=bkgd, actors=GaussianPool(**{
+            k: v.detach().clone()
+            for k, v in dataclasses.asdict(p.actors).items()}),
+        opt_trans=torch.zeros((C, F, A, 3), device=dev),
+        opt_theta=torch.zeros((C, F, A, 1), device=dev),
+        sky_cubemap=leaf(p.sky_cubemap), color_mlp=leaf(p.color_mlp),
+        color_mlp_sky=leaf(p.color_mlp_sky))
+    res = timed_train_step(G, cfg.clone(), scene, params, cam, batch, dev)
+    one = res.pop("one")
+    busy, wall, n, _ = busy_share(lambda: [one() for _ in range(3)])
+    res["busy_share"] = busy / wall if n else None
+    log(f"[17] train step at phase 7's shape ({N_HEAVY} splats in "
+        f"{BKGD_CAPACITY} bkgd slots + actors "
+        f"{tuple(params.actors.xyz.shape[:2])}, {cam.width}x{cam.height}, "
+        f"the full loss stack with the colour regulariser) with the "
+        f"cubemap sky 6x{cfg.model.sky.resolution}x"
+        f"{cfg.model.sky.resolution} and the colour MLPs: median "
+        f"{res['median']:.2f} ms (min {min(res['ms']):.2f}, max "
+        f"{max(res['ms']):.2f}) over 20 steps, phase 7 "
+        f"{phase7['median']:.2f}; max_memory_allocated "
+        f"{res['peak_gib']:.2f} GiB (phase 7 {phase7['peak_gib']:.2f}); "
+        + (f"device busy {100 * res['busy_share']:.1f}% over 3 steps "
+           f"(torch.profiler; phase 7 {100 * phase7['busy_share']:.1f}%)"
+           if res["busy_share"] and phase7.get("busy_share")
+           else "busy share not measured")
+        + f"; {gpu}")
+    keys = list(dict.fromkeys(list(res["split"]) + list(phase7["split"])))
+    log(f"[17] split beside phase 7's (ms a step, mean of {res['n_split']}, "
+        f"synchronised after each stage; phase 17: foreground and "
+        f"objects-only passes, phase 7: foreground, sky and objects-only): "
+        + "; ".join(f"{k} {res['split'].get(k, 0.0):.3f} | "
+                    f"{phase7['split'].get(k, 0.0):.3f}" for k in keys)
+        + f"; whole step with the syncs {res['whole']:.2f} | "
+        f"{phase7['whole']:.2f}; {gpu}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2815,7 +3271,7 @@ def main() -> None:
         train_counts = train_main_path(G, cfg.source_path, tmp, gpu)
 
         # ---- phase 7: the train step at the 600k shape --------------------
-        step_time(G, cfg, dev, gpu)
+        phase7 = step_time(G, cfg, dev, gpu)
 
     # ---- phase 8: kernels D, E, F vs plain versions -----------------------
     vdm_errs = compare_vdm_kernels()
@@ -2850,12 +3306,17 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_distill_") as tmp:
         distill_counts, cond_rows = distill_main_path(G, tmp, gpu)
 
+    # ---- phase 17: cubemap sky, colour MLPs, COLMAP points, virtual_warp -----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sky_") as tmp:
+        sky_counts = sky_color_main_path(G, tmp, gpu, phase7)
+
     # each main path's counts, read right after its own reset; "launches"
     # is their sum
     by_path = {name: {"render": render_counts.get(name, 0),
                       "train": train_counts.get(name, 0), "vdm_sample": 0,
                       "vdm_train": 0,
-                      "distill": distill_counts.get(name, 0)}
+                      "distill": distill_counts.get(name, 0),
+                      "sky_color": sky_counts.get(name, 0)}
                for name in REPLACES}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
@@ -2910,7 +3371,7 @@ def main() -> None:
                  "vdm_train": ft_counts.get(
                      "flash_attention_lse" if name == "flash_attention"
                      else name, 0),
-                 "distill": distill_counts.get(name, 0)}
+                 "distill": distill_counts.get(name, 0), "sky_color": 0}
         shapes = rounded(vdm_rows[name])
         if name == "flash_attention":
             shapes += [dict(r, path="vdm_train")
@@ -2934,7 +3395,7 @@ def main() -> None:
         head = ft_rows[name][0]
         paths = {"render": 0, "train": 0, "vdm_sample": 0,
                  "vdm_train": ft_counts.get(name, 0),
-                 "distill": distill_counts.get(name, 0)}
+                 "distill": distill_counts.get(name, 0), "sky_color": 0}
         kernels.append({
             "name": name, "route": "cuda",
             "source": VDM_SOURCES["flash_attention"],
@@ -2955,7 +3416,7 @@ def main() -> None:
             "replaces": VARIANT_REPLACES[r["variant"]],
             "launches": variant_counts.get(r["name"], 0),
             "launches_by_path": {"variant_bench": variant_counts.get(
-                r["name"], 0), "distill": 0},
+                r["name"], 0), "distill": 0, "sky_color": 0},
             "max_abs_err": r["max_abs_err"], "ms": round(r["ms"], 4),
             "plain_ms": round(r["plain_ms"], 4),
             "bound_ms": round(r["bound_ms"], 6), "bound_by": r["bound_by"],

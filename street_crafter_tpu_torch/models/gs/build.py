@@ -17,17 +17,9 @@ from ...datasets.cameras import Camera
 from ...datasets.readers import CameraInfo, SceneInfo
 from ...utils.ply import read_ply
 from ...utils.png import read_png
+from .color_mlp import init_color_mlp
 from .params import GaussianPool, init_pool_from_points, stack_pools
 from .scene import SceneMeta, SceneParams
-
-# ROADMAP.md queue 1 names these parts of slice 1 that are still to port
-NOT_PORTED = {
-    "sky_cubemap": "model.sky.use_cube_map (cubemap sky, ROADMAP queue 1, "
-                   "item 8a)",
-    "color_mlp": "model.color_correction.use_mlp (pose-conditioned colour "
-                 "MLP, ROADMAP queue 1, item 8b)",
-}
-
 
 def build_scene_meta(info: SceneInfo, fourier_scale: float = 1.0,
                      device: torch.device | str = "cpu") -> SceneMeta:
@@ -121,15 +113,6 @@ def build_meta(info: SceneInfo, ply_paths: dict[str, str], cfg: Config,
     return meta
 
 
-def check_ported(cfg: Config) -> None:
-    """Raise for the scene options whose parts are not ported yet."""
-    if cfg.model.nsg.include_sky and cfg.model.sky.use_cube_map:
-        raise NotImplementedError(NOT_PORTED["sky_cubemap"])
-    if (cfg.model.use_color_correction
-            and cfg.model.color_correction.get("use_mlp", False)):
-        raise NotImplementedError(NOT_PORTED["color_mlp"])
-
-
 def build_scene_params(info: SceneInfo, ply_paths: dict[str, str],
                        cfg: Config, device: torch.device | str = "cpu"
                        ) -> tuple[SceneParams, SceneMeta]:
@@ -149,10 +132,16 @@ def build_scene_params(info: SceneInfo, ply_paths: dict[str, str],
             meta = dataclasses.replace(meta, actor_random_init=torch.tensor(
                 random_init, device=device))
 
-    sky = None
-    if cfg.model.nsg.include_sky and "sky" in ply_paths:
-        sky = _pool_from_ply(ply_paths["sky"], int(cfg.optim.capacity_sky),
-                             sh_degree, device)
+    sky = sky_cubemap = None
+    if cfg.model.nsg.include_sky:
+        if cfg.model.sky.use_cube_map:
+            # the cubemap replaces the Gaussian sky pool
+            r = int(cfg.model.sky.resolution)
+            sky_cubemap = torch.full((6, r, r, 3), 0.5, device=device)
+        elif "sky" in ply_paths:
+            sky = _pool_from_ply(ply_paths["sky"],
+                                 int(cfg.optim.capacity_sky), sh_degree,
+                                 device)
 
     opt_trans = opt_theta = None
     if cfg.model.nsg.opt_track and actors is not None:
@@ -160,14 +149,20 @@ def build_scene_params(info: SceneInfo, ply_paths: dict[str, str],
         opt_trans = torch.zeros((C, F, A, 3), device=device)
         opt_theta = torch.zeros((C, F, A, 1), device=device)
 
-    color_corr = color_corr_sky = None
-    if cfg.model.use_color_correction:
-        n = (info.metadata["num_images"]
-             if cfg.model.color_correction.mode == "image"
+    color_corr = color_corr_sky = color_mlp = color_mlp_sky = None
+    cc = cfg.model.color_correction
+    if cfg.model.use_color_correction and cc.get("use_mlp", False):
+        # seeds 0 and 1, as the JAX package's PRNGKey(0) and PRNGKey(1)
+        color_mlp = init_color_mlp(torch.Generator().manual_seed(0), device)
+        if cc.use_sky:
+            color_mlp_sky = init_color_mlp(torch.Generator().manual_seed(1),
+                                           device)
+    elif cfg.model.use_color_correction:
+        n = (info.metadata["num_images"] if cc.mode == "image"
              else info.metadata["num_cams"])
         eye = torch.cat([torch.eye(3), torch.zeros(3, 1)], 1).to(device)
         color_corr = eye[None].repeat(n, 1, 1)
-        if cfg.model.color_correction.use_sky:
+        if cc.use_sky:
             color_corr_sky = eye[None].repeat(n, 1, 1)
 
     pose_quat = pose_trans = None
@@ -178,9 +173,10 @@ def build_scene_params(info: SceneInfo, ply_paths: dict[str, str],
 
     params = SceneParams(
         bkgd=bkgd, actors=actors, sky=sky, opt_trans=opt_trans,
-        opt_theta=opt_theta, sky_cubemap=None, color_corr=color_corr,
+        opt_theta=opt_theta, sky_cubemap=sky_cubemap, color_corr=color_corr,
         color_corr_sky=color_corr_sky, pose_corr_quat=pose_quat,
-        pose_corr_trans=pose_trans)
+        pose_corr_trans=pose_trans, color_mlp=color_mlp,
+        color_mlp_sky=color_mlp_sky)
     return params, meta
 
 

@@ -8,7 +8,11 @@ the port's own checkpoints, whose pools keep the saved sizes.
 ``train_state_from_dict`` / ``train_state_to_numpy`` do the same for the
 whole train state (parameters, per-pool and misc Adam moments and counts,
 densify statistics, step), so a JAX train state carries across and the
-tests compare both ways.
+tests compare both ways. The cubemap sky (``sky_cubemap``) and the colour
+MLPs (``color_mlp``, ``color_mlp_sky``: dicts of their weights) are leaves
+like any other; their moments sit in the misc Adam state under the
+trainer's names (``sky_cubemap``, ``color_mlp.w0``, ...). Leaves a state
+lacks stay None.
 """
 
 from __future__ import annotations

@@ -3,9 +3,14 @@
 
 - the foreground pass renders background + actors; a Gaussian sky is
   rendered in its own pass and blended behind: rgb += sky * (1 - acc);
+  a cubemap sky is looked up along each pixel's ray and blended behind
+  with acc detached, so the sky does not pull the foreground's alpha;
 - depth rides as a fourth colour channel and is normalized by alpha;
 - one raster path (``ops.gs_raster``): exact, never drops a splat; the
   hand-written CUDA kernels for CUDA tensors, plain torch for CPU tensors;
+- colour correction: a per-image (or per-camera) [3, 4] affine, or the
+  pose-conditioned MLP's affine of the camera (``cc_mat``, and
+  ``cc_mat_sky`` of the sky's MLP, returned for the regulariser);
 - differentiable end to end. The densification hooks are explicit inputs,
   as in the JAX package: ``viewspace_zero`` [N, 2] zeros added to the
   screen positions (u + viewspace_zero[:, 0]), whose gradient is
@@ -21,10 +26,11 @@ import torch
 
 from ...ops import quaternion as Q
 from ...ops import sh as SH
+from ...ops.cubemap import sample_cubemap
 from ...ops.gs_projection import Projection, project_gaussians
 from ...ops.gs_raster import rasterize_pixels
-from ...ops.maths import world_to_view
-from .build import NOT_PORTED
+from ...ops.maths import get_rays, world_to_view
+from .color_mlp import apply_color_mlp
 from .scene import FlatGaussians, SceneMeta, SceneParams, flatten_scene
 
 
@@ -109,10 +115,6 @@ def render_scene(
     white_background: bool = False,
 ) -> dict[str, Any]:
     """Full composition: foreground -> sky blend -> colour correction."""
-    if params.sky_cubemap is not None:
-        raise NotImplementedError(NOT_PORTED["sky_cubemap"])
-    if params.color_mlp is not None:
-        raise NotImplementedError(NOT_PORTED["color_mlp"])
     w2c = camera.w2c
     K = camera.K
     if params.pose_corr_quat is not None:
@@ -147,6 +149,15 @@ def render_scene(
         result["radii_sky"] = sky["radii"]
         result["visibility_sky"] = sky["visibility"]
         result["n_pairs"] += sky["n_pairs"]
+    elif include_sky and params.sky_cubemap is not None:
+        c2w = torch.eye(4, device=w2c.device)
+        c2w[:3, :3] = w2c[:3, :3].T
+        c2w[:3, 3] = cam_center
+        _, dirs = get_rays(K, c2w, camera.height, camera.width)
+        sky_rgb = sample_cubemap(params.sky_cubemap, dirs)
+        acc = result["acc"].detach()[..., None]
+        result["rgb"] = result["rgb"] + sky_rgb * (1.0 - acc)
+        result["sky_rgb"] = sky_rgb
     elif white_background:
         result["rgb"] = result["rgb"] + (1.0 - result["acc"][..., None])
 
@@ -154,6 +165,13 @@ def render_scene(
         cc = params.color_corr[image_idx]  # [3, 4]
         result["rgb"] = (torch.einsum("hwc,dc->hwd", result["rgb"], cc[:, :3])
                          + cc[:, 3])
+    elif params.color_mlp is not None:
+        cc = apply_color_mlp(params.color_mlp, w2c)
+        result["rgb"] = (torch.einsum("hwc,dc->hwd", result["rgb"], cc[:, :3])
+                         + cc[:, 3])
+        result["cc_mat"] = cc
+        if params.color_mlp_sky is not None:
+            result["cc_mat_sky"] = apply_color_mlp(params.color_mlp_sky, w2c)
     if clamp:
         result["rgb"] = torch.clamp(result["rgb"], 0.0, 1.0)
     return result

@@ -4,8 +4,10 @@
 - ``actors``: a stacked pool [A, cap_obj, ...] in per-object canonical
   frames, posed by a tracklet table [cams, frames, A] (quaternion + trans,
   with optional learnable residuals);
-- ``sky``: a Gaussian pool (the cubemap sky is not ported yet);
-- colour / pose corrections.
+- ``sky``: a Gaussian pool, or ``sky_cubemap``, an optimisable cubemap
+  texture in its place;
+- colour corrections (per-image affines or the pose-conditioned MLP) and
+  pose corrections.
 
 ``flatten_scene`` produces one flat Gaussian soup for the rasterizer; actor
 visibility per camera and frame is a validity mask.
@@ -35,12 +37,12 @@ class SceneParams:
     sky: GaussianPool | None
     opt_trans: torch.Tensor | None       # [C, F, A, 3] tracklet residual
     opt_theta: torch.Tensor | None       # [C, F, A, 1] yaw residual
-    sky_cubemap: torch.Tensor | None     # [6, R, R, 3] (not ported yet)
+    sky_cubemap: torch.Tensor | None     # [6, R, R, 3] texture
     color_corr: torch.Tensor | None      # [M, 3, 4] affine per image/sensor
     color_corr_sky: torch.Tensor | None  # [M, 3, 4]
     pose_corr_quat: torch.Tensor | None  # [M, 4]
     pose_corr_trans: torch.Tensor | None  # [M, 3]
-    color_mlp: dict | None = None        # pose-conditioned MLP (not ported)
+    color_mlp: dict | None = None        # pose-conditioned MLP {w0, b0, ..}
     color_mlp_sky: dict | None = None
 
 

@@ -1,10 +1,11 @@
 """Scene orchestrator: dataset + pools + processor wired together (port of
 ``street_crafter_tpu/runner/scene.py``).
 
-Reads the processed scene dir, writes or reuses the input plys, builds the
-scene tensors on ``cfg.device`` and the camera lists. With
-``init_params=False`` only the scene meta is built; the render runner takes
-the parameters, at their saved sizes, from a checkpoint.
+Reads the processed scene dir, writes or reuses the input plys (with
+``data.use_colmap``, the COLMAP triangulation's points join the
+background's), builds the scene tensors on ``cfg.device`` and the camera
+lists. With ``init_params=False`` only the scene meta is built; the render
+runner takes the parameters, at their saved sizes, from a checkpoint.
 """
 
 from __future__ import annotations
@@ -17,10 +18,11 @@ import torch
 
 from ..config import Config
 from ..data_processor import get_pointcloud_processor
+from ..data_processor.colmap_driver import load_colmap_points, run_colmap
 from ..datasets.readers import CameraInfo, SceneInfo
 from ..datasets.waymo import read_waymo_scene
 from ..models.gs.build import (auto_downscale, build_meta,
-                               build_scene_params, camera_batch, check_ported,
+                               build_scene_params, camera_batch,
                                to_device_camera)
 from ..models.gs.scene import SceneMeta, SceneParams
 
@@ -35,7 +37,6 @@ class Scene:
         os.makedirs(self.model_path, exist_ok=True)
         if cfg.data.type.lower() != "waymo":
             raise ValueError(f"unsupported dataset type {cfg.data.type!r}")
-        check_ported(cfg)
 
         shift = cfg.render.novel_view.shift
         selected = tuple(cfg.data.selected_frames)
@@ -55,9 +56,6 @@ class Scene:
 
         self.processor = None
         if need_processor:
-            if cfg.data.use_colmap:
-                raise NotImplementedError(
-                    "data.use_colmap (COLMAP points, not ported yet)")
             start = self.info.metadata["start_frame"]
             self.processor = get_pointcloud_processor(
                 cfg.data.type, cfg.source_path,
@@ -65,8 +63,18 @@ class Scene:
                 selected_frames=(start,
                                  start + self.info.metadata["num_frames"] - 1),
                 delta_frames=cfg.data.delta_frames, device=self.device)
+            colmap_points = None
+            if cfg.data.use_colmap:
+                # an existing triangulation, else one made now (needs the
+                # colmap binary; raises without it)
+                colmap_points = load_colmap_points(self.model_path)
+                if colmap_points is None:
+                    run_colmap(self.info.train_cameras,
+                               os.path.join(self.model_path, "colmap"))
+                    colmap_points = load_colmap_points(self.model_path)
             ply_paths = self.processor.initialize_ply(
-                self.model_path, self.info.metadata["obj_meta"])
+                self.model_path, self.info.metadata["obj_meta"],
+                colmap_points=colmap_points)
         else:
             # render mode: reuse the input plys written at train time
             ply_paths = {

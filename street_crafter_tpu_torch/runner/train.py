@@ -10,7 +10,8 @@ lane-shifted novel views, SDS-initialised from the current render, at an
 SDS scale interpolated between ``sds_scales``' max and min; a resume just
 after an event runs it again, since novel images are not checkpointed),
 eval (PSNR and L1 on the test cameras), checkpoints with the whole train
-state (``resume: true`` continues at ``it + 1``) and the 3DGS PLY export.
+state (``resume: true`` continues at ``it + 1``) and the 3DGS PLY export
+(with a cubemap sky, its 512x1024 latlong PNG beside the PLY).
 The LiDAR condition PNGs of the train and test cameras are written first
 when the diffusion or the LiDAR depth loss needs them. Runs on
 ``cfg.device`` (``cuda`` unless the config says ``cpu``).
@@ -245,6 +246,15 @@ class GSTrainer:
         path = os.path.join(self.scene.model_path, "point_cloud",
                             f"iteration_{iteration}", "point_cloud.ply")
         export_gaussians_ply(path, pools)
+        if params.sky_cubemap is not None:
+            # the cubemap sky's latlong view beside the PLY
+            from ..ops.cubemap import latlong_from_cubemap
+            from ..utils.png import write_png
+            with torch.no_grad():
+                ll = latlong_from_cubemap(params.sky_cubemap, 512, 1024)
+            write_png(os.path.join(os.path.dirname(path), "sky_latlong.png"),
+                      (np.clip(ll.cpu().numpy(), 0, 1) * 255).astype(
+                          np.uint8))
         return path
 
     def _log_eval_image(self, metrics: MetricsLogger, iteration: int,

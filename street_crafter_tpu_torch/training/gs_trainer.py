@@ -1,7 +1,8 @@
 """3DGS trainer: the train step, densify step and opacity reset (port of
 ``street_crafter_tpu/training/gs_trainer.py``).
 
-A train step renders (foreground with posed actors, then the Gaussian sky),
+A train step renders (foreground with posed actors, then the Gaussian sky
+or the cubemap lookup),
 computes the loss stack, runs autograd (kernel C for the compositing
 backward on the card), applies per-group masked Adam in place and
 accumulates the densification statistics. Screen-space gradients for
@@ -32,9 +33,11 @@ from ..models.gs.renderer import render_scene
 from ..models.gs.scene import SceneMeta, SceneParams
 
 POOLS = ("bkgd", "actors", "sky")
-# scene-level leaves optimised by one Adam group each (``adam_misc``)
+# scene-level leaves optimised by one Adam group each (``adam_misc``); the
+# colour MLPs' weights are leaves ``color_mlp.w0``, ``color_mlp.b0``, ...
 MISC = ("opt_trans", "opt_theta", "sky_cubemap", "color_corr",
-        "color_corr_sky", "pose_corr_quat", "pose_corr_trans")
+        "color_corr_sky", "pose_corr_quat", "pose_corr_trans", "color_mlp",
+        "color_mlp_sky")
 
 
 @dataclasses.dataclass
@@ -51,8 +54,14 @@ class GSTrainState:
 
 
 def misc_params(params: SceneParams) -> dict[str, torch.Tensor]:
-    return {k: getattr(params, k) for k in MISC
-            if getattr(params, k) is not None}
+    out = {}
+    for k in MISC:
+        x = getattr(params, k)
+        if isinstance(x, dict):
+            out.update({f"{k}.{sub}": v for sub, v in x.items()})
+        elif x is not None:
+            out[k] = x
+    return out
 
 
 def trainable_leaves(params: SceneParams) -> list[torch.Tensor]:
@@ -152,16 +161,24 @@ def make_train_step(cfg: Config, meta: SceneMeta | None,
             white_background=bool(cfg.data.white_background), **kw)
         acc_obj = None
         if with_obj_acc and params.actors is not None:
-            # objects-only pass for the acc-entropy regulariser
-            acc_obj = render_scene(params, meta, camera, include_bkgd=False,
+            # objects-only pass for the acc-entropy regulariser; its alpha
+            # does not depend on colour correction, so none is evaluated
+            plain = dataclasses.replace(params, color_corr=None,
+                                        color_mlp=None, color_mlp_sky=None)
+            acc_obj = render_scene(plain, meta, camera, include_bkgd=False,
                                    include_sky=False, **kw)["acc"]
+        cc_reg, cc_reg_sky = params.color_corr, params.color_corr_sky
+        if cc_reg is None and "cc_mat" in out:
+            # MLP mode: the regulariser holds the evaluated affine
+            cc_reg = out["cc_mat"][None]
+            cc_reg_sky = (out["cc_mat_sky"][None] if "cc_mat_sky" in out
+                          else None)
         loss, scalars = compute_train_loss(
             out, batch, weights, is_novel=is_novel, lpips_fn=lpips_fn,
             scene_scaling=(params.bkgd.get_scaling()
                            if params.bkgd is not None else None),
             scene_valid=params.bkgd.valid if params.bkgd is not None else None,
-            color_corr=params.color_corr, color_corr_sky=params.color_corr_sky,
-            acc_obj=acc_obj)
+            color_corr=cc_reg, color_corr_sky=cc_reg_sky, acc_obj=acc_obj)
         loss.backward()
 
         # gsplat's pixel-unit screen gradients -> the reference's

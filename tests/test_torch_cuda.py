@@ -1,6 +1,6 @@
 """The CUDA kernels of street_crafter_tpu_torch (raster A-C, also at the
-LiDAR condition render's shape, and kernel A's row-compaction variants,
-attention D,
+LiDAR condition render's shape and in a GS step with the cubemap sky and
+the colour MLPs, and kernel A's row-compaction variants, attention D,
 its backward G and H, temporal stage E and F and the GEMM they chain)
 against their plain torch versions on a CUDA device. Marked ``cuda``; each
 test skips when no CUDA device is present. On the GPU machine:
@@ -807,3 +807,77 @@ def test_attention_kernels_refuse_unaligned_tensors(cuda, kernel):
         else:
             FA._flash_bwd_dq_cuda(q, k, v, shifted, lse, lse)
     assert not FA.launches
+
+
+def sky_mlp_step(device):
+    """One GS train step with the cubemap sky, the colour MLP and the sky's
+    MLP, on ``device``, from a seeded state: (launch counts, the first
+    Adam moments of the texture and of every MLP leaf, = 0.1 x their
+    gradients)."""
+    from street_crafter_tpu_torch.config import default_config
+    from street_crafter_tpu_torch.datasets.cameras import Camera
+    from street_crafter_tpu_torch.models.gs.color_mlp import init_color_mlp
+    from street_crafter_tpu_torch.models.gs.params import \
+        init_pool_from_points
+    from street_crafter_tpu_torch.models.gs.scene import SceneParams
+    from street_crafter_tpu_torch.training.gs_trainer import (
+        init_train_state, make_train_step)
+    rng = np.random.default_rng(6)
+    n = 4000
+    pts = np.stack([rng.uniform(-6, 6, n), rng.uniform(-1, 3, n),
+                    rng.uniform(6, 30, n)], -1).astype(np.float32)
+    bkgd = init_pool_from_points(pts, rng.uniform(size=(n, 3)),
+                                 capacity=n, sh_degree=1, device=device)
+
+    def mlp(seed):
+        g = torch.Generator().manual_seed(seed)
+        return {k: (v + 0.05 * torch.randn(v.shape, generator=g)).to(device)
+                for k, v in init_color_mlp(g).items()}
+
+    params = SceneParams(
+        bkgd=bkgd, actors=None, sky=None, opt_trans=None, opt_theta=None,
+        sky_cubemap=torch.tensor(rng.uniform(0.1, 0.9, (6, 64, 64, 3)),
+                                 dtype=torch.float32, device=device),
+        color_corr=None, color_corr_sky=None, pose_corr_quat=None,
+        pose_corr_trans=None, color_mlp=mlp(0), color_mlp_sky=mlp(1))
+    cfg = default_config()
+    cfg.model.gaussian.sh_degree = 1
+    cfg.optim.lambda_lpips = 0.0
+    cfg.optim.lambda_color_correction = 0.1
+    W, H = 320, 192
+    K = np.array([[260.0, 0, W / 2], [0, 260.0, H / 2], [0, 0, 1]],
+                 np.float32)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 3] = [0.2, -0.1, 0.3]
+    cam = Camera.from_c2w(c2w, K, W, H, device=device)
+    batch = {"frame_idx": 0, "frame": 0.0, "cam_id": 0, "timestamp": 0.0,
+             "image_idx": 0, "gt_image": torch.tensor(
+                 rng.uniform(size=(H, W, 3)), dtype=torch.float32,
+                 device=device)}
+    state = init_train_state(params)
+    step = make_train_step(cfg, None, spatial_lr_scale=1.0,
+                           active_sh_degree=1)
+    G.reset_launch_counts()
+    step(state, cam, batch)
+    return dict(G.launches), {k: v.cpu() for k, v in state.adam_misc.m.items()}
+
+
+def test_gs_step_with_cubemap_and_mlp(cuda):
+    """A GS step with the cubemap sky and the colour MLPs on the card: one
+    rasterization (kernels A, the pack, B and C once each, no plain
+    version; C on its forward's records, so one pack), and the texture's
+    and every MLP leaf's gradient as on the CPU's plain path to 1e-3 of
+    each leaf's largest (the kernels' f32 sums run in another order)."""
+    counts, got = sky_mlp_step(cuda)
+    assert counts == {"tile_worklist": 1, "pair_records": 1, "composite": 1,
+                      "composite_backward": 1}
+    plain_counts, want = sky_mlp_step(torch.device("cpu"))
+    assert plain_counts == {"tile_worklist_reference": 1,
+                            "composite_reference": 1,
+                            "composite_backward_reference": 1}
+    assert sorted(got) == sorted(want) and "sky_cubemap" in got
+    assert len(got) == 1 + 2 * 8
+    for k, w in want.items():
+        assert w.abs().max() > 0, k
+        err = (got[k] - w).abs().max() / w.abs().max()
+        assert err < 1e-3, (k, float(err))

@@ -246,11 +246,10 @@ def test_render_main_novel_view_and_unported_modes(port_model):
     assert len(res["out_dirs"]) == 1
     assert len(os.listdir(os.path.join(res["out_dirs"][0], "rgb"))) == \
         len(scene.info.novel_view_cameras)
-    # mode diffusion is ported (tests/test_torch_distill.py)
-    with pytest.raises(NotImplementedError, match="trajectory"):
-        main(["--config", path, "mode=virtual_warp"])
-    with pytest.raises(NotImplementedError, match="cubemap"):
-        main(["--config", path, "model.sky.use_cube_map=true"])
+    # modes diffusion and virtual_warp are ported (tests/test_torch_distill.py,
+    # tests/test_torch_warp.py); a mode the entry point lacks still raises
+    with pytest.raises(NotImplementedError, match="virtual_warp"):
+        main(["--config", path, "mode=no_such_mode"])
 
 
 def test_port_imports_no_jax():

@@ -353,7 +353,11 @@ from street_crafter_tpu_torch.utils import gs_ply, metrics  # noqa: F401
 from street_crafter_tpu_torch.runner import diffusion, render  # noqa: F401
 from street_crafter_tpu_torch.ops import point_raster  # noqa: F401
 from street_crafter_tpu_torch.data_processor import (  # noqa: F401
-    pointcloud, render_lidar)
+    pointcloud, render_lidar, colmap_driver, colmap_convert)
+from street_crafter_tpu_torch.ops import cubemap, warp  # noqa: F401
+from street_crafter_tpu_torch.models.gs import color_mlp  # noqa: F401
+from street_crafter_tpu_torch.utils import colmap_io  # noqa: F401
+from street_crafter_tpu_torch.visualizers import compare  # noqa: F401
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "street_crafter_tpu"))
 assert not bad, bad
