@@ -43,14 +43,14 @@ Phases, one status line each; any failure raises (exit code != 0):
      pixel-splat pairs in the lists, left by the per-warp cull, in the
      pixels' prefixes and contributing;
   6. the training main path: runner.train.main on the synthetic scene from
-     scene init, configs/waymo_val_base.yaml's GS settings, 150 iterations
-     at 1600x1067 (densify at 50, 75 and 100, an opacity reset at 75,
-     eval, checkpoint and PLY at 150), then 10 more resumed from that
-     checkpoint, and runner.render.main(mode=trajectory) on it; the LiDAR
-     condition PNGs of the train and test cameras are rendered (kernels A,
-     the pack and B, 4 channels) before the training run. The loss
-     must stay finite, train-view PSNR must rise, densify must change the
-     valid count, every step must launch kernel C, never the plain
+     scene init, configs/waymo_val_base.yaml's GS settings, TRAIN_ITERS
+     (60) iterations at 1600x1067 (densify at 20, 30 and 40, an opacity
+     reset at 30, eval, checkpoint and PLY at 60), then 10 more resumed
+     from that checkpoint, and runner.render.main(mode=trajectory) on it;
+     the LiDAR condition PNGs of the train and test cameras are rendered
+     (kernels A, the pack and B, 4 channels) before the training run. The
+     loss must stay finite, train-view PSNR must rise, densify must change
+     the valid count, every step must launch kernel C, never the plain
      backward, and kernel C must read the records its forward packed (no
      more packs than kernel B calls);
   7. the train step at the shape users pay for: the 600k-splat pool in a
@@ -157,6 +157,31 @@ Phases, one status line each; any failure raises (exit code != 0):
      phase 7's train step with the cubemap and the MLPs in place of the
      sky pool: median, peak memory and the split beside phase 7's, and the
      cubemap lookup and the MLPs alone (forward, backward) by CUDA events.
+ 18. data-parallel training (street_crafter_tpu_torch/parallel/). (a),
+     right after phase 7: phase 7's step at train.batch_size 2 (the
+     headline camera and a second train camera), on one rank: the median
+     of DP_STEPS synchronised steps after a warm-up and the peak beside
+     phase 7's, and every kernel of one camera's step launched twice a
+     step, no plain version. (b): runner.train.main at train.batch_size 2
+     on phase 6's scene data from scene init, DP_MAIN_ITERS iterations
+     across densifies: finite losses, the pools changed, kernel C in
+     every step on its forward's records. (c), after phase 17: two ranks
+     spawned with a file:// rendezvous share the card through gloo (NCCL
+     refuses two ranks on one device): the bridge's x2 kernel (X1) on each
+     rank's shard of [2, 8, 128], gathered: 2 x, and the kernel equal to
+     its plain version (with a probe of gloo's reduce_scatter on CUDA
+     tensors); DP_GS_ORDER's batch-2 GS steps on phase 2's 50k splats at
+     384x256 with a densify: the ranks' states bit-equal, and within
+     DP_GS_TOL of each leaf's largest |value| of a one-rank run; the
+     fine-tune at full width (phase 12's engine and recipe) under
+     vdm_train.fsdp with one clip a rank: one step, its time, the
+     gradient all-reduce's and the master gathers' times, each rank's
+     peak, then the ranks' masters against one rank's step over both
+     clips with accumulate 2 from the same weights and draws (within
+     VDM_UPDATE_RTOL of each leaf's update, still leaves bit-equal), and
+     D-with-lse / G / H launched 25 / 15 / 15 times a rank. The kernels
+     line's launches_by_path gains "data_parallel" ((a) + (b) + (c)'s
+     ranks), and a "kernel_shard" row for x2.
 Kernel builds, launches and comparisons raise on failure; no phase catches
 its own. TF32 is off for matmuls and cuDNN convolutions throughout.
 The last three lines: the card's name and power limit, a JSON object of
@@ -190,9 +215,9 @@ GRAD_RTOL = 1e-4
 N_SMALL, W_SMALL, H_SMALL = 50_000, 384, 256
 N_HEAVY = 600_000
 BKGD_CAPACITY = 2 ** 20     # phase 7: the 600k pool inside a fixed capacity
-# phase 6's depth (300 and 20 until phase 16 came: cut to keep the script
-# inside its time limit)
-TRAIN_ITERS, RESUME_ITERS = 150, 10
+# phase 6's depth (300 until phase 16 came, 150 until phase 18 came: cut to
+# keep the script inside its time limit)
+TRAIN_ITERS, RESUME_ITERS = 60, 10
 SOURCE = "street_crafter_tpu_torch/csrc/gs_raster.cu"
 REPLACES = {"tile_worklist": "street_crafter_tpu/ops/gs_raster_fused.py:86",
             # the pack of pair records B and C read: the first part of
@@ -1019,22 +1044,35 @@ def timed_train_step(G, tcfg, scene, params, cam, batch, dev) -> dict:
             "n_split": n_split, "one": one}
 
 
+def padded_pool(pool, capacity: int, dev):
+    """``pool`` in ``capacity`` slots, the new ones zero (invalid)."""
+    import torch
+    from street_crafter_tpu_torch.models.gs.params import GaussianPool
+    pad = capacity - pool.capacity
+    return GaussianPool(**{
+        k: torch.cat([v, torch.zeros((pad,) + v.shape[1:], dtype=v.dtype,
+                                     device=dev)])
+        for k, v in dataclasses.asdict(pool).items()})
+
+
+def phase7_inputs(cfg, dev) -> tuple:
+    """(scene, params, camera, batch, train config) of phase 7's step: the
+    headline frame, the 600k pool in BKGD_CAPACITY slots, track
+    residuals."""
+    import torch
+    scene, params, cam, batch = headline_scene(cfg, dev)
+    C, F, A = scene.meta.track_valid.shape
+    params = dataclasses.replace(
+        params, bkgd=padded_pool(params.bkgd, BKGD_CAPACITY, dev),
+        opt_trans=torch.zeros((C, F, A, 3), device=dev),
+        opt_theta=torch.zeros((C, F, A, 1), device=dev))
+    return scene, params, cam, batch, train_config(cfg.clone())
+
+
 def step_time(G, cfg, dev, gpu: str) -> dict:
     """Phase 7: the trainer's own train step on the 600k pool. Returns
     the step's numbers (phase 17 prints its split beside them)."""
-    import torch
-    from street_crafter_tpu_torch.models.gs.params import GaussianPool
-    scene, params, cam, batch = headline_scene(cfg, dev)
-    pad = BKGD_CAPACITY - params.bkgd.capacity
-    bkgd = GaussianPool(**{
-        k: torch.cat([v, torch.zeros((pad,) + v.shape[1:], dtype=v.dtype,
-                                     device=dev)])
-        for k, v in dataclasses.asdict(params.bkgd).items()})
-    C, F, A = scene.meta.track_valid.shape
-    params = dataclasses.replace(
-        params, bkgd=bkgd, opt_trans=torch.zeros((C, F, A, 3), device=dev),
-        opt_theta=torch.zeros((C, F, A, 1), device=dev))
-    tcfg = train_config(cfg.clone())
+    scene, params, cam, batch, tcfg = phase7_inputs(cfg, dev)
     res = timed_train_step(G, tcfg, scene, params, cam, batch, dev)
     log(f"[7] train step, {N_HEAVY} splats in {BKGD_CAPACITY} bkgd slots + "
         f"actors {tuple(params.actors.xyz.shape[:2])} + sky "
@@ -3137,6 +3175,538 @@ def sky_step_time(G, cfg, trainer, gpu: str, phase7: dict) -> None:
         f"{phase7['whole']:.2f}; {gpu}")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: data-parallel training: camera-batched GS steps on one card, then
+# two gloo ranks sharing it (the bridge's x2, GS, the fine-tune under FSDP)
+
+DP_B = 2                  # cameras a GS step, clips a fine-tune step
+DP_STEPS = 5              # (a): timed steps at batch_size 2, after a warm-up
+DP_MAIN_ITERS = 12        # (b): runner.train.main at batch_size 2
+# (c)'s GS run: phase 2's 50k splats in 65,536 slots at 384x256, four
+# cameras, DP_GS_ORDER's pairs, a densify after the third step
+DP_GS = {"n": N_SMALL, "capacity": 65536, "width": W_SMALL,
+         "height": H_SMALL}
+DP_GS_ORDER = [[0, 1], [2, 3], [1, 2], [3, 0], [0, 2]]
+DP_GS_DENSIFY_AFTER = 2
+# two ranks against one: kernel C adds per-splat gradients with atomics in a
+# run-dependent order, and Adam turns a near-zero gradient's sign into a
+# full step: each leaf within 2e-3 of its largest |value| (the one-step
+# tolerance against JAX of tests/test_torch_train.py)
+DP_GS_TOL = 2e-3
+# (c)'s fine-tune: phase 12's engine and recipe, one clip a rank
+DP_VDM = {"frames": 25, "height": 576, "width": 1024}
+# of each leaf's update (the fine-tune's tolerance in
+# tests/test_torch_vdm_train.py)
+VDM_UPDATE_RTOL = 1e-3
+X1_SHAPE = (DP_B, 8, 128)
+X1_SOURCE = "street_crafter_tpu_torch/csrc/kernel_shard.cu"
+X1_REPLACES = "__graft_entry__.py:301"
+DP_TIMEOUT_S = 900.0
+
+
+def launches_now() -> dict:
+    from street_crafter_tpu_torch.parallel import kernel_shard as KS
+    return {**counts_now(), **KS.launches}
+
+
+def reset_launches() -> None:
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    from street_crafter_tpu_torch.ops import gs_raster as G
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    from street_crafter_tpu_torch.parallel import kernel_shard as KS
+    for m in (G, FA, TB, KS):
+        m.reset_launch_counts()
+
+
+def device_sync(dev):
+    import torch
+    return torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+
+def check_kernels_only(counts: dict, dev, what: str) -> None:
+    if dev.type == "cuda" and any(k.endswith("_reference") for k in counts):
+        raise AssertionError(f"{what} ran a plain version: {counts}")
+
+
+def dp_step_time(G, cfg, dev, gpu: str, phase7: dict) -> dict:
+    """Phase 18 (a): phase 7's step at batch_size 2 (the headline camera
+    and a second train camera of its size), on one rank: one warm-up, then
+    DP_STEPS synchronised steps (median, peak memory) beside phase 7's;
+    every kernel of one camera's step launched twice a step. Returns the
+    launch counts of the timed steps."""
+    import torch
+    from street_crafter_tpu_torch.ops.lpips import random_feature_lpips
+    from street_crafter_tpu_torch.training import gs_trainer as GT
+    scene, params, cam, batch, tcfg = phase7_inputs(cfg, dev)
+    infos = scene.info.train_cameras
+    cams = dict(zip((i.uid for i in infos), scene.train_cameras))
+    other = next(i for i in infos
+                 if cams[i.uid].width == cam.width
+                 and cams[i.uid].height == cam.height
+                 and not torch.equal(cams[i.uid].w2c, cam.w2c))
+    cameras = [cam, cams[other.uid]]
+    batches = [batch, scene.batch_for(other)]
+    state = GT.init_train_state(params)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kw = dict(spatial_lr_scale=scene.extent,
+              lpips_fn=random_feature_lpips(device=dev), active_sh_degree=1,
+              with_obj_acc=True, generator=gen)
+    single = GT.make_train_step(tcfg, scene.meta, **kw)
+    step = GT.make_train_step(tcfg, scene.meta, batch_size=DP_B, **kw)
+    G.reset_launch_counts()
+    single(state, cam, batch)
+    torch.cuda.synchronize()
+    per_camera = dict(G.launches)
+    step(state, cameras, batches)           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    G.reset_launch_counts()
+    ms = []
+    for _ in range(DP_STEPS):
+        t0 = time.perf_counter()
+        step(state, cameras, batches)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    counts = dict(G.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: DP_STEPS * DP_B * v for k, v in per_camera.items()}
+    check_kernels_only(counts, dev, "the batch step")
+    if counts != want or not want.get("composite_backward"):
+        raise AssertionError(f"the batch step's launches {counts}, expected "
+                             f"{DP_B} cameras' worth of one camera's "
+                             f"{per_camera} a step")
+    log(f"[18] (a) train step at batch_size {DP_B} (phase 7's shape: "
+        f"{N_HEAVY} splats in {BKGD_CAPACITY} slots, {cam.width}x"
+        f"{cam.height}, full loss stack, one rank): median "
+        f"{statistics.median(ms):.2f} ms (min {min(ms):.2f}, max "
+        f"{max(ms):.2f}) over {DP_STEPS} steps after a warm-up, "
+        f"{statistics.median(ms) / DP_B:.2f} ms a camera; phase 7's one "
+        f"camera {phase7['median']:.2f} ms; max_memory_allocated "
+        f"{peak:.2f} GiB (phase 7 {phase7['peak_gib']:.2f}); launches a "
+        f"step {({k: v // DP_STEPS for k, v in counts.items()})}; {gpu}")
+    return counts
+
+
+def dp_train_main(G, source_path: str, tmp: str, gpu: str) -> dict:
+    """Phase 18 (b): runner.train.main at train.batch_size 2 on phase 6's
+    scene data from scene init, DP_MAIN_ITERS iterations (phase 6's
+    schedule compressed: densify at 4, 6 and 8, an opacity reset at 6).
+    Returns its launch counts."""
+    import torch
+    from street_crafter_tpu_torch.config import default_config, save_config
+    from street_crafter_tpu_torch.runner import train as T
+    cfg = train_config(default_config(), DP_MAIN_ITERS)
+    cfg.source_path = source_path
+    cfg.model_path = os.path.join(tmp, "dp_train_model")
+    cfg.device = "cuda"
+    cfg.data.cameras = [0, 1, 2]
+    cfg.render.save_video = False
+    cfg.train.batch_size = DP_B
+    path = os.path.join(tmp, "dp_train.json")
+    save_config(cfg, path)
+    valid = []
+    densify = T.GSTrainer.densify
+
+    def probe(self):
+        before = n_valid(self.state.params)
+        out = densify(self)
+        valid.append((before, n_valid(self.state.params)))
+        return out
+    T.GSTrainer.densify = probe
+    G.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = T.main(["--config", path])
+        torch.cuda.synchronize()
+    finally:
+        T.GSTrainer.densify = densify
+    wall = time.perf_counter() - t0
+    counts = dict(G.launches)
+    losses = []
+    with open(os.path.join(cfg.model_path, "logs", "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "train/loss" in rec:
+                losses.append(rec["train/loss"])
+    log(f"[18] (b) runner.train.main at train.batch_size {DP_B}: "
+        f"{DP_MAIN_ITERS} iterations in {wall:.1f} s from scene init "
+        f"(condition renders, eval, checkpoint and PLY inside); losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; valid splats around each densify {valid}; launches {counts}; "
+        f"{gpu}")
+    if trainer.state.step != DP_MAIN_ITERS or not losses or \
+            not all(np.isfinite(losses)):
+        raise AssertionError(f"step {trainer.state.step}, losses {losses}")
+    if not valid or all(a == b for a, b in valid):
+        raise AssertionError(f"densify did not change the pools: {valid}")
+    check_kernels_only(counts, torch.device("cuda"), "runner.train.main")
+    if counts.get("composite_backward", 0) < DP_B * DP_MAIN_ITERS or \
+            not 0 < counts.get("pair_records", 0) <= counts["composite"]:
+        raise AssertionError(f"the batch steps missed kernel C or C packed "
+                             f"its own records: {counts}")
+    return counts
+
+
+def x1_on_shard(mesh) -> dict:
+    """Phase 18 (c), each rank: x2 (X1) on this rank's shard of a
+    X1_SHAPE tensor through the bridge, then all_gather: 2 x. Then the
+    kernel against its plain version on the shard, and whether gloo takes
+    CUDA tensors in reduce_scatter (a probe: nothing depends on it)."""
+    import torch
+    import torch.distributed as dist
+    from street_crafter_tpu_torch.parallel import kernel_shard as KS
+    dev = mesh.device
+    x = torch.arange(int(np.prod(X1_SHAPE)), dtype=torch.float32,
+                     device=dev).reshape(X1_SHAPE)
+    KS.reset_launch_counts()
+    with KS.kernel_sharding(mesh, ("data",)):
+        y = KS.wrap_kernel(KS.x2, (3,), 3)(x)
+    device_sync(dev)()
+    counts = dict(KS.launches)
+    shard = x[mesh.local_slice(X1_SHAPE[0])]
+    err = float((KS.x2(shard) - KS.x2_reference(shard)).abs().max())
+    try:
+        out = torch.empty((1,), device=dev)
+        dist.reduce_scatter_tensor(out, torch.ones((mesh.world_size,),
+                                                   device=dev))
+        rs = f"taken (result {float(out[0])}, {mesh.world_size} expected)"
+    except (RuntimeError, ValueError, NotImplementedError) as e:
+        rs = f"refused: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return {"counts": counts, "equal": bool(torch.equal(y, 2 * x)),
+            "err": err, "reduce_scatter": rs}
+
+
+def dp_gs_steps(mesh, dev) -> dict:
+    """Phase 18 (c)'s GS run (also on one rank: ``mesh`` None): phase 2's
+    50k splats (seed 0) in DP_GS's slots, four cameras 384x256 a few cm
+    apart with seeded targets, L1 + D-SSIM; steps at batch_size 2 on
+    DP_GS_ORDER's pairs (this rank's share), a densify (threshold 1e-7)
+    after step DP_GS_DENSIFY_AFTER with the replication check. Returns the
+    state (numpy), the launch counts of the steps and the valid counts."""
+    import torch
+    from street_crafter_tpu_torch.config import default_config
+    from street_crafter_tpu_torch.datasets.cameras import Camera
+    from street_crafter_tpu_torch.models.gs.convert import \
+        train_state_to_numpy
+    from street_crafter_tpu_torch.models.gs.scene import SceneParams
+    from street_crafter_tpu_torch.ops import gs_raster as G
+    from street_crafter_tpu_torch.training import gs_trainer as GT
+    W, H = DP_GS["width"], DP_GS["height"]
+    pool = padded_pool(heavy_pool_in_camera(np.eye(4), dev, DP_GS["n"]),
+                       DP_GS["capacity"], dev)
+    params = SceneParams(bkgd=pool, actors=None, sky=None, opt_trans=None,
+                         opt_theta=None, sky_cubemap=None, color_corr=None,
+                         color_corr_sky=None, pose_corr_quat=None,
+                         pose_corr_trans=None)
+    K = np.array([[1.1 * W, 0, W / 2], [0, 1.1 * W, H / 2], [0, 0, 1]],
+                 np.float32)
+    cams = []
+    for dx in (-0.06, -0.02, 0.02, 0.06):
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[0, 3] = dx
+        cams.append(Camera.from_c2w(c2w, K, W, H, device=dev))
+    rng = np.random.default_rng(1)
+    batches = [{"gt_image": torch.tensor(rng.uniform(size=(H, W, 3)),
+                                         dtype=torch.float32, device=dev),
+                "frame_idx": 0, "frame": 0.0, "cam_id": 0}
+               for _ in cams]
+    cfg = train_config(default_config())
+    o = cfg.optim
+    o.lambda_lpips = o.lambda_reg = o.lambda_sky = 0.0
+    o.lambda_depth_lidar = 0.0
+    dcfg = cfg.clone()
+    dcfg.optim.densify_grad_threshold = 1e-7
+    state = GT.init_train_state(params)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    step = GT.make_train_step(cfg, None, spatial_lr_scale=1.0,
+                              active_sh_degree=1, generator=gen,
+                              batch_size=DP_B, mesh=mesh)
+    densify = GT.make_densify_step(dcfg)
+    mine = mesh.local_slice(DP_B) if mesh is not None else slice(0, DP_B)
+    G.reset_launch_counts()
+    valid = None
+    for i, pair in enumerate(DP_GS_ORDER):
+        idx = pair[mine]
+        step(state, [cams[j] for j in idx], [batches[j] for j in idx])
+        if i == DP_GS_DENSIFY_AFTER:
+            before = state.params.bkgd.num_valid()
+            densify(state, gen, 10.0)
+            GT.check_replicated(state, mesh)
+            valid = (before, state.params.bkgd.num_valid())
+    device_sync(dev)()
+    return {"state": train_state_to_numpy(state), "counts": dict(G.launches),
+            "valid": valid}
+
+
+def dp_vdm_config(model_path: str, dev, tiny: bool = False):
+    from street_crafter_tpu_torch.config import default_config
+    cfg = default_config()
+    cfg.merge({"device": dev.type, "model_path": model_path, "resume": False,
+               "diffusion": {"tiny": tiny, "ckpt_path": "",
+                             "init_zero_layers_std": 1.0,
+                             "remat_policy": "flash0"},
+               "vdm_train": {"height": DP_VDM["height"],
+                             "width": DP_VDM["width"],
+                             "num_frames": DP_VDM["frames"],
+                             "batch_size": DP_B, "fsdp": True,
+                             "slow_temporal_layers": True,
+                             "slow_temporal_layers_scale": 0.0}})
+    return cfg
+
+
+def dp_vdm_step(mesh, model_path: str, tiny: bool = False) -> dict:
+    """Phase 18 (c)'s fine-tune, each rank: runner.vdm_train's trainer
+    (phase 12's engine at full width, seeded random weights, the frozen
+    temporal recipe) under ``vdm_train.fsdp``, one clip of a seeded
+    2-clip global batch encoded by the runner's encoder, one step: its
+    time, the all-reduce's and the master gathers' times, the peak memory
+    and the launch counts. Then rank 0 runs the one-rank step over both
+    clips with ``accumulate: 2`` from the same initial weights and draws,
+    and the ranks' masters, gathered leaf by leaf, are held against it:
+    within VDM_UPDATE_RTOL of each leaf's update, leaves that do not move
+    bit-equal."""
+    import gc
+
+    import torch
+    from street_crafter_tpu_torch.models.vdm import weights as PW
+    from street_crafter_tpu_torch.models.vdm.conditioner import Conditioning
+    from street_crafter_tpu_torch.models.vdm.lr_schedule import \
+        schedule_from_config
+    from street_crafter_tpu_torch.runner import vdm_train as VT
+    from street_crafter_tpu_torch.training.vdm_trainer import (
+        VDMTrainer, groups_from_config)
+    dev = mesh.device
+    sync = device_sync(dev)
+    cfg = dp_vdm_config(model_path, dev, tiny)
+    v = cfg.vdm_train
+    t0 = time.perf_counter()
+    tr, _ = VT.build_trainer(cfg, mesh)
+    build_s = time.perf_counter() - t0
+    eng = tr.engine
+    encode = VT.make_encode_fn(eng)
+    rng = np.random.default_rng(7)
+    shape = (DP_B, v.num_frames, v.height, v.width, 3)
+    img = rng.uniform(-1, 1, shape).astype(np.float32)
+    guide = rng.uniform(-1, 1, shape).astype(np.float32)
+    mine = mesh.local_slice(DP_B)
+    t0 = time.perf_counter()
+    batch = encode(img[mine], guide[mine])
+    sync()
+    encode_s = time.perf_counter() - t0
+    del img, guide
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    scalars = tr.train_step(batch, generator=gen)
+    sync()
+    step_s = time.perf_counter() - t0
+    counts = launches_now()
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+    rules = tr.rules
+    shapes = {n: p.shape for n, p in tr.params.items()}
+    out = {"build_s": build_s, "encode_s": encode_s, "step_s": step_s,
+           "loss": scalars["loss"], "comm_s": dict(tr.comm_s),
+           "peak_gib": peak, "counts": counts,
+           "grad_gb": 4e-9 * sum(p.numel() for p in tr.params.values()),
+           "sharded": sum(rules.param_spec(s) is not None
+                          for s in shapes.values()),
+           "leaves": len(shapes)}
+    glob = {k: mesh.all_gather(batch[k]) for k in ("latents",
+                                                   "guidance_latents")}
+    glob["cond"] = Conditioning(*(mesh.all_gather(x) for x in batch["cond"]))
+    shards = tr.state.masters
+    del tr, batch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ref = init = None
+    if mesh.rank == 0:
+        masters: dict = {}
+        PW.init_random_(eng, 0, float(cfg.diffusion.init_zero_layers_std),
+                        masters)
+        init = {n: m.to("cpu", copy=True) for n, m in masters.items()}
+        flags, scale = groups_from_config(v)
+        ref = VDMTrainer(eng, masters, lr=v.lr, grad_clip=v.grad_clip,
+                         ema_decay=v.ema_decay,
+                         guidance_dropout=v.guidance_dropout, accumulate=DP_B,
+                         group_flags=flags, slow_scale=scale,
+                         schedule=schedule_from_config(v.get("scheduler")))
+        t0 = time.perf_counter()
+        ref.train_step(glob, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        sync()
+        out["ref_step_s"] = time.perf_counter() - t0
+    mesh.barrier()
+    worst, worst_leaf, moved, still = 0.0, "", 0, 0
+    for name, shard in shards.items():
+        whole = rules.unshard(shard, rules.param_spec(shapes[name]))
+        if ref is None:
+            continue
+        new = ref.state.masters[name]
+        upd = float((new - init[name].to(dev)).abs().max())
+        err = float((whole - new).abs().max())
+        if upd == 0.0:
+            still += 1
+            if err != 0.0:
+                raise AssertionError(f"{name}: does not move on one rank, "
+                                     f"moves by {err} on two")
+        else:
+            moved += 1
+            if err / upd > worst:
+                worst, worst_leaf = err / upd, name
+    out.update(worst=worst, worst_leaf=worst_leaf, moved=moved, still=still)
+    return out
+
+
+def dp_rank_main(mesh, tmp: str) -> dict:
+    """Phase 18 (c), each of two ranks sharing the card through gloo: X1
+    on its shard, the GS steps, the fine-tune step. TF32 off as in the
+    parent; cuDNN deterministic, so that a rank's per-clip gradient is the
+    one-rank step's micro-batch gradient bit for bit."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    return {"x1": x1_on_shard(mesh), "gs": dp_gs_steps(mesh, mesh.device),
+            "vdm": dp_vdm_step(mesh, os.path.join(tmp, f"vdm_{mesh.rank}"))}
+
+
+def leaf_errors(got: dict, want: dict, path: str = "") -> list:
+    """(path, max |got - want| / max |want|) of every float leaf of two
+    numpy train states; integer and bool leaves must be equal."""
+    out = []
+    if isinstance(want, dict):
+        for k in want:
+            out += leaf_errors(got[k], want[k], f"{path}/{k}")
+        return out
+    if want is None:
+        return out
+    a, b = np.asarray(got), np.asarray(want)
+    if b.dtype.kind in "biu":
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{path}: integer / bool leaves differ")
+        return out
+    scale = float(np.abs(b).max()) if b.size else 0.0
+    err = float(np.abs(a - b).max()) if b.size else 0.0
+    out.append((path, err / scale if scale else err))
+    return out
+
+
+def dp_two_ranks(gpu: str) -> tuple[dict, dict]:
+    """Phase 18 (c): one-rank GS run in this process, then two spawned
+    ranks sharing the card through gloo (file:// rendezvous). Returns the
+    ranks' launch counts summed (the main paths' runs) and X1's row."""
+    import torch
+    from street_crafter_tpu_torch.parallel import kernel_shard as KS
+    from street_crafter_tpu_torch.parallel.mesh import run_ranks
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    one = dp_gs_steps(None, dev)
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        t0 = time.perf_counter()
+        ranks = run_ranks(dp_rank_main, 2, tmp, tmp, backend="gloo",
+                          device="cuda", threads=0, timeout_s=DP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    # X1
+    x1 = [r["x1"] for r in ranks]
+    x1_counts = [r["counts"] for r in x1]
+    if not all(r["equal"] for r in x1) or any(r["err"] for r in x1):
+        raise AssertionError(f"X1 through the bridge: {x1}")
+    if x1_counts != [{"x2": 1}] * 2:
+        raise AssertionError(f"X1 launches a rank {x1_counts}, expected one")
+    log(f"[18] (c) two ranks sharing the card through gloo ({wall:.1f} s, "
+        f"spawn included): X1 on each rank's [1, 8, 128] shard of "
+        f"{list(X1_SHAPE)}, gathered: equal to 2 x; the kernel equal to its "
+        f"plain version on the shard; launches a rank {x1_counts}; gloo and "
+        f"CUDA tensors in reduce_scatter_tensor: {x1[0]['reduce_scatter']}")
+    # GS
+    gs = [r["gs"] for r in ranks]
+    same = leaf_errors(gs[1]["state"], gs[0]["state"])
+    bad = [p for p, e in same if e != 0.0]
+    if bad:
+        raise AssertionError(f"the ranks' GS states differ: {bad[:5]}")
+    errs = leaf_errors(gs[0]["state"], one["state"])
+    worst = max(errs, key=lambda pe: pe[1])
+    frac = np.mean([np.isclose(np.asarray(gs[0]["state"]["params"]["bkgd"][k]),
+                               np.asarray(one["state"]["params"]["bkgd"][k]),
+                               rtol=1e-5, atol=1e-7).mean()
+                    for k in ("xyz", "features_dc", "opacity", "scaling")])
+    log(f"[18] (c) GS at batch_size {DP_B} on {DP_GS['n']} splats "
+        f"({DP_GS['width']}x{DP_GS['height']}), {len(DP_GS_ORDER)} steps, a "
+        f"densify after step {DP_GS_DENSIFY_AFTER + 1} (valid {gs[0]['valid']}"
+        f", one rank {one['valid']}): the two ranks' states bit-equal; "
+        f"against one rank ({one_s:.1f} s) the largest error "
+        f"{worst[1]:.3g} of the leaf's largest |value| at {worst[0]} "
+        f"(limit {DP_GS_TOL}); {100 * frac:.2f}% of the bkgd values within "
+        f"1e-5; launches a rank {[g['counts'] for g in gs]}")
+    if worst[1] > DP_GS_TOL or gs[0]["valid"] != one["valid"]:
+        raise AssertionError(f"two ranks against one: {worst}, valid "
+                             f"{gs[0]['valid']} / {one['valid']}")
+    for g in gs:
+        check_kernels_only(g["counts"], dev, "a rank's GS steps")
+        if g["counts"].get("composite_backward", 0) < len(DP_GS_ORDER):
+            raise AssertionError(f"a rank's GS steps missed kernel C: "
+                                 f"{g['counts']}")
+    # the fine-tune
+    vd = [r["vdm"] for r in ranks]
+    log(f"[18] (c) fine-tune under vdm_train.fsdp, one clip of "
+        f"{DP_VDM['frames']} frames at {DP_VDM['height']}x{DP_VDM['width']} "
+        f"a rank (global batch {DP_B}): masters and EMA sharded in "
+        f"{vd[0]['sharded']} of {vd[0]['leaves']} leaves; engine build "
+        f"{[round(x['build_s'], 1) for x in vd]} s, encode "
+        f"{[round(x['encode_s'], 2) for x in vd]} s; step "
+        f"{[round(x['step_s'], 3) for x in vd]} s (one rank's step over "
+        f"both clips, accumulate 2: {vd[0]['ref_step_s']:.3f} s); gradient "
+        f"all-reduce ({vd[0]['grad_gb']:.2f} GB of f32 through host memory) "
+        f"{[round(x['comm_s']['all_reduce'], 3) for x in vd]} s; master "
+        f"gathers into the bf16 module "
+        f"{[round(x['comm_s']['all_gather'], 3) for x in vd]} s; peak "
+        f"max_memory_allocated {[round(x['peak_gib'], 2) for x in vd]} GiB "
+        f"(phase 12's one rank: 43.5 GiB); loss "
+        f"{[round(x['loss'], 4) for x in vd]}; masters against one rank: "
+        f"{vd[0]['moved']} leaves moved, the largest error "
+        f"{vd[0]['worst']:.3g} of the leaf's update ({vd[0]['worst_leaf']}"
+        f"; limit {VDM_UPDATE_RTOL}), {vd[0]['still']} still leaves "
+        f"bit-equal; launches a rank {[x['counts'] for x in vd]}; {gpu}")
+    if vd[0]["worst"] > VDM_UPDATE_RTOL or not vd[0]["moved"]:
+        raise AssertionError("the two-rank fine-tune step is not the "
+                             "one-rank step")
+    if not all(np.isfinite(x["loss"]) for x in vd):
+        raise AssertionError("non-finite fine-tune loss")
+    for x in vd:
+        check_kernels_only(x["counts"], dev, "a rank's fine-tune step")
+        want = {k: v for k, v in TRAIN_PER_STEP.items()}
+        got = {k: x["counts"].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"a rank's fine-tune step launched {got}, "
+                                 f"expected {want}")
+    total: dict = {}
+    for r in ranks:
+        for part in ("x1", "gs", "vdm"):
+            for k, n in r[part]["counts"].items():
+                total[k] = total.get(k, 0) + n
+    # X1's row: its times at the main path's shape (a rank's shard)
+    x = torch.arange(int(np.prod(X1_SHAPE[1:])), dtype=torch.float32,
+                     device=dev).reshape((1,) + X1_SHAPE[1:])
+    row = {"ms": cuda_ms(lambda: KS.x2(x), 200, 10),
+           "plain_ms": cuda_ms(lambda: KS.x2_reference(x), 200, 10),
+           "library_ms": cuda_ms(lambda: torch.mul(x, 2.0), 200, 10),
+           "bound_ms": 1e3 * 2 * x.numel() * 4 / PEAK_BYTES_S,
+           "max_abs_err": max(r["err"] for r in x1),
+           "launches": sum(c.get("x2", 0) for c in x1_counts)}
+    log(f"[18] x2 (X1) at a rank's [1, 8, 128]: {row['ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.6f} ms (bytes), plain {row['plain_ms']:.4f} ms, "
+        f"torch.mul {row['library_ms']:.4f} ms (launch-bound at this "
+        f"size); {gpu}")
+    return total, row
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3273,6 +3843,11 @@ def main() -> None:
         # ---- phase 7: the train step at the 600k shape --------------------
         phase7 = step_time(G, cfg, dev, gpu)
 
+        # ---- phase 18 (a), (b): camera-batched GS training, one rank -----
+        dp_counts = dp_step_time(G, cfg, dev, gpu, phase7)
+        for k, n in dp_train_main(G, cfg.source_path, tmp, gpu).items():
+            dp_counts[k] = dp_counts.get(k, 0) + n
+
     # ---- phase 8: kernels D, E, F vs plain versions -----------------------
     vdm_errs = compare_vdm_kernels()
 
@@ -3310,13 +3885,20 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sky_") as tmp:
         sky_counts = sky_color_main_path(G, tmp, gpu, phase7)
 
+    # ---- phase 18 (c): two ranks sharing the card through gloo ------------
+    torch.cuda.empty_cache()
+    ranks_counts, x1_row = dp_two_ranks(gpu)
+    for k, n in ranks_counts.items():
+        dp_counts[k] = dp_counts.get(k, 0) + n
+
     # each main path's counts, read right after its own reset; "launches"
     # is their sum
     by_path = {name: {"render": render_counts.get(name, 0),
                       "train": train_counts.get(name, 0), "vdm_sample": 0,
                       "vdm_train": 0,
                       "distill": distill_counts.get(name, 0),
-                      "sky_color": sky_counts.get(name, 0)}
+                      "sky_color": sky_counts.get(name, 0),
+                      "data_parallel": dp_counts.get(name, 0)}
                for name in REPLACES}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
@@ -3371,7 +3953,10 @@ def main() -> None:
                  "vdm_train": ft_counts.get(
                      "flash_attention_lse" if name == "flash_attention"
                      else name, 0),
-                 "distill": distill_counts.get(name, 0), "sky_color": 0}
+                 "distill": distill_counts.get(name, 0), "sky_color": 0,
+                 "data_parallel": dp_counts.get(
+                     "flash_attention_lse" if name == "flash_attention"
+                     else name, 0)}
         shapes = rounded(vdm_rows[name])
         if name == "flash_attention":
             shapes += [dict(r, path="vdm_train")
@@ -3395,7 +3980,8 @@ def main() -> None:
         head = ft_rows[name][0]
         paths = {"render": 0, "train": 0, "vdm_sample": 0,
                  "vdm_train": ft_counts.get(name, 0),
-                 "distill": distill_counts.get(name, 0), "sky_color": 0}
+                 "distill": distill_counts.get(name, 0), "sky_color": 0,
+                 "data_parallel": dp_counts.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": VDM_SOURCES["flash_attention"],
@@ -3416,12 +4002,26 @@ def main() -> None:
             "replaces": VARIANT_REPLACES[r["variant"]],
             "launches": variant_counts.get(r["name"], 0),
             "launches_by_path": {"variant_bench": variant_counts.get(
-                r["name"], 0), "distill": 0, "sky_color": 0},
+                r["name"], 0), "distill": 0, "sky_color": 0,
+                "data_parallel": 0},
             "max_abs_err": r["max_abs_err"], "ms": round(r["ms"], 4),
             "plain_ms": round(r["plain_ms"], 4),
             "bound_ms": round(r["bound_ms"], 6), "bound_by": r["bound_by"],
             "library_ms": None, "shape": r["shape"], "kb": r["kb"]})
+    # the SPMD bridge's x2 (X1 / X2): its launches are the two ranks' of
+    # phase 18 (c), its times at a rank's shard
+    kernels.append({
+        "name": "kernel_shard", "route": "cuda", "source": X1_SOURCE,
+        "replaces": X1_REPLACES, "launches": x1_row["launches"],
+        "launches_by_path": {"data_parallel": x1_row["launches"]},
+        "max_abs_err": x1_row["max_abs_err"], "ms": round(x1_row["ms"], 5),
+        "plain_ms": round(x1_row["plain_ms"], 5),
+        "bound_ms": x1_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": round(x1_row["library_ms"], 5),
+        "library_call": "torch.mul(x, 2.0)", "shape": [1, *X1_SHAPE[1:]],
+        "also_replaces": "tests/test_kernel_shard.py:17"})
     log(f"[10] sampling peak max_memory_allocated {vdm_peak:.2f} GiB")
+    log(f"[18] data_parallel launches (phase 18's main paths): {dp_counts}")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

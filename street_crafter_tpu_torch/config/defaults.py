@@ -28,13 +28,15 @@ def default_config() -> Config:
         # CUDA tensors always go through the hand-written kernels
         "device": "cuda",
 
-        # TPU execution
+        # data-parallel ranks (parallel/mesh.py)
         "mesh": {
-            # axis name -> size; -1 means "all remaining devices".
-            # data: clips (DP + ZeRO-2 moments); frames: clip-frame axis
-            # (sequence parallel — temporal attention goes through an XLA
-            # all-to-all). No tensor axis: the 1.5B UNet fits per chip in
-            # bf16, TP is unnecessary (SURVEY §2.3).
+            # axis name -> size over the torch.distributed world (torchrun's
+            # WORLD_SIZE ranks; 1 without torchrun); -1 means "all remaining
+            # ranks", so data: -1 is the world size. data: GS cameras and
+            # fine-tune clips split over the ranks (DDP, ZeRO-2 moments,
+            # FSDP with vdm_train.fsdp); frames: the JAX design's clip-frame
+            # sequence parallelism, not ported: > 1 raises. No tensor axis:
+            # the 1.5B UNet fits per card in bf16 (SURVEY §2.3).
             "axes": {"data": -1, "frames": 1},
             "dcn_axes": {},           # multi-slice: axis -> num_slices
         },
@@ -286,10 +288,10 @@ def default_config() -> Config:
             "samples_per_epoch": 8000,
             "num_workers": 4,        # PNG-decode process pool (torch
             # DataLoader-workers analog); 0 = single prefetch thread
-            "fsdp": False,           # shard params/grads/EMA over the data
-            # axis (FSDP/ZeRO-3 analog; needed to fit the full-size
-            # fine-tune on 16 GB chips — replicated DDP is the reference-
-            # parity default)
+            "fsdp": False,           # shard the f32 masters and the EMA
+            # over the data axis besides the Adam moments (ZeRO-2, the
+            # default on several ranks); the bf16 compute copy of the UNet
+            # stays whole on each rank
             "epochs": 3,
             "lr": 1.0e-5,
             "grad_clip": 0.3,

@@ -220,12 +220,18 @@ class MultiSourceSampler:
     (deterministic); ``num_workers > 0`` decodes batches in a process pool
     (the reference's DataLoader workers: a 25-frame 576x1024 clip is ~50
     PNG decodes), 0 in one producer thread. The worker count does not
-    change the sample sequence."""
+    change the sample sequence. Data-parallel rank ``rank`` of
+    ``world_size`` draws every global batch of ``batch_size`` clips, as
+    the others do, and decodes only its ``batch_size / world_size``."""
 
     def __init__(self, datasets: list[ClipDataset],
                  probs: list[float] | None = None,
                  batch_size: int = 1, samples_per_epoch: int = 1000,
-                 seed: int = 0, prefetch: int = 2, num_workers: int = 0):
+                 seed: int = 0, prefetch: int = 2, num_workers: int = 0,
+                 rank: int = 0, world_size: int = 1):
+        if batch_size % world_size:
+            raise ValueError(f"a batch of {batch_size} clips does not split "
+                             f"over {world_size} ranks")
         if not datasets:
             raise ValueError("no datasets")
         self.datasets = datasets
@@ -238,13 +244,15 @@ class MultiSourceSampler:
         self.rng = np.random.default_rng(seed)
         self.prefetch = prefetch
         self.num_workers = num_workers
+        m = batch_size // world_size
+        self.mine = slice(rank * m, (rank + 1) * m)
 
     def _indices(self) -> list[tuple[int, int]]:
         out = []
         for _ in range(self.batch_size):
             di = int(self.rng.choice(len(self.datasets), p=self.probs))
             out.append((di, int(self.rng.integers(len(self.datasets[di])))))
-        return out
+        return out[self.mine]
 
     def _fetch(self, idx: list[tuple[int, int]]) -> dict:
         items = [self.datasets[di][si] for di, si in idx]

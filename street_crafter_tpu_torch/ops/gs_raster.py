@@ -43,6 +43,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.kernel_shard import assert_no_context_axes
 from . import cuda_build
 
 TILE = 16
@@ -701,6 +702,8 @@ def rasterize_pixels(u, v, conic_a, conic_b, conic_c, colors, opacities,
     and the backward runs kernel C. Depths, valid and radii only bin."""
     if tile_size != TILE:
         raise ValueError(f"tile_size must be {TILE}, got {tile_size}")
+    # the kernels' leading dim is the splat / tile axis, never a batch axis
+    assert_no_context_axes("rasterize_pixels")
     if not 1 <= colors.shape[-1] <= MAX_CHANNELS:
         raise ValueError(f"1..{MAX_CHANNELS} channels, got {colors.shape}")
     diff = (u, v, conic_a, conic_b, conic_c, colors, opacities)

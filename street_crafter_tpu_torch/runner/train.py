@@ -16,8 +16,22 @@ The LiDAR condition PNGs of the train and test cameras are written first
 when the diffusion or the LiDAR depth loss needs them. Runs on
 ``cfg.device`` (``cuda`` unless the config says ``cpu``).
 
+``train.batch_size`` B > 1 trains on B cameras a step (JAX's camera-DP
+step): the first camera as above, B - 1 more drawn from the same pool with
+the same resolution and supervision keys (``fill_camera_batch``). Under
+torchrun (``WORLD_SIZE`` ranks, ``mesh.axes.data: -1`` meaning the world
+size) the ranks draw the same cameras and each runs B / W of them; the
+gradients and densification statistics are all-reduced, and the replicated
+state (pools, Adam moments, the densify generator) stays bit-equal on
+every rank, which is checked after each densify. Rank 0 alone writes the
+condition PNGs, checkpoints, PLYs, eval images and logs; a checkpoint is
+the one-GPU format and resumes on any world size. Distillation
+(``diffusion.use_diffusion``) runs on one rank only (ROADMAP queue 1).
+
 CLI: python -m street_crafter_tpu_torch.runner.train --config scene.json \
     [k=v ...]
+    torchrun --nproc_per_node 2 -m street_crafter_tpu_torch.runner.train \
+    --config scene.json train.batch_size=2
 """
 
 from __future__ import annotations
@@ -36,9 +50,11 @@ from ..config import Config, default_config, load_config, merge_dotlist, \
 from ..datasets.cameras import Camera
 from ..datasets.readers import CameraInfo
 from ..models.gs.params import GaussianPool
-from ..training.gs_trainer import (GSTrainState, init_train_state,
-                                   make_densify_step, make_train_step,
-                                   reset_opacity_step)
+from ..parallel.mesh import Mesh, make_mesh
+from ..training.gs_trainer import (GSTrainState, check_replicated,
+                                   init_train_state, make_densify_step,
+                                   make_train_step, reset_opacity_step,
+                                   trainable_leaves)
 from ..utils.checkpoint import load_train_checkpoint, save_checkpoint
 from ..utils.metrics import MetricsLogger, ProfilerHook
 from .diffusion import diffusion_camera
@@ -48,18 +64,20 @@ from .scene import Scene, create_scene
 # (trainer, iteration, sds_scale): attaches diffusion samples to the novel
 # views (CameraInfo._image) and bumps their diffusion_version
 DiffusionHook = Callable[["GSTrainer", int, float], None]
-NOT_PORTED_BATCH = ("train.batch_size > 1 (camera-DP training over several "
-                    "GPUs, ROADMAP queue 1, slice 5)")
 
 
 class GSTrainer:
     """The training loop's state and schedules."""
 
+    # the data-parallel group (None: one process)
+    mesh: Mesh | None = None
+
     def __init__(self, cfg: Config, scene: Scene,
-                 lpips_fn: Callable | None = None):
+                 lpips_fn: Callable | None = None, mesh: Mesh | None = None):
         self.cfg = cfg
         self.scene = scene
         self.lpips_fn = lpips_fn
+        self.mesh = mesh
         self.state: GSTrainState = init_train_state(scene.params)
         self.start_iter = 1
         self._steps: dict[tuple, Callable] = {}
@@ -89,6 +107,16 @@ class GSTrainer:
         """One more SH degree every 1000 iterations."""
         return min(iteration // 1000, self.max_sh)
 
+    @property
+    def batch_size(self) -> int:
+        """Cameras a step (``train.batch_size``)."""
+        return int(self.cfg.train.get("batch_size", 1))
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0 (or no mesh): the rank that writes files and logs."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def step_fn(self, is_novel: bool, sh: int,
                 with_obj_acc: bool = False) -> Callable:
         key = (is_novel, sh, with_obj_acc)
@@ -97,8 +125,25 @@ class GSTrainer:
                 self.cfg, self.scene.meta, spatial_lr_scale=self.scene.extent,
                 lpips_fn=self.lpips_fn, is_novel=is_novel,
                 active_sh_degree=sh, with_obj_acc=with_obj_acc,
-                generator=self.generator)
+                generator=self.generator, batch_size=self.batch_size,
+                mesh=self.mesh)
         return self._steps[key]
+
+    def fill_camera_batch(self, cam_info: CameraInfo, is_novel: bool,
+                          novel_pool: list) -> list[CameraInfo]:
+        """``cam_info`` and B - 1 more cameras of its pool with its
+        resolution and supervision keys, drawn from the trainer's seeded
+        rng (duplicates allowed; ``cam_info`` itself when none matches)."""
+        scene = self.scene
+        pool = novel_pool if is_novel else scene.info.train_cameras
+        keys = set(scene.batch_for(cam_info))
+        compat = [c for c in pool
+                  if (c.width, c.height) == (cam_info.width, cam_info.height)
+                  and set(scene.batch_for(c)) == keys]
+        infos = [cam_info]
+        while len(infos) < self.batch_size:
+            infos.append(self.rng.choice(compat) if compat else cam_info)
+        return infos
 
     def pick_camera(self, novel_pool: list) -> tuple:
         """(cam_info, is_novel), with the novel-view probability."""
@@ -108,12 +153,16 @@ class GSTrainer:
         return self.rng.choice(infos), False
 
     def densify(self) -> dict:
+        """Densify and prune in place; with several ranks, then check that
+        every rank's state is still the same."""
         scene = self.scene
-        return self._densify(self.state, self.generator, float(scene.extent),
+        info = self._densify(self.state, self.generator, float(scene.extent),
                              scene.meta.actor_bbox,
                              scene.meta.actor_random_init,
                              scene.meta.sphere_center,
                              scene.meta.sphere_radius)
+        check_replicated(self.state, self.mesh)
+        return info
 
     def sds_schedule(self, iteration: int, sample_iters: list[int],
                      scales: list[float]) -> float | None:
@@ -153,8 +202,16 @@ class GSTrainer:
         novel_pool: list = []
         device_cams = {c.uid: cam for c, cam in
                        zip(scene.info.train_cameras, scene.train_cameras)}
-        metrics = MetricsLogger(os.path.join(scene.model_path, "logs"))
-        profiler = ProfilerHook(cfg.profiler, scene.model_path)
+        main = self.is_main
+        metrics = (MetricsLogger(os.path.join(scene.model_path, "logs"))
+                   if main else None)
+        profiler = ProfilerHook(cfg.profiler if main else {},
+                                scene.model_path)
+
+        def camera_of(info, is_novel):
+            return (self.novel_camera(info) if is_novel
+                    else device_cams[info.uid])
+
         t0 = time.perf_counter()
         ema_loss = None
         for iteration in range(self.start_iter, cfg.train.iterations + 1):
@@ -167,18 +224,25 @@ class GSTrainer:
                     if not c.metadata.get("skip_camera", False)
                     and c._image is not None]
             cam_info, is_novel = self.pick_camera(novel_pool)
-            camera = (self.novel_camera(cam_info) if is_novel
-                      else device_cams[cam_info.uid])
             batch = scene.batch_for(cam_info)
             if "gt_image" not in batch:
                 continue
+            if self.batch_size > 1:
+                infos = self.fill_camera_batch(cam_info, is_novel,
+                                               novel_pool)
+                if self.mesh is not None:
+                    infos = infos[self.mesh.local_slice(len(infos))]
+                camera = [camera_of(i, is_novel) for i in infos]
+                batch = [scene.batch_for(i) for i in infos]
+            else:
+                camera = camera_of(cam_info, is_novel)
             sh = self.active_sh(iteration)
             # objects-only acc regulariser once densification has settled
             with_obj_acc = (
                 not is_novel and o.lambda_reg > 0
                 and iteration % cfg.train.reg_obj_acc_every != 0
                 and iteration > o.densify_until_iter
-                and "obj_bound" in batch)
+                and "obj_bound" in scene.batch_for(cam_info))
             step = self.step_fn(is_novel, sh, with_obj_acc)
             _, scalars = step(self.state, camera, batch)
 
@@ -190,8 +254,8 @@ class GSTrainer:
                 reset_opacity_step(self.state)
 
             # scalars are read only at log points: a read waits for the card
-            if (iteration % cfg.train.log_interval == 0
-                    or iteration == cfg.train.iterations):
+            if main and (iteration % cfg.train.log_interval == 0
+                         or iteration == cfg.train.iterations):
                 vals = {k: float(v) for k, v in scalars.items()}
                 if not np.isfinite(vals["loss"]):
                     raise FloatingPointError(
@@ -203,6 +267,8 @@ class GSTrainer:
                 if log_fn is not None:
                     log_fn(iteration, vals)
 
+            if not main:
+                continue
             if iteration in cfg.train.test_iterations:
                 report = self.evaluate(sh)
                 print(f"[it {iteration}] eval " + " ".join(
@@ -226,7 +292,8 @@ class GSTrainer:
                       f"({100 / dt:.1f} it/s)", flush=True)
                 t0 = time.perf_counter()
         profiler.close()
-        metrics.close()
+        if metrics is not None:
+            metrics.close()
         return self.state
 
     def export_ply(self, iteration: int) -> str:
@@ -370,22 +437,58 @@ def make_diffusion_hook(cfg: Config) -> DiffusionHook:
     return hook
 
 
-def train(cfg: Config, diffusion_hook: DiffusionHook | None = None,
-          lpips_fn: Callable | None = None) -> GSTrainer:
-    if int(cfg.train.get("batch_size", 1)) > 1:
-        raise NotImplementedError(NOT_PORTED_BATCH)
-    scene = create_scene(cfg)
-    backup_code(scene.model_path)
+def create_replicated_scene(cfg: Config, mesh: Mesh) -> Scene:
+    """The scene on every rank: rank 0 builds it (writing the input plys and
+    the condition PNGs), then the other ranks build theirs from those
+    files, and rank 0's parameters are broadcast."""
+    if mesh.rank == 0:
+        scene = create_scene(cfg)
+        render_conditions(cfg, scene)
+    mesh.barrier()
+    if mesh.rank != 0:
+        scene = create_scene(cfg, need_processor=False)
+    params = scene.params
+    mesh.broadcast_([t.data for t in trainable_leaves(params)]
+                    + [p.valid for p in (params.bkgd, params.actors,
+                                         params.sky) if p is not None])
+    return scene
+
+
+def render_conditions(cfg: Config, scene: Scene) -> None:
+    """The condition PNGs of the train and test cameras, which the sampling
+    events and the LiDAR depth loss read."""
     if cfg.diffusion.use_diffusion or cfg.optim.lambda_depth_lidar > 0:
-        # the condition PNGs the sampling events read
         scene.render_conditions(scene.info.train_cameras
                                 + scene.info.test_cameras)
-    save_config(cfg, os.path.join(scene.model_path, "config.json"))
+
+
+def train(cfg: Config, diffusion_hook: DiffusionHook | None = None,
+          lpips_fn: Callable | None = None) -> GSTrainer:
+    mesh = make_mesh(cfg.mesh.axes, device=cfg.get("device", "cuda"))
+    world = mesh.world_size
+    if int(cfg.train.get("batch_size", 1)) % world:
+        raise ValueError(f"train.batch_size {cfg.train.batch_size} does not "
+                         f"split over {world} ranks")
+    if world > 1 and cfg.diffusion.use_diffusion:
+        raise NotImplementedError(
+            "diffusion.use_diffusion on several ranks: the sampling events "
+            "of data-parallel distillation are not ported (ROADMAP queue 1, "
+            "item 24b's rest); train on one rank")
+    if world > 1:
+        scene = create_replicated_scene(cfg, mesh)
+    else:
+        scene = create_scene(cfg)
+        render_conditions(cfg, scene)
+    if mesh.rank == 0:
+        backup_code(scene.model_path)
+        save_config(cfg, os.path.join(scene.model_path, "config.json"))
     if diffusion_hook is None and cfg.diffusion.use_diffusion:
         diffusion_hook = make_diffusion_hook(cfg)
     if lpips_fn is None:
         lpips_fn = make_lpips(cfg, scene.device)
-    trainer = GSTrainer(cfg, scene, lpips_fn=lpips_fn)
+    trainer = GSTrainer(cfg, scene, lpips_fn=lpips_fn,
+                        mesh=mesh if world > 1 else None)
+    check_replicated(trainer.state, trainer.mesh)
     trainer.run(diffusion_hook=diffusion_hook)
     return trainer
 

@@ -1,5 +1,6 @@
 """Video-diffusion fine-tune driver (port of ``street_crafter_tpu/runner/
-vdm_train.py``; the video_diffusion/train.py loop) on one device.
+vdm_train.py``; the video_diffusion/train.py loop), on one device or over
+data-parallel ranks.
 
 Clips come from meta_info windows (``datasets.vdm_data``); the frozen VAE
 encodes frames and guidance and the frozen CLIP and VAE build the
@@ -12,12 +13,21 @@ set; at the end the EMA weights are exported with ``save_vdm_params`` to
 ``diffusion.ckpt_path``. The image log writes PNGs of the first clip's
 inputs, VAE targets and a sample with the current weights.
 
-The JAX package runs this over a device mesh (DDP / FSDP); the port runs
-one GPU, as the reference's single-GPU recipe does: ``vdm_train.fsdp`` or a
-mesh axis larger than 1 raises (ROADMAP queue 1).
+Under torchrun (``mesh.axes.data``: -1, the world size, or the world size
+itself) the ranks train data-parallel with ZeRO-2 (Adam moments sharded),
+or FSDP with ``vdm_train.fsdp: true`` (masters and EMA sharded too; the
+module's bf16 compute copy stays whole on each rank): every rank runs the
+same seeded ``MultiSourceSampler`` and decodes and encodes only its own
+clips of the global batch of ``vdm_train.batch_size`` clips, and takes its
+slice of the global batch's random draws, so a run does not depend on the
+world size. Rank 0 alone logs and writes checkpoints (gathered: the one-GPU
+format, which resumes on any world size) and the EMA export. The
+``frames`` axis (sequence parallelism) raises (ROADMAP queue 1).
 
 CLI: python -m street_crafter_tpu_torch.runner.vdm_train --config cfg.json
     [key=value ...]
+    torchrun --nproc_per_node 2 -m street_crafter_tpu_torch.runner.vdm_train
+    --config cfg.json vdm_train.batch_size=2 [vdm_train.fsdp=true]
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ from ..models.vdm.engine import VideoDiffusionEngine
 from ..models.vdm.lr_schedule import schedule_from_config
 from ..models.vdm.weights import (engine_from_config, load_vdm_params,
                                   save_vdm_params)
+from ..parallel.mesh import Mesh, make_mesh
+from ..parallel.sharding import ShardingRules
 from ..training.vdm_trainer import VDMTrainer, groups_from_config
 from ..utils.checkpoint import load_vdm_checkpoint, save_vdm_checkpoint
 from ..utils.metrics import MetricsLogger, ProfilerHook
@@ -45,7 +57,10 @@ SUBSET_CLASSES = {"waymo": ClipDataset, "pandaset": ClipDataset}
 EMA_FILE = "ema_params.pt"
 
 
-def build_sampler(cfg: Config) -> MultiSourceSampler:
+def build_sampler(cfg: Config, mesh: Mesh | None = None
+                  ) -> MultiSourceSampler:
+    """The clip sampler; with a mesh, each batch holds this rank's clips of
+    the global batch."""
     v = cfg.vdm_train
     datasets = []
     for name in v.subsets:
@@ -58,7 +73,9 @@ def build_sampler(cfg: Config) -> MultiSourceSampler:
     return MultiSourceSampler(
         datasets, probs=list(v.probs) if v.probs else None,
         batch_size=v.batch_size, samples_per_epoch=v.samples_per_epoch,
-        seed=cfg.seed, num_workers=int(v.get("num_workers", 0) or 0))
+        seed=cfg.seed, num_workers=int(v.get("num_workers", 0) or 0),
+        rank=mesh.rank if mesh is not None else 0,
+        world_size=mesh.world_size if mesh is not None else 1)
 
 
 def make_encode_fn(engine: VideoDiffusionEngine):
@@ -91,23 +108,12 @@ def make_encode_fn(engine: VideoDiffusionEngine):
     return encode
 
 
-def _check_single_device(cfg: Config) -> None:
-    if cfg.vdm_train.get("fsdp", False):
-        raise NotImplementedError(
-            "vdm_train.fsdp: the port fine-tunes on one GPU; sharded "
-            "(FSDP / ZeRO) training is ROADMAP queue 1")
-    axes = dict(cfg.mesh.get("axes", {}) or {})
-    if any(int(n) > 1 for n in axes.values()):
-        raise NotImplementedError(
-            f"mesh {axes}: the port fine-tunes on one GPU; multi-GPU "
-            f"training (DDP / ZeRO) is ROADMAP queue 1")
-
-
-def build_trainer(cfg: Config) -> tuple[VDMTrainer, str]:
+def build_trainer(cfg: Config, mesh: Mesh | None = None
+                  ) -> tuple[VDMTrainer, str]:
     """The engine (weights from ``diffusion.ckpt_path`` or the seeded
     random init), and its trainer from the newest checkpoint under the
-    model path when ``resume`` is set. Returns (trainer, model path)."""
-    _check_single_device(cfg)
+    model path when ``resume`` is set, sharded over ``mesh`` (ZeRO-2, or
+    FSDP under ``vdm_train.fsdp``). Returns (trainer, model path)."""
     v = cfg.vdm_train
     model_path = cfg.model_path or os.path.join(
         cfg.workspace, "output", "vdm", cfg.exp_name)
@@ -115,7 +121,7 @@ def build_trainer(cfg: Config) -> tuple[VDMTrainer, str]:
     dcfg = cfg.diffusion.clone()
     dcfg.sample_frames = v.num_frames
     ecfg = engine_from_config(dcfg, training=True)
-    device = cfg.get("device", "cuda")
+    device = mesh.device if mesh is not None else cfg.get("device", "cuda")
     if torch.device(device).type == "cuda" and ecfg.unet.dtype != "bfloat16":
         raise ValueError(
             f"UNet compute dtype {ecfg.unet.dtype or 'float32'} on {device}: "
@@ -133,7 +139,9 @@ def build_trainer(cfg: Config) -> tuple[VDMTrainer, str]:
         ema_decay=v.ema_decay, guidance_dropout=v.guidance_dropout,
         accumulate=int(v.get("accumulate", 1)), group_flags=flags,
         slow_scale=scale, schedule=schedule_from_config(v.get("scheduler")),
-        state=state)
+        state=state, rules=(None if mesh is None or mesh.world_size == 1
+                            else ShardingRules(mesh, fsdp_params=bool(
+                                v.get("fsdp", False)))))
     if state is not None:
         print(f"resumed from step {it}")
     return trainer, model_path
@@ -171,16 +179,25 @@ def finetune(cfg: Config) -> dict:
     "step_s": host seconds of each, "scalars": the last step's, "ema_path",
     "checkpoint"}."""
     v = cfg.vdm_train
-    trainer, model_path = build_trainer(cfg)
+    mesh = make_mesh(cfg.mesh.axes, device=cfg.get("device", "cuda"))
+    main = mesh.rank == 0
+    trainer, model_path = build_trainer(cfg, mesh)
     encode = make_encode_fn(trainer.engine)
-    metrics = MetricsLogger(os.path.join(model_path, "logs"))
-    profiler = ProfilerHook(cfg.profiler, model_path)
+    metrics = (MetricsLogger(os.path.join(model_path, "logs")) if main
+               else None)
+    profiler = ProfilerHook(cfg.profiler if main else {}, model_path)
     gen = torch.Generator(device=trainer.engine.device).manual_seed(cfg.seed)
     step = trainer.state.step
-    saved = None
+    saved, saved_step = None, None
     step_s, scalars = [], {}
-    sampler = build_sampler(cfg)
+    sampler = build_sampler(cfg, mesh)
     t_log = time.perf_counter()
+
+    def checkpoint(step: int) -> str:
+        whole = trainer.whole_state()           # every rank gathers
+        return (save_vdm_checkpoint(model_path, step, whole) if main
+                else "")
+
     for epoch in range(v.epochs):
         for np_batch in sampler:
             profiler.step(step)
@@ -189,26 +206,32 @@ def finetune(cfg: Config) -> dict:
             scalars = trainer.train_step(batch, generator=gen)
             step += 1
             step_s.append(time.perf_counter() - t0)
-            if step % v.log_every == 0:
+            if main and step % v.log_every == 0:
                 dt = time.perf_counter() - t_log
                 metrics.log_scalars(step, scalars, prefix="train/")
                 print(f"[epoch {epoch} step {step}] loss="
                       f"{scalars['loss']:.4f} ({v.log_every / dt:.2f} it/s)",
                       flush=True)
                 t_log = time.perf_counter()
-            if v.log_images_every and step % v.log_images_every == 0:
+            if (main and v.log_images_every
+                    and step % v.log_images_every == 0):
                 log_image_samples(trainer, metrics, np_batch, step,
                                   os.path.join(model_path, "image_log"),
                                   int(v.get("log_images_steps", 0)) or None)
             if step % v.ckpt_every == 0:
-                saved = save_vdm_checkpoint(model_path, step, trainer.state)
+                saved, saved_step = checkpoint(step), step
     profiler.close()
-    metrics.close()
-    if saved is None or not saved.endswith(f"iteration_{step}"):
-        saved = save_vdm_checkpoint(model_path, step, trainer.state)
+    if metrics is not None:
+        metrics.close()
+    if saved_step != step:
+        saved = checkpoint(step)
     ema_path = os.path.join(model_path, EMA_FILE)
-    save_vdm_params(ema_path, trainer.engine, unet=trainer.state.ema)
-    print(f"done: {step} steps; checkpoint {saved}; ema params {ema_path}")
+    ema = trainer.whole_state().ema
+    if main:
+        save_vdm_params(ema_path, trainer.engine, unet=ema)
+        print(f"done: {step} steps; checkpoint {saved}; ema params "
+              f"{ema_path}")
+    mesh.barrier()
     return {"trainer": trainer, "model_path": model_path,
             "steps": len(step_s), "step_s": step_s, "scalars": scalars,
             "ema_path": ema_path, "checkpoint": saved}

@@ -31,6 +31,7 @@ from ..models.gs.optim import (GaussianAdamState, adam_update, init_adam,
 from ..models.gs.params import GaussianPool
 from ..models.gs.renderer import render_scene
 from ..models.gs.scene import SceneMeta, SceneParams
+from ..parallel.mesh import Mesh
 
 POOLS = ("bkgd", "actors", "sky")
 # scene-level leaves optimised by one Adam group each (``adam_misc``); the
@@ -126,26 +127,44 @@ def make_train_step(cfg: Config, meta: SceneMeta | None,
                     is_novel: bool = False,
                     active_sh_degree: int | None = None,
                     with_obj_acc: bool = False,
-                    generator: torch.Generator | None = None) -> Callable:
+                    generator: torch.Generator | None = None,
+                    batch_size: int = 1, mesh: Mesh | None = None
+                    ) -> Callable:
     """The train step of one camera: ``step(state, camera, batch) ->
     StepOutput``, updating ``state`` in place. ``generator`` draws the
-    actor flip mask (``model.gaussian.flip_prob``)."""
+    actor flip mask (``model.gaussian.flip_prob``).
+
+    ``batch_size`` B > 1 gives the camera-batched step (JAX's
+    ``train_step_dp``): ``step(state, cameras, batches)`` with this rank's
+    B / W cameras of uniform resolution (W = the mesh's data size, 1
+    without a mesh). Each camera's loss is differentiated into ``.grad``
+    (the flip masks of all B cameras are drawn from ``generator`` on every
+    rank, in camera order, so a camera's mask does not depend on W); the
+    gradient sums, the densification-stat sums (``contrib``,
+    ``contrib_abs``, ``visf``) and the radius maxima (``rad``) are
+    all-reduced over the ranks; the gradients and the scalars are divided
+    by B (JAX's means); then one Adam update runs on every rank, on equal
+    inputs, so the replicated pools stay bit-equal."""
     weights = loss_weights(cfg)
     tile_size = int(cfg.render.tile_size)
     sh_degree = (active_sh_degree if active_sh_degree is not None
                  else cfg.model.gaussian.sh_degree)
     flip_prob = float(cfg.model.gaussian.flip_prob)
 
-    def compute_grads(params: SceneParams, camera, batch: dict[str, Any]):
-        """Loss and gradients (left in the leaves' .grad) of one camera,
+    def draw_flip(params: SceneParams, dev) -> torch.Tensor | None:
+        _, A, cap_o = _sizes(params)
+        if flip_prob > 0 and A > 0:
+            return torch.rand((A, cap_o), generator=generator,
+                              device=dev) < flip_prob
+        return None
+
+    def compute_grads(params: SceneParams, camera, batch: dict[str, Any],
+                      flip_mask: torch.Tensor | None):
+        """Loss and gradients (added to the leaves' .grad) of one camera,
         plus the densification-stat contributions."""
         nb, A, cap_o = _sizes(params)
         n_flat = nb + A * cap_o     # the sky pass has its own hooks
         dev = camera.device
-        flip_mask = None
-        if flip_prob > 0 and A > 0:
-            flip_mask = torch.rand((A, cap_o), generator=generator,
-                                   device=dev) < flip_prob
         n_sky = params.sky.capacity if params.sky is not None else 0
         hooks = [torch.zeros((n, 2), dtype=torch.float32, device=dev,
                              requires_grad=True)
@@ -244,13 +263,74 @@ def make_train_step(cfg: Config, meta: SceneMeta | None,
     def train_step(state: GSTrainState, camera, batch: dict[str, Any]
                    ) -> StepOutput:
         set_trainable(state.params)
-        scalars, stats = compute_grads(state.params, camera, batch)
+        scalars, stats = compute_grads(
+            state.params, camera, batch,
+            draw_flip(state.params, camera.device))
         apply_update(state, stats)
         for t in trainable_leaves(state.params):
             t.grad = None
         return StepOutput(state, scalars)
 
-    return train_step
+    if batch_size <= 1:
+        return train_step
+    world = mesh.world_size if mesh is not None else 1
+    if batch_size % world:
+        raise ValueError(f"train.batch_size {batch_size} does not split over "
+                         f"{world} ranks")
+    mine = (mesh.local_slice(batch_size) if mesh is not None
+            else slice(0, batch_size))
+
+    def train_step_dp(state: GSTrainState, cameras: list,
+                      batches: list[dict[str, Any]]) -> StepOutput:
+        if len(cameras) != len(batches) or \
+                len(cameras) != batch_size // world:
+            raise ValueError(f"{len(cameras)} cameras and {len(batches)} "
+                             f"batches on this rank, expected "
+                             f"{batch_size // world} each")
+        if len({(c.width, c.height) for c in cameras}) > 1:
+            raise ValueError("camera-batched training needs a uniform-"
+                             "resolution batch")
+        params = state.params
+        set_trainable(params)
+        masks = [draw_flip(params, cameras[0].device)
+                 for _ in range(batch_size)][mine]
+        sums: dict[str, torch.Tensor] = {}
+        stats: dict[str, dict[str, torch.Tensor]] = {}
+        for cam, batch, mask in zip(cameras, batches, masks):
+            scalars, st = compute_grads(params, cam, batch, mask)
+            for k, v in scalars.items():
+                sums[k] = sums[k] + v if k in sums else v.clone()
+            for part, contrib in st.items():
+                acc = stats.setdefault(part, {})
+                for k, v in contrib.items():
+                    if k not in acc:
+                        acc[k] = v.clone()
+                    elif k.startswith("rad"):
+                        acc[k] = torch.maximum(acc[k], v)
+                    else:
+                        acc[k] = acc[k] + v
+        leaves = trainable_leaves(params)
+        for t in leaves:
+            if t.grad is None:      # a missing gradient counts as zero
+                t.grad = torch.zeros_like(t)
+        names = sorted(sums)
+        flat_sums = [sums[k] for k in names]
+        if mesh is not None:
+            mesh.all_reduce_([t.grad for t in leaves] + flat_sums + [
+                v for part in sorted(stats) for k, v in stats[part].items()
+                if not k.startswith("rad")])
+            mesh.all_reduce_([v for part in sorted(stats)
+                              for k, v in stats[part].items()
+                              if k.startswith("rad")], op="max")
+        for t in leaves:
+            t.grad.div_(batch_size)
+        apply_update(state, stats)
+        for t in leaves:
+            t.grad = None
+        return StepOutput(state, {k: v / batch_size
+                                  for k, v in zip(names, flat_sums)})
+
+    return train_step_dp
 
 
 def make_densify_step(cfg: Config) -> Callable:
@@ -316,6 +396,39 @@ def make_densify_step(cfg: Config) -> Callable:
         return info
 
     return densify_step
+
+
+def state_checksum(state: GSTrainState) -> torch.Tensor:
+    """[n] int64: per pool and scene leaf, the sum of its words' int32
+    views times their positions (mod 2^64): any bit that differs between
+    two states changes it (but for collisions)."""
+    leaves = list(misc_params(state.params).values())
+    for name in POOLS:
+        pool = getattr(state.params, name)
+        if pool is not None:
+            leaves += [getattr(pool, f) for f in
+                       sorted(pool.__dataclass_fields__)]
+    out = []
+    for t in leaves:
+        words = t.detach().contiguous().reshape(-1)
+        if words.element_size() == 4:
+            words = words.view(torch.int32)
+        words = words.to(torch.int64)
+        pos = torch.arange(1, words.numel() + 1, device=words.device)
+        out.append((words * pos).sum())
+    return torch.stack(out)
+
+
+def check_replicated(state: GSTrainState, mesh: Mesh | None) -> None:
+    """Raise when the replicated train state differs between the ranks
+    (compares ``state_checksum`` of every rank)."""
+    if mesh is None or mesh.world_size == 1:
+        return
+    sums = mesh.all_gather(state_checksum(state)[None], 0)
+    bad = (sums != sums[:1]).any(1).nonzero().flatten().tolist()
+    if bad:
+        raise RuntimeError(f"the replicated GS state of rank(s) {bad} differs "
+                           f"from rank 0's (step {state.step})")
 
 
 def reset_opacity_step(state: GSTrainState) -> None:

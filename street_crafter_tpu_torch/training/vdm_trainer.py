@@ -1,5 +1,5 @@
 """Video-diffusion fine-tune step (port of ``street_crafter_tpu/training/
-vdm_trainer.py``) on one device.
+vdm_trainer.py``), on one device or over data-parallel ranks.
 
 The reference fine-tunes the UNet only (VAE and CLIP frozen,
 diffusion_condition.py:298-355). One step, in the JAX package's order:
@@ -23,11 +23,34 @@ the trainer keeps f32 master copies, moments and EMA as plain tensors
 module. A weight used once per forward so gets its gradient as the bf16-
 rounded value flax gives an f32 parameter cast per op. ``AlphaBlender``'s
 ``mix_factor`` stays f32 in the module.
+
+Data parallel (``rules``: ``parallel.sharding.ShardingRules`` over the
+ranks' mesh; the JAX step's ``rules=``): each rank takes its clips of the
+global batch and its slice of the global ``StepDraws`` (so the result does
+not depend on the world size W), runs the micro-batch loop on them, then
+the f32 gradients and scalars are all-reduced and divided by the global
+micro-batch count. The clip takes the global norm of the whole all-reduced
+gradient on every rank. Then, by ``rules``:
+
+- DDP (``zero=False``): every rank updates every leaf;
+- ZeRO-2 (the default): the moments of a leaf live only for this rank's
+  chunk on ``opt_state_spec``'s dim; each rank updates that chunk of the
+  (replicated) masters and ``all_gather`` rebuilds them;
+- FSDP (``fsdp_params``): the masters and the EMA are sharded like the
+  moments; the new master chunks are cast to the module's dtype and
+  gathered into the module, whose compute copy stays whole on each rank
+  (as DeepSpeed ZeRO-2 with bf16 params; JAX's FSDP shards the compute
+  params too).
+
+Only ``all_reduce``, ``all_gather`` and ``broadcast`` are used.
+``shard_train_state`` / ``gather_train_state`` split a whole train state
+into a rank's shards and back (checkpoints are whole: the one-GPU format).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -36,6 +59,7 @@ import torch
 from ..models.vdm.conditioner import Conditioning
 from ..models.vdm.engine import VideoDiffusionEngine
 from ..models.vdm.loss import LossDraws, diffusion_loss, draw_loss
+from ..parallel.sharding import ShardingRules
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 GROUPS = ("base", "slow")        # the groups with Adam state
@@ -114,13 +138,66 @@ class StepDraws(NamedTuple):
     keep: torch.Tensor
     loss: LossDraws
 
+    def clips(self, c: slice, num_frames: int) -> "StepDraws":
+        """The draws of clips ``c`` (their frames' rows of the loss
+        draws)."""
+        rows = slice(c.start * num_frames, c.stop * num_frames)
+        ld = self.loss
+        return StepDraws(self.keep[c], LossDraws(
+            ld.sigma_normal[c], ld.cond_mask[rows], ld.noise[rows],
+            ld.offset[rows]))
+
+
+def _state_dims(rules: ShardingRules | None, shapes: dict) -> dict:
+    """{field: {name: sharded dim or None}} of a train state's dicts."""
+    def dims(spec):
+        return {n: (spec(s) if rules is not None else None)
+                for n, s in shapes.items()}
+    if rules is None:
+        return {f: dims(None) for f in ("masters", "mu", "nu", "ema")}
+    p, o = dims(rules.param_spec), dims(rules.opt_state_spec)
+    return {"masters": p, "ema": p, "mu": o, "nu": o}
+
+
+def shard_train_state(state: VDMTrainState, rules: ShardingRules
+                      ) -> VDMTrainState:
+    """This rank's shards of a whole train state: the moments on
+    ``opt_state_spec``'s dim, the masters and the EMA on ``param_spec``'s
+    (contiguous copies; replicated leaves are shared, not copied)."""
+    dims = _state_dims(rules, {n: m.shape for n, m in state.masters.items()})
+
+    def cut(field):
+        return {n: (x if dims[field][n] is None else
+                    rules.shard(x, dims[field][n]).clone(
+                        memory_format=torch.contiguous_format))
+                for n, x in getattr(state, field).items()}
+    return VDMTrainState(masters=cut("masters"), mu=cut("mu"), nu=cut("nu"),
+                         count=dict(state.count), ema=cut("ema"),
+                         step=state.step)
+
+
+def gather_train_state(state: VDMTrainState, rules: ShardingRules,
+                       shapes: dict, device="cpu") -> VDMTrainState:
+    """The whole train state from every rank's shards (a collective: every
+    rank calls it), on ``device``, leaf by leaf. ``shapes``: the whole
+    leaves' shapes by name."""
+    dims = _state_dims(rules, shapes)
+
+    def join(field):
+        return {n: rules.unshard(x, dims[field][n]).to(device)
+                for n, x in getattr(state, field).items()}
+    return VDMTrainState(masters=join("masters"), mu=join("mu"),
+                         nu=join("nu"), count=dict(state.count),
+                         ema=join("ema"), step=state.step)
+
 
 class VDMTrainer:
     """The fine-tune step over ``engine``'s UNet. Starts from ``masters``
     (f32 UNet weights, e.g. from ``weights.load_vdm_params``) with zero
     moments and the EMA at the masters, or from a whole ``state`` (a
     checkpoint or a converted JAX state), whose masters are cast into the
-    module."""
+    module. With ``rules`` the trainer keeps this rank's shards
+    (``self.state``; ``whole_state()`` gathers them)."""
 
     def __init__(self, engine: VideoDiffusionEngine,
                  masters: dict[str, torch.Tensor] | None = None,
@@ -129,9 +206,17 @@ class VDMTrainer:
                  accumulate: int = 1, group_flags: dict | None = None,
                  slow_scale: float = 1.0,
                  schedule: Callable[[int], float] | None = None,
-                 state: VDMTrainState | None = None):
+                 state: VDMTrainState | None = None,
+                 rules: ShardingRules | None = None):
         self.engine = engine
         self.params = dict(engine.unet.named_parameters())
+        self.rules = rules
+        self.mesh = rules.mesh if rules is not None else None
+        self.world = self.mesh.world_size if self.mesh is not None else 1
+        # seconds of the last step's gradient all-reduce and master gathers
+        self.comm_s = {"all_reduce": 0.0, "all_gather": 0.0}
+        self._dims = _state_dims(rules, {n: p.shape for n, p in
+                                         self.params.items()})
         if state is not None:
             masters = state.masters
         missing = sorted(set(self.params) - set(masters or {}))
@@ -149,18 +234,33 @@ class VDMTrainer:
         if state is not None:
             # adopt the state (a checkpoint or a converted JAX state) and
             # cast its masters into the module
-            self.state = state
             with torch.no_grad():
                 for name, p in self.params.items():
                     p.copy_(state.masters[name])
+            self.state = (state if rules is None
+                          else shard_train_state(state, rules))
             return
         adam = [n for n, g in self.labels.items() if g in GROUPS]
+        masters = {n: self._own(m, "masters", n) for n, m in masters.items()}
+
+        def zeros(n):
+            return torch.zeros(self._local(self.params[n], "mu", n).shape,
+                               dtype=torch.float32,
+                               device=self.params[n].device)
         self.state = VDMTrainState(
-            masters=masters,
-            mu={n: torch.zeros_like(masters[n]) for n in adam},
-            nu={n: torch.zeros_like(masters[n]) for n in adam},
+            masters=masters, mu={n: zeros(n) for n in adam},
+            nu={n: zeros(n) for n in adam},
             count={g: 0 for g in GROUPS if g in self.labels.values()},
             ema={n: m.clone() for n, m in masters.items()}, step=0)
+
+    def whole_state(self, device="cpu") -> VDMTrainState:
+        """The whole train state (gathered from the ranks' shards: every
+        rank calls it), for a checkpoint."""
+        if self.rules is None:
+            return self.state
+        return gather_train_state(self.state, self.rules,
+                                  {n: p.shape for n, p in
+                                   self.params.items()}, device)
 
     # -- the step -----------------------------------------------------------
     def draw(self, batch_size: int, latents_shape,
@@ -182,22 +282,28 @@ class VDMTrainer:
     def train_step(self, batch: dict, draws: StepDraws | None = None,
                    generator: torch.Generator | None = None
                    ) -> dict[str, float]:
-        """``batch``: {"latents": [B, T, h, w, 4], "cond": Conditioning of
-        [B, T, ...] leaves, "guidance_latents": [B, T, h, w, 4]}. The draws
-        come from ``draws`` or else from ``generator``. Returns the step's
-        scalars (means over the clips)."""
+        """``batch``: this rank's clips, {"latents": [B, T, h, w, 4], "cond":
+        Conditioning of [B, T, ...] leaves, "guidance_latents": [B, T, h, w,
+        4]}. The draws of the global batch (B x the world size clips) come
+        from ``draws`` or else from ``generator``. Returns the step's
+        scalars (means over the global batch's clips)."""
         lat = batch["latents"]
         B, T = lat.shape[:2]
-        flat = lat.reshape(B * T, *lat.shape[2:])
+        Bg = B * self.world
         if draws is None:
-            draws = self.draw(B, flat.shape, generator)
+            draws = self.draw(Bg, (Bg * T, *lat.shape[2:]), generator)
+        if draws.keep.shape[0] != Bg:
+            raise ValueError(f"draws of {draws.keep.shape[0]} clips for a "
+                             f"global batch of {Bg}")
+        if self.mesh is not None:
+            draws = draws.clips(self.mesh.local_slice(Bg), T)
         if B % self.accumulate:
             raise ValueError(f"{B} clips do not split into "
                              f"{self.accumulate} micro-batches")
         m = B // self.accumulate
         gscale = draws.keep.float()[:, None].expand(B, T)
         grads: dict[str, torch.Tensor] = {}
-        sums: dict[str, float] = {}
+        sums: dict[str, torch.Tensor] = {}
         for i in range(self.accumulate):
             clips = slice(i * m, (i + 1) * m)
             rows = slice(i * m * T, (i + 1) * m * T)
@@ -215,22 +321,67 @@ class VDMTrainer:
             loss.backward()
             for name, p in self.params.items():
                 if p.grad is None:
-                    g = torch.zeros_like(self.state.masters[name])
+                    g = torch.zeros_like(p, dtype=torch.float32)
                 else:
                     g = p.grad.float()
                     p.grad = None
                 grads[name] = grads[name] + g if name in grads else g
             for k, v in scalars.items():
-                sums[k] = sums.get(k, 0.0) + float(v.detach())
-        if self.accumulate > 1:
+                v = v.detach().float()
+                sums[k] = sums[k] + v if k in sums else v
+        names = sorted(sums)
+        totals = torch.stack([sums[k] for k in names])
+        if self.mesh is not None:
+            self.comm_s["all_reduce"] = self._timed(
+                self.mesh.all_reduce_, list(grads.values()) + [totals])
+        n = self.accumulate * self.world
+        if n > 1:
             for g in grads.values():
-                g.div_(self.accumulate)
+                g.div_(n)
         self._apply(grads)
-        return {k: v / self.accumulate for k, v in sums.items()}
+        return {k: float(v) / n for k, v in zip(names, totals)}
+
+    def _timed(self, fn, *args) -> float:
+        """Seconds of ``fn(*args)`` between two synchronisations of the
+        engine's device."""
+        sync = (torch.cuda.synchronize if self.engine.device.type == "cuda"
+                else (lambda: None))
+        sync()
+        t0 = time.perf_counter()
+        fn(*args)
+        sync()
+        return time.perf_counter() - t0
+
+    def _local(self, x: torch.Tensor, field: str, name: str) -> torch.Tensor:
+        """This rank's chunk of a whole leaf ``x`` in ``field``'s layout (a
+        view)."""
+        d = self._dims[field][name]
+        return x if d is None else self.rules.shard(x, d)
+
+    def _own(self, x: torch.Tensor, field: str, name: str) -> torch.Tensor:
+        """``_local`` as a contiguous copy when it is a chunk."""
+        d = self._dims[field][name]
+        return x if d is None else self.rules.shard(x, d).clone(
+            memory_format=torch.contiguous_format)
+
+    def _publish(self, name: str, updated: torch.Tensor) -> None:
+        """The module's weight (and, under ZeRO-2, the whole master) from
+        this rank's ``updated`` master chunk."""
+        p = self.params[name]
+        dp, dm = self._dims["masters"][name], self._dims["mu"][name]
+        if dp is not None:          # FSDP: gather the cast chunks
+            p.copy_(self.rules.unshard(updated.to(p.dtype), dp))
+        elif dm is not None:        # ZeRO-2: rebuild the whole master
+            whole = self.rules.unshard(updated.contiguous(), dm)
+            self.state.masters[name].copy_(whole)
+            p.copy_(whole)
+        else:
+            p.copy_(updated)
 
     @torch.no_grad()
     def _apply(self, grads: dict[str, torch.Tensor]) -> None:
         st = self.state
+        self.comm_s["all_gather"] = 0.0
         # one global norm over every gradient (optax clip_by_global_norm)
         norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
         if not bool(norm < self.grad_clip):
@@ -246,7 +397,7 @@ class VDMTrainer:
             c2 = float(1 - np.float32(B2) ** (count + 1))
             names = [n for n in grads if self.labels[n] == group]
             for part in _pieces(names):
-                gs = [grads[n] for n in part]
+                gs = [self._local(grads[n], "mu", n) for n in part]
                 mus = [st.mu[n] for n in part]
                 nus = [st.nu[n] for n in part]
                 torch._foreach_mul_(mus, B1)
@@ -260,10 +411,15 @@ class VDMTrainer:
                 torch._foreach_add_(den, EPS)
                 upd = torch._foreach_div(torch._foreach_div(mus, c1), den)
                 torch._foreach_mul_(upd, -lr)
-                masters = [st.masters[n] for n in part]
+                # the masters' chunk that this rank's moments cover
+                masters = [st.masters[n] if self._dims["masters"][n]
+                           is not None else self._local(st.masters[n], "mu",
+                                                        n) for n in part]
                 torch._foreach_add_(masters, upd)
+                t0 = time.perf_counter()
                 for n, m in zip(part, masters):
-                    self.params[n].copy_(m)
+                    self._publish(n, m)
+                self.comm_s["all_gather"] += time.perf_counter() - t0
         d = self.ema_decay
         names = list(st.ema)
         for part in _pieces(names):

@@ -881,3 +881,21 @@ def test_gs_step_with_cubemap_and_mlp(cuda):
         assert w.abs().max() > 0, k
         err = (got[k] - w).abs().max() / w.abs().max()
         assert err < 1e-3, (k, float(err))
+
+
+@pytest.mark.parametrize("shape", [(1,), (1000,), (4097,), (8, 4, 16),
+                                   (2, 8, 128)])
+def test_x2_kernel_matches_plain(cuda, shape):
+    """The SPMD bridge's x2 kernel (csrc/kernel_shard.cu) against its plain
+    version: exact (one f32 multiply by 2), on ragged lengths across the
+    256-thread blocks and on the bridge's shapes; one launch a call."""
+    from street_crafter_tpu_torch.parallel import kernel_shard as KS
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(0)).to(
+        cuda)
+    KS.reset_launch_counts()
+    out = KS.x2(x)
+    torch.cuda.synchronize()
+    assert KS.launches == {"x2": 1}
+    assert torch.equal(out, KS.x2_reference(x))
+    with pytest.raises(ValueError, match="contiguous"):
+        KS.x2(x.reshape(-1)[::2] if x.numel() > 1 else x.expand(2))
