@@ -14,7 +14,8 @@ Phases, one status line each; any failure raises (exit code != 0):
      plain one; kernel B must agree to atol 2e-4 on rgb and alpha, and the
      pack of pair records that B and C read must equal its plain version.
      Then, at 384x256, kernels A, B (both forms) and C (phase 5's limits)
-     at 1, 3, 4 and 7 channels (records of 32, 48 and 64 bytes) and on a
+     at 1, 3, 4 and 7 channels (records of 32, 48 and 64 bytes; past 7:
+     phase 21) and on a
      tile list of more than 8,000 pairs that no pixel stops in (the rings
      wrap many times), and kernel A on 40,000 splats over one tile (a list
      longer than a sort block holds, sorted in passes over device memory);
@@ -182,6 +183,47 @@ Phases, one status line each; any failure raises (exit code != 0):
      D-with-lse / G / H launched 25 / 15 / 15 times a rank. The kernels
      line's launches_by_path gains "data_parallel" ((a) + (b) + (c)'s
      ranks), and a "kernel_shard" row for x2.
+ 19. the fine-tune's options at full width, after phase 13: (a) phase 12's
+     trainer on phase 13's clip under each remat policy (flash0, nothing,
+     flash01, flash, flashx, dots; dots at DOTS_FRAMES frames, the longest
+     clip whose step fits the card, with flash0 at that length beside it):
+     first every policy's loss and gradient norm with the update skipped,
+     from the same weights and draws, within POLICY_NORM_RTOL of flash0's;
+     then per policy a warm-up and a timed step, the peak, and exactly
+     POLICY_D_PER_STEP / 15 / 15 launches of D-with-lse / G / H a step.
+     (b) runner.vdm_train's build_trainer with diffusion.add_lora and
+     vdm_train.train_peft_adapters at 1 x 25 x 576x1024: LORA_STEPS steps,
+     their times and the peak, 25 / 15 / 15 launches a step, every
+     adapter and cond_time_stack_embed leaf moved (but the cross-
+     attention's q and k adapters, which a length-1 context leaves without
+     gradient), every frozen leaf bit-identical;
+ 20. the sampling options at full width: (a) phase 9's seeded weights
+     carried by models/vdm/convert.py into a UNet with
+     merge_strategy="fixed" (the JAX layout and back, less the mixers),
+     fused temporal: one CFG eval with exactly 15 / 5 / 11 launches of D /
+     E / F and a finite output, then kernel E at the fixed alpha and
+     kernel F against their plain versions at phase 8's main-path shapes
+     (phase 8's limits); (b) runner.reward.main --dataset IMG on phase 9's
+     frames at 576x1024, REWARD_ENS members of REWARD_STEPS Euler steps:
+     one record in (0, 1] in rewards.jsonl, every member's frame 0 the real
+     latent, 15 / 5 / 11 launches per CFG eval; the wall, the encode and
+     each member's time;
+ 21. the semantic channel (kernels B, C and the pack past 7 channels): (a)
+     right after phase 2, at each of WIDE_CASES channels on phase 2's 50k
+     splats at 384x256 (rgb + depth and seeded logits): the pack equal,
+     B (both forms) and C within phase 2's and phase 5's limits; (b) after
+     phase 5, the headline frame's foreground with a SemanticField of 19
+     classes: render_flat(extra_channels=) forward and backward through
+     semantic_loss against a seeded label map (one launch each of A, the
+     pack, B and C, a finite gradient), B and C against their plain
+     versions at 23 channels (C also on the logits' columns alone), the
+     times of A, the pack, B and C at 23 and at 32 channels beside phase
+     5's 4-channel times, with their bounds, and the peak; (c) densify
+     carrying the field (on the card and on the host: the same) and the
+     PLY round trip of its semantic_i. The kernels line's launches_by_path
+     gains "remat_policies", "lora", "fixed_blender", "reward" and
+     "semantic", and the raster rows "wide": their times at 23 and 32
+     channels.
 Kernel builds, launches and comparisons raise on failure; no phase catches
 its own. TF32 is off for matmuls and cuDNN convolutions throughout.
 The last three lines: the card's name and power limit, a JSON object of
@@ -513,7 +555,7 @@ def compare_backward(G, args: dict, label: str, seed: int,
                              f"backward")
     return {"wl": wl, "comp": comp, "state": state, "err": worst_abs,
             "records": rec, "prefix": int(last.sum()),
-            "pixels": last.numel()}
+            "pixels": last.numel(), "grads": (got, want)}
 
 
 def grad_errors(got, want) -> dict:
@@ -1568,23 +1610,33 @@ def vdm_kernel_times(gpu: str) -> dict:
 KERNEL_NAME = re.compile(r"\w+_kernel<[^>]*>")
 
 
-# host seconds between the profiler's window edges and the profiled call.
+# host seconds between the profiler's window edges and the profiled calls.
 # With none, profiles of one fused call of kernel E or F on the H100 miss
 # some of its kernels now and then (10 of 520, some with none at all);
 # with 10 ms, none of 520 did (street_crafter_tpu_torch/scripts/
-# profile_window.py counts them). The likely cause: device activity that
-# the profiler's clock places outside its window is dropped.
+# profile_window.py counts them). Whole runs of this script still lost F's
+# first kernel at [50, 2304, 640] from every profile of some runs, so the
+# calls kept are those that marker kernels bound on both sides.
 PROFILE_GAP_S = 0.01
+PROFILE_CALLS = 4          # calls of fn in the recorded step
+PROFILE_TRIES = 3
+MARKER = "spin_kernel"     # torch.cuda._sleep's kernel
 
 
-def kernel_ms(fn, gap_s: float = PROFILE_GAP_S) -> list:
-    """[(kernel, device ms, launches)] of the port's kernels in one call of
-    fn, from torch.profiler, largest first. fn runs three times and only
-    the last call is kept: on the H100 a profile of a single call once
-    recorded 2 of kernel E's 10 launches and none of F's 4, a call after
-    two warm-up steps every launch (the caller checks the count). The host
-    waits ``gap_s`` after the window opens before it launches the call,
-    and again after the call has finished before the window closes."""
+def kernel_ms(fn, gap_s: float = PROFILE_GAP_S,
+              calls: int = PROFILE_CALLS) -> dict:
+    """The port's kernels in each of ``calls`` calls of fn, from
+    torch.profiler. fn runs in two warm-up steps of the profiler's schedule
+    (on the H100 a profile of a single call once recorded 2 of kernel E's
+    10 launches and none of F's 4, a call after two warm-up steps every
+    launch), then ``calls`` times in the one recorded step, each call after
+    a marker kernel (``torch.cuda._sleep``) and one more marker after the
+    last. A call counts only where markers bound it on both sides, so
+    kernels the profiler loses at its window's edges cannot shorten a kept
+    call. The host waits ``gap_s`` after the window opens and before it
+    closes. Returns {"calls": [[(kernel, device ms, launches)], largest
+    first, for each bounded call], "markers": markers seen, "outside": the
+    port's kernels seen outside bounded calls}."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1593,21 +1645,40 @@ def kernel_ms(fn, gap_s: float = PROFILE_GAP_S) -> list:
             activities=acts,
             schedule=torch.profiler.schedule(wait=0, warmup=2, active=1),
             on_trace_ready=lambda p: events.extend(p.events())) as prof:
-        for _ in range(3):
-            time.sleep(gap_s)
+        for _ in range(2):
             fn()
             torch.cuda.synchronize()
-            time.sleep(gap_s)
             prof.step()
-    by_name: dict[str, list] = {}
+        time.sleep(gap_s)
+        for _ in range(calls):
+            torch.cuda._sleep(1000)
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(gap_s)
+        prof.step()
+    seq = []
     for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
         m = KERNEL_NAME.search(e.name)
-        if e.device_type == torch.autograd.DeviceType.CUDA and m:
-            rec = by_name.setdefault(m.group(0), [0.0, 0])
-            rec[0] += e.time_range.elapsed_us() / 1e3
+        if m or MARKER in e.name:
+            seq.append((e.time_range.start, m.group(0) if m else None,
+                        e.time_range.elapsed_us() / 1e3))
+    seq.sort(key=lambda r: r[0])
+    marks = [i for i, r in enumerate(seq) if r[1] is None]
+    bounded = []
+    for a, b in zip(marks, marks[1:]):
+        by_name: dict[str, list] = {}
+        for _, name, ms in seq[a + 1:b]:
+            rec = by_name.setdefault(name, [0.0, 0])
+            rec[0] += ms
             rec[1] += 1
-    return sorted(((k, v[0], v[1]) for k, v in by_name.items()),
-                  key=lambda r: -r[1])
+        bounded.append(sorted(((k, v[0], v[1]) for k, v in by_name.items()),
+                              key=lambda r: -r[1]))
+    inside = sum(n for c in bounded for _, _, n in c)
+    return {"calls": bounded, "markers": len(marks),
+            "outside": len(seq) - len(marks) - inside}
 
 
 def fused_stage_call(TB, h, emb, bias, w, T: int, heads: int, full: bool):
@@ -1625,7 +1696,8 @@ def fused_stage_call(TB, h, emb, bias, w, T: int, heads: int, full: bool):
 
 def stage_split(TB, dev, B, T, S, C, heads, seed, full: bool) -> list:
     """Phase 10: kernel E's (``full``) or F's split at one shape. First the
-    device time of each kernel in one fused call, from torch.profiler (the
+    device time of each kernel in one fused call, from torch.profiler, the
+    mean over the profiled calls that kernel_ms keeps whole (the
     LayerNorms and the attention over T are timed only so). Then each GEMM
     launched alone through ``temporal_gemm`` on the operands the stage
     gives it (the chain of kernels E and F, with the plain LayerNorm and
@@ -1637,11 +1709,28 @@ def stage_split(TB, dev, B, T, S, C, heads, seed, full: bool) -> list:
     h, emb, bias, w = stage_inputs(dev, B, T, S, C, seed)
     BT, M = B * T, B * T * S
     call, want = fused_stage_call(TB, h, emb, bias, w, T, heads, full)
-    prof = kernel_ms(call)
-    seen = sum(n for _, _, n in prof)
-    if seen != want:
-        raise AssertionError(f"the profiler saw {seen} of the {want} "
-                             f"kernels of one fused call: {prof}")
+    # the split is the mean over the bounded calls that hold every kernel
+    # of the call; a profile with an incomplete call is logged, one with no
+    # whole call taken anew, at most PROFILE_TRIES times
+    for attempt in range(PROFILE_TRIES):
+        got = kernel_ms(call)
+        whole = [c for c in got["calls"] if sum(n for _, _, n in c) == want]
+        if len(whole) < PROFILE_CALLS:
+            log(f"[10] profile {attempt + 1}: {len(whole)} of "
+                f"{len(got['calls'])} bounded calls held all {want} "
+                f"kernels; {got['markers']} of {PROFILE_CALLS + 1} markers, "
+                f"{got['outside']} kernels outside them; {got['calls']}")
+        if whole:
+            break
+    if not whole:
+        raise AssertionError(f"no call in {PROFILE_TRIES} profiles held all "
+                             f"{want} kernels of one fused call: {got}")
+    counts = [{k: n for k, _, n in c} for c in whole]
+    if any(c != counts[0] for c in counts):
+        raise AssertionError(f"the whole calls' launches differ: {counts}")
+    times = [{k: t for k, t, _ in c} for c in whole]
+    prof = sorted(((k, statistics.mean(t[k] for t in times), n)
+                   for k, n in counts[0].items()), key=lambda r: -r[1])
     rows = [{"piece": f"{name} in the fused call", "ms": ms, "launches": n}
             for name, ms, n in prof]
 
@@ -1995,9 +2084,10 @@ def vdm_train_main_path(tmp: str, gpu: str) -> tuple[dict, dict]:
     return counts, {"trainer": tr, "config": path, "peak_gib": peak}
 
 
-def vdm_train_times(train: dict, gpu: str) -> None:
+def vdm_train_times(train: dict, gpu: str) -> dict:
     """Phase 13, end to end: the train step (encode included) and its split,
-    peak memory and the device-busy share of one step."""
+    peak memory and the device-busy share of one step. Returns the encoded
+    batch (phase 19 steps on it)."""
     import torch
     from street_crafter_tpu_torch.config import default_config, load_config
     from street_crafter_tpu_torch.runner import vdm_train as VT
@@ -2062,6 +2152,7 @@ def vdm_train_times(train: dict, gpu: str) -> None:
     else:
         log("[13] torch.profiler recorded no device kernels: busy share not "
             "measured")
+    return batch
 
 
 def vdm_train_kernel_times(gpu: str) -> dict:
@@ -2763,7 +2854,8 @@ def distill_main_path(G, tmp: str, gpu: str) -> tuple[dict, dict]:
 # phase 17: the cubemap sky, the colour MLPs, COLMAP points, virtual_warp
 # ---------------------------------------------------------------------------
 
-SKY_ITERS, SKY_RESUME = 30, 10
+# cut from 30 and 10 to pay for phases 19-21
+SKY_ITERS, SKY_RESUME = 18, 6
 COLMAP_POINTS = 50_000     # at most; the scene's LiDAR holds 20,000
 WARP_STEPS, WARP_SHIFT = 5, 2.0
 # one pass a step: the cubemap replaces the Gaussian sky's pass
@@ -3707,6 +3799,649 @@ def dp_two_ranks(gpu: str) -> tuple[dict, dict]:
     return total, row
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the fine-tune's options at full width (remat policies, LoRA)
+# ---------------------------------------------------------------------------
+
+# the remat policies beside phase 13's flash0, and kernel D with lse a step
+# under each: the forwards of the 15 flash sites (5 a level at levels 0-2)
+# and the recompute of the sites the policy does not keep
+POLICIES = ("nothing", "flash01", "flash", "flashx", "dots")
+POLICY_D_PER_STEP = {"flash0": 25, "nothing": 30, "flash01": 20,
+                     "flash": 15, "flashx": 20, "dots": 30}
+# the same weights, batch and draws under every policy: the policies keep
+# or recompute the same operations, so the loss and the gradient agree up
+# to summation orders that vary from run to run (cuDNN's backward, the
+# atomics of kernel G); the gradient's global norm within this of flash0's
+POLICY_NORM_RTOL = 1e-4
+# the clip "dots" runs at: at 25 frames its step does not fit the card
+# (it asks for more than the 79.18 GiB there are), at 22 it peaks at 76.24
+# GiB and at 23 it does not fit (one policy alone on the H100, 700 W)
+DOTS_FRAMES = 22
+LORA_STEPS = 3
+
+
+def cut_clip(batch: dict, frames: int) -> dict:
+    """A fine-tune batch ([B, T, ...] leaves) cut to its first frames."""
+    from street_crafter_tpu_torch.models.vdm.conditioner import Conditioning
+    return {"latents": batch["latents"][:, :frames],
+            "cond": Conditioning(*(x[:, :frames] for x in batch["cond"])),
+            "guidance_latents": batch["guidance_latents"][:, :frames]}
+
+
+def step_gradient(tr, batch: dict, draws) -> tuple[float, float, dict]:
+    """One train step of ``tr`` on ``batch`` and ``draws`` with its update
+    skipped: (loss, the gradient's global norm in f64, launches)."""
+    import torch
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    norms = []
+
+    def norm_only(grads):
+        norms.append(float(torch.stack([g.double().pow(2).sum() for g in
+                                        grads.values()]).sum().sqrt()))
+
+    FA.reset_launch_counts()
+    tr._apply = norm_only
+    try:
+        scalars = tr.train_step(batch, draws=draws)
+    finally:
+        del tr._apply
+    return scalars["loss"], norms[0], dict(FA.launches)
+
+
+def remat_policy_steps(tr, batch: dict, gpu: str) -> tuple[dict, dict]:
+    """Phase 19 (a): phase 12's trainer on phase 13's batch under each
+    remat policy. First every policy's loss and gradient norm from the
+    same weights and draws (the update skipped), against flash0's; then
+    per policy a warm-up step and a timed step (CUDA synchronised), the
+    peak since the warm-up, and the launches of the timed step. Returns
+    (the timed steps' launches, summed; per policy {step_s, peak_gib,
+    launches, frames})."""
+    import gc
+
+    import torch
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    eng, unet = tr.engine, tr.engine.unet
+    cfg0, ecfg0 = unet.cfg, eng.cfg
+    frames = batch["latents"].shape[1]
+    g = torch.Generator(device=eng.device).manual_seed(19)
+    draws = {}
+
+    def use(policy: str, T: int) -> dict:
+        unet.cfg = dataclasses.replace(cfg0, remat_policy=policy)
+        eng.cfg = dataclasses.replace(ecfg0, num_frames=T)
+        if T not in draws:      # one clip of T frames, drawn once
+            draws[T] = tr.draw(1, (T, *batch["latents"].shape[2:]), g)
+        return batch if T == frames else cut_clip(batch, T)
+
+    runs = [("flash0", frames)] + [(p, DOTS_FRAMES if p == "dots" else
+                                    frames) for p in POLICIES]
+    if DOTS_FRAMES != frames:
+        runs.insert(1, ("flash0", DOTS_FRAMES))
+    total: dict = {}
+    out: dict = {}
+    try:
+        ref = {}
+        for policy, T in runs:
+            b = use(policy, T)
+            loss, norm, counts = step_gradient(tr, b, draws[T])
+            want = dict(POLICY_D_PER_STEP, flash0=25)[policy]
+            if policy == "flash0":
+                ref[T] = (loss, norm)
+            d_loss = abs(loss - ref[T][0]) / abs(ref[T][0])
+            d_norm = abs(norm - ref[T][1]) / ref[T][1]
+            log(f"[19] {policy} at {T} frames, the update skipped: loss "
+                f"{loss:.6f}, gradient norm {norm:.6f}; against flash0 at "
+                f"{T} frames: loss {d_loss:.3e}, norm {d_norm:.3e} relative "
+                f"(tolerance {POLICY_NORM_RTOL}); launches {counts}")
+            if not (np.isfinite(loss) and np.isfinite(norm)) \
+                    or d_loss > POLICY_NORM_RTOL or d_norm > POLICY_NORM_RTOL:
+                raise AssertionError(f"{policy}: the loss or gradient moved")
+            if counts != {"flash_attention_lse": want,
+                          "flash_attention_bwd_dkv": 15,
+                          "flash_attention_bwd_dq": 15}:
+                raise AssertionError(f"{policy}: launches {counts}, want "
+                                     f"{want} / 15 / 15 of D-lse / G / H")
+            out.setdefault(policy, {})["norm_rel"] = d_norm
+        for policy, T in runs:
+            if policy == "flash0" and T != frames:
+                continue
+            b = use(policy, T)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tr.train_step(b, generator=g)                   # warm-up
+            FA.reset_launch_counts()
+            TB.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scalars = tr.train_step(b, generator=g)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            counts = {**FA.launches, **TB.launches}
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            want = {"flash_attention_lse": POLICY_D_PER_STEP[policy],
+                    "flash_attention_bwd_dkv": 15,
+                    "flash_attention_bwd_dq": 15}
+            log(f"[19] remat {policy}: train step ({T} frames at 576x1024, "
+                f"encode outside) {step_s:.3f} s after one warm-up, loss "
+                f"{scalars['loss']:.4f}; max_memory_allocated {peak:.2f} GiB"
+                f"; launches {counts}; card {gpu}")
+            if counts != want or not np.isfinite(scalars["loss"]):
+                raise AssertionError(f"{policy}: launches {counts}, want "
+                                     f"{want}; loss {scalars['loss']}")
+            out[policy].update(step_s=step_s, peak_gib=peak, frames=T,
+                               d_lse=counts["flash_attention_lse"])
+    finally:
+        unet.cfg, eng.cfg = cfg0, ecfg0
+    return total, out
+
+
+def lora_steps(cfg_path: str, gpu: str) -> dict:
+    """Phase 19 (b): runner.vdm_train's build_trainer at full width with
+    diffusion.add_lora and vdm_train.train_peft_adapters (the recipe's
+    slow temporal group off: the groups are exclusive), LORA_STEPS steps
+    on phase 12's clip: their times, the peak, the launches of each step,
+    and which leaves moved. Returns the launches, summed."""
+    import gc
+
+    import torch
+    from street_crafter_tpu_torch.config import (default_config, load_config,
+                                                 merge_dotlist)
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    from street_crafter_tpu_torch.runner import vdm_train as VT
+    cfg = default_config()
+    cfg.merge(load_config(cfg_path))
+    # a model path of its own: phase 12's holds a checkpoint without
+    # adapters, which build_trainer would resume from
+    merge_dotlist(cfg, ["diffusion.add_lora=true",
+                        "vdm_train.train_peft_adapters=true",
+                        "vdm_train.slow_temporal_layers=false",
+                        f"model_path={cfg.model_path}_lora"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr, _ = VT.build_trainer(cfg)
+    build_s = time.perf_counter() - t0
+    clip = VT.build_sampler(cfg).datasets[0][0]
+    encode = VT.make_encode_fn(tr.engine)
+    batch = encode(clip["img_seq"][None], clip["guide_seq"][None])
+    start = {n: m.to("cpu", copy=True) for n, m in tr.state.masters.items()}
+    g = torch.Generator(device=tr.engine.device).manual_seed(24)
+    total, times, losses = {}, [], []
+    for i in range(LORA_STEPS):
+        FA.reset_launch_counts()
+        TB.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scalars = tr.train_step(batch, generator=g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(scalars["loss"])
+        counts = {**FA.launches, **TB.launches}
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        if counts != TRAIN_PER_STEP:
+            raise AssertionError(f"LoRA step {i}: launches {counts}, want "
+                                 f"{TRAIN_PER_STEP}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    base = [n for n, lab in tr.labels.items() if lab == "base"]
+    adapters = [n for n in base if "adapter" in n]
+    frozen = [n for n, lab in tr.labels.items() if lab == "frozen"]
+    # a length-1 context: the cross-attention's q and k (and their
+    # adapters) get no gradient, as in the JAX package
+    unused = {n for n in adapters if re.search(r"attn2\.[qk]_adapter", n)}
+    still = [n for n in base if n not in unused
+             and torch.equal(tr.state.masters[n].cpu(), start[n])]
+    moved = [n for n in frozen
+             if not torch.equal(tr.state.masters[n].cpu(), start[n])
+             or not torch.equal(tr.params[n].detach().cpu(),
+                                start[n].to(tr.params[n].dtype))]
+    log(f"[19] LoRA (add_lora, train_peft_adapters): build {build_s:.1f} s; "
+        f"{LORA_STEPS} steps (25 frames at 576x1024, encode outside) "
+        f"{[round(t, 3) for t in times]} s, median "
+        f"{statistics.median(times):.3f} s, losses "
+        f"{[round(x, 4) for x in losses]}; max_memory_allocated {peak:.2f} "
+        f"GiB; trained leaves {len(base)} ({len(adapters)} adapter leaves, "
+        f"{len(unused)} of them unused by the length-1 cross-attention), "
+        f"{len(still)} of the rest did not move; frozen leaves {len(frozen)}"
+        f", {len(moved)} moved (masters or bf16 weights); launches per step "
+        f"{TRAIN_PER_STEP}; card {gpu}")
+    if not adapters or still or moved or not all(np.isfinite(losses)):
+        raise AssertionError(f"LoRA: still {still[:5]}, frozen moved "
+                             f"{moved[:5]}, losses {losses}")
+    del tr, batch, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the sampling options at full width (fixed blender, reward)
+# ---------------------------------------------------------------------------
+
+REWARD_ENS, REWARD_STEPS = 2, 2
+
+
+def drop_mixers(tree: dict) -> int:
+    """Remove every ``time_mixer`` subtree of a JAX parameter tree, in
+    place; returns how many."""
+    n = 0
+    for k in list(tree):
+        if k == "time_mixer":
+            del tree[k]
+            n += 1
+        elif isinstance(tree[k], dict):
+            n += drop_mixers(tree[k])
+    return n
+
+
+def fixed_blender_eval(cfg_path: str, gpu: str) -> dict:
+    """Phase 20 (a): phase 9's engine (its seeded weights), its UNet carried
+    through models.vdm.convert into a UNet with merge_strategy="fixed"
+    (the JAX layout and back, less the mixers) and fused_temporal; one CFG
+    eval on seeded inputs: launches, finite output; then kernels E (at
+    the fixed alpha) and F against their plain versions at phase 8's
+    main-path shapes. Returns the CFG eval's launches."""
+    import torch
+    from street_crafter_tpu_torch.config import default_config, load_config
+    from street_crafter_tpu_torch.models.vdm import convert as CV
+    from street_crafter_tpu_torch.models.vdm.conditioner import Conditioning
+    from street_crafter_tpu_torch.models.vdm.engine import materialize
+    from street_crafter_tpu_torch.models.vdm.unet import VideoUNet
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    from street_crafter_tpu_torch.runner import vdm_sample as VS
+    cfg = default_config()
+    cfg.merge(load_config(cfg_path))
+    eng = VS.build_engine(cfg, 25)
+    dev = eng.device
+    t0 = time.perf_counter()
+    tree = CV.unet_params_to_jax(eng.unet.state_dict(), eng.cfg.unet)
+    n_mix = drop_mixers(tree)
+    fcfg = dataclasses.replace(eng.cfg.unet, merge_strategy="fixed")
+    sd = CV.state_dict_from_jax(tree, CV.unet_name_map(fcfg), "unet")
+    del tree
+    eng.unet = None
+    torch.cuda.empty_cache()
+    with torch.device("meta"):
+        unet = VideoUNet(fcfg)
+    unet = materialize(unet, dev, torch.bfloat16)
+    unet.load_state_dict(sd)
+    del sd
+    eng.unet = unet
+    eng.cfg = dataclasses.replace(eng.cfg, unet=fcfg)
+    convert_s = time.perf_counter() - t0
+    mixers = [n for n, _ in unet.named_parameters() if "mix_factor" in n]
+    g = torch.Generator(device=dev).manual_seed(20)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    cond = Conditioning(r(25, 1, 1024), r(25, 768), r(25, 72, 128, 4))
+    uc = Conditioning(torch.zeros_like(cond.crossattn), cond.vector,
+                      torch.zeros_like(cond.concat))
+    cm = torch.zeros(25, device=dev)
+    cm[0] = 1.0
+    denoise = eng.make_cfg_denoise_fn(cond, uc, r(25, 72, 128, 4), cm)
+    x = r(25, 72, 128, 4)
+    sigma = torch.full((25,), 10.0, device=dev)
+    FA.reset_launch_counts()
+    TB.reset_launch_counts()
+    out = denoise(x, sigma)
+    torch.cuda.synchronize()
+    counts = {**FA.launches, **TB.launches}
+    ms = sync_ms(lambda: denoise(x, sigma), 2)
+    log(f"[20] fixed blender: phase 9's weights through convert.py "
+        f"({n_mix} time_mixer leaves dropped, {len(mixers)} mix_factor in "
+        f"the new UNet) in {convert_s:.1f} s; one CFG eval (2 x 25 frames "
+        f"at 72x128, fused temporal, alpha {fcfg.merge_factor}): launches "
+        f"{counts}, output {tuple(out.shape)} finite "
+        f"{bool(torch.isfinite(out).all())}, std {float(out.float().std()):.4f}"
+        f"; median {statistics.median(ms):.1f} ms of "
+        f"{[round(t, 1) for t in ms]}; card {gpu}")
+    if counts != PER_STEP or mixers or n_mix == 0 \
+            or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"fixed blender: launches {counts}, want "
+                             f"{PER_STEP}; mixers {mixers[:3]}; dropped "
+                             f"{n_mix}")
+    del eng, denoise, cond, uc, out, unet
+    torch.cuda.empty_cache()
+    for i, (B, T, S, C, heads) in enumerate(E_SHAPES):
+        args, kw = e_args(TB, dev, B, T, S, C, heads, 300 + i)
+        args = (args[0], args[1], fcfg.merge_factor, *args[3:])
+        e = bf16_errors(TB.temporal_block_fused(*args, **kw),
+                        TB.temporal_block_fused_reference(*args, **kw))
+        check_errors(f"kernel E at the fixed alpha {fcfg.merge_factor}, "
+                     f"[{B * T}, {S}, {C}]", e, 20)
+        del args
+    for i, (B, T, S, C, heads) in enumerate(F_SHAPES):
+        args, kw = f_args(TB, dev, B, T, S, C, heads, 310 + i)
+        e = bf16_errors(TB.temporal_attention_fused(*args, **kw),
+                        TB.temporal_attention_fused_reference(*args, **kw))
+        check_errors(f"kernel F (its blend with the fixed alpha is the "
+                     f"caller's) [{B * T}, {S}, {C}]", e, 20)
+        del args
+    torch.cuda.empty_cache()
+    return counts
+
+
+def reward_main_path(cfg_path: str, tmp: str, gpu: str) -> dict:
+    """Phase 20 (b): ``python -m street_crafter_tpu_torch.runner.reward
+    --dataset IMG`` (its main) on phase 9's frames at 576x1024, phase 9's
+    seeded weights, REWARD_ENS members of REWARD_STEPS Euler steps: one
+    record in (0, 1] appended to rewards.jsonl, every member's frame 0 the
+    real latent, 15 / 5 / 11 launches of D / E / F per CFG eval; the wall,
+    the encode and each member's time. Returns the launches."""
+    import torch
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    from street_crafter_tpu_torch.runner import reward as RW
+    with open(cfg_path) as f:
+        vcfg = json.load(f)
+    root = vcfg["vdm_train"]["data_root"]
+    scene = next(d for d in sorted(os.listdir(root))
+                 if os.path.isdir(os.path.join(root, d)))
+    images = os.path.join(root, scene, "images")
+    save = os.path.join(tmp, "reward")
+    seen, times = {}, {"member": []}
+    ens, sample = RW.ensemble_reward, RW.euler_edm_sample
+
+    def keeping(engine, images_, *a, **kw):
+        enc = engine.encode_images_chunked
+
+        def timed_encode(x, *ea, **ekw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            z = enc(x, *ea, **ekw)
+            torch.cuda.synchronize()
+            times["encode"] = time.perf_counter() - t0
+            seen["z"] = z.float()
+            return z
+        engine.encode_images_chunked = timed_encode
+        try:
+            reward, samples = ens(engine, images_, *a, **kw)
+        finally:
+            del engine.encode_images_chunked
+        seen["samples"], seen["reward"] = samples, reward
+        return reward, samples
+
+    def timed_sample(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sample(*a, **kw)
+        torch.cuda.synchronize()
+        times["member"].append(time.perf_counter() - t0)
+        return out
+
+    FA.reset_launch_counts()
+    TB.reset_launch_counts()
+    RW.ensemble_reward, RW.euler_edm_sample = keeping, timed_sample
+    t0 = time.perf_counter()
+    try:
+        recs = RW.main(["--dataset", "IMG", "--data_root", images,
+                        "--save", save, "--ens_size", str(REWARD_ENS),
+                        "--n_steps", str(REWARD_STEPS), "device=cuda",
+                        "diffusion.tiny=false", "diffusion.ckpt_path=",
+                        "diffusion.init_zero_layers_std=1.0"])
+        torch.cuda.synchronize()
+    finally:
+        RW.ensemble_reward, RW.euler_edm_sample = ens, sample
+    wall = time.perf_counter() - t0
+    counts = {**FA.launches, **TB.launches}
+    with open(os.path.join(save, "rewards.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    evals = REWARD_ENS * REWARD_STEPS
+    z, samples = seen["z"], seen["samples"]
+    pinned = all(torch.equal(samples[e, 0], z[0]) for e in range(REWARD_ENS))
+    r = lines[-1]["reward"] if lines else float("nan")
+    log(f"[20] runner.reward.main --dataset IMG ({REWARD_ENS} members x "
+        f"{REWARD_STEPS} Euler steps, 25 frames at 576x1024): {wall:.1f} s "
+        f"incl. engine build; encode {times['encode']:.3f} s; members "
+        f"{[round(t, 3) for t in times['member']]} s; reward {r!r}; "
+        f"rewards.jsonl {lines}; samples {tuple(samples.shape)}, frame 0 "
+        f"pinned to the real latent in every member: {pinned}; launches "
+        f"{counts} over {evals} CFG evals; card {gpu}")
+    want = {k: n * evals for k, n in PER_STEP.items()}
+    if len(recs) != 1 or len(lines) != 1 or not (0.0 < r <= 1.0) \
+            or not pinned or counts != want \
+            or not bool(torch.isfinite(samples).all()):
+        raise AssertionError(f"reward: records {lines}, pinned {pinned}, "
+                             f"launches {counts} (want {want})")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the semantic channel (kernels B and C past 7 channels)
+# ---------------------------------------------------------------------------
+
+# 4 + K channels of phase 21 (a): the instances' widths (9, 13, ..., 29,
+# 32) and a count padded up to each kind of neighbour (8, 23: rgb + depth
+# + Cityscapes' 19 classes, 30)
+WIDE_CASES = (8, 9, 13, 17, 21, 23, 25, 29, 30, 32)
+SEM_CLASSES = 19        # Cityscapes' evaluation classes
+
+
+def with_channels(args: dict, C: int, seed: int) -> dict:
+    """Raster args with C channels: their rgb + depth, then C - 4 seeded
+    logits N(0, 2^2)."""
+    import torch
+    base = args["colors"][:, :4]
+    g = torch.Generator(device=base.device).manual_seed(seed)
+    extra = 2.0 * torch.randn((base.shape[0], C - 4), generator=g,
+                              device=base.device)
+    return dict(args, colors=torch.cat([base, extra], 1).contiguous())
+
+
+def wide_channel_cases(G, args: dict, label: str) -> float:
+    """Phase 21 (a): the pack, B (both forms) and C at each WIDE_CASES
+    width on phase 2's splats, phase 2's and phase 5's limits. Returns the
+    largest B error."""
+    worst = 0.0
+    for C in WIDE_CASES:
+        cargs = with_channels(args, C, 210 + C)
+        lab = f"{label}, {C} channels"
+        worst = max(worst, compare(G, cargs, lab, 21)["composite_err"])
+        compare_backward(G, cargs, lab, 210 + C, phase=21)
+    return worst
+
+
+def wide_times(G, wl, comp: dict, rec, bwd: dict) -> dict:
+    """CUDA-event ms of the pack, B (both forms) and C on one input."""
+    pack = [comp[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
+                              "colors", "opacities")]
+    return {"pair_records": cuda_ms(lambda: G.pair_records(wl, *pack), 20),
+            "composite": cuda_ms(
+                lambda: G.composite(wl, **comp, records=rec), 20),
+            "composite (train)": cuda_ms(
+                lambda: G.composite(wl, **comp, train=True, records=rec), 20),
+            "composite_backward": cuda_ms(
+                lambda: G.composite_backward(wl, **bwd, records=rec), 20)}
+
+
+def semantic_headline(G, cfg, dev, fg: dict, gpu: str) -> tuple[dict, dict]:
+    """Phase 21 (b): the headline frame's foreground with a SemanticField
+    of SEM_CLASSES classes: render_flat(extra_channels=) forward and
+    backward through semantic_loss against a seeded label map (launches,
+    finite, the logits' gradient); B and C against their plain versions
+    at 4 + SEM_CLASSES channels (phase 4's and 5's limits, C also on the
+    logits' columns alone); the times of A, the pack, B and C beside phase
+    5's 4-channel ones, then at MAX_CHANNELS; the peak. Returns (the
+    render's launches, {channels: times and bounds})."""
+    import torch
+    from street_crafter_tpu_torch.models.gs.renderer import render_flat
+    from street_crafter_tpu_torch.models.gs.scene import flatten_scene
+    from street_crafter_tpu_torch.models.gs.semantic import (init_semantic,
+                                                             semantic_loss)
+    scene, params, cam, batch = headline_scene(cfg, dev)
+    flat = flatten_scene(params, scene.meta, batch["cam_id"],
+                         batch["frame_idx"], batch["frame"],
+                         batch["timestamp"], include_sky=False,
+                         interpolate=True)
+    n = flat.xyz.shape[0]
+    g = torch.Generator(device=dev).manual_seed(21)
+    field = init_semantic(n, SEM_CLASSES, device=dev)
+    field.logits = (2.0 * torch.randn(field.logits.shape, generator=g,
+                                      device=dev)).requires_grad_(True)
+    labels = torch.randint(0, SEM_CLASSES, (cam.height, cam.width),
+                           generator=g, device=dev)
+    center = -(cam.w2c[:3, :3].T @ cam.w2c[:3, 3])
+    torch.cuda.reset_peak_memory_stats()
+    G.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = render_flat(flat, cam.w2c, cam.K, center, cam.width, cam.height,
+                      extra_channels=field.get_semantic())
+    loss = semantic_loss(out["semantic"], labels, 1.0)
+    loss.backward()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    counts = dict(G.launches)
+    grad = field.logits.grad
+    log(f"[21] render_flat at the headline frame ({cam.width}x{cam.height}, "
+        f"{n} splats) with a SemanticField of {SEM_CLASSES} classes, "
+        f"semantic_loss against a seeded label map and its backward: "
+        f"{wall:.1f} ms, loss {float(loss):.4f}, semantic "
+        f"{tuple(out['semantic'].shape)}, logits' gradient norm "
+        f"{float(grad.norm()):.4g} (finite {bool(torch.isfinite(grad).all())}"
+        f"); launches {counts}")
+    want = {"tile_worklist": 1, "pair_records": 1, "composite": 1,
+            "composite_backward": 1}
+    if counts != want or not bool(torch.isfinite(grad).all()) \
+            or not float(grad.abs().max()) > 0 \
+            or out["semantic"].shape != (cam.height, cam.width, SEM_CLASSES):
+        raise AssertionError(f"semantic render: launches {counts} (want "
+                             f"{want}), gradient finite "
+                             f"{bool(torch.isfinite(grad).all())}")
+    logits = field.logits.detach()
+    del out, loss, grad, field
+    args = raster_args(flat, cam.w2c, cam.K, cam.width, cam.height)
+    C = 4 + SEM_CLASSES
+    args["colors"] = torch.cat([args["colors"], logits], 1).contiguous()
+    label = (f"headline frame with {SEM_CLASSES} classes ({C} channels)")
+    err = compare(G, args, label, 21)["composite_err"]
+    head = compare_backward(G, args, label, 21, phase=21, shared=True)
+    # the logits' columns of kernel C's rows alone
+    wl, rec = head["wl"], head["records"]
+    bwd = dict(head["comp"], **head["state"])
+    got, want_g = head["grads"]
+    e = grad_errors(got[:, G.GRAD_COLORS + 4:], want_g[:, G.GRAD_COLORS + 4:])
+    log(f"[21] {label}: kernel C on the logits' columns alone: "
+        f"{e['max_rel']:.2e} of the largest, {e['norm_rel']:.2e} of the "
+        f"norm, median per splat {e['median_rel']:.2e} (tolerance "
+        f"{GRAD_RTOL} on each)")
+    if max(e["max_rel"], e["norm_rel"], e["median_rel"]) > GRAD_RTOL:
+        raise AssertionError(f"{label}: kernel C disagrees on the logits")
+    del got, want_g, head
+    geo, comp = split_args(args)
+    rows = {}
+    for width in (C, G.MAX_CHANNELS):
+        if width != C:
+            args = with_channels(args, width, 221)
+            geo, comp = split_args(args)
+            rec = G.pair_records(wl, *(comp[k] for k in (
+                "u", "v", "conic_a", "conic_b", "conic_c", "colors",
+                "opacities")))
+            _, _, final_T, last = G.composite(wl, **comp, train=True,
+                                              records=rec)
+            bwd = dict(comp, final_T=final_T, last=last,
+                       grad_colors=torch.randn(
+                           (cam.height, cam.width, width), generator=g,
+                           device=dev),
+                       grad_alpha=bwd["grad_alpha"])
+        t = wide_times(G, wl, comp, rec, bwd)
+        t["tile_worklist"] = cuda_ms(lambda: G.tile_worklist(**geo), 10)
+        b = bounds(n, wl.n_pairs, wl.ranges.shape[0], fg["pixels"],
+                   fg["prefix"], fg["hits"], width)
+        rows[width] = {k: {"ms": round(t[k], 4),
+                           "bound_ms": round(b[k]["bound_ms"], 6),
+                           "bound_by": b[k]["bound_by"]} for k in b}
+        rows[width]["composite"]["train_ms"] = round(t["composite (train)"],
+                                                     4)
+        log(f"[21] headline frame at {width} channels (beside phase 5's 4 "
+            f"channels): " + ", ".join(
+                f"{k} {t[k]:.4f} ms (4 channels "
+                f"{fg['times'][k][0]:.4f})" for k in t)
+            + f"; bounds (ms) " + ", ".join(
+                f"{k} {b[k]['bound_ms']:.4f} ({b[k]['bound_by']})"
+                for k in b) + f"; {gpu}")
+    rows["composite_err"] = err
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[21] peak max_memory_allocated over the semantic phase "
+        f"{peak:.2f} GiB")
+    return counts, rows
+
+
+def semantic_densify_ply(tmp: str, dev, gpu: str) -> None:
+    """Phase 21 (c): densify_and_prune of phase 2's 50k-splat pool (in a
+    pool of 2^17 slots) carrying a SemanticField of SEM_CLASSES classes
+    as ``extra``, on the card and on the host from the same inputs (the
+    same slots, the carried rows equal), then the PLY round trip of the
+    pool and its logits (``semantic_i`` back equal)."""
+    import torch
+    from street_crafter_tpu_torch.models.gs import densify as DZ
+    from street_crafter_tpu_torch.models.gs.optim import init_adam
+    from street_crafter_tpu_torch.models.gs.params import GaussianPool
+    from street_crafter_tpu_torch.models.gs.semantic import init_semantic
+    from street_crafter_tpu_torch.utils import gs_ply as PLY
+    cap = 1 << 17
+    pool = padded_pool(heavy_pool_in_camera(np.eye(4), dev, N_SMALL), cap,
+                       dev)
+    g = torch.Generator(device=dev).manual_seed(22)
+    field = init_semantic(cap, SEM_CLASSES, device=dev)
+    field.logits.normal_(generator=g)
+    state = DZ.init_densify_state((cap,), dev)
+    state.grad_abs_accum.copy_(torch.rand(cap, generator=g, device=dev)
+                               * 4e-4)
+    state.denom.fill_(1.0)
+    noise = torch.randn((2, cap, 3), generator=g, device=dev)
+    kw = dict(grad_threshold=2e-4, percent_dense=0.01, extent=5.0,
+              min_opacity=0.005)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        p = GaussianPool(**{k: v.to(where, copy=True)
+                            for k, v in dataclasses.asdict(pool).items()})
+        adam = init_adam(p.trainable_dict())
+        st = DZ.init_densify_state((cap,), where)
+        for f in dataclasses.fields(st):
+            getattr(st, f.name).copy_(getattr(state, f.name))
+        sem = field.logits.clone().to(where)
+        t0 = time.perf_counter()
+        info = DZ.densify_and_prune(p, adam, st, noise.to(where), **kw,
+                                    extra={"semantic": sem})
+        if where == "cuda":
+            torch.cuda.synchronize()
+        runs[where] = (p, sem, info, time.perf_counter() - t0)
+    (pc, sc, ic, tc), (ph, sh, ih, th) = runs["cuda"], runs["cpu"]
+    same = (torch.equal(pc.valid.cpu(), ph.valid)
+            and torch.equal(sc.cpu(), sh))
+    log(f"[21] densify with the semantic field ({SEM_CLASSES} classes, "
+        f"{N_SMALL} splats in {cap} slots): cloned {int(ic.n_cloned)}, "
+        f"split {int(ic.n_split)}, pruned {int(ic.n_pruned)}, valid "
+        f"{int(ic.n_valid)}; {1e3 * tc:.1f} ms on the card; slots and "
+        f"carried logits equal to the host's: {same}")
+    if not same or int(ic.n_cloned) + int(ic.n_split) == 0:
+        raise AssertionError("densify did not carry the semantic field as "
+                             "on the host")
+    path = os.path.join(tmp, "semantic.ply")
+    PLY.export_gaussians_ply(path, {"background": pc},
+                             semantics={"background": sc})
+    pools, sems = PLY.import_gaussians_ply(path, capacity=cap, device=dev,
+                                           with_semantics=True)
+    n = int(pc.valid.sum())
+    back = sems["background"]
+    ok = (back.shape == (cap, SEM_CLASSES)
+          and torch.equal(back[:n], sc[pc.valid])
+          and torch.equal(pools["background"].xyz[:n], pc.xyz[pc.valid]))
+    log(f"[21] PLY round trip of {n} splats with {SEM_CLASSES} semantic_i "
+        f"properties ({os.path.getsize(path)} bytes): logits and positions "
+        f"back equal: {ok}; {gpu}")
+    if not ok:
+        raise AssertionError("the PLY's semantic_i did not come back equal")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3768,6 +4503,8 @@ def main() -> None:
     compare(G, long_args, label, 2)
     compare_backward(G, long_args, label, 30, phase=2)
     del cargs, long_args, wl_long
+    # ---- phase 21 (a): kernels B, C and the pack past 7 channels --------
+    sem_wide_err = wide_channel_cases(G, small_args, small_label)
     forced = forced_list_args(dev)
     check_worklist(G.tile_worklist(**forced),
                    G.tile_worklist_reference(**forced), "forced list")
@@ -3829,6 +4566,9 @@ def main() -> None:
         bound = bounds(n_splats, fg["wl"].n_pairs, fg["wl"].ranges.shape[0],
                        fg["pixels"], fg["prefix"], fg["hits"],
                        args["colors"].shape[1])
+        # ---- phase 21 (b), (c): the semantic channel at the headline -----
+        sem_counts, sem_rows = semantic_headline(G, cfg, dev, fg, gpu)
+        semantic_densify_ply(tmp, dev, gpu)
         # phase 15 splits kernel A on these inputs, after phase 13
         split_inputs = {"foreground": fg["geo"], "sky": sky["geo"]}
         headline = {"graphs": fg["graphs"], "sort_ms": fg["sort_ms"],
@@ -3866,9 +4606,18 @@ def main() -> None:
         ft_counts, ft = vdm_train_main_path(tmp, gpu)
 
         # ---- phase 13: times -----------------------------------------------
-        vdm_train_times(ft, gpu)
-        del ft
+        ft_batch = vdm_train_times(ft, gpu)
+
+        # ---- phase 19: the remat policies, LoRA ----------------------------
+        policy_counts, _ = remat_policy_steps(ft["trainer"], ft_batch, gpu)
+        ft_config = ft["config"]
+        del ft, ft_batch
         torch.cuda.empty_cache()
+        lora_counts = lora_steps(ft_config, gpu)
+
+        # ---- phase 20: the fixed blender, the reward -----------------------
+        fixed_counts = fixed_blender_eval(vdm_cfg, gpu)
+        reward_counts = reward_main_path(vdm_cfg, tmp, gpu)
     ft_rows = vdm_train_kernel_times(gpu)
 
     # ---- phase 14: kernel A's variant bench --------------------------------
@@ -3891,6 +4640,7 @@ def main() -> None:
     for k, n in ranks_counts.items():
         dp_counts[k] = dp_counts.get(k, 0) + n
 
+
     # each main path's counts, read right after its own reset; "launches"
     # is their sum
     by_path = {name: {"render": render_counts.get(name, 0),
@@ -3898,7 +4648,8 @@ def main() -> None:
                       "vdm_train": 0,
                       "distill": distill_counts.get(name, 0),
                       "sky_color": sky_counts.get(name, 0),
-                      "data_parallel": dp_counts.get(name, 0)}
+                      "data_parallel": dp_counts.get(name, 0),
+                      "semantic": sem_counts.get(name, 0)}
                for name in REPLACES}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
@@ -3923,7 +4674,13 @@ def main() -> None:
         if k["name"] in cond_rows:
             k["condition_render"] = cond_rows[k["name"]]
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"],
-                                    cond_rows["_errs"])
+                                    cond_rows["_errs"], sem_wide_err,
+                                    sem_rows["composite_err"])
+    # the pack, B and C at the headline frame with SEM_CLASSES classes and
+    # at their widest (phase 21); kernel A's own time there too
+    for k in kernels:
+        k["wide"] = {str(c): sem_rows[c][k["name"]]
+                     for c in (4 + SEM_CLASSES, G.MAX_CHANNELS)}
     a_row = kernels[0]
     a_row["graph_of"] = "the part after the host synchronisation"
     a_row["library_part_ms"] = round(headline["sort_ms"], 4)
@@ -3948,15 +4705,16 @@ def main() -> None:
     for name in ("flash_attention", "temporal_block_fused",
                  "temporal_attention_fused"):
         head = vdm_rows[name][0]
+        lse = "flash_attention_lse" if name == "flash_attention" else name
         paths = {"render": 0, "train": 0,
                  "vdm_sample": vdm_counts.get(name, 0),
-                 "vdm_train": ft_counts.get(
-                     "flash_attention_lse" if name == "flash_attention"
-                     else name, 0),
+                 "vdm_train": ft_counts.get(lse, 0),
                  "distill": distill_counts.get(name, 0), "sky_color": 0,
-                 "data_parallel": dp_counts.get(
-                     "flash_attention_lse" if name == "flash_attention"
-                     else name, 0)}
+                 "data_parallel": dp_counts.get(lse, 0),
+                 "remat_policies": policy_counts.get(lse, 0),
+                 "lora": lora_counts.get(lse, 0),
+                 "fixed_blender": fixed_counts.get(name, 0),
+                 "reward": reward_counts.get(name, 0)}
         shapes = rounded(vdm_rows[name])
         if name == "flash_attention":
             shapes += [dict(r, path="vdm_train")
@@ -3981,7 +4739,9 @@ def main() -> None:
         paths = {"render": 0, "train": 0, "vdm_sample": 0,
                  "vdm_train": ft_counts.get(name, 0),
                  "distill": distill_counts.get(name, 0), "sky_color": 0,
-                 "data_parallel": dp_counts.get(name, 0)}
+                 "data_parallel": dp_counts.get(name, 0),
+                 "remat_policies": policy_counts.get(name, 0),
+                 "lora": lora_counts.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": VDM_SOURCES["flash_attention"],

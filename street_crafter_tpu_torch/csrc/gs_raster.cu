@@ -47,6 +47,10 @@
 //     tile's bucket counter, and the emit the tile counter, so the part
 //     after the synchronisation can be replayed (a CUDA graph).
 //
+// Channels: up to kMaxChannels (32), through kernel instances of widths 1-7,
+// 9, 13, ..., 29 and 32 (instance_width; the channels an instance carries
+// past the caller's are zero and are neither written nor differentiated).
+//
 // Kernel B, compositing: composite_kernel<C, kTrain>. Replaces
 // street_crafter_tpu/ops/gs_raster_fused.py::_composite_kernel (K2), which
 // composited 16x128 pixel strips with MXU matmuls, a Cholesky-factored
@@ -75,16 +79,17 @@
 //     order, so a tile's list is one contiguous run of records: u, v,
 //     conic a, b, c, opacity, the cull threshold t and the C channels,
 //     padded to a multiple of 16 bytes (7 + C floats: 32 B at C = 1, 48 B
-//     at C = 2-5, 64 B at C = 6-7). The wrappers launch it before B and C
-//     (C packs anew);
+//     at C = 2-5, 64 B at C = 6-9, ..., 160 B at C = 30-32). The wrappers
+//     launch it before B and C (C packs anew);
 //   - a bulk-copy ring: one producer warp copies batches of records with
 //     1-D bulk copies (cp.async.bulk, mbarrier completion) into a ring of
 //     full / empty stages; the eight consumer warps, two pixel rows of the
 //     tile each, take the stages in order. No block barrier per batch. C
 //     walks each list back to front the same way. Batch and depth, as
-//     measured at the headline frame: B 256 records x 3 stages, C 128 x 2
-//     (C's per-pair registers leave fewer blocks per SM; a shorter batch
-//     keeps its ring turning);
+//     measured at the headline frame: B 256 records x 3 stages (128 for
+//     records past 64 B, so that the ring of the widest still leaves three
+//     blocks an SM), C 128 x 2 (C's per-pair registers leave fewer blocks
+//     per SM; a shorter batch keeps its ring turning);
 //   - a per-warp cull: when a batch lands, each lane tests its records (8
 //     of 256) against its warp's 16x2 pixel rectangle (warp_culls) and the
 //     warp ballots a mask; the walk visits only the set bits. A culled
@@ -114,8 +119,8 @@
 //   da = dx^2 dsigma / 2, db = dx dy dsigma, dc = dy^2 dsigma / 2,
 //   dcolor = w g_c, and the absgrad columns |du|, |dv| (gsplat absgrad=True).
 // A warp walks only up to its own largest last index. Per splat that one of
-// its pixels touched, one transposed warp reduction (warp_sum16: 16
-// shuffles for the 8 + C fields, in place of 5 per field; warp_sum12, 13,
+// its pixels touched, one transposed warp reduction per 16 of the 8 + C
+// fields (warp_sum16: 16 shuffles, in place of 5 per field; warp_sum12, 13,
 // at C = 4) leaves each field's sum in one lane, and those lanes add them
 // to the splat's [N, 8 + C] row in device memory: one red.global.add.f32
 // instruction per warp and splat, in place of lane 0's 8 + C in a row.
@@ -820,6 +825,25 @@ __host__ __device__ constexpr int record_floats(int C) {
   return (kRCol + C + 3) / 4 * 4;
 }
 
+// Channel counts are served by kernel instances of width CI: C itself up
+// to 7, then CI = 9, 13, ..., 29 (7 + CI a multiple of 4) and 32, each for
+// the C above the instance before it. record_floats(C) equals
+// record_floats(CI), so the records of C channels are those of CI with
+// the channels past C zero (the record's padding). A kernel reads and
+// writes C channels of its caller's arrays; the CI - C it carries on top
+// are zero throughout and are not written.
+constexpr int kMaxChannels = 32;
+
+__host__ __device__ constexpr int instance_width(int C) {
+  return C <= 7 ? C : (C >= 30 ? 32 : (C - 6) / 4 * 4 + 9);
+}
+
+// Records per bulk copy of kernel B: kBatchB, halved for records past 16
+// floats so that three blocks still share an SM's shared memory.
+__host__ __device__ constexpr int batch_b(int C) {
+  return record_floats(C) <= 16 ? kBatchB : kBatchB / 2;
+}
+
 // The cull's margins (warp_culls). A pixel computes sigma_f with
 // splat_sigma at (dx_f, dy_f) = (fl(fx - u), fl(fy - v)); its alpha passes
 // only if fl(o expf(-sigma_f)) >= fl(1/255).
@@ -854,7 +878,7 @@ __device__ __forceinline__ float cull_threshold(float a, float b, float c,
 // (coalesced reads of the seven attribute arrays), then each pair's record
 // from the table, 16 bytes a thread (one gather of 2-4 sectors per pair in
 // place of eight scattered 4-byte loads).
-template <int C>
+template <int CI>
 __global__ void splat_records_kernel(const float* __restrict__ u,
                                      const float* __restrict__ v,
                                      const float* __restrict__ conic_a,
@@ -862,8 +886,8 @@ __global__ void splat_records_kernel(const float* __restrict__ u,
                                      const float* __restrict__ conic_c,
                                      const float* __restrict__ colors,
                                      const float* __restrict__ opacities,
-                                     int n, float* __restrict__ table) {
-  constexpr int RS = record_floats(C);
+                                     int n, int C, float* __restrict__ table) {
+  constexpr int RS = record_floats(CI);
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= n) return;
   float r[RS];
@@ -875,9 +899,10 @@ __global__ void splat_records_kernel(const float* __restrict__ u,
   r[kRO] = opacities[g];
   r[kRT] = cull_threshold(r[kRA], r[kRB], r[kRC], r[kRO]);
 #pragma unroll
-  for (int c = 0; c < C; ++c) r[kRCol + c] = colors[(int64_t)g * C + c];
+  for (int c = 0; c < CI; ++c)
+    r[kRCol + c] = c < C ? colors[(int64_t)g * C + c] : 0.0f;
 #pragma unroll
-  for (int i = kRCol + C; i < RS; ++i) r[i] = 0.0f;
+  for (int i = kRCol + CI; i < RS; ++i) r[i] = 0.0f;
   float4* dst = reinterpret_cast<float4*>(table + (int64_t)g * RS);
 #pragma unroll
   for (int q = 0; q < RS / 4; ++q)
@@ -962,9 +987,9 @@ __device__ __forceinline__ unsigned pick(const unsigned (&keep)[NB], int k) {
 
 // The outputs of a tile with an empty list, written by one warp: colours
 // and alpha 0, T 1, last 0.
-template <int C, bool kTrain>
+template <bool kTrain>
 __device__ __forceinline__ void fill_empty_tile(
-    int tile, int lane, int width, int height, int tw,
+    int tile, int lane, int width, int height, int tw, int C,
     float* __restrict__ out_colors, float* __restrict__ out_alpha,
     float* __restrict__ out_T, int32_t* __restrict__ out_last) {
   const int tx = tile % tw, ty = tile / tw;
@@ -972,7 +997,6 @@ __device__ __forceinline__ void fill_empty_tile(
     const int px = tx * kTile + q % kTile, py = ty * kTile + q / kTile;
     if (px >= width || py >= height) continue;
     const int64_t p = (int64_t)py * width + px;
-#pragma unroll
     for (int c = 0; c < C; ++c) out_colors[p * C + c] = 0.0f;
     out_alpha[p] = 0.0f;
     if (kTrain) {
@@ -982,18 +1006,21 @@ __device__ __forceinline__ void fill_empty_tile(
   }
 }
 
-template <int C, bool kTrain>
+// CI: the instance's channels (acc in registers); C <= CI: the channels
+// of out_colors (the records carry CI, zero past C).
+template <int CI, bool kTrain>
 __global__ void __launch_bounds__(kRasterThreads)
 composite_kernel(const int32_t* __restrict__ ranges,
                  const float* __restrict__ rec,
                  const int64_t* __restrict__ order,
                  int32_t* __restrict__ next_tile, int n_tiles, int width,
-                 int height, int tw, float* __restrict__ out_colors,
+                 int height, int tw, int C, float* __restrict__ out_colors,
                  float* __restrict__ out_alpha, float* __restrict__ out_T,
                  int32_t* __restrict__ out_last) {
-  constexpr int RS = record_floats(C);
-  constexpr int NB = kBatchB / 32;
-  extern __shared__ __align__(16) float s_ring[];  // kStagesB x kBatchB x RS
+  constexpr int RS = record_floats(CI);
+  constexpr int KB = batch_b(CI);
+  constexpr int NB = KB / 32;
+  extern __shared__ __align__(16) float s_ring[];  // kStagesB x KB x RS
   __shared__ __align__(8) uint64_t s_bar[2 * kStagesB];  // full, empty
   // per stage: tile, index in the tile's list of the batch's first record,
   // record count, the tile's done slot; or the sentinel: -1, then the
@@ -1040,14 +1067,14 @@ composite_kernel(const int32_t* __restrict__ ranges,
       const int slot = seq % (kStagesB + 1);
       s_done[slot] = 0;
       for (int base = 0;;) {
-        const int cnt = min(kBatchB, len - base);
+        const int cnt = min(KB, len - base);
         s_meta[s] = make_int4(tile, base, cnt, slot);
         mbar_expect_tx(full0 + 8 * s, cnt * RS * 4);
-        bulk_load(smem_u32(s_ring + s * kBatchB * RS),
+        bulk_load(smem_u32(s_ring + s * KB * RS),
                   rec + (int64_t)(start + base) * RS, cnt * RS * 4,
                   full0 + 8 * s);
         ++it;
-        base += kBatchB;
+        base += KB;
         if (base >= len || *(volatile int*)&s_done[slot] == kConsumers)
           break;
         s = it % kStagesB;
@@ -1064,7 +1091,7 @@ composite_kernel(const int32_t* __restrict__ ranges,
   bool inside = false, done = true;
   float fx = 0.0f, fy = 0.0f, fx0 = 0.0f, fy0 = 0.0f;
   float T = 1.0f;
-  float acc[C];
+  float acc[CI];
   int last = 0;  // one past the last contributor, in the tile's list
   for (int it = 0;; ++it) {
     const int s = it % kStagesB;
@@ -1074,7 +1101,8 @@ composite_kernel(const int32_t* __restrict__ ranges,
       if (cur >= 0 && inside) {
         const int64_t p = (int64_t)py * width + px;
 #pragma unroll
-        for (int c = 0; c < C; ++c) out_colors[p * C + c] = acc[c];
+        for (int c = 0; c < CI; ++c)
+          if (c < C) out_colors[p * C + c] = acc[c];
         out_alpha[p] = 1.0f - T;
         if (kTrain) {
           out_T[p] = T;
@@ -1092,8 +1120,8 @@ composite_kernel(const int32_t* __restrict__ ranges,
             if (i >= n_tiles) return;
             tile = (int)order[i];
           }
-          fill_empty_tile<C, kTrain>(tile, lane, width, height, tw,
-                                     out_colors, out_alpha, out_T, out_last);
+          fill_empty_tile<kTrain>(tile, lane, width, height, tw, C,
+                                  out_colors, out_alpha, out_T, out_last);
           tile = -1;
         }
       }
@@ -1108,14 +1136,14 @@ composite_kernel(const int32_t* __restrict__ ranges,
       fy0 = (float)(ty * kTile + 2 * warp) + 0.5f;
       T = 1.0f;
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+      for (int c = 0; c < CI; ++c) acc[c] = 0.0f;
       last = 0;
       done = !inside;
       if (__all_sync(0xffffffffu, done) && lane == 0)
         atomicAdd(&s_done[m.w], 1);
     }
     if (!__all_sync(0xffffffffu, done)) {
-      const float* sb = s_ring + s * kBatchB * RS;
+      const float* sb = s_ring + s * KB * RS;
       unsigned keep[NB];
       warp_keep<RS, NB>(sb, m.z, lane, fx0, fy0, keep);
       // the records the warp may take, in list order; each pixel applies
@@ -1142,7 +1170,7 @@ composite_kernel(const int32_t* __restrict__ ranges,
           }
           const float w = alpha * T;
 #pragma unroll
-          for (int c = 0; c < C; ++c) acc[c] += r[kRCol + c] * w;
+          for (int c = 0; c < CI; ++c) acc[c] += r[kRCol + c] * w;
           T = next_T;
           if (kTrain) last = m.y + j + 1;
         }
@@ -1224,22 +1252,25 @@ __device__ __forceinline__ float warp_sum12(float (&x)[16], int lane,
   return y;
 }
 
-template <int C>
+// CI: the instance's channels; C <= CI: those of grad_colors and of the
+// [N, 8 + C] gradient rows (the CI - C past them are zero: not written).
+template <int CI>
 __global__ void __launch_bounds__(kRasterThreads)
 composite_bwd_kernel(const int32_t* __restrict__ ranges,
                      const int32_t* __restrict__ gids,
                      const float* __restrict__ rec,
                      const int64_t* __restrict__ order,
                      int32_t* __restrict__ next_tile, int n_tiles, int width,
-                     int height, int tw, const float* __restrict__ final_T,
+                     int height, int tw, int C,
+                     const float* __restrict__ final_T,
                      const int32_t* __restrict__ last,
                      const float* __restrict__ grad_colors,
                      const float* __restrict__ grad_alpha,
                      float* __restrict__ grads) {
-  constexpr int RS = record_floats(C);
-  constexpr int NG = kGCol + C;
+  constexpr int RS = record_floats(CI);
+  constexpr int NGI = kGCol + CI;  // fields a warp sums, in rounds of 16
   constexpr int NB = kBatchC / 32;
-  static_assert(NG <= 16, "warp_sum16 sums 16 fields");
+  const int NG = kGCol + C;        // the row's stride
   extern __shared__ __align__(16) float s_ring[];  // kStagesC x kBatchC x RS
   __shared__ __align__(8) uint64_t s_bar[2 * kStagesC];  // full, empty
   // per stage: tile (-1: no more tiles), index in the tile's list of the
@@ -1317,7 +1348,7 @@ composite_bwd_kernel(const int32_t* __restrict__ ranges,
   int my_last = 0, wlen = 0;
   float fx = 0.0f, fy = 0.0f, fx0 = 0.0f, fy0 = 0.0f;
   float T = 1.0f, T_N = 1.0f, g_a = 0.0f, S = 0.0f;
-  float g_c[C];
+  float g_c[CI];
   for (int it = 0;; ++it) {
     const int s = it % kStagesC;
     mbar_wait(full0 + 8 * s, (it / kStagesC) & 1);
@@ -1337,14 +1368,15 @@ composite_bwd_kernel(const int32_t* __restrict__ ranges,
       g_a = 0.0f;
       S = 0.0f;
 #pragma unroll
-      for (int c = 0; c < C; ++c) g_c[c] = 0.0f;
+      for (int c = 0; c < CI; ++c) g_c[c] = 0.0f;
       if (px < width && py < height) {
         const int64_t p = (int64_t)py * width + px;
         T_N = final_T[p];
         my_last = last[p];
         g_a = grad_alpha[p];
 #pragma unroll
-        for (int c = 0; c < C; ++c) g_c[c] = grad_colors[p * C + c];
+        for (int c = 0; c < CI; ++c)
+          if (c < C) g_c[c] = grad_colors[p * C + c];
       }
       T = T_N;
       wlen = __reduce_max_sync(0xffffffffu, my_last);
@@ -1360,9 +1392,12 @@ composite_bwd_kernel(const int32_t* __restrict__ ranges,
           const int hb = 31 - __clz(bits);
           bits ^= 1u << hb;
           const int j = 32 * k + hb;
-          float gr[16];
+          // the splat's fields at this pixel: the 8 of geometry and
+          // opacity, and w times each channel's cotangent (w = 0: no hit)
+          float g8[kGCol];
 #pragma unroll
-          for (int q = 0; q < 16; ++q) gr[q] = 0.0f;
+          for (int q = 0; q < kGCol; ++q) g8[q] = 0.0f;
+          float w = 0.0f;
           bool hit = false;
           if (m.y + j < my_last) {
             const float* r = sb + j * RS;
@@ -1383,25 +1418,22 @@ composite_bwd_kernel(const int32_t* __restrict__ ranges,
               // 1 - alpha (two IEEE divisions cost ~5% of the kernel)
               const float inv = __frcp_rn(one_m);
               T = T * inv;  // T before splat j
-              const float w = alpha * T;
+              w = alpha * T;
               float cg = 0.0f;
 #pragma unroll
-              for (int ch = 0; ch < C; ++ch) {
-                cg += r[kRCol + ch] * g_c[ch];
-                gr[kGCol + ch] = w * g_c[ch];
-              }
+              for (int ch = 0; ch < CI; ++ch) cg += r[kRCol + ch] * g_c[ch];
               const float dalpha = T * cg - (S - g_a * T_N) * inv;
               S += w * cg;
               if (raw < kAlphaClamp) {  // the clamp passes no gradient
                 const float dsig = -alpha * dalpha;
-                gr[kGU] = -dsig * (a * dx + b * dy);
-                gr[kGV] = -dsig * (c * dy + b * dx);
-                gr[kGA] = 0.5f * dx * dx * dsig;
-                gr[kGB] = dx * dy * dsig;
-                gr[kGC] = 0.5f * dy * dy * dsig;
-                gr[kGO] = dalpha * e;
-                gr[kGAbsU] = fabsf(gr[kGU]);
-                gr[kGAbsV] = fabsf(gr[kGV]);
+                g8[kGU] = -dsig * (a * dx + b * dy);
+                g8[kGV] = -dsig * (c * dy + b * dx);
+                g8[kGA] = 0.5f * dx * dx * dsig;
+                g8[kGB] = dx * dy * dsig;
+                g8[kGC] = 0.5f * dy * dy * dsig;
+                g8[kGO] = dalpha * e;
+                g8[kGAbsU] = fabsf(g8[kGU]);
+                g8[kGAbsV] = fabsf(g8[kGV]);
               }
             }
           }
@@ -1409,14 +1441,27 @@ composite_bwd_kernel(const int32_t* __restrict__ ranges,
           // the warp's sums, one field per adding lane; the atomics'
           // results are unused, so the warp issues one red.global.add.f32
           float* dst = grads + (int64_t)sg[j] * NG;
-          if constexpr (NG == 12) {
-            int f;
-            bool add;
-            const float x = warp_sum12(gr, lane, &f, &add);
-            if (add) atomicAdd(dst + f, x);
-          } else {
-            const float x = warp_sum16(gr, lane);
-            if (lane < NG) atomicAdd(dst + lane, x);
+          // the row in rounds of 16 fields (compile-time indices: the
+          // fields stay in registers); lanes 0-15 add field k0 + lane
+#pragma unroll
+          for (int k0 = 0; k0 < NGI; k0 += 16) {
+            float x[16];
+#pragma unroll
+            for (int q = 0; q < 16; ++q) {
+              const int f = k0 + q;
+              x[q] = f < kGCol ? g8[f < kGCol ? f : 0]
+                               : (f < NGI ? w * g_c[f < NGI ? f - kGCol : 0]
+                                          : 0.0f);
+            }
+            if constexpr (CI == 4) {
+              int f;
+              bool add;
+              const float sum = warp_sum12(x, lane, &f, &add);
+              if (add) atomicAdd(dst + f, sum);
+            } else {
+              const float sum = warp_sum16(x, lane);
+              if (lane < 16 && k0 + lane < NG) atomicAdd(dst + k0 + lane, sum);
+            }
           }
         }
       }
@@ -1593,30 +1638,29 @@ int sc_worklist_emit(const void* u, const void* v, const void* radii,
   return (int)cudaGetLastError();
 }
 
+// The kernel instances (instance_width): SC_WIDTHS(X) applies X to each.
+#define SC_WIDTHS(X) \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(9) X(13) X(17) X(21) X(25) X(29) X(32)
+
 // records: [n_pairs, record_floats(C)] f32; table: [n, record_floats(C)]
-// f32 scratch; both 16-byte aligned.
+// f32 scratch; both 16-byte aligned. C <= kMaxChannels.
 int sc_pair_records(const void* gids, const void* u, const void* v,
                     const void* conic_a, const void* conic_b,
                     const void* conic_c, const void* colors,
                     const void* opacities, int n, long long n_pairs, int C,
                     void* table, void* records, void* stream) {
   if (n_pairs <= 0) return (int)cudaSuccess;
+  if (C < 1 || C > kMaxChannels) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define SC_CASE(CH)                                                          \
   case CH:                                                                   \
     splat_records_kernel<CH><<<blocks_for(n), kThreads1D, 0, s>>>(           \
         (const float*)u, (const float*)v, (const float*)conic_a,             \
         (const float*)conic_b, (const float*)conic_c, (const float*)colors,  \
-        (const float*)opacities, n, (float*)table);                          \
+        (const float*)opacities, n, C, (float*)table);                       \
     break;
-  switch (C) {
-    SC_CASE(1)
-    SC_CASE(2)
-    SC_CASE(3)
-    SC_CASE(4)
-    SC_CASE(5)
-    SC_CASE(6)
-    SC_CASE(7)
+  switch (instance_width(C)) {
+    SC_WIDTHS(SC_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1626,12 +1670,17 @@ int sc_pair_records(const void* gids, const void* u, const void* v,
   const int32_t* g = (const int32_t*)gids;
   const float4* tab = (const float4*)table;
   float4* rec = (float4*)records;
-  if (q == 2)
-    pair_records_kernel<2><<<blocks, kThreads1D, 0, s>>>(g, tab, n_pairs, rec);
-  else if (q == 3)
-    pair_records_kernel<3><<<blocks, kThreads1D, 0, s>>>(g, tab, n_pairs, rec);
-  else
-    pair_records_kernel<4><<<blocks, kThreads1D, 0, s>>>(g, tab, n_pairs, rec);
+#define SC_CASE(Q)                                                            \
+  case Q:                                                                     \
+    pair_records_kernel<Q><<<blocks, kThreads1D, 0, s>>>(g, tab, n_pairs, rec); \
+    break;
+  switch (q) {
+    SC_CASE(2) SC_CASE(3) SC_CASE(4) SC_CASE(5) SC_CASE(6) SC_CASE(7)
+    SC_CASE(8) SC_CASE(9) SC_CASE(10)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SC_CASE
   return (int)cudaGetLastError();
 }
 
@@ -1645,18 +1694,20 @@ int sc_composite(const void* ranges, const void* records, const void* order,
   cudaStream_t s = (cudaStream_t)stream;
   const bool train = out_T != nullptr;
   if (train != (out_last != nullptr)) return (int)cudaErrorInvalidValue;
+  if (C < 1 || C > kMaxChannels) return (int)cudaErrorInvalidValue;
   const int n_tiles = tw * th;
 #define SC_LAUNCH(CH, TR)                                                     \
   {                                                                           \
-    const int smem = kStagesB * kBatchB * record_floats(CH) * 4;              \
+    const int smem = kStagesB * batch_b(CH) * record_floats(CH) * 4;          \
     int grid = 0;                                                             \
     const cudaError_t e =                                                     \
         persistent_grid<composite_kernel<CH, TR>>(smem, n_tiles, &grid);      \
     if (e != cudaSuccess) return (int)e;                                      \
     composite_kernel<CH, TR><<<grid, kRasterThreads, smem, s>>>(              \
         (const int32_t*)ranges, (const float*)records, (const int64_t*)order, \
-        (int32_t*)next_tile, n_tiles, width, height, tw, (float*)out_colors,  \
-        (float*)out_alpha, (float*)out_T, (int32_t*)out_last);                \
+        (int32_t*)next_tile, n_tiles, width, height, tw, C,                   \
+        (float*)out_colors, (float*)out_alpha, (float*)out_T,                 \
+        (int32_t*)out_last);                                                  \
   }
 #define SC_CASE(CH)                \
   case CH:                         \
@@ -1665,14 +1716,8 @@ int sc_composite(const void* ranges, const void* records, const void* order,
     else                           \
       SC_LAUNCH(CH, false)         \
     break;
-  switch (C) {
-    SC_CASE(1)
-    SC_CASE(2)
-    SC_CASE(3)
-    SC_CASE(4)
-    SC_CASE(5)
-    SC_CASE(6)
-    SC_CASE(7)
+  switch (instance_width(C)) {
+    SC_WIDTHS(SC_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1691,6 +1736,7 @@ int sc_composite_backward(const void* ranges, const void* gids,
                           const void* last, const void* grad_colors,
                           const void* grad_alpha, void* grads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (C < 1 || C > kMaxChannels) return (int)cudaErrorInvalidValue;
   const int n_tiles = tw * th;
 #define SC_CASE(CH)                                                           \
   case CH: {                                                                  \
@@ -1703,18 +1749,12 @@ int sc_composite_backward(const void* ranges, const void* gids,
     composite_bwd_kernel<CH><<<grid, kRasterThreads, smem, s>>>(              \
         (const int32_t*)ranges, (const int32_t*)gids, (const float*)records,  \
         (const int64_t*)order, (int32_t*)next_tile, n_tiles, width, height,   \
-        tw, (const float*)final_T, (const int32_t*)last,                      \
+        tw, C, (const float*)final_T, (const int32_t*)last,                   \
         (const float*)grad_colors, (const float*)grad_alpha, (float*)grads);  \
     break;                                                                    \
   }
-  switch (C) {
-    SC_CASE(1)
-    SC_CASE(2)
-    SC_CASE(3)
-    SC_CASE(4)
-    SC_CASE(5)
-    SC_CASE(6)
-    SC_CASE(7)
+  switch (instance_width(C)) {
+    SC_WIDTHS(SC_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }

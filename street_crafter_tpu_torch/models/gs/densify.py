@@ -105,12 +105,22 @@ def densify_and_prune(
     use_abs=True,                        # bool or [*batch]: densify on the
     # absgrad column (the reference's densify_grad_abs_* flag is its
     # negation)
+    extra: dict[str, torch.Tensor] | None = None,  # per-Gaussian sidecar
+    # rows ([*batch, cap, ...], e.g. the semantic logits of
+    # gaussian_model.py:45) that follow the same surgery, in place:
+    # children copy their parent's row, pruning only clears the slot's
+    # validity (the reference cats _semantic in densification_postfix)
 ) -> DensifyInfo:
-    """Clone, split and prune ``pool`` in place; zero the Adam moments of
-    rewritten slots and reset ``state``."""
+    """Clone, split and prune ``pool`` (and ``extra``) in place; zero the
+    Adam moments of rewritten slots and reset ``state``."""
     batched = pool.xyz.dim() == 3
     one = (lambda t: t) if batched else (lambda t: t[None])
     arrays = {k: one(getattr(pool, k)) for k in POOL_ARRAYS}
+    for name, arr in (extra or {}).items():
+        if name in arrays or arr.shape[:pool.valid.dim()] != pool.valid.shape:
+            raise ValueError(f"extra {name!r}: {tuple(arr.shape)} does not "
+                             f"follow the pool's {tuple(pool.valid.shape)}")
+        arrays[name] = one(arr)
     valid = one(pool.valid)
     B, cap = valid.shape
     dev = valid.device

@@ -67,19 +67,30 @@ def render_flat(flat: FlatGaussians, w2c: torch.Tensor, K: torch.Tensor,
                 antialiasing: bool = True, scaling_modifier: float = 1.0,
                 near_plane: float = 0.01, far_plane: float = 1e8,
                 viewspace_zero: torch.Tensor | None = None,
-                absgrad_sink: torch.Tensor | None = None) -> dict[str, Any]:
+                absgrad_sink: torch.Tensor | None = None,
+                extra_channels: torch.Tensor | None = None
+                ) -> dict[str, Any]:
     """Render a flat gaussian soup. Returns rgb [H,W,3], acc, depth, radii,
-    visibility and n_pairs (the (tile, splat) pairs composited)."""
+    visibility and n_pairs (the (tile, splat) pairs composited).
+    ``extra_channels`` [N, K] (e.g. semantic logits,
+    street_gaussian_renderer.py:195-200) are composited after rgb and depth
+    in the same pass and returned under "semantic", un-normalised (the
+    depth's convention before its division by alpha); 4 + K is at most
+    ``ops.gs_raster.MAX_CHANNELS``."""
     proj, args = raster_inputs(flat, w2c, K, cam_center, width, height,
                                sh_degree, antialiasing, scaling_modifier,
                                near_plane, far_plane)
+    if extra_channels is not None:
+        args["colors"] = torch.cat(
+            [args["colors"], extra_channels.to(args["colors"].dtype)],
+            -1).contiguous()
     if viewspace_zero is not None:
         # densification hook: d loss / d viewspace_zero = d loss / d (u, v)
         args["u"] = args["u"] + viewspace_zero[:, 0]
         args["v"] = args["v"] + viewspace_zero[:, 1]
     out = rasterize_pixels(**args, tile_size=tile_size,
                            absgrad_sink=absgrad_sink)
-    return {
+    result = {
         "rgb": out.colors[..., :3],
         "acc": out.alpha,
         "depth": out.colors[..., 3] / torch.clamp(out.alpha, min=1e-10),
@@ -87,6 +98,9 @@ def render_flat(flat: FlatGaussians, w2c: torch.Tensor, K: torch.Tensor,
         "visibility": proj.valid & (proj.radii > 0),
         "n_pairs": out.n_pairs,
     }
+    if extra_channels is not None:
+        result["semantic"] = out.colors[..., 4:]
+    return result
 
 
 def render_scene(

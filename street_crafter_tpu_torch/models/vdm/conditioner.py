@@ -8,7 +8,9 @@
 - ``concat``: the VAE-encoded (mode) conditioning frame repeated over the
   clip, [B*T, h, w, 4].
 The unconditional branch zeroes crossattn and concat and keeps vector.
-(``apply_ucg_dropout`` belongs to fine-tuning and is not ported here.)
+``apply_ucg_dropout`` drops crossattn and concat per clip (the
+conditioner's ``ucg_rate``); neither the trainer nor the runners call it,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -67,3 +69,45 @@ def get_conditioning(
     uc = Conditioning(crossattn=torch.zeros_like(crossattn), vector=vector,
                       concat=torch.zeros_like(concat))
     return cond, uc
+
+
+UCG_KEYS = ("crossattn", "concat")
+
+
+def ucg_keep_masks(rates: dict[str, float], batch: int,
+                   generator: torch.Generator | None = None,
+                   device=None) -> dict[str, torch.Tensor]:
+    """Per-clip keep masks of ``apply_ucg_dropout``: for each of crossattn
+    and concat whose rate is above 0, [batch] bools, True with probability
+    1 - rate, drawn from ``generator``."""
+    masks = {}
+    for key in UCG_KEYS:
+        rate = rates.get(key, 0)
+        if rate > 0:
+            u = torch.rand((batch,), generator=generator, device=device)
+            masks[key] = u < 1.0 - rate
+    return masks
+
+
+def apply_ucg_dropout(cond: Conditioning, rates: dict[str, float],
+                      batch: int, generator: torch.Generator | None = None,
+                      masks: dict[str, torch.Tensor] | None = None
+                      ) -> Conditioning:
+    """Unconditional-guidance dropout of fine-tuning (GeneralConditioner
+    ``ucg_rate``; the JAX package's ``conditioner.py:84-101``): each clip's
+    crossattn and concat rows (T frames each, clip-major) are zeroed when
+    its keep mask is False. ``masks`` as ``ucg_keep_masks`` gives them
+    (drawn from ``generator`` when not given); a key whose rate is 0 is
+    left as it is."""
+    if masks is None:
+        masks = ucg_keep_masks(rates, batch, generator,
+                               cond.crossattn.device)
+    out = cond
+    for key in UCG_KEYS:
+        if rates.get(key, 0) > 0:
+            x = getattr(out, key)
+            keep = masks[key].to(device=x.device).repeat_interleave(
+                x.shape[0] // batch)
+            keep = keep.reshape((-1,) + (1,) * (x.dim() - 1))
+            out = out._replace(**{key: x * keep.to(x.dtype)})
+    return out

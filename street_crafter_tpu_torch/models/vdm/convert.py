@@ -20,7 +20,12 @@
   CLIP q/k/v DenseGenerals packed into ``in_proj``. Raises on any leaf left
   over or any port parameter missing;
 - ``vdm_train_state_from_jax``: a JAX fine-tune state (masters, optax Adam
-  moments per param group, EMA, step) into the port trainer's state.
+  moments per param group, EMA, step) into the port trainer's state;
+- ``state_dict_to_jax`` / ``unet_params_to_jax``: the other way, a port
+  state dict into the JAX layout (a UNet's under "params"). Both
+  directions follow the module's own parameters: a fixed-strategy
+  AlphaBlender has no ``mix_factor`` in either, and ``add_lora`` trees
+  carry their unmerged ``*_adapter_{down,up}`` kernels.
 """
 
 from __future__ import annotations
@@ -320,6 +325,52 @@ def _torch_layout(leaf: str, a: np.ndarray) -> tuple[str, np.ndarray]:
     if leaf == "scale":
         return "weight", a
     return leaf, a                               # bias, mix_factor
+
+
+def _jax_layout(leaf: str, a: np.ndarray) -> tuple[str, np.ndarray]:
+    """The inverse of ``_torch_layout``."""
+    if leaf == "weight":
+        if a.ndim == 1:
+            return "scale", a
+        if a.ndim == 2:
+            return "kernel", a.T
+        if a.ndim == 4:
+            return "kernel", a.transpose(2, 3, 1, 0)     # OIHW -> HWIO
+        return "kernel", a.transpose(2, 3, 4, 1, 0)      # OIDHW -> DHWIO
+    return leaf, a
+
+
+def state_dict_to_jax(sd: Mapping[str, Any], module_map: dict[str, str],
+                      what: str = "module") -> dict:
+    """A torch state dict -> one flax module's parameter tree (nested dicts
+    of f32 arrays) through a torch -> flax module-path map such as
+    ``unet_name_map``; raises on a parameter the map does not name."""
+    tree: dict = {}
+    left = []
+    for name, t in sd.items():
+        tmod, _, leaf = name.rpartition(".")
+        fmod = module_map.get(tmod)
+        if fmod is None:
+            left.append(name)
+            continue
+        a = t.detach().float().cpu().numpy() if torch.is_tensor(t) \
+            else np.asarray(t, np.float32)
+        leaf, a = _jax_layout(leaf, a)
+        node = tree
+        for part in fmod.split("/"):
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(a)
+    if left:
+        raise ValueError(f"{what}: {len(left)} port parameters have no JAX "
+                         f"name, e.g. {left[:5]}")
+    return tree
+
+
+def unet_params_to_jax(sd: Mapping[str, Any], cfg) -> dict:
+    """The port UNet's state dict -> the JAX UNet's {"params": tree} for a
+    ``UNetConfig`` ``cfg`` (the inverse of ``state_dict_from_jax`` with
+    ``unet_name_map(cfg)``)."""
+    return {"params": state_dict_to_jax(sd, unet_name_map(cfg), "unet")}
 
 
 def _convert(flat: dict[str, np.ndarray], module_map: dict[str, str],

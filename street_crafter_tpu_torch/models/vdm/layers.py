@@ -83,19 +83,38 @@ class MLPEmbed(nn.Sequential):
         return linear(F.silu(linear(x, self[0])), self[2])
 
 
+MERGE_STRATEGIES = ("learned_with_images", "fixed")
+
+
 class AlphaBlender(nn.Module):
-    """Learned spatial/temporal mix a x_spatial + (1 - a) x_temporal, a =
-    sigmoid(mix_factor) (util.py:277-318)."""
+    """Spatial/temporal mix a x_spatial + (1 - a) x_temporal
+    (util.py:277-318): a = sigmoid(mix_factor), learned, or under
+    ``merge_strategy="fixed"`` the constant ``alpha`` (no parameter)."""
 
-    def __init__(self, alpha: float = 0.5):
+    def __init__(self, alpha: float = 0.5,
+                 merge_strategy: str = "learned_with_images"):
         super().__init__()
-        self.mix_factor = nn.Parameter(torch.full((1,), float(alpha)))
+        if merge_strategy not in MERGE_STRATEGIES:
+            raise ValueError(f"merge_strategy {merge_strategy!r}: one of "
+                             f"{MERGE_STRATEGIES}")
+        self.alpha = float(alpha)
+        self.fixed = merge_strategy == "fixed"
+        if not self.fixed:
+            self.mix_factor = nn.Parameter(torch.full((1,), self.alpha))
 
-    def coefficient(self) -> torch.Tensor:
+    def coefficient(self) -> torch.Tensor | float:
+        """a in f32: a 0-d tensor on the parameter's device, or under the
+        fixed strategy the f32 constant as a Python float (no tensor, so
+        no device)."""
+        if self.fixed:
+            return float(torch.tensor(self.alpha, dtype=torch.float32))
         return torch.sigmoid(self.mix_factor.float())[0]
 
     def forward(self, x_spatial, x_temporal):
-        a = torch.sigmoid(self.mix_factor)[0].to(x_spatial.dtype)
+        if self.fixed:
+            a = torch.tensor(self.alpha, dtype=x_spatial.dtype)
+        else:
+            a = torch.sigmoid(self.mix_factor)[0].to(x_spatial.dtype)
         return a * x_spatial + (1.0 - a) * x_temporal
 
 
@@ -141,12 +160,13 @@ class VideoResBlock(ResBlock):
     (video_model.py:14-80). x: [B*T, C, H, W]."""
 
     def __init__(self, ch: int, emb_ch: int, out_ch: int | None = None,
-                 video_kernel_size=(3, 1, 1), merge_factor: float = 0.5):
+                 video_kernel_size=(3, 1, 1), merge_factor: float = 0.5,
+                 merge_strategy: str = "learned_with_images"):
         super().__init__(ch, emb_ch, out_ch, dims=2)
         out_ch = out_ch or ch
         self.time_stack = ResBlock(out_ch, emb_ch, out_ch, dims=3,
                                    kernel_size=tuple(video_kernel_size))
-        self.time_mixer = AlphaBlender(merge_factor)
+        self.time_mixer = AlphaBlender(merge_factor, merge_strategy)
 
     def forward(self, x, emb, num_frames: int):
         x = super().forward(x, emb)
@@ -329,7 +349,8 @@ class SpatialVideoTransformer(nn.Module):
                  use_spatial_context: bool = True,
                  merge_factor: float = 0.5,
                  max_time_embed_period: int = 10000,
-                 add_lora: bool = False, fused_temporal: bool = False):
+                 add_lora: bool = False, fused_temporal: bool = False,
+                 merge_strategy: str = "learned_with_images"):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
@@ -346,7 +367,7 @@ class SpatialVideoTransformer(nn.Module):
             VideoTransformerBlock(inner, heads, dim_head, context_dim,
                                   add_lora=add_lora) for _ in range(depth)])
         self.time_pos_embed = MLPEmbed(ch, ch * 4, ch)
-        self.time_mixer = AlphaBlender(merge_factor)
+        self.time_mixer = AlphaBlender(merge_factor, merge_strategy)
         self.proj_out = zero_(nn.Linear(inner, ch))
 
     def _fused_common(self, num_frames, S, time_context) -> bool:
@@ -356,8 +377,9 @@ class SpatialVideoTransformer(nn.Module):
                 and time_context.shape[1] == 1 and S % 16 == 0)
 
     def _alpha_and_bias(self, blk, h, time_context, num_frames):
-        """AlphaBlender coefficient (f32) and the length-1 cross-attention
-        output of each video, [B, C] bf16 (``layers.py:487-507``)."""
+        """AlphaBlender coefficient (f32; the constant merge factor under
+        the fixed strategy) and the length-1 cross-attention output of each
+        video, [B, C] bf16 (``layers.py:487-507``)."""
         alpha = self.time_mixer.coefficient()
         b = h.shape[0] // num_frames
         if time_context.shape[0] == b:

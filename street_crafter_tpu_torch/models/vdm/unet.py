@@ -15,20 +15,34 @@ call is channels-last, [B*T, H, W, C], as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from ...ops.flash_attention import SiteStore
 from .layers import (GN_EPS, Downsample, MLPEmbed, SpatialVideoTransformer,
                      Upsample, VideoResBlock, conv, group_norm,
                      timestep_embedding, zero_)
 
-REMAT_POLICIES = ("flash0", "nothing")
+REMAT_POLICIES = ("flash0", "nothing", "flash", "flash01", "flashx", "dots")
+# the 2-D matrix products a "dots" checkpoint keeps: every Linear (flattened
+# to [rows, in] x [in, out]); no bmm (attention einsums), no convolution
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of products without batch dimensions, recompute the
+    rest."""
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,9 +50,14 @@ class UNetConfig:
     """Hyper-parameters (configs/inference/waymo_high_res.yaml:20-41).
     ``remat``: activation checkpointing of every VideoResBlock and
     SpatialVideoTransformer while gradients are recorded (the reference
-    trains with use_checkpoint: True); ``remat_policy`` "flash0" keeps the
-    level-0 flash sites' outputs and logsumexp for the recompute,
-    "nothing" recomputes everything."""
+    trains with use_checkpoint: True). ``remat_policy``, what the
+    checkpoint keeps from its forward for the recompute (the JAX package's
+    ``unet.py:137-160``): "nothing" keeps nothing; "flash0" the outputs
+    and logsumexp of the level-0 flash sites, "flash01" those of levels 0
+    and 1, "flash" those of levels 0-2; "flashx" those of levels 0 and 1
+    and the outputs of the temporal attention at q length T and the
+    model's width (JAX's ``attn_out_q{T}_c{mc}``); "dots" the outputs of
+    the 2-D matrix products (every Linear), and no flash site."""
     in_channels: int = 8
     model_channels: int = 320
     out_channels: int = 4
@@ -74,9 +93,6 @@ class VideoUNet(nn.Module):
         if cfg.quant_convs:
             raise NotImplementedError(
                 "quant_convs (the JAX int8 eval path) is not ported")
-        if cfg.merge_strategy != "learned_with_images":
-            raise NotImplementedError(
-                f"merge_strategy {cfg.merge_strategy!r} is not ported")
         self.cfg = cfg
         mc = cfg.model_channels
         ted = mc * 4
@@ -90,11 +106,12 @@ class VideoUNet(nn.Module):
                 cfg.transformer_depth, cfg.context_dim,
                 use_spatial_context=cfg.use_spatial_context,
                 merge_factor=cfg.merge_factor, add_lora=cfg.add_lora,
-                fused_temporal=cfg.fused_temporal)
+                fused_temporal=cfg.fused_temporal,
+                merge_strategy=cfg.merge_strategy)
 
         def res(ch, out_ch):
             return VideoResBlock(ch, ted, out_ch, cfg.video_kernel_size,
-                                 cfg.merge_factor)
+                                 cfg.merge_factor, cfg.merge_strategy)
 
         self.input_blocks = nn.ModuleList([nn.ModuleList(
             [nn.Conv2d(cfg.in_channels, mc, 3, padding=1)])])
@@ -133,26 +150,39 @@ class VideoUNet(nn.Module):
                                  zero_(nn.Conv2d(ch, cfg.out_channels, 3,
                                                  padding=1)))
 
-    def _block_runner(self, level0_seq: int):
+    def _block_runner(self, height: int, width: int, num_frames: int):
         """How each res / transformer block runs: directly, or under
         ``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat`` and
-        gradients are recorded. Under "flash0" the checkpoint's forward
-        keeps the flash sites at the level-0 sequence length (the latent's
-        H * W) and its recompute reuses them (``ops.flash_attention.
-        SiteStore``), as the JAX package saves ``flash_out_s{S}`` and
-        ``flash_lse_s{S}``."""
+        gradients are recorded. The flash policies' checkpoints keep the
+        flash sites at the chosen levels' sequence lengths (level L: the
+        latent's ceil(H / 2^L) * ceil(W / 2^L)), and "flashx" also the
+        temporal attention sites of q length T and width mc, and their
+        recompute reuses them (``ops.flash_attention.SiteStore``), as the
+        JAX package saves ``flash_out_s{S}``, ``flash_lse_s{S}`` and
+        ``attn_out_q{T}_c{mc}``; "dots" selects what it keeps by operator
+        (``_dots_policy``)."""
         cfg = self.cfg
         if not (cfg.remat and torch.is_grad_enabled()):
             return lambda m, *args: m(*args)
-        if cfg.remat_policy not in REMAT_POLICIES:
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} is not ported (ROADMAP "
-                f"queue 1); the port has {REMAT_POLICIES}")
-        if cfg.remat_policy == "nothing":
+        policy = cfg.remat_policy
+        if policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {policy!r}: one of "
+                             f"{REMAT_POLICIES}")
+        if policy == "nothing":
             return lambda m, *args: checkpoint(m, *args, use_reentrant=False)
+        if policy == "dots":
+            return lambda m, *args: checkpoint(
+                m, *args, use_reentrant=False,
+                context_fn=functools.partial(
+                    create_selective_checkpoint_contexts, _dots_policy))
+        levels = {"flash0": 1, "flash01": 2, "flashx": 2, "flash": 3}[policy]
+        seq = [-(-height // (1 << lv)) * -(-width // (1 << lv))
+               for lv in range(levels)]
+        temporal = ([(num_frames, cfg.model_channels)]
+                    if policy == "flashx" else [])
         return lambda m, *args: checkpoint(
             m, *args, use_reentrant=False,
-            context_fn=lambda: SiteStore([level0_seq]).contexts())
+            context_fn=lambda: SiteStore(seq, temporal).contexts())
 
     def forward(
         self,
@@ -180,7 +210,7 @@ class VideoUNet(nn.Module):
         dtype = self.input_blocks[0][0].weight.dtype
         context = context.to(dtype)
 
-        block = self._block_runner(x.shape[1] * x.shape[2])
+        block = self._block_runner(x.shape[1], x.shape[2], num_frames)
 
         def run(mods, h):
             for m in mods:

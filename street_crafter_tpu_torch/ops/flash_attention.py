@@ -20,8 +20,8 @@ product with v), and its gradient. Each piece has two implementations:
 enabled and an input requires grad; then it goes through an autograd
 Function that saves q, k, v, o and lse and whose backward is G and H (the
 plain backward on the CPU). ``SiteStore`` lets an activation checkpoint
-keep the outputs of chosen sites for its recompute (the UNet's ``flash0``
-policy). ``launches`` counts the calls of each implementation.
+keep the outputs of chosen sites for its recompute (the UNet's flash
+remat policies). ``launches`` counts the calls of each implementation.
 """
 
 from __future__ import annotations
@@ -152,16 +152,19 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 class SiteStore:
-    """The outputs (o, lse) of the flash sites whose query length is in
-    ``seq_lens``, kept from a checkpointed block's forward for its
-    recompute, so the recompute does not launch kernel D there (the JAX
-    package's ``save_only_these_names("flash_out_s{S}", "flash_lse_s{S}")``
-    policies). ``contexts()`` gives ``torch.utils.checkpoint``'s
-    ``context_fn`` pair: the forward keeps, the recompute takes back in
-    the same order."""
+    """The outputs of chosen attention sites, kept from a checkpointed
+    block's forward for its recompute, so that the recompute does not run
+    the attention there (the JAX package's ``save_only_these_names``
+    policies): the flash sites (o, lse) whose query length is in
+    ``seq_lens`` (``flash_out_s{S}``, ``flash_lse_s{S}``), and the plain
+    attention sites whose (query length, heads x head dim) is in
+    ``temporal`` (``attn_out_q{S}_c{C}``; ``ops.attention``). ``contexts()``
+    gives ``torch.utils.checkpoint``'s ``context_fn`` pair: the forward
+    keeps, the recompute takes back in the same order."""
 
-    def __init__(self, seq_lens):
+    def __init__(self, seq_lens, temporal=()):
         self.seq_lens = frozenset(int(s) for s in seq_lens)
+        self.temporal = frozenset((int(s), int(c)) for s, c in temporal)
         self.kept: collections.deque = collections.deque()
 
     @contextlib.contextmanager
@@ -176,27 +179,47 @@ class SiteStore:
         return self._mode("keep"), self._mode("reuse")
 
 
+def kept_site(kept: bool, compute, shape):
+    """Run one attention site under the innermost ``SiteStore``: ``kept``
+    says whether the store keeps this site. In the recompute ("reuse") a
+    kept site's outputs come back from the store, in order, and
+    ``compute()`` does not run; otherwise ``compute()`` runs, and in the
+    forward ("keep") its outputs are kept. ``shape`` is the expected
+    shape of the first output."""
+    store, mode = _active[-1] if _active else (None, None)
+    kept = kept and store is not None
+    if kept and mode == "reuse":
+        if not store.kept:
+            raise RuntimeError("attention site recompute found nothing kept")
+        out = store.kept.popleft()
+        if tuple(out[0].shape) != tuple(shape):
+            raise RuntimeError(f"kept attention output {tuple(out[0].shape)}"
+                               f" does not fit {tuple(shape)}")
+        return out
+    out = compute()
+    if kept:
+        store.kept.append(tuple(t.detach() for t in out))
+    return out
+
+
+def active_store() -> "SiteStore | None":
+    """The innermost ``SiteStore`` in effect, if any."""
+    return _active[-1][0] if _active else None
+
+
 _active: list = []      # the innermost (SiteStore, mode) in effect
 
 
 def _forward_lse(q, k, v) -> tuple[torch.Tensor, torch.Tensor]:
-    store, mode = _active[-1] if _active else (None, None)
+    store = active_store()
+
+    def compute():
+        if q.device.type == "cpu":
+            return flash_attention_lse_reference(q, k, v)
+        return _flash_cuda(q, k, v, with_lse=True)
+
     kept = store is not None and q.shape[1] in store.seq_lens
-    if kept and mode == "reuse":
-        if not store.kept:
-            raise RuntimeError("flash site recompute found nothing kept")
-        o, lse = store.kept.popleft()
-        if o.shape != q.shape:
-            raise RuntimeError(f"kept flash output {tuple(o.shape)} does "
-                               f"not fit q {tuple(q.shape)}")
-        return o, lse
-    if q.device.type == "cpu":
-        o, lse = flash_attention_lse_reference(q, k, v)
-    else:
-        o, lse = _flash_cuda(q, k, v, with_lse=True)
-    if kept:
-        store.kept.append((o.detach(), lse))
-    return o, lse
+    return kept_site(kept, compute, q.shape)
 
 
 class _FlashAttention(torch.autograd.Function):

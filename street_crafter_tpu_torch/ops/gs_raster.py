@@ -50,7 +50,9 @@ TILE = 16
 ALPHA_CLAMP = 0.999
 ALPHA_MIN = 1.0 / 255.0
 T_STOP = 1e-4
-MAX_CHANNELS = 7
+# channels kernels B and C (and the pack) take: instances of widths 1-7,
+# 9, 13, ..., 29 and 32 in csrc/gs_raster.cu serve every C up to it
+MAX_CHANNELS = 32
 WARPS = TILE * TILE // 32   # warps of a tile in kernels B and C, 16x2 px each
 # pair record fields (floats), then the channels, zero-padded to 16 bytes
 REC_U, REC_V, REC_A, REC_B, REC_C, REC_OPACITY, REC_THRESHOLD = range(7)
@@ -100,6 +102,16 @@ def tile_grid(width: int, height: int) -> tuple[int, int]:
 def record_floats(channels: int) -> int:
     """Floats per pair record: 7 + C, rounded up to a multiple of 4."""
     return (REC_COLORS + channels + 3) // 4 * 4
+
+
+def check_channels(channels: int) -> None:
+    """Raise unless 1 <= channels <= ``MAX_CHANNELS``, the kernels'
+    limit (the plain versions keep it too: no input reaches them that the
+    card would refuse)."""
+    if not 1 <= channels <= MAX_CHANNELS:
+        raise ValueError(f"{channels} channels: kernels B and C take 1 to "
+                         f"MAX_CHANNELS = {MAX_CHANNELS} (rgb + depth + at "
+                         f"most {MAX_CHANNELS - 4} extra)")
 
 
 def _uses_kernel(*tensors: torch.Tensor) -> bool:
@@ -489,6 +501,7 @@ def _pair_records_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
                        colors, opacities) -> torch.Tensor:
     lib = _library()
     n, C = colors.shape
+    check_channels(C)
     f32 = torch.float32
     ptrs = [_require(wl.gauss_ids, "gauss_ids", torch.int32, (wl.n_pairs,)),
             _require(u, "u", f32, (n,)), _require(v, "v", f32, (n,)),
@@ -528,6 +541,7 @@ def _composite_cuda(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
     lib = _library()
     tw, th = tile_grid(width, height)
     C = colors.shape[1]
+    check_channels(C)
     ranges = _require(wl.ranges, "ranges", torch.int32, (tw * th, 2))
     order = _require(wl.order, "order", torch.int64, (tw * th,))
     rec = _records(records, wl, u, v, conic_a, conic_b, conic_c, colors,
@@ -557,6 +571,7 @@ def _composite_backward_cuda(wl: TileWorklist, u, v, conic_a, conic_b,
     lib = _library()
     tw, th = tile_grid(width, height)
     n, C = colors.shape
+    check_channels(C)
     ranges = _require(wl.ranges, "ranges", torch.int32, (tw * th, 2))
     state = [_require(final_T, "final_T", torch.float32, (height, width)),
              _require(last, "last", torch.int32, (height, width)),
@@ -693,7 +708,7 @@ def rasterize_pixels(u, v, conic_a, conic_b, conic_c, colors, opacities,
                      tile_size: int = TILE,
                      absgrad_sink: torch.Tensor | None = None
                      ) -> RasterOutput:
-    """Composite [N] projected splats with [N, C] channels (C <= 7) into
+    """Composite [N] projected splats with [N, C] channels (C <= 32) into
     (colors [H, W, C], alpha [H, W]). CPU tensors take the plain versions,
     CUDA tensors the kernels. Differentiable in u, v, the conic, colours,
     opacities and ``absgrad_sink`` ([N, 2] zeros, whose gradient is the
@@ -704,8 +719,7 @@ def rasterize_pixels(u, v, conic_a, conic_b, conic_c, colors, opacities,
         raise ValueError(f"tile_size must be {TILE}, got {tile_size}")
     # the kernels' leading dim is the splat / tile axis, never a batch axis
     assert_no_context_axes("rasterize_pixels")
-    if not 1 <= colors.shape[-1] <= MAX_CHANNELS:
-        raise ValueError(f"1..{MAX_CHANNELS} channels, got {colors.shape}")
+    check_channels(colors.shape[-1])
     diff = (u, v, conic_a, conic_b, conic_c, colors, opacities)
     if absgrad_sink is not None:
         diff += (absgrad_sink,)

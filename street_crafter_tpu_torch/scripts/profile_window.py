@@ -6,9 +6,11 @@
 Builds kernels E and F, then profiles one fused call at every shape of
 chip_smoke.py's phase 10 split (kernel E's, then F's three) ``--trials``
 times with ``chip_smoke.kernel_ms``, alternating between no pause at the
-profiler's window edges and ``chip_smoke.PROFILE_GAP_S``, and counts the
-profiles that hold fewer kernels than the call launches. Prints one JSON
-object per (shape, pause), then the card's name and power limit.
+profiler's window edges and ``chip_smoke.PROFILE_GAP_S``. Each profile
+records ``chip_smoke.PROFILE_CALLS`` calls between marker kernels; the
+script counts the bounded calls that hold fewer kernels than the call
+launches, the profiles with no whole call and the markers lost. Prints one
+JSON object per (shape, pause), then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -43,14 +45,23 @@ def main(argv=None) -> None:
         seen = {0.0: [], CS.PROFILE_GAP_S: []}
         for t in range(args.trials):
             for gap in (seen if t % 2 else reversed(list(seen))):
-                seen[gap].append(sum(n for _, _, n in CS.kernel_ms(call,
-                                                                   gap)))
-        for gap, counts in seen.items():
+                got = CS.kernel_ms(call, gap)
+                seen[gap].append((
+                    [sum(n for _, _, n in c) for c in got["calls"]],
+                    got["markers"]))
+        for gap, profiles in seen.items():
+            calls = [n for c, _ in profiles for n in c]
             print(json.dumps({
                 "stage": "E" if full else "F", "shape": [B * T, S, C],
-                "gap_s": gap, "kernels": want, "profiles": len(counts),
-                "incomplete": sum(c != want for c in counts),
-                "fewest_seen": min(counts), "card": gpu}), flush=True)
+                "gap_s": gap, "kernels": want, "profiles": len(profiles),
+                "bounded_calls": len(calls),
+                "incomplete_calls": sum(n != want for n in calls),
+                "profiles_without_whole_call": sum(
+                    want not in c for c, _ in profiles),
+                "markers_lost": sum(CS.PROFILE_CALLS + 1 - m
+                                    for _, m in profiles),
+                "fewest_seen": min(calls, default=0), "card": gpu}),
+                flush=True)
         del h, emb, bias, w
         torch.cuda.empty_cache()
     print(gpu, flush=True)

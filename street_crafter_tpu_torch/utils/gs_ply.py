@@ -6,8 +6,10 @@ nx ny nz, f_dc_* (channel-major: [N, F, 3] -> [N, 3, F] -> flat), f_rest_*
 (same), opacity, scale_0..2, rot_0..3; float32, binary little-endian. A
 single pool exports as element ``vertex`` (external 3DGS viewers load it
 directly), a dict of pools as one ``vertex_<name>`` element per pool (the
-reference's composite save). Files written by the JAX package load here:
-this is how a scene trained in JAX reaches the port.
+reference's composite save). Optional per-pool [cap, K] semantic logits
+ride as trailing ``semantic_i`` properties (gaussian_model.py:90-95,
+143-155). Files written by the JAX package load here: this is how a scene
+trained in JAX reaches the port.
 """
 
 from __future__ import annotations
@@ -24,8 +26,10 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def pool_to_attributes(pool: GaussianPool) -> tuple[list[str], np.ndarray]:
-    """Valid rows of a pool -> (attribute names, [n, D] float32 matrix)."""
+def pool_to_attributes(pool: GaussianPool, semantic=None
+                       ) -> tuple[list[str], np.ndarray]:
+    """Valid rows of a pool -> (attribute names, [n, D] float32 matrix);
+    ``semantic`` [cap, K] (tensor or array) appends ``semantic_i``."""
     valid = _np(pool.valid)
     xyz = _np(pool.xyz)[valid]
     n = xyz.shape[0]
@@ -41,19 +45,28 @@ def pool_to_attributes(pool: GaussianPool) -> tuple[list[str], np.ndarray]:
              + ["opacity"]
              + [f"scale_{i}" for i in range(scale.shape[1])]
              + [f"rot_{i}" for i in range(rot.shape[1])])
-    mat = np.concatenate([xyz, np.zeros_like(xyz), f_dc, f_rest, opacity,
-                          scale, rot], axis=1).astype(np.float32)
+    parts = [xyz, np.zeros_like(xyz), f_dc, f_rest, opacity, scale, rot]
+    if semantic is not None:
+        sem = (_np(semantic) if torch.is_tensor(semantic)
+               else np.asarray(semantic))[valid].reshape(n, -1)
+        names += [f"semantic_{i}" for i in range(sem.shape[1])]
+        parts.append(sem)
+    mat = np.concatenate(parts, axis=1).astype(np.float32)
     return names, mat
 
 
 def export_gaussians_ply(path: str | os.PathLike,
-                         pools: dict[str, GaussianPool] | GaussianPool
-                         ) -> None:
-    """Write one binary PLY of the valid Gaussians of ``pools``."""
+                         pools: dict[str, GaussianPool] | GaussianPool,
+                         semantics=None) -> None:
+    """Write one binary PLY of the valid Gaussians of ``pools``.
+    ``semantics`` mirrors ``pools``: [cap, K] logits, or a dict of them by
+    pool name (pools without an entry carry none)."""
     if isinstance(pools, GaussianPool):
-        elements = [("vertex", *pool_to_attributes(pools))]
+        elements = [("vertex", *pool_to_attributes(pools, semantics))]
     else:
-        elements = [(f"vertex_{name}", *pool_to_attributes(p))
+        semantics = semantics or {}
+        elements = [(f"vertex_{name}",
+                     *pool_to_attributes(p, semantics.get(name)))
                     for name, p in pools.items()]
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     header = ["ply", "format binary_little_endian 1.0"]
@@ -125,14 +138,24 @@ def _attributes_to_pool(cols: dict[str, np.ndarray], capacity: int | None,
 
 
 def import_gaussians_ply(path: str | os.PathLike, capacity: int | None = None,
-                         device: torch.device | str = "cpu"
-                         ) -> dict[str, GaussianPool]:
+                         device: torch.device | str = "cpu",
+                         with_semantics: bool = False):
     """Read a 3DGS PLY back into pools: {model_name: pool}; a plain
     single-element ``vertex`` file maps to {"vertex": pool}. Pools are padded
-    with invalid slots up to ``capacity``."""
-    out = {}
+    with invalid slots up to ``capacity``. With ``with_semantics`` also
+    {model_name: [cap, K] f32 logits from the ``semantic_i`` properties
+    (zero rows past the file's), or None}."""
+    out, sems = {}, {}
     for el_name, cols in _parse_elements(path):
         name = (el_name[len("vertex_"):] if el_name.startswith("vertex_")
                 else el_name)
-        out[name] = _attributes_to_pool(cols, capacity, device)
-    return out
+        pool = _attributes_to_pool(cols, capacity, device)
+        out[name] = pool
+        sems[name] = None
+        if any(k.startswith("semantic_") for k in cols):
+            sem = _sorted_cols(cols, "semantic_").astype(np.float32)
+            pad = pool.valid.shape[0] - sem.shape[0]
+            sems[name] = torch.tensor(np.concatenate(
+                [sem, np.zeros((pad, sem.shape[1]), np.float32)]),
+                device=device)
+    return (out, sems) if with_semantics else out

@@ -205,6 +205,52 @@ def check_b_and_c(args, seed):
     return wl
 
 
+# channel counts past 7 (the semantic channel): 8 and 9 share the 64-byte
+# record of the instance of width 9; 10 pads to 13; 23 is rgb + depth +
+# Cityscapes' 19 classes (instance 25); 29 fills its instance; 30 and 32
+# take the widest (160-byte records)
+WIDE_CHANNELS = (8, 9, 10, 23, 29, 30, 32)
+
+
+@pytest.mark.parametrize("C", WIDE_CHANNELS)
+def test_wide_channels_match_plain_versions(cuda, C):
+    """The pack (exact), B in both forms and C at C channels, the limits
+    of check_b_and_c; the channels an instance carries past C are neither
+    returned nor given gradients."""
+    args = splat_args(cuda, 20_000, 200, 136, C, 0.05, C)
+    G.reset_launch_counts()
+    wl = check_b_and_c(args, C)
+    assert G.launches["composite"] == 2
+    assert G.launches["composite_backward"] == 1
+    names = ("u", "v", "conic_a", "conic_b", "conic_c", "colors",
+             "opacities")
+    rec = G.pair_records(wl, *(args[k] for k in names))
+    ref = G.pair_records_reference(wl, *(args[k] for k in names))
+    assert rec.shape == ref.shape == (wl.n_pairs, G.record_floats(C))
+    assert torch.equal(rec, ref)
+
+
+def test_channels_above_the_limit_raise(cuda):
+    C = G.MAX_CHANNELS + 1
+    args = splat_args(cuda, 500, 64, 48, 3, 0.0, C)
+    with pytest.raises(ValueError, match="MAX_CHANNELS = 32"):
+        G.rasterize_pixels(**args)
+    geo = {k: args[k] for k in ("u", "v", "radii", "depths", "valid",
+                                "width", "height")}
+    comp = {k: args[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
+                                 "colors", "opacities", "width", "height")}
+    wl = G.tile_worklist(**geo)
+    assert wl.n_pairs > 0
+    G.reset_launch_counts()
+    for call in (lambda: G.composite(wl, **comp),
+                 lambda: G.pair_records(wl, *(
+                     comp[k] for k in ("u", "v", "conic_a", "conic_b",
+                                       "conic_c", "colors", "opacities")))):
+        with pytest.raises(ValueError, match="MAX_CHANNELS"):
+            call()
+    assert not G.launches
+
+
 def test_kernels_b_c_long_tile_list(cuda):
     """One tile's list longer than 4,096 splats, with opacities low enough
     that no pixel stops: the ring wraps many times forward (B) and back

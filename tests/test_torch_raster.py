@@ -125,7 +125,7 @@ def test_raster_routing_and_counts():
     with pytest.raises(ValueError, match="tile_size"):
         G.rasterize_pixels(*args, width=W, height=H, tile_size=8)
     wide = list(args)
-    wide[5] = torch.zeros(50, 8)
+    wide[5] = torch.zeros(50, G.MAX_CHANNELS + 1)   # past the kernels' 32
     with pytest.raises(ValueError, match="channels"):
         G.rasterize_pixels(*wide, width=W, height=H)
     meta = [a.to("meta") for a in args]

@@ -22,10 +22,11 @@ policy, runner) on the CPU.
   constants ahead of the tiny config's one-channel GroupNorm) must be
   below the same bound in the port; their updates are rounding noise in
   either framework and are not compared.
-* The ``flash0`` policy's launches (plain versions' counters) and
-  gradients against ``nothing`` and no remat on a small UNet with head dim
-  64, whose spatial attention reaches the flash path; gradients equal to
-  1e-6 of their largest value (the same operations, run again).
+* The remat policies' launches (plain versions' counters), the temporal
+  attention sites "flashx" keeps, the products "dots" keeps (counted by a
+  dispatch mode), and gradients against no remat on a small UNet with
+  head dim 64, whose spatial attention reaches the flash path; gradients
+  equal to 1e-6 of their largest value (the same operations, run again).
 * ``accumulate: 2`` over 2 clips against one batch of 2: the loss within
   1e-5 relative and the first moments (the clipped gradient times 0.1)
   within 1e-4 of each leaf's largest (f32 sums in another order; measured
@@ -36,7 +37,9 @@ policy, runner) on the CPU.
   loads into ``runner.vdm_sample``.
 """
 
+import collections
 import dataclasses
+import functools
 import json
 import os
 
@@ -45,6 +48,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from street_crafter_tpu.models.vdm.conditioner import \
     Conditioning as JConditioning
@@ -59,6 +63,7 @@ from street_crafter_tpu_torch.models.vdm.engine import (EngineConfig,
                                                         VideoDiffusionEngine)
 from street_crafter_tpu_torch.models.vdm.loss import LossDraws
 from street_crafter_tpu_torch.models.vdm.unet import UNetConfig, VideoUNet
+from street_crafter_tpu_torch.ops import attention as PA
 from street_crafter_tpu_torch.ops import flash_attention as PFA
 from street_crafter_tpu_torch.training.vdm_trainer import (B1, StepDraws,
                                                            VDMTrainer)
@@ -249,8 +254,77 @@ def test_flash0_policy_keeps_level0_sites():
                              torch.zeros((T, 1, 48)), torch.zeros((T, 24)),
                              num_frames=T)
     assert set(PFA.launches) == {"flash_attention_reference"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _policy_run(_policy_unet("dots"))
+    with pytest.raises(ValueError, match="remat_policy"):
+        _policy_run(_policy_unet("offload"))
+
+
+# the flash sites each policy keeps at this UNet (5 at level 0, 6 at level
+# 1): its forward runs the 11 with lse, its backward recomputes the rest
+KEPT_SITES = {"nothing": 0, "flash0": 5, "flash01": 11, "flash": 11,
+              "flashx": 11, "dots": 0}
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the aten operators dispatched (a checkpoint's cached outputs
+    are not dispatched again)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: collections.Counter = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[func] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@functools.lru_cache(maxsize=None)
+def _counted_run(policy: str, remat: bool):
+    """(operator counts, gradients) of ``_policy_run``, once per
+    policy."""
+    with _OpCount() as ops:
+        _, _, grads = _policy_run(_policy_unet(policy, remat=remat))
+    return ops.ops, grads
+
+
+@pytest.mark.parametrize("policy", list(KEPT_SITES))
+def test_remat_policy_sites(policy, monkeypatch):
+    """Each remat policy on ``_policy_unet``: the plain forward with lse
+    runs 11 times in the forward and 22 less the kept sites in all
+    (22 / 17 / 11 / 11 / 11 / 22); "flashx" also keeps the temporal
+    attention at q length T and the model's width (here both levels': 64
+    channels) and does not run it again, the others recompute it; "dots"
+    dispatches the 2-D matrix products (mm, addmm) as often as no remat
+    does and bmm and convolutions as often as "nothing". The gradients
+    equal those without remat (the same operations; 1e-6 of each leaf's
+    largest)."""
+    plain = collections.Counter()
+    attention_plain = PA.attention_plain
+
+    def counted(q, k, v, scale=None):
+        plain[q.shape[1]] += 1
+        return attention_plain(q, k, v, scale)
+
+    monkeypatch.setattr(PA, "attention_plain", counted)
+    with _OpCount() as ops:
+        fwd, total, got = _policy_run(_policy_unet(policy))
+    site = {"flash_attention_bwd_dkv_reference": 11,
+            "flash_attention_bwd_dq_reference": 11}
+    assert fwd == {"flash_attention_lse_reference": 11}
+    assert total == {"flash_attention_lse_reference":
+                     22 - KEPT_SITES[policy], **site}
+    # the temporal attention (q length T) at its 11 sites
+    assert plain == {T: 11 if policy == "flashx" else 22}
+    ref_ops, want = _counted_run("flash0", False)
+    A = torch.ops.aten
+    if policy == "dots":
+        nothing_ops, _ = _counted_run("nothing", True)
+        for op in (A.mm.default, A.addmm.default):
+            assert ops.ops[op] == ref_ops[op] < nothing_ops[op]
+        for op in (A.bmm.default, A.convolution.default):
+            assert ops.ops[op] == nothing_ops[op] > ref_ops[op]
+    for name, ref in want.items():
+        scale = float(ref.abs().max()) or 1.0
+        assert float((got[name] - ref).abs().max()) <= 1e-6 * scale, name
 
 
 def _tiny_trainer(accumulate: int) -> VDMTrainer:
