@@ -224,6 +224,23 @@ Phases, one status line each; any failure raises (exit code != 0):
      gains "remat_policies", "lora", "fixed_blender", "reward" and
      "semantic", and the raster rows "wide": their times at 23 and 32
      channels.
+ 22. host-side data processing, after phase 18 (c): (a) the LiDAR frame
+     core (data_processor/range_images.py::lidar_frame) on a Waymo Open
+     Dataset frame at its sizes (TOP 64x2650 and four 200x600 range
+     images, three cameras at 1920x1280 and two at 1920x886, four boxes)
+     on the card and on the host: points within LIDAR_POINT_ATOL, colours,
+     the actor split and the sparse depth maps equal; (b) the heuristic sky
+     mask of three 1920x1280 street images on the card and on the host,
+     bit-equal; (c) data_processor/pandaset.py::render_scene_conditions on
+     a synthetic PandaSet scene at 1920x1080 (100k points a sweep, +-10
+     sweeps aggregated, ~2.1 M points a render), camera 0, 3 frames x
+     shifts 0 and 2 m: one launch each of A, the pack and B a render and
+     none of their plain versions, the PNGs checked, then one render
+     against the plain versions (phase 16's checks) with the kernels'
+     times and bounds; (d) save_moge_pcd with a seeded stand-in predictor
+     on the card and on the host: the same PLYs. Each part's seconds. The
+     kernels line's raster rows gain "pandaset" launches and a
+     "pandaset_render" row.
 Kernel builds, launches and comparisons raise on failure; no phase catches
 its own. TF32 is off for matmuls and cuDNN convolutions throughout.
 The last three lines: the card's name and power limit, a JSON object of
@@ -2636,21 +2653,30 @@ def event_split(ev: dict) -> str:
 
 
 def condition_render_vs_plain(G, scene, gpu: str) -> dict:
-    """One novel camera's condition render through kernels A, the pack and
-    B against their plain versions on the same CUDA tensors, its PNGs, its
-    statistics and the kernels' times and bounds."""
-    import torch
-    from street_crafter_tpu_torch.ops.point_raster import gaussian_splats
+    """One novel camera's condition render (phase 16)."""
     proc = scene.processor
     novel = scene.info.novel_view_cameras
     cam = novel[len(novel) // 2]
     t0 = time.perf_counter()
     ply = proc.condition_cloud(cam, scene.info.metadata["obj_meta"])
     host_ms = 1e3 * (time.perf_counter() - t0)
+    return condition_vs_plain(G, ply, cam, cam.image_name, host_ms, 16, gpu,
+                              proc.device)
+
+
+def condition_vs_plain(G, ply, cam, name: str, host_ms: float, phase: int,
+                       gpu: str, device) -> dict:
+    """One condition render of an [N, 6] cloud through kernels A, the pack
+    and B against their plain versions on the same CUDA tensors, its PNGs,
+    its statistics and the kernels' times and bounds."""
+    import torch
+    from street_crafter_tpu_torch.ops.point_raster import gaussian_splats
 
     def t(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(device, torch.float32).contiguous()
         return torch.as_tensor(np.ascontiguousarray(a, np.float32),
-                               device=proc.device)
+                               device=device)
 
     args = gaussian_splats(t(cam.c2w), t(cam.K), t(ply[:, :3]),
                            t(ply[:, 3:6]), cam.height, cam.width)
@@ -2677,11 +2703,11 @@ def condition_render_vs_plain(G, scene, gpu: str) -> dict:
            "acc": float((alpha - alpha_ref).abs().max()),
            "z": float((col[..., 3] - col_ref[..., 3]).abs().max())}
     png = {}
-    for name, a, b in (("rgb", col[..., :3], col_ref[..., :3]),
-                       ("mask", alpha, alpha_ref)):
+    for key, a, b in (("rgb", col[..., :3], col_ref[..., :3]),
+                      ("mask", alpha, alpha_ref)):
         a8 = (a.cpu().numpy() * 255).astype(np.uint8).astype(int)
         b8 = (b.cpu().numpy() * 255).astype(np.uint8).astype(int)
-        png[name] = int(np.abs(a8 - b8).max())
+        png[key] = int(np.abs(a8 - b8).max())
     lengths = (wl.ranges[:, 1] - wl.ranges[:, 0]).long()
     n = list_lengths(wl)
     beyond = int((lengths - JAX_TILE_CAP).clamp(min=0).sum())
@@ -2689,7 +2715,7 @@ def condition_render_vs_plain(G, scene, gpu: str) -> dict:
     hits = contributing_pairs(G, wl, comp)
     _, _, _, last = G.composite(wl, **comp, train=True, records=rec)
     prefix = int(last.sum())
-    log(f"[16] condition render of {cam.image_name} "
+    log(f"[{phase}] condition render of {name} "
         f"({cam.width}x{cam.height}): {len(ply)} points "
         f"({int(args['valid'].sum())} in front of the camera), "
         f"{wl.n_pairs} (tile, point) pairs over {wl.ranges.shape[0]} tiles; "
@@ -2700,8 +2726,8 @@ def condition_render_vs_plain(G, scene, gpu: str) -> dict:
         f"pairs {counts['lists']} in the lists, {counts['after_cull']} left "
         f"by the per-warp cull, {prefix} in the pixels' prefixes, {hits} "
         f"contributing; host aggregation {host_ms:.1f} ms; {gpu}")
-    log(f"[16] kernels vs plain at the condition render: worklist and tile "
-        f"order equal, pair records equal; rgb {err['rgb']:.3g}, acc "
+    log(f"[{phase}] kernels vs plain at the condition render: worklist "
+        f"and tile order equal, pair records equal; rgb {err['rgb']:.3g}, acc "
         f"{err['acc']:.3g} (atol {RGB_ALPHA_ATOL}), z {err['z']:.3g} (atol "
         f"{RGB_ALPHA_ATOL} x max z {zmax:.1f}); PNGs within "
         f"{max(png.values())} in uint8")
@@ -2719,18 +2745,18 @@ def condition_render_vs_plain(G, scene, gpu: str) -> dict:
     bound = bounds(len(ply), wl.n_pairs, wl.ranges.shape[0],
                    cam.width * cam.height, prefix, hits, 4)
     rows = {}
-    for name, (kern, plain, reps) in runs.items():
+    for kname, (kern, plain, reps) in runs.items():
         ms = cuda_ms(kern, reps)
         plain_ms = (plain_composite_ms if plain is None
                     else cuda_ms(plain, 1, warmup=0))
-        rows[name] = {"ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
-                      "bound_ms": round(bound[name]["bound_ms"], 6),
-                      "bound_by": bound[name]["bound_by"],
-                      "shape": f"{len(ply)} points, {wl.n_pairs} pairs, "
-                               f"{cam.width}x{cam.height}, 4 channels"}
-        log(f"[16] condition render, {name}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {bound[name]['bound_ms']:.4f} ms "
-            f"({bound[name]['bound_by']}); {gpu}")
+        rows[kname] = {"ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                       "bound_ms": round(bound[kname]["bound_ms"], 6),
+                       "bound_by": bound[kname]["bound_by"],
+                       "shape": f"{len(ply)} points, {wl.n_pairs} pairs, "
+                                f"{cam.width}x{cam.height}, 4 channels"}
+        log(f"[{phase}] condition render, {kname}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound[kname]['bound_ms']:.4f} ms "
+            f"({bound[kname]['bound_by']}); {gpu}")
     rows["_errs"] = max(err["rgb"], err["acc"])
     return rows
 
@@ -4442,6 +4468,287 @@ def semantic_densify_ply(tmp: str, dev, gpu: str) -> None:
         raise AssertionError("the PLY's semantic_i did not come back equal")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: host-side data processing on the card
+# ---------------------------------------------------------------------------
+
+# the LiDAR frame core's float32 points, card against host: float64 on both
+# sides (the card's sin / cos may differ from the host's in the last bits),
+# so a point may round to the neighbouring float32: one float32 ulp at the
+# frame's largest range (75 m) is 7.6e-6 m
+LIDAR_POINT_ATOL = 1e-5
+# three street images at 1920x1280 (Waymo's front cameras) for the sky mask
+SKY_IMAGES, SKY_HW = 3, (1280, 1920)
+# PandaSet condition renders: make_pandaset_scene at 1920x1080 with
+# PANDA_POINTS returns a sweep; frames PANDA_FRAMES of PANDA_NUM_FRAMES,
+# each aggregating +-10 sweeps (21: ~2.1 M points), camera 0, PANDA_SHIFTS
+PANDA_NUM_FRAMES, PANDA_POINTS = 23, 100_000
+PANDA_FRAMES, PANDA_SHIFTS = (10, 11, 12), (0.0, 2.0)
+PANDA_HW = (1080, 1920)
+# MoGe: phase 22 (d)'s Waymo scene (2 frames, camera 0 at 1920x1280) and
+# the stand-in predictor's input area (the reference's 700 x 700)
+MOGE_AREA = 700 * 700
+
+
+def street_images(n: int, hw: tuple, seed: int = 0) -> np.ndarray:
+    """[n, H, W, 3] float32 street-like images: a smooth bright sky above
+    a skyline of textured buildings of random heights, a textured road."""
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    out = np.empty((n, H, W, 3), np.float32)
+    y = np.arange(H, dtype=np.float32)[:, None, None] / H
+    for i in range(n):
+        horizon = int(H * (0.45 + 0.05 * i))
+        sky = np.array([0.6, 0.75, 0.95], np.float32) - 0.1 * y
+        img = np.broadcast_to(sky, (H, W, 3)).copy()
+        tops = rng.integers(int(0.15 * H), horizon, W // 64 + 1)
+        top = np.repeat(tops, 64)[:W]
+        rows = np.arange(H)[:, None]
+        building = (rows >= top[None, :]) & (rows < horizon)
+        img[building] = rng.uniform(0.1, 0.9, (int(building.sum()), 3))
+        img[horizon:] = rng.uniform(0.1, 0.5, (H - horizon, W, 3))
+        out[i] = img
+    return out
+
+
+def stand_in_moge(seed: int = 0):
+    """A seeded MoGe stand-in: for an [h, w, 3] image, camera-frame points
+    over a ground plane and walls (5-60 m), their depth, 90% valid."""
+    def predict(image: np.ndarray, fov_x: float) -> dict:
+        rng = np.random.default_rng(seed)
+        h, w = image.shape[:2]
+        f = 0.5 * w / np.tan(np.deg2rad(fov_x) / 2)
+        depth = rng.uniform(5.0, 60.0, (h, w)).astype(np.float32)
+        u = np.arange(w, dtype=np.float32)[None, :] - w / 2
+        v = np.arange(h, dtype=np.float32)[:, None] - h / 2
+        pts = np.stack([u * depth / f, v * depth / f, depth], -1)
+        return {"points": pts.astype(np.float32), "depth": depth,
+                "mask": rng.random((h, w)) < 0.9}
+    return predict
+
+
+def lidar_frame_card_vs_host(gpu: str, dev: str = "cuda") -> dict:
+    """(a) range_images.lidar_frame at Waymo Open Dataset sizes on the card
+    and on the host: points within LIDAR_POINT_ATOL, colours, colour
+    masks, the actor split, the sparse depth maps equal."""
+    import torch
+    from street_crafter_tpu_torch.data_processor.range_images import \
+        lidar_frame
+    from street_crafter_tpu_torch.datasets.synthetic import \
+        make_wod_lidar_frame
+    fr = make_wod_lidar_frame(seed=0)
+    args = (fr["lidars"], fr["images"], fr["intrinsics"],
+            fr["cam2vehicles"], fr["boxes"])
+    times = {}
+    for label in ("card (first)", "card"):
+        t0 = time.perf_counter()
+        card_out = lidar_frame(*args, device=dev)
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_out = lidar_frame(*args, device="cpu")
+    times["host"] = time.perf_counter() - t0
+
+    def same(a, b, what):
+        pa, pb = a[0].cpu(), b[0]
+        if pa.shape != pb.shape:
+            raise AssertionError(f"[22] {what}: {pa.shape} points on the "
+                                 f"card, {pb.shape} on the host")
+        err = float((pa - pb).abs().max()) if len(pb) else 0.0
+        if err > LIDAR_POINT_ATOL or not torch.equal(a[1].cpu(), b[1]) \
+                or not torch.equal(a[2].cpu(), b[2]):
+            raise AssertionError(f"[22] {what}: points {err:.3g} apart "
+                                 f"(atol {LIDAR_POINT_ATOL}) or colours / "
+                                 f"colour masks differ")
+        return err
+    err = same(card_out.background, host_out.background, "background")
+    if list(card_out.actors) != list(host_out.actors):
+        raise AssertionError(f"[22] actor split differs: "
+                             f"{list(card_out.actors)}, "
+                             f"{list(host_out.actors)}")
+    for tid in host_out.actors:
+        err = max(err, same(card_out.actors[tid], host_out.actors[tid],
+                            tid))
+    depth_px = {}
+    for cam, (mask, value) in host_out.depth.items():
+        cm, cv = card_out.depth[cam]
+        if not (torch.equal(cm.cpu(), mask) and torch.equal(cv.cpu(), value)):
+            raise AssertionError(f"[22] camera {cam}: the sparse depth map "
+                                 f"differs between the card and the host")
+        depth_px[cam] = int(mask.sum())
+    n = sum(int((img > 0).sum()) for img, _, _ in fr["lidars"])
+    log(f"[22] (a) LiDAR frame core at WOD sizes (TOP 64x2650, 4 x "
+        f"200x600; 3 cameras at 1920x1280, 2 at 1920x886; "
+        f"{len(fr['boxes'])} boxes): {n} points, background "
+        f"{len(host_out.background[0])}, actors "
+        f"{ {k: len(v[0]) for k, v in host_out.actors.items()} }, depth "
+        f"pixels {depth_px}; card {times['card']:.3f} s (first call "
+        f"{times['card (first)']:.3f} s), host {times['host']:.3f} s; "
+        f"points within {err:.3g} m (atol {LIDAR_POINT_ATOL}), colours, "
+        f"masks, actor split and depth maps equal; {gpu}")
+    return times
+
+
+def sky_mask_card_vs_host(gpu: str, dev: str = "cuda") -> dict:
+    """(b) heuristic_sky_mask on SKY_IMAGES street images at 1920x1280, one
+    batch on the card and on the host: bit-equal."""
+    import torch
+    from street_crafter_tpu_torch.data_processor.sky_mask import \
+        heuristic_sky_mask
+    imgs = street_images(SKY_IMAGES, SKY_HW)
+    t0 = time.perf_counter()
+    card_mask = heuristic_sky_mask(imgs, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_mask = heuristic_sky_mask(imgs, device="cpu")
+    host_s = time.perf_counter() - t0
+    if not torch.equal(card_mask.cpu(), host_mask):
+        n = int((card_mask.cpu() != host_mask).sum())
+        raise AssertionError(f"[22] sky masks: {n} pixels differ between "
+                             f"the card and the host")
+    share = [round(float(m.float().mean()), 4) for m in host_mask]
+    if not all(0.05 < s < 0.6 for s in share):
+        raise AssertionError(f"[22] sky masks cover {share} of the images")
+    log(f"[22] (b) heuristic sky mask, {SKY_IMAGES} images at "
+        f"{SKY_HW[1]}x{SKY_HW[0]} in one batch: card {card_s:.3f} s, host "
+        f"{host_s:.3f} s, bit-equal; sky share {share}; {gpu}")
+    return {"card": card_s, "host": host_s}
+
+
+def pandaset_conditions(G, tmp: str, gpu: str,
+                        dev: str = "cuda") -> tuple[dict, dict]:
+    """(c) pandaset.render_scene_conditions at 1920x1080 on the card:
+    launches of A, the pack and B counted (none of their plain versions),
+    the PNGs checked, then one render against the plain versions."""
+    import torch
+    from street_crafter_tpu_torch.data_processor import pandaset as PS
+    from street_crafter_tpu_torch.datasets.synthetic import \
+        make_pandaset_scene
+    from street_crafter_tpu_torch.utils.png import read_png
+    t0 = time.perf_counter()
+    d = make_pandaset_scene(os.path.join(tmp, "pandaset"),
+                            num_frames=PANDA_NUM_FRAMES, num_cams=1,
+                            img_hw=PANDA_HW, points_per_frame=PANDA_POINTS,
+                            image_frames=(0,))
+    data_s = time.perf_counter() - t0
+    G.reset_launch_counts()
+    t0 = time.perf_counter()
+    written = PS.render_scene_conditions(d, cams=[0], shifts=PANDA_SHIFTS,
+                                         frames=PANDA_FRAMES, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(G.launches)
+    n = len(PANDA_FRAMES) * len(PANDA_SHIFTS)
+    if len(written) != n or any(counts.get(k, 0) != n for k in
+                                ("tile_worklist", "pair_records",
+                                 "composite")):
+        raise AssertionError(f"[22] PandaSet renders: {len(written)} PNGs, "
+                             f"launches {counts} (expected {n} of A, the "
+                             f"pack and B)")
+    if any(k.endswith("_reference") for k in counts):
+        raise AssertionError(f"[22] PandaSet renders ran a plain version: "
+                             f"{counts}")
+    cover = []
+    for path in written:
+        rgb = read_png(path)
+        mask = read_png(path[:-4] + "_mask.png")
+        if rgb.shape != PANDA_HW + (3,) or mask.shape[:2] != PANDA_HW:
+            raise AssertionError(f"[22] {path}: shape {rgb.shape}")
+        cover.append(round(float((mask > 0).mean()), 4))
+    if not all(0.05 < c < 1.0 for c in cover):
+        raise AssertionError(f"[22] PandaSet masks cover {cover}")
+    scene = PS.PandaSetScene(d, dev)
+    frame = PANDA_FRAMES[len(PANDA_FRAMES) // 2]
+    t0 = time.perf_counter()
+    ply = scene.cloud(0, frame)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    cam = scene.camera(0, frame, 0.0)
+    # the PNG written on the main path is the kernels' render of this cloud
+    rgb, acc = PS._splatter(dev)._splat(ply, cam, 0.01, True)
+    want = read_png(os.path.join(d, "lidar_forward", "color_render",
+                                 f"{frame:03d}_0.png"))
+    if not np.array_equal((rgb * 255).astype(np.uint8), want):
+        raise AssertionError("[22] the written PNG differs from a render "
+                             "of the same cloud")
+    log(f"[22] (c) PandaSet conditions: {PANDA_NUM_FRAMES} frames of "
+        f"{PANDA_POINTS} points (written in {data_s:.1f} s), frames "
+        f"{list(PANDA_FRAMES)} x shifts {list(PANDA_SHIFTS)} m at "
+        f"{PANDA_HW[1]}x{PANDA_HW[0]} in {wall:.2f} s ({len(ply)} points "
+        f"a render, aggregated on the card in {host_ms:.1f} ms); launches "
+        f"{counts}; mask coverage {cover}; {gpu}")
+    rows = condition_vs_plain(G, ply, cam, f"PandaSet frame {frame}",
+                              host_ms, 22, gpu, scene.device)
+    return counts, rows
+
+
+def moge_card_vs_host(tmp: str, gpu: str, dev: str = "cuda") -> dict:
+    """(d) save_moge_pcd with a seeded stand-in predictor on a 2-frame
+    Waymo scene at 1920x1280, on the card and on the host: the same PLYs
+    (points within LIDAR_POINT_ATOL)."""
+    import torch
+    from street_crafter_tpu_torch.data_processor.moge_pcd import \
+        save_moge_pcd
+    from street_crafter_tpu_torch.datasets.synthetic import make_scene
+    from street_crafter_tpu_torch.utils.ply import read_ply
+    src = make_scene(os.path.join(tmp, "moge_src"), num_frames=2,
+                     img_hw=(1280, 1920), image_cameras=(0,))
+    times = {}
+    for where, on in (("card", dev), ("host", "cpu")):
+        d = os.path.join(tmp, f"moge_{where}", "016")
+        shutil.copytree(src, d)
+        # save_moge_pcd counts frames as images // 5
+        for f in range(2):
+            for c in range(1, 5):
+                shutil.copy(os.path.join(d, "images", f"{f:06d}_0.png"),
+                            os.path.join(d, "images", f"{f:06d}_{c}.png"))
+        t0 = time.perf_counter()
+        save_moge_pcd(d, stand_in_moge(), expected_area=MOGE_AREA,
+                      device=on)
+        torch.cuda.synchronize()
+        times[where] = time.perf_counter() - t0
+    n, err = 0, 0.0
+    for f in range(2):
+        a = read_ply(os.path.join(tmp, "moge_card", "016", "moge",
+                                  "background", f"{f:06d}.ply"))
+        b = read_ply(os.path.join(tmp, "moge_host", "016", "moge",
+                                  "background", f"{f:06d}.ply"))
+        if a.points.shape != b.points.shape or \
+                not np.array_equal(a.colors, b.colors):
+            raise AssertionError(f"[22] MoGe frame {f}: the card's PLY "
+                                 f"differs from the host's")
+        err = max(err, float(np.abs(a.points - b.points).max()))
+        n += len(a.points)
+    if err > LIDAR_POINT_ATOL or n == 0:
+        raise AssertionError(f"[22] MoGe points {err:.3g} apart "
+                             f"({n} points)")
+    log(f"[22] (d) save_moge_pcd, stand-in predictor at {MOGE_AREA} "
+        f"pixels, 2 frames of 1920x1280: card {times['card']:.2f} s, host "
+        f"{times['host']:.2f} s, {n} background points within {err:.3g} m; "
+        f"{gpu}")
+    return times
+
+
+def data_processing(G, gpu: str, dev: str = "cuda") -> tuple[dict, dict]:
+    """Phase 22: (a)-(d) on ``dev`` (the card; a rehearsal passes the
+    CPU); returns (the PandaSet path's launches, its condition render's
+    kernel rows)."""
+    t0 = time.perf_counter()
+    lidar_frame_card_vs_host(gpu, dev)
+    t1 = time.perf_counter()
+    sky_mask_card_vs_host(gpu, dev)
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        counts, rows = pandaset_conditions(G, tmp, gpu, dev)
+        t3 = time.perf_counter()
+        moge_card_vs_host(tmp, gpu, dev)
+    t4 = time.perf_counter()
+    log(f"[22] seconds: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) "
+        f"{t3 - t2:.1f}, (d) {t4 - t3:.1f}; phase 22 {t4 - t0:.1f} s")
+    return counts, rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4623,14 +4930,14 @@ def main() -> None:
     # ---- phase 14: kernel A's variant bench --------------------------------
     variant_rows, variant_counts = variant_bench(dev, gpu)
 
-    # ---- phase 15: kernel A's split ------------------------------------------
+    # ---- phase 15: kernel A's split -----------------------------------------
     a_split = worklist_split(G, split_inputs, gpu)
 
-    # ---- phase 16: distillation ----------------------------------------------
+    # ---- phase 16: distillation ---------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_distill_") as tmp:
         distill_counts, cond_rows = distill_main_path(G, tmp, gpu)
 
-    # ---- phase 17: cubemap sky, colour MLPs, COLMAP points, virtual_warp -----
+    # ---- phase 17: cubemap sky, colour MLPs, COLMAP points, virtual_warp ----
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sky_") as tmp:
         sky_counts = sky_color_main_path(G, tmp, gpu, phase7)
 
@@ -4640,6 +4947,9 @@ def main() -> None:
     for k, n in ranks_counts.items():
         dp_counts[k] = dp_counts.get(k, 0) + n
 
+    # ---- phase 22: host-side data processing on the card ------------------
+    torch.cuda.empty_cache()
+    data_counts, data_rows = data_processing(G, gpu)
 
     # each main path's counts, read right after its own reset; "launches"
     # is their sum
@@ -4649,7 +4959,8 @@ def main() -> None:
                       "distill": distill_counts.get(name, 0),
                       "sky_color": sky_counts.get(name, 0),
                       "data_parallel": dp_counts.get(name, 0),
-                      "semantic": sem_counts.get(name, 0)}
+                      "semantic": sem_counts.get(name, 0),
+                      "pandaset": data_counts.get(name, 0)}
                for name in REPLACES}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
@@ -4669,13 +4980,15 @@ def main() -> None:
                  "graph_ms": round(headline["sky"]["graphs"][name], 4)}}
         for name in ("tile_worklist", "pair_records", "composite",
                      "composite_backward")]
-    # kernels A, the pack and B at one condition render (phase 16)
+    # kernels A, the pack and B at one condition render (phase 16) and at
+    # one PandaSet condition render (phase 22)
     for k in kernels:
         if k["name"] in cond_rows:
             k["condition_render"] = cond_rows[k["name"]]
+            k["pandaset_render"] = data_rows[k["name"]]
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"],
-                                    cond_rows["_errs"], sem_wide_err,
-                                    sem_rows["composite_err"])
+                                    cond_rows["_errs"], data_rows["_errs"],
+                                    sem_wide_err, sem_rows["composite_err"])
     # the pack, B and C at the headline frame with SEM_CLASSES classes and
     # at their widest (phase 21); kernel A's own time there too
     for k in kernels:

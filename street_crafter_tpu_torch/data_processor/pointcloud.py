@@ -335,8 +335,11 @@ class PointCloudProcessor:
                use_ndc_scale: bool) -> tuple[np.ndarray, np.ndarray]:
         """(rgb [H, W, 3], acc [H, W]) of an [N, 6] xyz-rgb cloud seen by
         ``camera`` (c2w, K, height, width), splatted as Gaussians
-        (``ops.point_raster.render_pointcloud_gaussian``)."""
+        (``ops.point_raster.render_pointcloud_gaussian``). The cloud may be
+        a tensor (already on the device)."""
         def t(a):
+            if isinstance(a, torch.Tensor):
+                return a.to(self.device, torch.float32).contiguous()
             return torch.as_tensor(np.ascontiguousarray(a, np.float32),
                                    device=self.device)
 

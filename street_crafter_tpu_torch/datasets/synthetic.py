@@ -236,3 +236,166 @@ def trained_like_pool_arrays(n: int, seed: int = 0) -> dict[str, np.ndarray]:
     return {"xyz": xyz, "features_dc": feat_dc, "features_rest": feat_rest,
             "scaling": scaling, "rotation": quat, "opacity": opacity,
             "valid": np.ones(n, bool)}
+
+
+# -- PandaSet -----------------------------------------------------------------
+
+def make_pandaset_scene(root: str, num_frames: int = 4, num_cams: int = 2,
+                        seed: int = 0, scene_name: str = "001",
+                        img_hw: tuple = (IMG_H, IMG_W),
+                        points_per_frame: int = 3000,
+                        image_frames: tuple | None = None) -> str:
+    """Synthetic processed-PandaSet scene (pandaset_helpers layout: c2w per
+    (frame, cam), instances json, lidar_forward dirs): the port's copy of
+    ``tests/synthetic_scene.make_pandaset_scene``, the same files from the
+    same seed at its defaults. ``img_hw`` scales the images (intrinsics
+    follow), ``points_per_frame`` sets each background sweep's size and
+    ``image_frames`` limits the images written (and drawn) to those
+    frames."""
+    from .pandaset_layout import CAMERA_NAMES
+    rng = np.random.default_rng(seed)
+    h, w = img_hw
+    d = os.path.join(root, scene_name)
+    os.makedirs(os.path.join(d, "intrinsics"), exist_ok=True)
+    os.makedirs(os.path.join(d, "extrinsics"), exist_ok=True)
+    fx = fy = 40.0 * (w / IMG_W)
+    for c in range(num_cams):
+        np.savetxt(os.path.join(d, "intrinsics", f"{c}.txt"),
+                   np.array([fx, fy, w / 2, h / 2]))
+
+    timestamps = {name: [] for name in CAMERA_NAMES[:num_cams]}
+    cam2veh = np.array([  # z forward = +x, y down
+        [0.0, 0.0, 1.0, 0.0],
+        [-1.0, 0.0, 0.0, 0.0],
+        [0.0, -1.0, 0.0, 0.0],
+        [0, 0, 0, 1.0]])
+    for f in range(num_frames):
+        veh = np.eye(4)
+        veh[0, 3] = 2.0 * f
+        veh[2, 3] = 2.0
+        for c in range(num_cams):
+            c2w = veh @ cam2veh
+            c2w[1, 3] += 0.3 * c
+            np.savetxt(os.path.join(d, "extrinsics", f"{f:03d}_{c}.txt"),
+                       c2w)
+            timestamps[CAMERA_NAMES[c]].append(0.1 * f + 0.005 * c)
+            if image_frames is None or f in image_frames:
+                img = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+                write_png(os.path.join(d, "images", f"{f:03d}_{c}.png"), img)
+    with open(os.path.join(d, "timestamps.json"), "w") as fh:
+        json.dump(timestamps, fh)
+
+    # one moving car instance
+    frame_instances = {str(f): [0] for f in range(num_frames)}
+    poses = []
+    for f in range(num_frames):
+        p = np.eye(4)
+        p[:3, 3] = [10.0, 0.5 * f, 1.0]
+        poses.append(p[:3].tolist())
+    instances_info = {"0": {
+        "class_name": "Car",
+        "frame_annotations": {
+            "frame_idx": list(range(num_frames)),
+            "obj_to_world": poses,
+            "box_size": [[4.5, 2.0, 1.8]] * num_frames,
+        }}}
+    os.makedirs(os.path.join(d, "instances"), exist_ok=True)
+    with open(os.path.join(d, "instances", "frame_instances.json"), "w") as fh:
+        json.dump(frame_instances, fh)
+    with open(os.path.join(d, "instances", "instances_info.json"), "w") as fh:
+        json.dump(instances_info, fh)
+
+    n = points_per_frame
+    for f in range(num_frames):
+        gx = rng.uniform(-5 + 2 * f, 25 + 2 * f, n)
+        gy = rng.uniform(-8, 8, n)
+        pts = np.stack([gx, gy, np.zeros_like(gx)], -1).astype(np.float32)
+        cols = rng.uniform(0.2, 1.0, (len(pts), 3)).astype(np.float32)
+        write_ply(os.path.join(d, "lidar_forward", "background",
+                               f"{f:03d}.ply"),
+                  pts, cols, np.ones(len(pts), bool))
+        apts = (rng.uniform(-0.5, 0.5, (100, 3))
+                * np.array([4.5, 2.0, 1.8])).astype(np.float32)
+        write_ply(os.path.join(d, "lidar_forward", "actor", "0",
+                               f"{f:03d}.ply"),
+                  apts, rng.uniform(0.2, 1.0, (100, 3)).astype(np.float32),
+                  np.ones(100, bool))
+    return d
+
+
+# -- one Waymo Open Dataset LiDAR frame ---------------------------------------
+
+OPENCV_FROM_VEHICLE_CAMERA = np.array([  # [fwd, left, up] -> opencv
+    [0.0, 0.0, 1.0, 0.0],
+    [-1.0, 0.0, 0.0, 0.0],
+    [0.0, -1.0, 0.0, 0.0],
+    [0.0, 0.0, 0.0, 1.0]])
+
+
+def _yaw_pose(yaw: float, t) -> np.ndarray:
+    c, s = np.cos(yaw), np.sin(yaw)
+    p = np.eye(4)
+    p[:3, :3] = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
+    p[:3, 3] = t
+    return p
+
+
+def make_wod_lidar_frame(seed: int = 0, scale: float = 1.0) -> dict:
+    """The plain arrays of one Waymo Open Dataset frame at its sizes, the
+    input of ``data_processor.range_images.lidar_frame``: the TOP LiDAR's
+    64 x 2650 range image and the four short-range LiDARs' 200 x 600
+    (first return, range channel; ~10% missing returns, -1), their
+    inclinations and extrinsics; three cameras at 1920 x 1280 and two at
+    1920 x 886 (uint8 images, intrinsics, opencv cam2vehicle); four boxes.
+    ``scale`` shrinks every image (range and camera) for tests."""
+    rng = np.random.default_rng(seed)
+
+    def sz(n):
+        return max(int(round(n * scale)), 4)
+
+    lidars = []
+    # name: (rows, cols, inclination range, extrinsic)
+    specs = [((64, 2650), (np.deg2rad(2.4), np.deg2rad(-17.6)),
+              _yaw_pose(0.0, (1.43, 0.0, 2.18)), 75.0),
+             ((200, 600), (np.deg2rad(30.0), np.deg2rad(-90.0)),
+              _yaw_pose(0.0, (4.07, 0.0, 0.69)), 20.0),
+             ((200, 600), (np.deg2rad(30.0), np.deg2rad(-90.0)),
+              _yaw_pose(np.pi / 2, (3.25, 1.03, 0.95)), 20.0),
+             ((200, 600), (np.deg2rad(30.0), np.deg2rad(-90.0)),
+              _yaw_pose(-np.pi / 2, (3.25, -1.03, 0.95)), 20.0),
+             ((200, 600), (np.deg2rad(30.0), np.deg2rad(-90.0)),
+              _yaw_pose(np.pi, (-1.1, 0.0, 0.93)), 20.0)]
+    for (rows, cols), (top, bottom), ext, max_range in specs:
+        rows, cols = sz(rows), sz(cols)
+        incl = np.linspace(top, bottom, rows)
+        # the ground seen from the sensor's height; objects above it
+        ground = ext[2, 3] / np.maximum(np.sin(-incl), 1e-3)
+        r = np.minimum(ground[:, None], rng.uniform(2.0, max_range,
+                                                    (rows, cols)))
+        r = r * rng.uniform(0.95, 1.0, (rows, cols))
+        r[rng.random((rows, cols)) < 0.1] = -1.0
+        lidars.append((r, incl, ext))
+
+    images, intrinsics, cam2vehicles = {}, {}, {}
+    cams = [(0.0, 1280), (np.pi / 4, 1280), (-np.pi / 4, 1280),
+            (np.pi / 2, 886), (-np.pi / 2, 886)]
+    for cam, (yaw, height) in enumerate(cams):
+        H, W = sz(height), sz(1920)
+        images[cam] = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+        f = 2060.0 * W / 1920
+        intrinsics[cam] = np.array([[f, 0, W / 2], [0, f, H / 2],
+                                    [0, 0, 1.0]])
+        cam2vehicles[cam] = _yaw_pose(yaw, (1.5, 0.1 * cam, 2.1)) \
+            @ OPENCV_FROM_VEHICLE_CAMERA
+
+    def box(x, y, z, heading, length, width, height):
+        return {"center_x": x, "center_y": y, "center_z": z,
+                "heading": heading, "length": length, "width": width,
+                "height": height}
+
+    boxes = {"car_ahead": box(10.0, 0.0, 0.8, 0.05, 4.6, 2.0, 1.7),
+             "car_left": box(15.0, 3.5, 0.8, -0.1, 4.8, 2.1, 1.6),
+             "car_behind": box(-8.0, -3.5, 0.8, 3.1, 4.5, 1.9, 1.5),
+             "pedestrian": box(6.0, 5.0, 0.9, 1.2, 0.8, 0.8, 1.8)}
+    return {"lidars": lidars, "images": images, "intrinsics": intrinsics,
+            "cam2vehicles": cam2vehicles, "boxes": boxes}

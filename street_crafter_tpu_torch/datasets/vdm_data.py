@@ -35,35 +35,66 @@ def _lanczos3(x: np.ndarray) -> np.ndarray:
     return np.where((x >= -3.0) & (x < 3.0), sinc(x) * sinc(x / 3.0), 0.0)
 
 
-def _coefficients(in_size: int, out_size: int):
-    """Pillow's precompute_coeffs + normalize_coeffs_8bpc for the box
-    [0, in_size): per output pixel its first input pixel and integer
-    weights [out_size, ksize] (zeros past each window)."""
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic_filter (a = -0.5)."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    """Pillow's bilinear_filter."""
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+# Pillow's resampling filters and their supports
+FILTERS = {"lanczos": (_lanczos3, 3.0), "bicubic": (_bicubic, 2.0),
+           "bilinear": (_bilinear, 1.0)}
+
+
+def _weights(in_size: int, out_size: int, resample: str = "lanczos"):
+    """Pillow's precompute_coeffs for the box [0, in_size): per output
+    pixel its first input pixel and float64 weights [out_size, ksize]
+    (zeros past each window), each row normalised by its sum taken in
+    Pillow's order."""
+    kernel, radius = FILTERS[resample]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 3.0 * filterscale
+    support = radius * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     centers = (np.arange(out_size) + 0.5) * scale
     xmin = np.maximum((centers - support + 0.5).astype(np.int64), 0)
     xmax = np.minimum((centers + support + 0.5).astype(np.int64), in_size)
     x = np.arange(ksize)[None, :]
     taps = (xmax - xmin)[:, None]
-    w = _lanczos3((x + xmin[:, None] - centers[:, None] + 0.5)
-                  * (1.0 / filterscale))
+    w = kernel((x + xmin[:, None] - centers[:, None] + 0.5)
+               * (1.0 / filterscale))
     w = np.where(x < taps, w, 0.0)
-    total = w.sum(1, keepdims=True)
+    total = np.zeros((out_size, 1))
+    for j in range(ksize):
+        total[:, 0] += w[:, j]
     w = np.where(total != 0.0, w / np.where(total != 0.0, total, 1.0), w)
+    return xmin, w
+
+
+def _coefficients(in_size: int, out_size: int, resample: str = "lanczos"):
+    """``_weights`` + Pillow's normalize_coeffs_8bpc: integer weights with
+    ``_PRECISION_BITS`` fraction bits."""
+    xmin, w = _weights(in_size, out_size, resample)
     scaled = w * (1 << _PRECISION_BITS)
     kk = np.where(scaled < 0, np.trunc(-0.5 + scaled),
                   np.trunc(0.5 + scaled)).astype(np.int64)
     return xmin, kk
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int,
+                   resample: str = "lanczos") -> np.ndarray:
     """One Pillow pass along ``axis`` (0 rows, 1 columns) of a uint8
     [H, W, C] image."""
     in_size = img.shape[axis]
-    xmin, kk = _coefficients(in_size, out_size)
+    xmin, kk = _coefficients(in_size, out_size, resample)
     idx = np.minimum(xmin[:, None] + np.arange(kk.shape[1])[None, :],
                      in_size - 1)
     # [in, other, C]; int32 as in Pillow: |sum| < 255 * 1.3 * 2^22 < 2^31
@@ -77,15 +108,43 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
+def resize_uint8(img: np.ndarray, th: int, tw: int,
+                 resample: str = "lanczos") -> np.ndarray:
+    """uint8 [H, W, C] -> [th, tw, C] as Pillow's ``resize((tw, th),
+    resample)`` of the image ("lanczos", "bicubic" or "bilinear"; each
+    channel is resampled alone, so mode "L" and "RGB" agree)."""
+    h, w = img.shape[:2]
+    if w != tw:
+        img = _resample_axis(img, tw, 1, resample)
+    if h != th:
+        img = _resample_axis(img, th, 0, resample)
+    return img
+
+
 def resize_lanczos_uint8(img: np.ndarray, th: int, tw: int) -> np.ndarray:
     """uint8 [H, W, C] -> [th, tw, C] as Pillow's ``resize((tw, th),
     LANCZOS)`` of each channel in mode "L"."""
-    h, w = img.shape[:2]
-    if w != tw:
-        img = _resample_axis(img, tw, 1)
-    if h != th:
-        img = _resample_axis(img, th, 0)
-    return img
+    return resize_uint8(img, th, tw, "lanczos")
+
+
+def resize_float32(img: np.ndarray, th: int, tw: int,
+                   resample: str = "bilinear") -> np.ndarray:
+    """float32 [H, W] -> [th, tw] as Pillow's ``resize`` in mode "F"
+    (ImagingResample*_32bpc): float64 sums of float64 weights, each pass
+    stored as float32, the horizontal pass first."""
+    out = np.asarray(img, np.float32)
+    for axis, size in ((1, tw), (0, th)):
+        if out.shape[axis] == size:
+            continue
+        xmin, w = _weights(out.shape[axis], size, resample)
+        src = np.moveaxis(out, axis, 0).astype(np.float64)
+        idx = np.minimum(xmin[:, None] + np.arange(w.shape[1])[None, :],
+                         src.shape[0] - 1)
+        acc = np.zeros((size,) + src.shape[1:])
+        for j in range(w.shape[1]):
+            acc += src[idx[:, j]] * w[:, j][:, None]
+        out = np.moveaxis(acc.astype(np.float32), 0, axis)
+    return out
 
 
 def aspect_crop_resize(img: np.ndarray, th: int, tw: int,

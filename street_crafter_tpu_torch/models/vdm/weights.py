@@ -153,6 +153,12 @@ def save_vdm_params(path: str, engine: VideoDiffusionEngine,
     if unet is not None:
         sds["unet"] = {k: unet[k].to(v.dtype) if k in unet else v
                        for k, v in sds["unet"].items()}
+    save_vdm_state_dicts(path, sds)
+
+
+def save_vdm_state_dicts(path: str, sds: dict) -> None:
+    """The port's checkpoint from {"unet", "vae", "clip"} state dicts
+    (``load_vdm_params`` casts each value to its parameter's dtype)."""
     torch.save({"format": FORMAT, **sds}, path)
 
 
@@ -172,9 +178,9 @@ def load_vdm_params(engine: VideoDiffusionEngine, dcfg,
     if os.path.isdir(ckpt):
         raise NotImplementedError(
             f"{ckpt} is a directory (the JAX package's orbax format); the "
-            f"port reads torch checkpoints: convert JAX parameters with "
-            f"models.vdm.convert.engine_params_from_jax and save them with "
-            f"save_vdm_params")
+            f"port reads torch checkpoints: convert it with python -m "
+            f"street_crafter_tpu_torch.scripts.convert_jax_checkpoint vdm "
+            f"{ckpt} OUT.pt --config CFG (needs tensorstore)")
     if not os.path.isfile(ckpt):
         raise FileNotFoundError(f"vdm checkpoint not found: {ckpt}")
     if not ckpt.endswith(".safetensors"):

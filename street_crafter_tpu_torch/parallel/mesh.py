@@ -19,7 +19,7 @@ result back (gloo's own CUDA support does not cover ``all_gather``).
 
 Only the ``data`` axis may be larger than 1. The JAX design's sequence
 parallelism over ``frames`` has no counterpart in the port yet (ROADMAP
-queue 1, item 24b's rest).
+queue 1, item 31).
 
 ``run_ranks`` is the test helper that replaces ``make_virtual_cpu_mesh``:
 it spawns N processes joined by a ``file://`` rendezvous and runs a
@@ -45,7 +45,7 @@ import torch.distributed as dist
 FRAMES_AXIS_NOT_PORTED = (
     "the frames axis (the JAX design's sequence parallelism of the "
     "fine-tune step and parallel/sample.py) has no counterpart in the port "
-    "(ROADMAP queue 1, item 24b's rest); only the data axis may be > 1")
+    "(ROADMAP queue 1, item 31); only the data axis may be > 1")
 TIMEOUT_S = 600.0
 
 

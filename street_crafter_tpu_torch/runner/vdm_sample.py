@@ -34,7 +34,7 @@ def build_engine(cfg: Config, num_frames: int) -> VideoDiffusionEngine:
     if cfg.diffusion.get("shard_sample", False):
         raise NotImplementedError(
             "diffusion.shard_sample (the JAX package's multi-chip sampler) "
-            "is not ported")
+            "is not ported (ROADMAP queue 1, item 31)")
     dcfg = cfg.diffusion.clone()
     dcfg.sample_frames = num_frames
     ecfg = engine_from_config(dcfg)
