@@ -241,6 +241,29 @@ Phases, one status line each; any failure raises (exit code != 0):
      on the card and on the host: the same PLYs. Each part's seconds. The
      kernels line's raster rows gain "pandaset" launches and a
      "pandaset_render" row.
+ 23. frames-axis sequence parallelism, after phase 22, ranks spawned with a
+     file:// rendezvous sharing the card through gloo, each part first on
+     one rank in this process (kept on the host, freed before the spawn):
+     (a) parallel/sample.py::sample_on_mesh on {frames: SP_FRAMES} with
+     phase 9's seeded weights, 25 frames at 576x1024, CFG, fused temporal,
+     SP_STEPS Euler steps and the chunked decode: rank 0's window against
+     one rank's engine.sample (same weights and generator) within
+     noise_limits of the control's (one rank with the plain temporal
+     stages: bf16 evaluations of the whole network differ by more than
+     one kernel's limits), every rank holding the same whole window,
+     exactly 15 / 5 / 11 launches of D / E / F a CFG eval a rank, and E
+     and F against
+     their plain versions at rank 0's token-shard shapes (phase 8's
+     limits); (b) phase 19 (b)'s LoRA recipe on {data: 1, frames: f}, one
+     step from the same weights and draws as one rank's: the loss within
+     SP_LOSS_RTOL, the adapters' gradients within noise_limits of the
+     control's (one rank's step on two copies of the clip), the updates'
+     agreement reported, frozen leaves bit-equal, 25 / 15 / 15 launches of
+     D-with-lse / G / H a rank. f is SP_FRAMES unless SP_FRAMES times the
+     memory a one-rank trainer holds before its step passes the card's,
+     then SP_FT_FALLBACK (2 ranks of 12 frames). Each part's wall, the
+     all-to-all and all-reduce seconds and each rank's peak. The kernels
+     line's launches_by_path gains "frames_sp".
 Kernel builds, launches and comparisons raise on failure; no phase catches
 its own. TF32 is off for matmuls and cuDNN convolutions throughout.
 The last three lines: the card's name and power limit, a JSON object of
@@ -1378,8 +1401,8 @@ def vdm_main_path(tmp: str, gpu: str) -> tuple[dict, str, float]:
     seen = {}
     decode = VideoDiffusionEngine.decode_latents_chunked
 
-    def decode_and_keep(self, z, chunk=8, overlap=3):
-        out = decode(self, z, chunk=chunk, overlap=overlap)
+    def decode_and_keep(self, z, chunk=8, overlap=3, frames=None):
+        out = decode(self, z, chunk=chunk, overlap=overlap, frames=frames)
         seen["latents"], seen["decoded"] = z.float(), out.float()
         return out
 
@@ -4749,6 +4772,468 @@ def data_processing(G, gpu: str, dev: str = "cuda") -> tuple[dict, dict]:
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 23: frames-axis sequence parallelism (ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+SP_FRAMES = 5              # (a): the one frames size that divides T = 25
+SP_STEPS = 2               # (a): Euler steps of the sample
+SP_SEED = 23
+SP_LOSS_RTOL = 2e-3        # (b): the step's loss against one rank's
+# the frames ranks compute in bf16 with other shapes than one rank (a
+# frame's share of every GEMM and convolution, the tokens' runs of the
+# temporal stages, the GroupNorm statistics summed over the group), and a
+# UNet eval in bf16 differs from another valid bf16 evaluation by ~2e-2 of
+# its largest value (3e-3 median), a whole sample by ~0.13 (1e-2 median;
+# the tiny engine in bf16 on the CPU, fused against plain temporal
+# stages); bf16_errors' limits hold for one kernel, not for a network. So
+# each part is held against a control, one rank's other valid evaluation
+# of the same thing, in the same call: the frames ranks' errors against
+# one rank within SP_NOISE_FACTOR times the control's (or within
+# bf16_errors' limits, where the control is closer). (a)'s control: the
+# sample with the plain temporal stages (fused_temporal off); (b)'s: the
+# step on a batch of two copies of the clip (other GEMM shapes, the same
+# loss and gradient)
+SP_NOISE_FACTOR = 2.0
+
+
+def noise_limits(control: dict) -> tuple[float, float]:
+    """The (largest, median) error limits that a control sets."""
+    return (max(BF16_MAX_REL, SP_NOISE_FACTOR * control["max_rel"]),
+            max(BF16_MED_REL, SP_NOISE_FACTOR * control["med_rel"]))
+# (b)'s fallback when SP_FRAMES ranks' trainers do not fit the card: two
+# ranks of 12 frames (25 does not split over 2)
+SP_FT_FALLBACK = (2, 24)
+SP_TIMEOUT_S = 900.0
+SP_HW = (576, 1024)        # the images' size (a CPU rehearsal cuts it)
+# (a)'s fused stages (S, C, heads): E at level 0, F at levels 1, 2 and the
+# middle block; rank 0 holds its token run of each
+SP_STAGES = (("temporal_block_fused", 9216, 320, 5),
+             ("temporal_attention_fused", 2304, 640, 10),
+             ("temporal_attention_fused", 576, 1280, 20),
+             ("temporal_attention_fused", 144, 1280, 20))
+SP_TINY = False            # the tiny engine (a CPU rehearsal)
+
+
+def sp_window(T: int = 25, seed: int = SP_SEED) -> tuple:
+    """Seeded guide and conditioning images in [-1, 1] at SP_HW (a
+    window's inputs; every rank makes the same)."""
+    rng = np.random.default_rng(seed)
+    guide = rng.uniform(-1, 1, (T, *SP_HW, 3)).astype(np.float32)
+    cond = rng.uniform(-1, 1, (1, *SP_HW, 3)).astype(np.float32)
+    return guide, cond
+
+
+def timed_all_to_all(mesh) -> list:
+    """Wrap ``mesh.all_to_all`` (the exchanges of parallel/sequence.py) to
+    add its seconds (from a synchronisation of the card, so the wait for
+    the kernels before it is not counted) and calls to the returned
+    list."""
+    import torch
+    spent = [0.0, 0]
+    inner = mesh.all_to_all
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return out
+    mesh.all_to_all = timed
+    return spent
+
+
+def sp_sample(mesh, dev) -> dict:
+    """(a) on one rank (``mesh`` None: ``engine.sample``, then the control:
+    the same with the plain temporal stages) or on this rank of the frames
+    mesh (``sample_on_mesh``): phase 9's engine and seeded weights, fused
+    temporal stages, SP_STEPS Euler steps, CFG, the chunked decode; the
+    window's frames, wall seconds, launches, all-to-all seconds and the
+    peak. On a mesh, rank 0 then holds E and F at its token-shard shapes
+    against their plain versions."""
+    import torch
+    from street_crafter_tpu_torch.config import default_config
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    from street_crafter_tpu_torch.parallel.sample import sample_on_mesh
+    from street_crafter_tpu_torch.parallel.sequence import token_runs
+    from street_crafter_tpu_torch.runner import vdm_sample as VS
+    cfg = default_config()
+    cfg.merge({"device": dev.type,
+               "diffusion": {"tiny": SP_TINY, "num_steps": SP_STEPS,
+                             "ckpt_path": "", "init_zero_layers_std": 1.0}})
+    t0 = time.perf_counter()
+    eng = VS.build_engine(cfg, 25, dev)
+    build_s = time.perf_counter() - t0
+    guide, cond = sp_window()
+    g, c = torch.from_numpy(guide).to(dev), torch.from_numpy(cond).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SP_SEED)
+    spent = timed_all_to_all(mesh) if mesh is not None else [0.0, 0]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    if mesh is None:
+        out = eng.sample(g, c, generator=gen)
+    else:
+        out = sample_on_mesh(eng, g, c, mesh, generator=gen)
+    torch.cuda.synchronize()
+    res = {"build_s": build_s, "sample_s": time.perf_counter() - t0,
+           "counts": launches_now(), "a2a_s": spent[0],
+           "a2a_calls": spent[1],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "checksum": float(out.double().sum()), "shape": tuple(out.shape)}
+    if mesh is None or mesh.rank == 0:
+        res["frames"] = out.cpu().numpy()
+    if mesh is None:
+        from street_crafter_tpu_torch.models.vdm.layers import \
+            SpatialVideoTransformer
+        for m in eng.unet.modules():
+            if isinstance(m, SpatialVideoTransformer):
+                m.fused_temporal = False
+        res["control"] = eng.sample(g, c, generator=torch.Generator(
+            device=dev).manual_seed(SP_SEED)).cpu().numpy()
+    del eng, out, g, c
+    torch.cuda.empty_cache()
+    if mesh is not None and mesh.rank == 0:
+        errs = {}
+        f = mesh.size("frames")
+        for name, S, C, heads in SP_STAGES:
+            S_r = token_runs(S, f)[0]
+            make = e_args if name == "temporal_block_fused" else f_args
+            args, kw = make(TB, dev, 2, 25, S_r, C, heads, 400 + S_r)
+            e = bf16_errors(getattr(TB, name)(*args, **kw),
+                            getattr(TB, name + "_reference")(*args, **kw))
+            e["shape"] = [50, S_r, C]
+            errs.setdefault(name, []).append(e)
+            del args
+        res["shard_errs"] = errs
+        torch.cuda.empty_cache()
+    return res
+
+
+def sp_ft_config(dev, T: int, f: int, model_path: str):
+    """(b)'s config: phase 12's engine and data sizes with phase 19 (b)'s
+    LoRA recipe, one clip of T frames, the mesh {data: 1, frames: f}."""
+    from street_crafter_tpu_torch.config import default_config
+    cfg = default_config()
+    cfg.merge({"device": dev.type, "model_path": model_path,
+               "resume": False,
+               "diffusion": {"tiny": SP_TINY, "ckpt_path": "",
+                             "init_zero_layers_std": 1.0,
+                             "remat_policy": "flash0", "add_lora": True},
+               "vdm_train": {"height": SP_HW[0], "width": SP_HW[1],
+                             "num_frames": T,
+                             "batch_size": 1, "train_peft_adapters": True,
+                             "slow_temporal_layers": False},
+               "mesh": {"axes": {"data": 1, "frames": f}}})
+    return cfg
+
+
+def sp_finetune(mesh, dev, T: int, f: int, model_path: str) -> dict:
+    """(b) on one rank (``mesh`` None) or this rank of {data: 1, frames:
+    f}: runner.vdm_train's trainer and encoder with the LoRA recipe, one
+    step on a seeded clip of T frames with the generator's draws: the
+    loss, times, launches, all-to-all seconds, peak, the memory the
+    trainer holds before the step, whether the frozen leaves stayed
+    bit-equal (f64 sums of masters and module weights), and (one rank or
+    rank 0) the adapters' gradients before the clip and their masters
+    before and after. One rank first runs the control: the loss and
+    gradients of the step on two copies of the clip (the same draws for
+    both), its update skipped."""
+    import torch
+    from street_crafter_tpu_torch.runner import vdm_train as VT
+    cfg = sp_ft_config(dev, T, f, model_path)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr, _ = VT.build_trainer(cfg, mesh)
+    build_s = time.perf_counter() - t0
+    static = torch.cuda.memory_allocated() / 2 ** 30
+    trained = [n for n, lab in tr.labels.items() if lab == "base"]
+    frozen = [n for n, lab in tr.labels.items() if lab == "frozen"]
+
+    def frozen_sums():
+        with torch.no_grad():
+            return [float(sum(src[n].double().sum() for n in frozen))
+                    for src in (tr.state.masters, tr.params)]
+    start = {n: tr.state.masters[n].cpu().numpy().copy() for n in trained}
+    before = frozen_sums()
+    rng = np.random.default_rng(SP_SEED + 1)
+    img = rng.uniform(-1, 1, (1, T, *SP_HW, 3)).astype(np.float32)
+    guide = rng.uniform(-1, 1, (1, T, *SP_HW, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    batch = VT.make_encode_fn(tr.engine, tr.frames)(img, guide)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    del img, guide
+    grads = {}
+    apply = tr._apply
+
+    def capture(g, update=True):
+        grads.update({n: g[n].cpu().numpy().copy() for n in trained})
+        if update:
+            apply(g)
+    control = None
+    if mesh is None:
+        from street_crafter_tpu_torch.models.vdm.conditioner import \
+            Conditioning
+        from street_crafter_tpu_torch.models.vdm.loss import LossDraws
+        from street_crafter_tpu_torch.training.vdm_trainer import StepDraws
+        d = tr.draw(1, (T, *batch["latents"].shape[2:]),
+                    torch.Generator(device=dev).manual_seed(SP_SEED))
+
+        def two(x):
+            return torch.cat([x, x])
+        twice = {"latents": two(batch["latents"]),
+                 "guidance_latents": two(batch["guidance_latents"]),
+                 "cond": Conditioning(*map(two, batch["cond"]))}
+        tr._apply = lambda g: capture(g, update=False)
+        try:
+            loss2 = tr.train_step(twice, draws=StepDraws(
+                two(d.keep), LossDraws(*map(two, d.loss))))["loss"]
+        finally:
+            del tr._apply
+        control = {"loss": loss2, "grads": dict(grads)}
+        del twice
+        torch.cuda.empty_cache()
+    tr._apply = capture
+    spent = timed_all_to_all(mesh) if mesh is not None else [0.0, 0]
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        scalars = tr.train_step(batch, generator=torch.Generator(
+            device=dev).manual_seed(SP_SEED))
+        torch.cuda.synchronize()
+    finally:
+        del tr._apply
+    res = {"build_s": build_s, "encode_s": encode_s,
+           "step_s": time.perf_counter() - t0, "loss": scalars["loss"],
+           "counts": launches_now(), "a2a_s": spent[0],
+           "a2a_calls": spent[1], "comm_s": dict(tr.comm_s),
+           "static_gib": static,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "frozen_equal": frozen_sums() == before, "n_frozen": len(frozen)}
+    if mesh is None or mesh.rank == 0:
+        res.update(grads=grads, start=start, control=control,
+                   new={n: tr.state.masters[n].cpu().numpy().copy()
+                        for n in trained})
+    del tr, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def sp_rank_main(mesh, part: str, tmp: str, T: int, f: int) -> dict:
+    """Phase 23, each rank sharing the card through gloo: (a) or (b) on
+    the frames mesh. TF32 off and cuDNN deterministic, as in the
+    parent."""
+    import torch
+    from street_crafter_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    m = make_mesh({"data": 1, "frames": f}, device=mesh.device)
+    if part == "sample":
+        return sp_sample(m, m.device)
+    return sp_finetune(m, m.device, T, f,
+                       os.path.join(tmp, f"sp_ft_{m.rank}"))
+
+
+def grad_errors_by_leaf(got: dict, want: dict) -> dict:
+    """Over the leaves of two gradients (numpy): the largest of each leaf's
+    bf16_errors max_rel and med_rel, and the largest share of a leaf's
+    nonzero elements whose sign differs."""
+    import torch
+    out = {"max_rel": 0.0, "med_rel": 0.0, "flip": 0.0}
+    for n, w in want.items():
+        e = bf16_errors(torch.from_numpy(got[n]), torch.from_numpy(w))
+        nz = (w != 0) | (got[n] != 0)
+        flip = float((np.sign(got[n]) != np.sign(w))[nz].mean()) \
+            if nz.any() else 0.0
+        out = {"max_rel": max(out["max_rel"], e["max_rel"]),
+               "med_rel": max(out["med_rel"], e["med_rel"]),
+               "flip": max(out["flip"], flip)}
+    return out
+
+
+def sp_sum_counts(results: list) -> dict:
+    total: dict = {}
+    for r in results:
+        for k, n in r["counts"].items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def frames_sp(gpu: str, dev: str = "cuda") -> dict:
+    """Phase 23: (a) the sampler on {frames: 5} and (b) the LoRA step on
+    {frames: f} (5, or SP_FT_FALLBACK when five ranks' trainers do not fit
+    the card), each against one rank in this process first (its results
+    kept on the host, its memory freed before the spawn). Returns the
+    ranks' launches, summed over (a) and (b)."""
+    import gc
+
+    import torch
+    from street_crafter_tpu_torch.parallel.mesh import run_ranks
+    dev = torch.device(dev, 0) if dev == "cuda" else torch.device(dev)
+    torch.backends.cudnn.deterministic = True
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    t_start = time.perf_counter()
+    # five ranks' chunk decodes (~11 GiB each) near fill the card: the
+    # ranks' allocators map their memory in expandable segments, so that
+    # what one rank frees between its UNet and its decode does not stay
+    # reserved in blocks of the wrong size (a rank ran out of memory
+    # without it)
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        one = sp_sample(None, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as tmp:
+            ranks = run_ranks(sp_rank_main, SP_FRAMES, tmp, "sample", tmp,
+                              25, SP_FRAMES, backend="gloo",
+                              device=dev.type, threads=0,
+                              timeout_s=SP_TIMEOUT_S)
+        wall_a = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    e = bf16_errors(torch.from_numpy(ranks[0]["frames"]),
+                    torch.from_numpy(one["frames"]))
+    ec = bf16_errors(torch.from_numpy(one["control"]),
+                     torch.from_numpy(one["frames"]))
+    want = {k: v * SP_STEPS for k, v in PER_STEP.items()}
+    log(f"[23] (a) sample_on_mesh on {{frames: {SP_FRAMES}}} (ranks sharing "
+        f"the card through gloo): 25 frames at 576x1024, {SP_STEPS} Euler "
+        f"steps, CFG, fused temporal, chunked decode; {wall_a:.1f} s with "
+        f"the spawn (one rank's sample {one['sample_s']:.2f} s, engine "
+        f"{one['build_s']:.1f} s); ranks' samples "
+        f"{[round(r['sample_s'], 2) for r in ranks]} s, engine builds "
+        f"{[round(r['build_s'], 1) for r in ranks]} s, all-to-all "
+        f"{[round(r['a2a_s'], 2) for r in ranks]} s in "
+        f"{ranks[0]['a2a_calls']} calls a rank (through host memory: "
+        f"plumbing, not the design's time); peak max_memory_allocated "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB (one rank "
+        f"{one['peak_gib']:.2f}); launches a rank "
+        f"{[r['counts'] for r in ranks]}; {gpu}")
+    log(f"[23] (a) against one rank's sample: the {SP_FRAMES} ranks' largest "
+        f"error {e['max_rel']:.3e}, median {e['med_rel']:.3e}; the control "
+        f"(one rank, plain temporal stages) {ec['max_rel']:.3e}, "
+        f"{ec['med_rel']:.3e} (limits {noise_limits(ec)}: {SP_NOISE_FACTOR} x "
+        f"the control's, at least bf16_errors' kernel limits)")
+    lim = noise_limits(ec)
+    if e["max_rel"] > lim[0] or e["med_rel"] > lim[1]:
+        raise AssertionError("the frames-sharded sample is further from "
+                             "one rank's than the control")
+    for r in ranks:
+        check_kernels_only(r["counts"], dev, "a frames rank's sample")
+        if r["counts"] != want:
+            raise AssertionError(f"a frames rank launched {r['counts']}, "
+                                 f"expected {want}")
+        if r["shape"] != (25, *SP_HW, 3) \
+                or r["checksum"] != ranks[0]["checksum"] \
+                or not np.isfinite(r["checksum"]):
+            raise AssertionError("the ranks do not hold the same whole "
+                                 "window")
+    for name, rows in ranks[0]["shard_errs"].items():
+        for row in rows:
+            check_errors(f"(a) {name} at rank 0's token shard "
+                         f"{row['shape']}", row, 23)
+    counts = sp_sum_counts(ranks)
+    del ranks, one
+    # (b): five ranks' trainers, or the fallback
+    # the one-rank step at the fallback's length first: what a trainer
+    # holds before its step does not depend on it
+    t0 = time.perf_counter()
+    f, T = SP_FT_FALLBACK
+    ref = sp_finetune(None, dev, T, 1, "")
+    need = SP_FRAMES * ref["static_gib"]
+    log(f"[23] (b) a LoRA trainer holds {ref['static_gib']:.2f} GiB before "
+        f"its step (f32 masters and EMA of every UNet leaf, the bf16 "
+        f"module, VAE, CLIP): {SP_FRAMES} ranks hold {need:.2f} GiB of the "
+        f"card's {card_gib:.2f} GiB before their activations")
+    if need <= card_gib:
+        f, T = SP_FRAMES, 25
+        ref = sp_finetune(None, dev, T, 1, "")
+    log(f"[23] (b) on {{frames: {f}}} at {T} frames")
+    ref_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as tmp:
+        t0 = time.perf_counter()
+        fts = run_ranks(sp_rank_main, f, tmp, "finetune", tmp, T, f,
+                        backend="gloo", device=dev.type, threads=0,
+                        timeout_s=SP_TIMEOUT_S)
+        wall_b = time.perf_counter() - t0
+    got, ctl = fts[0], ref["control"]
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    ctl_loss = abs(ctl["loss"] - ref["loss"]) / abs(ref["loss"])
+    g_sp, g_ctl = (grad_errors_by_leaf(x["grads"], ref["grads"])
+                   for x in (got, ctl))
+    u_worst, flip, moved, still = 0.0, 0.0, 0, 0
+    for n in ref["grads"]:
+        d1 = torch.from_numpy(ref["new"][n] - ref["start"][n])
+        dn = torch.from_numpy(got["new"][n] - got["start"][n])
+        upd = float(d1.abs().max())
+        if upd == 0.0:
+            still += 1
+            if float(dn.abs().max()) != 0.0:
+                raise AssertionError(f"{n}: still on one rank, moves on "
+                                     f"{f}")
+            continue
+        moved += 1
+        err = (dn - d1).abs()
+        u_worst = max(u_worst, float(err.max()) / upd)
+        flip = max(flip, float((err > VDM_UPDATE_RTOL * upd).float().mean()))
+    log(f"[23] (b) LoRA step on {{data: 1, frames: {f}}}, one clip of {T} "
+        f"frames at 576x1024: {wall_b:.1f} s with the spawn (one rank's "
+        f"build and step in this process {ref_s:.1f} s, step "
+        f"{ref['step_s']:.2f} s); ranks' steps "
+        f"{[round(r['step_s'], 2) for r in fts]} s, encodes "
+        f"{[round(r['encode_s'], 2) for r in fts]} s, all-to-all "
+        f"{[round(r['a2a_s'], 2) for r in fts]} s in {got['a2a_calls']} "
+        f"calls, gradient all-reduce "
+        f"{[round(r['comm_s']['all_reduce'], 2) for r in fts]} s (through "
+        f"host memory); memory held before the step "
+        f"{[round(r['static_gib'], 2) for r in fts]} GiB, peak "
+        f"max_memory_allocated {[round(r['peak_gib'], 2) for r in fts]} "
+        f"GiB (one rank {ref['static_gib']:.2f} / {ref['peak_gib']:.2f}); "
+        f"loss {got['loss']:.6f} against {ref['loss']:.6f} ({loss_rel:.2e} "
+        f"relative, limit {SP_LOSS_RTOL}; the control, two copies of the "
+        f"clip on one rank: {ctl['loss']:.6f}, {ctl_loss:.2e}); adapters' "
+        f"gradients against one rank's, by leaf, the largest error "
+        f"{g_sp['max_rel']:.3e} of the leaf's largest, the largest median "
+        f"{g_sp['med_rel']:.3e}, signs flipped {100 * g_sp['flip']:.4f}%; "
+        f"the control {g_ctl['max_rel']:.3e}, {g_ctl['med_rel']:.3e}, "
+        f"{100 * g_ctl['flip']:.4f}% (limits {noise_limits(g_ctl)}); "
+        f"updates: {moved} leaves moved, {still} still, the "
+        f"largest error {u_worst:.3g} of a leaf's update, at most "
+        f"{100 * flip:.4f}% of a leaf's elements beyond {VDM_UPDATE_RTOL} "
+        f"of its update (Adam's first step is lr x sign(g)); frozen leaves "
+        f"bit-equal {[r['frozen_equal'] for r in fts]} ({got['n_frozen']});"
+        f" launches a rank {[r['counts'] for r in fts]}; {gpu}")
+    lim = noise_limits(g_ctl)
+    if loss_rel > SP_LOSS_RTOL \
+            or g_sp["max_rel"] > lim[0] or g_sp["med_rel"] > lim[1] \
+            or not moved or not all(r["frozen_equal"] for r in fts) \
+            or not ref["frozen_equal"]:
+        raise AssertionError("the frames-sharded LoRA step is not the "
+                             "one-rank step")
+    for r in fts:
+        check_kernels_only(r["counts"], dev, "a frames rank's step")
+        if {k: r["counts"].get(k, 0) for k in TRAIN_PER_STEP} \
+                != TRAIN_PER_STEP:
+            raise AssertionError(f"a frames rank's step launched "
+                                 f"{r['counts']}, expected {TRAIN_PER_STEP}")
+    for k, n in sp_sum_counts(fts).items():
+        counts[k] = counts.get(k, 0) + n
+    log(f"[23] seconds: (a) {wall_a:.1f}, (b) {wall_b + ref_s:.1f}; phase 23 "
+        f"{time.perf_counter() - t_start:.1f} s; launches "
+        f"(frames_sp) {counts}")
+    return counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4951,6 +5436,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     data_counts, data_rows = data_processing(G, gpu)
 
+    # ---- phase 23: frames-axis sequence parallelism -----------------------
+    torch.cuda.empty_cache()
+    sp_counts = frames_sp(gpu)
+
     # each main path's counts, read right after its own reset; "launches"
     # is their sum
     by_path = {name: {"render": render_counts.get(name, 0),
@@ -5027,7 +5516,10 @@ def main() -> None:
                  "remat_policies": policy_counts.get(lse, 0),
                  "lora": lora_counts.get(lse, 0),
                  "fixed_blender": fixed_counts.get(name, 0),
-                 "reward": reward_counts.get(name, 0)}
+                 "reward": reward_counts.get(name, 0),
+                 # the sampler's D, E, F and the step's D with lse
+                 "frames_sp": sp_counts.get(name, 0) + (
+                     sp_counts.get(lse, 0) if lse != name else 0)}
         shapes = rounded(vdm_rows[name])
         if name == "flash_attention":
             shapes += [dict(r, path="vdm_train")
@@ -5054,7 +5546,8 @@ def main() -> None:
                  "distill": distill_counts.get(name, 0), "sky_color": 0,
                  "data_parallel": dp_counts.get(name, 0),
                  "remat_policies": policy_counts.get(name, 0),
-                 "lora": lora_counts.get(name, 0)}
+                 "lora": lora_counts.get(name, 0),
+                 "frames_sp": sp_counts.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": VDM_SOURCES["flash_attention"],

@@ -28,15 +28,19 @@ def default_config() -> Config:
         # CUDA tensors always go through the hand-written kernels
         "device": "cuda",
 
-        # data-parallel ranks (parallel/mesh.py)
+        # parallel ranks (parallel/mesh.py), laid out in this order, the
+        # last axis innermost
         "mesh": {
             # axis name -> size over the torch.distributed world (torchrun's
             # WORLD_SIZE ranks; 1 without torchrun); -1 means "all remaining
             # ranks", so data: -1 is the world size. data: GS cameras and
             # fine-tune clips split over the ranks (DDP, ZeRO-2 moments,
             # FSDP with vdm_train.fsdp); frames: the JAX design's clip-frame
-            # sequence parallelism, not ported: > 1 raises. No tensor axis:
-            # the 1.5B UNet fits per card in bf16 (SURVEY §2.3).
+            # sequence parallelism (parallel/sequence.py): each clip's
+            # frames split over the axis in the fine-tune and, with
+            # diffusion.shard_sample, in sampling; GS cameras are replicated
+            # over it. The size must divide the clip's frames. No tensor
+            # axis: the 1.5B UNet fits per card in bf16 (SURVEY §2.3).
             "axes": {"data": -1, "frames": 1},
             "dcn_axes": {},           # multi-slice: axis -> num_slices
         },
@@ -252,10 +256,11 @@ def default_config() -> Config:
             "cond_aug": 0.0,
             "fps_id": 10,
             "motion_bucket_id": 127,
-            # shard sampling over the cfg.mesh axes when >1 device is
-            # visible: frames-axis SP at inference (parallel/sample.py) —
-            # the distillation phase's dominant wall-clock. Requires
-            # sample_frames divisible by the frames axis.
+            # shard sampling over the cfg.mesh axes when the process group
+            # has more than one rank (torchrun): frames-axis SP at inference
+            # (parallel/sample.py), every rank gets the whole window and
+            # rank 0 writes. Requires sample_frames divisible by the frames
+            # axis.
             "shard_sample": False,
             # engine params rest in host RAM between sampling events,
             # staged to the device per event (the reference's --low_vram

@@ -78,6 +78,7 @@ def make_sharded_renderer(mesh: Mesh | None, width: int, height: int,
         local = {k: torch.stack(v) for k, v in outs.items()}
         if mesh is None:
             return local
-        return {k: mesh.all_gather(v, 0) for k, v in local.items()}
+        return {k: mesh.all_gather(v, 0, axis="data")
+                for k, v in local.items()}
 
     return render_batch

@@ -11,6 +11,11 @@ engine.py``): UNet + VAE + CLIP + conditioner + denoiser + sampler.
 - ``low_vram``: the VAE and CLIP wait on the host while the denoise loop
   runs and come back for the decode, also when the loop raises.
 
+Sequence parallelism (``frames``, a ``parallel.sequence.FramesShard``):
+``sample`` and ``training_denoise_fn`` run the UNet on this rank's T/f
+frames of the clip; ``sample`` returns the whole clip on every rank
+(``parallel/sample.py``).
+
 Unlike the JAX engine the modules hold their weights (``engine.unet``,
 ``engine.vae``, ``engine.clip``); they are built on the meta device and
 materialised on ``device`` in the compute dtype by ``materialize``, then
@@ -25,6 +30,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ...parallel.sequence import FramesShard
 from . import diffusion as D
 from .clip import CLIPVisual, CLIPVisualConfig, clip_preprocess
 from .conditioner import Conditioning, get_conditioning
@@ -112,30 +118,53 @@ class VideoDiffusionEngine:
 
     @torch.no_grad()
     def decode_latents_chunked(self, z: torch.Tensor, chunk: int = 8,
-                               overlap: int = 3) -> torch.Tensor:
+                               overlap: int = 3,
+                               frames: FramesShard | None = None
+                               ) -> torch.Tensor:
         """Overlapping temporal chunks, averaged over the overlap
         (decode_first_stage, diffusion_condition.py:183-214); each chunk
-        sees ``overlap`` frames of context before its own."""
+        sees ``overlap`` frames of context before its own. The chunks are
+        independent: with ``frames`` (``z`` whole on every rank) the frames
+        ranks decode every f-th chunk, gather them, and blend as one device
+        does."""
         n = z.shape[0]
         if n <= chunk or overlap >= chunk:
             return self.decode_latents(z, num_frames=n)
-        res = None
-        prev = z[:overlap]
-        pos, step = overlap, chunk - overlap
-        while pos < n:
-            ctx_z = torch.cat([prev, z[pos:pos + step]])
-            out = self.decode_latents(ctx_z, num_frames=ctx_z.shape[0])
-            if res is None:
-                res = out
-            else:
-                # blend on the accumulated frames: with step < overlap the
-                # last piece is shorter than the overlap
-                res = torch.cat([res[:-overlap],
-                                 (res[-overlap:] + out[:overlap]) / 2.0,
-                                 out[overlap:]])
-            prev = ctx_z[-overlap:]
-            pos += step
+        step = chunk - overlap
+        # chunk i: frames [pos - overlap, pos + step) of z, pos = overlap +
+        # i step (its first overlap frames are the last of chunk i - 1)
+        spans = [(pos - overlap, min(pos + step, n))
+                 for pos in range(overlap, n, step)]
+        if frames is None:
+            outs = [self.decode_latents(z[a:b], num_frames=b - a)
+                    for a, b in spans]
+        else:
+            outs = self._decode_spread(z, spans, chunk, frames)
+        res = outs[0]
+        for out in outs[1:]:
+            # blend on the accumulated frames: with step < overlap the last
+            # piece is shorter than the overlap
+            res = torch.cat([res[:-overlap],
+                             (res[-overlap:] + out[:overlap]) / 2.0,
+                             out[overlap:]])
         return res
+
+    def _decode_spread(self, z, spans, chunk: int, fs: FramesShard
+                       ) -> list[torch.Tensor]:
+        """The chunks of ``spans`` decoded over the frames ranks (chunk i
+        on rank i mod f, padded to ``chunk`` frames), gathered into every
+        rank."""
+        f = fs.size
+        up = 2 ** (len(self.cfg.vae.ch_mult) - 1)
+        mine = torch.zeros(
+            (-(-len(spans) // f), chunk, z.shape[1] * up, z.shape[2] * up,
+             self.cfg.vae.out_ch), dtype=_dtype(self.cfg.vae.dtype),
+            device=z.device)
+        for k, i in enumerate(range(fs.index, len(spans), f)):
+            a, b = spans[i]
+            mine[k, :b - a] = self.decode_latents(z[a:b], num_frames=b - a)
+        got = fs.mesh.all_gather(mine[None], 0, "frames")
+        return [got[i % f, i // f, :b - a] for i, (a, b) in enumerate(spans)]
 
     @torch.no_grad()
     def encode_images_chunked(self, images: torch.Tensor,
@@ -164,12 +193,14 @@ class VideoDiffusionEngine:
     def make_cfg_denoise_fn(self, cond: Conditioning, uc: Conditioning,
                             guidance_latents: torch.Tensor | None,
                             cond_mask: torch.Tensor,
-                            cfg_scale: float | None = None) -> Callable:
+                            cfg_scale: float | None = None,
+                            frames: FramesShard | None = None) -> Callable:
         """CFG denoiser (guiders.py:28-41 + wrappers.py:25-41): the
         conditioned half gets guidance scale 1, the unconditioned half 0.
         ``cfg_sequential`` runs the halves as two T-frame UNet evaluations
-        (the same math, half the activations)."""
-        T = self.cfg.num_frames
+        (the same math, half the activations). With ``frames`` every
+        per-frame input holds this rank's frames."""
+        T = self.cfg.num_frames if frames is None else frames.local
         scale = self.cfg.cfg_scale if cfg_scale is None else cfg_scale
         g = guidance_latents
 
@@ -178,7 +209,7 @@ class VideoDiffusionEngine:
             return self.unet(torch.cat([x, concat.to(x.dtype)], dim=-1),
                              c_noise, crossattn, vector, num_frames=T,
                              cond_mask=cm, guidance_input=gs[0],
-                             guidance_scale=gs[1])
+                             guidance_scale=gs[1], frames=frames)
 
         def half_fn(c: Conditioning, gscale: float):
             gs = (None, None) if g is None else \
@@ -217,13 +248,15 @@ class VideoDiffusionEngine:
     # -- training -----------------------------------------------------------
     def training_denoise_fn(self, cond: Conditioning,
                             guidance_latents: torch.Tensor | None,
-                            guidance_scale: torch.Tensor | None
+                            guidance_scale: torch.Tensor | None,
+                            frames: FramesShard | None = None
                             ) -> Callable:
         """(noised, sigma, cond_mask) -> D(x) for ``loss.diffusion_loss``
         over B whole clips: cond leaves and guidance [B*T, ...], guidance
         scale [B*T] (``engine.py:341-357``, its clip map written out as a
-        batch)."""
-        T = self.cfg.num_frames
+        batch); with ``frames``, T is this rank's T/f frames of each
+        clip."""
+        T = self.cfg.num_frames if frames is None else frames.local
 
         def fn(noised, sigma, cond_mask):
             def model_fn(scaled_x, c_noise):
@@ -232,7 +265,8 @@ class VideoDiffusionEngine:
                 return self.unet(net_in, c_noise, cond.crossattn, cond.vector,
                                  num_frames=T, cond_mask=cond_mask,
                                  guidance_input=guidance_latents,
-                                 guidance_scale=guidance_scale)
+                                 guidance_scale=guidance_scale,
+                                 frames=frames)
             return D.denoise(model_fn, noised, sigma)
 
         return fn
@@ -246,20 +280,32 @@ class VideoDiffusionEngine:
                sds_scale: float | None = None,
                cfg_scale: float | None = None,
                num_steps: int | None = None,
-               cond_indices: tuple[int, ...] = (0,)) -> torch.Tensor:
+               cond_indices: tuple[int, ...] = (0,),
+               frames: FramesShard | None = None) -> torch.Tensor:
         """Conditioned sampling of one window (sample_condition.py:418-473).
         guide_images [T, H, W, 3] and cond_image [len(cond_indices), H, W,
         3] in [-1, 1]; ``noise`` (standard normal, latent shape) or
         ``generator`` draws the initial noise. Returns [T, H, W, 3] in
-        [-1, 1]."""
+        [-1, 1].
+
+        ``frames``: this rank denoises its frames (``frames.frames``) of
+        the window. It encodes only those of the guide and render images;
+        the conditioning image, its latent and CLIP embedding are computed
+        on every rank, as one device does. The cond frames and mask are
+        built over the whole T and sliced; the noise is drawn over the
+        whole T (so the result does not depend on f) and sliced. The
+        latents are gathered, and the chunked decode spreads its chunks
+        over the ranks (``decode_chunk`` 0: every rank decodes the
+        clip)."""
         c = self.cfg
         T = c.num_frames
+        mine = slice(0, T) if frames is None else frames.frames
         steps = num_steps or c.num_steps
         dev = self.device
         enc_chunk = c.encode_chunk or c.decode_chunk
 
         def encode(images):
-            images = images.to(dev)
+            images = images[mine].to(dev)
             if enc_chunk:
                 return self.encode_images_chunked(images, enc_chunk)
             return self.encode_images(images)
@@ -274,12 +320,16 @@ class VideoDiffusionEngine:
         for j, idx in enumerate(cond_indices):
             cond_frame[idx] = cond_latent[j].float()
             cond_mask[idx] = 1.0
+        if frames is not None:
+            cond, uc = (Conditioning(*(x[mine] for x in cc))
+                        for cc in (cond, uc))
+            cond_frame, cond_mask = cond_frame[mine], cond_mask[mine]
         sigmas = D.edm_sigmas(steps, c.sigma_min, c.sigma_max, c.rho,
                               device=dev)
         if noise is None:
-            noise = torch.randn(tuple(guidance_latents.shape),
+            noise = torch.randn((T,) + tuple(guidance_latents.shape[1:]),
                                 generator=generator, device=dev)
-        noise = noise.to(dev, torch.float32)
+        noise = noise[mine].to(dev, torch.float32)
         render_latents = (encode(render_images)
                           if render_images is not None
                           and sds_scale is not None else None)
@@ -291,7 +341,7 @@ class VideoDiffusionEngine:
                 offloaded.append(m)
         try:
             denoise_fn = self.make_cfg_denoise_fn(
-                cond, uc, guidance_latents, cond_mask, cfg_scale)
+                cond, uc, guidance_latents, cond_mask, cfg_scale, frames)
             if render_latents is not None:
                 z = euler_edm_sample_sds(denoise_fn, noise, sigmas,
                                          render_latents, sds_scale,
@@ -302,8 +352,11 @@ class VideoDiffusionEngine:
         finally:
             for m in offloaded:
                 m.to(dev)
+        if frames is not None:
+            z = frames.mesh.all_gather(z, 0, "frames")
         if c.decode_chunk:
-            frames = self.decode_latents_chunked(z, chunk=c.decode_chunk)
+            out = self.decode_latents_chunked(z, chunk=c.decode_chunk,
+                                              frames=frames)
         else:
-            frames = self.decode_latents(z, num_frames=T)
-        return frames.float().clamp(-1.0, 1.0)
+            out = self.decode_latents(z, num_frames=T)
+        return out.float().clamp(-1.0, 1.0)

@@ -12,6 +12,13 @@ torch modules where the two differ:
     each linear or convolution, norm statistics are taken in f32.
 Activations are NCHW inside (channels-last in memory when the caller's
 tensor was); ``SpatialVideoTransformer`` works on [B*T, H*W, C] tokens.
+
+Sequence parallelism (``frames``, a ``parallel.sequence.FramesShard``):
+the modules take this rank's T/f frames of each clip and exchange what
+crosses frames. ``VideoResBlock``'s temporal stack normalises with
+statistics summed over the frames group and convolves over a one-frame
+halo; ``SpatialVideoTransformer`` runs its temporal stages on every frame
+of a run of tokens (``frames_to_tokens``) and goes back.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ import torch.nn.functional as F
 from ...ops.attention import multi_head_attention
 from ...ops.temporal_block import (temporal_attention_fused,
                                    temporal_block_fused)
+from ...parallel.sequence import (FramesShard, clip_first_frame,
+                                  frames_halo, frames_sum, frames_to_tokens,
+                                  token_runs, tokens_to_frames)
 
 LN_EPS = 1e-6          # flax LayerNorm default
 GN_EPS = 1e-5          # openaimodel GroupNorm32
@@ -58,6 +68,38 @@ def group_norm(x: torch.Tensor, mod: nn.GroupNorm, eps: float
                ) -> torch.Tensor:
     w = mod.weight
     return F.group_norm(x.to(w.dtype), mod.num_groups, w, mod.bias, eps)
+
+
+def group_norm_frames(x: torch.Tensor, mod: nn.GroupNorm, eps: float,
+                      fs: FramesShard) -> torch.Tensor:
+    """``group_norm`` of [B, C, T/f, H, W] over the clip's every frame: the
+    f32 statistics in two passes (the mean, then the centred squares), each
+    summed over the frames group; the normalisation is local. The result
+    is in the weights' dtype, as ``F.group_norm``'s."""
+    w = mod.weight
+    B, C = x.shape[:2]
+    g = mod.num_groups
+    xf = x.to(w.dtype).float().reshape(B, g, -1)
+    n = xf.shape[-1] * fs.size
+    mean = frames_sum(xf.sum(-1), fs) / n
+    xc = xf - mean[..., None]
+    var = frames_sum((xc * xc).sum(-1), fs) / n
+    y = (xc * torch.rsqrt(var + eps)[..., None]).reshape(x.shape)
+    shape = (1, C) + (1,) * (x.dim() - 2)
+    return (y * w.float().view(shape) + mod.bias.float().view(shape)).to(
+        w.dtype)
+
+
+def conv_frames(x: torch.Tensor, mod: nn.Conv3d, fs: FramesShard
+                ) -> torch.Tensor:
+    """A (kt, kh, kw) convolution of [B, C, T/f, H, W] over the clip: the
+    input with kt // 2 frames of each neighbour (zeros at the clip's ends,
+    the convolution's time padding) and no time padding."""
+    w = mod.weight
+    k = mod.kernel_size[0] // 2
+    xh = frames_halo(x.to(w.dtype), k, 2, fs) if k else x.to(w.dtype)
+    return F.conv3d(xh, w, mod.bias, mod.stride, (0,) + tuple(mod.padding[1:]),
+                    mod.dilation, mod.groups)
 
 
 def layer_norm(x: torch.Tensor, mod: nn.LayerNorm,
@@ -121,7 +163,9 @@ class AlphaBlender(nn.Module):
 class ResBlock(nn.Module):
     """GN -> SiLU -> conv, + time embedding, GN -> SiLU -> conv (zero-init),
     + skip (openaimodel.py:146-284). dims 3: [B, C, T, H, W] input, a
-    [B, T, emb] embedding and a (3, 1, 1) kernel."""
+    [B, T, emb] embedding and a (3, 1, 1) kernel; with ``frames``, T is
+    this rank's T/f frames of each clip, the norms' statistics cover the
+    clip and the convolutions read a halo."""
 
     def __init__(self, ch: int, emb_ch: int, out_ch: int | None = None,
                  dims: int = 2, kernel_size=3):
@@ -140,16 +184,26 @@ class ResBlock(nn.Module):
             zero_(Conv(out_ch, out_ch, ks, padding=pad)))
         self.skip_connection = Conv(ch, out_ch, 1) if out_ch != ch else None
 
-    def forward(self, x, emb):
-        h = F.silu(group_norm(x, self.in_layers[0], GN_EPS))
-        h = conv(h, self.in_layers[2])
+    def forward(self, x, emb, frames: FramesShard | None = None):
+        if frames is not None and self.dims == 3:
+            def norm(t, mod):
+                return group_norm_frames(t, mod, GN_EPS, frames)
+
+            def cv(t, mod):
+                return conv_frames(t, mod, frames)
+        else:
+            def norm(t, mod):
+                return group_norm(t, mod, GN_EPS)
+            cv = conv
+        h = F.silu(norm(x, self.in_layers[0]))
+        h = cv(h, self.in_layers[2])
         e = linear(F.silu(emb), self.emb_layers[1])
         if self.dims == 3:
             e = e.movedim(-1, 1)               # [B, T, C] -> [B, C, T]
         while e.dim() < h.dim():
             e = e[..., None]
-        h = F.silu(group_norm(h + e, self.out_layers[0], GN_EPS))
-        h = conv(h, self.out_layers[3])
+        h = F.silu(norm(h + e, self.out_layers[0]))
+        h = cv(h, self.out_layers[3])
         skip = x if self.skip_connection is None \
             else conv(x, self.skip_connection)
         return skip + h
@@ -157,7 +211,8 @@ class ResBlock(nn.Module):
 
 class VideoResBlock(ResBlock):
     """2D ResBlock + 3D temporal ResBlock mixed by an AlphaBlender
-    (video_model.py:14-80). x: [B*T, C, H, W]."""
+    (video_model.py:14-80). x: [B*T, C, H, W]; with ``frames``, T is this
+    rank's share of each clip (``num_frames`` = T/f)."""
 
     def __init__(self, ch: int, emb_ch: int, out_ch: int | None = None,
                  video_kernel_size=(3, 1, 1), merge_factor: float = 0.5,
@@ -168,12 +223,13 @@ class VideoResBlock(ResBlock):
                                    kernel_size=tuple(video_kernel_size))
         self.time_mixer = AlphaBlender(merge_factor, merge_strategy)
 
-    def forward(self, x, emb, num_frames: int):
+    def forward(self, x, emb, num_frames: int,
+                frames: FramesShard | None = None):
         x = super().forward(x, emb)
         bt, c, hh, ww = x.shape
         b = bt // num_frames
         x5 = x.reshape(b, num_frames, c, hh, ww).transpose(1, 2)
-        h = self.time_stack(x5, emb.reshape(b, num_frames, -1))
+        h = self.time_stack(x5, emb.reshape(b, num_frames, -1), frames)
         out = self.time_mixer(x5, h)
         return out.transpose(1, 2).reshape(bt, c, hh, ww)
 
@@ -313,7 +369,8 @@ class BasicTransformerBlock(nn.Module):
 
 class VideoTransformerBlock(BasicTransformerBlock):
     """Temporal transformer over the frame axis: (b t) s c -> (b s) t c
-    (video_attention.py:111-141), with ff_in."""
+    (video_attention.py:111-141), with ff_in. ``context`` is per (b t)
+    (frame 0's is taken) or per clip."""
 
     def __init__(self, dim, heads, dim_head, context_dim=None,
                  add_lora=False):
@@ -327,7 +384,8 @@ class VideoTransformerBlock(BasicTransformerBlock):
             b * S, num_frames, C)
         if context is not None and context.shape[0] != x.shape[0]:
             # per-(b t) context: frame 0's, repeated per token
-            ctx = context.reshape(b, num_frames, *context.shape[1:])[:, 0]
+            ctx = context if context.shape[0] == b else context.reshape(
+                b, num_frames, *context.shape[1:])[:, 0]
             context = ctx.repeat_interleave(S, dim=0)
         x = super().forward(x, context)
         return x.reshape(b, S, num_frames, C).transpose(1, 2).reshape(
@@ -342,7 +400,18 @@ class SpatialVideoTransformer(nn.Module):
     the temporal stage runs in ``ops.temporal_block``: kernel E (the whole
     stage) at C <= 384, kernel F (its attention) at 384 < C <= 1280 with the
     feed-forwards in plain torch around it (the JAX package's
-    ``_fused_ok`` / ``_fused_ok_large`` gates, ``layers.py:467-562``)."""
+    ``_fused_ok`` / ``_fused_ok_large`` gates, ``layers.py:467-562``).
+
+    ``frames``: x holds this rank's T/f frames of each clip. The temporal
+    stages run on ``frames_to_tokens``'s layout, [B*T, S_r, C]: every
+    frame of this rank's run of tokens, so the frame-index embedding takes
+    the clip's indices 0..T-1 and the gates see S_r. The context of the
+    temporal blocks is the clip's frame 0's, taken from frames rank 0.
+    The fused stages run there too: JAX refuses ``fused_temporal`` under a
+    frames context (``ops/temporal_block.py:241-250``) because GSPMD cannot
+    partition a Mosaic call, not because the function changes; each rank
+    holds every frame of its tokens, so the stage computes what it computes
+    on one device."""
 
     def __init__(self, ch: int, heads: int, dim_head: int, depth: int = 1,
                  context_dim: int | None = None,
@@ -374,7 +443,7 @@ class SpatialVideoTransformer(nn.Module):
         return (self.fused_temporal and not self.add_lora
                 and self.proj_in.weight.dtype == torch.bfloat16
                 and num_frames > 1 and time_context is not None
-                and time_context.shape[1] == 1 and S % 16 == 0)
+                and time_context.shape[1] == 1 and S % 16 == 0 and S > 0)
 
     def _alpha_and_bias(self, blk, h, time_context, num_frames):
         """AlphaBlender coefficient (f32; the constant merge factor under
@@ -421,30 +490,40 @@ class SpatialVideoTransformer(nn.Module):
         x = blk.ff(layer_norm(x, blk.norm3)) + x
         return (alpha * h.float() + (1.0 - alpha) * x.float()).to(h.dtype)
 
-    def forward(self, x, context=None, num_frames: int = 1):
+    def forward(self, x, context=None, num_frames: int = 1,
+                frames: FramesShard | None = None):
         BT, C, H, W = x.shape
         x_in = x
         time_context = context if (self.use_spatial_context
                                    and context is not None) else None
         h = group_norm(x, self.norm, GN_EPS_ATTN)
         h = linear(h.permute(0, 2, 3, 1).reshape(BT, H * W, C), self.proj_in)
-        frames = torch.arange(num_frames, dtype=torch.float32,
-                              device=x.device).repeat(BT // num_frames)
+        T, S = num_frames, H * W
+        if frames is not None:
+            T = frames.num_frames
+            runs = token_runs(H * W, frames.size)
+            S = runs[frames.index]
+            if time_context is not None:
+                time_context = clip_first_frame(time_context, frames)
+        index = torch.arange(T, dtype=torch.float32,
+                             device=x.device).repeat(BT // num_frames)
         emb_flat = self.time_pos_embed(
-            timestep_embedding(frames, C, self.max_time_embed_period))
+            timestep_embedding(index, C, self.max_time_embed_period))
         emb = emb_flat[:, None]
         inner = self.heads * self.dim_head
-        fused = self._fused_common(num_frames, H * W, time_context)
+        fused = self._fused_common(T, S, time_context)
         for block, tblock in zip(self.transformer_blocks, self.time_stack):
             h = block(h, context)
+            if frames is not None:
+                h = frames_to_tokens(h, frames, runs)
             if fused and inner <= 384:
-                h = self._fused_stage(tblock, h, time_context, num_frames,
-                                      emb_flat)
+                h = self._fused_stage(tblock, h, time_context, T, emb_flat)
             elif fused and inner <= 1280:
-                h = self._fused_stage_large(tblock, h, time_context,
-                                            num_frames, emb)
+                h = self._fused_stage_large(tblock, h, time_context, T, emb)
             else:
-                h_mix = tblock(h + emb, time_context, num_frames)
+                h_mix = tblock(h + emb, time_context, T)
                 h = self.time_mixer(h, h_mix)
+            if frames is not None:
+                h = tokens_to_frames(h, frames, runs)
         h = linear(h, self.proj_out)
         return h.reshape(BT, H, W, C).permute(0, 3, 1, 2) + x_in

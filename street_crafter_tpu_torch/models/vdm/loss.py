@@ -8,6 +8,12 @@ noising only, V-weighting, and the StreetCrafter extras: the
 temporal-difference re-weighting (no gradient through the weights) and the
 0.1-weighted high-frequency term of the Fourier high-pass.
 
+Under sequence parallelism (``frames``) each rank holds T/f frames of each
+clip: its loss and scalars are its rows' parts of the clip means (row sums
+over the clip's global row count), so their sum over the frames group is
+the loss; the temporal differences read the previous rank's last frame (a
+halo without gradient) and their norm sums over the group.
+
 The random draws of one call are a ``LossDraws``: ``draw_loss`` makes them
 from a ``torch.Generator``; a test builds one from the JAX package's draws
 instead (the two generators never give the same numbers).
@@ -19,6 +25,7 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
+from ...parallel.sequence import FramesShard
 from .diffusion import append_dims, edm_sigma_sample, v_weighting
 
 # reference training config: frame-0-only conditioning choices with
@@ -104,11 +111,15 @@ def diffusion_loss(
     offset_noise_level: float = 0.02,
     use_additional_loss: bool = False,
     additional_loss_weight: float = 0.1,
+    frames: FramesShard | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The loss of a batch of whole clips: the mean over clips of each
-    clip's loss (the JAX package maps the loss over the clips and means)."""
+    clip's loss (the JAX package maps the loss over the clips and means).
+    With ``frames``, ``num_frames`` is this rank's T/f and the loss and
+    scalars are this rank's parts (they sum over the frames group)."""
     n = latents.shape[0]
     bs = n // num_frames
+    rows = n if frames is None else n * frames.size   # the clips' rows
     latents = latents.float()
     sigmas = edm_sigma_sample((n,), p_mean, p_std, num_frames,
                               normal=draws.sigma_normal)
@@ -125,24 +136,37 @@ def diffusion_loss(
     predict = model_out * (1 - cm) + latents * cm   # ignore cond frames
     w = append_dims(v_weighting(sigmas), latents.dim())
     per_sample = (w * (predict - latents) ** 2).reshape(n, -1)
+    sigma_mean = sigmas.sum() / rows
 
     if not use_additional_loss:
-        loss = per_sample.mean(dim=1).mean()
-        return loss, {"loss": loss, "sigma_mean": sigmas.mean()}
-    # temporal-difference re-weighting (loss.py:106-118)
+        loss = per_sample.mean(dim=1).sum() / rows
+        return loss, {"loss": loss, "sigma_mean": sigma_mean}
+    # temporal-difference re-weighting (loss.py:106-118): each frame's
+    # difference from the frame before (the previous rank's last across a
+    # frames boundary), the clip's frame 0 weighted by 1
     with torch.no_grad():
-        pr = predict.reshape(bs, num_frames, *predict.shape[1:])
-        ta = latents.reshape(bs, num_frames, *latents.shape[1:])
-        aux = ((ta[:, 1:] - ta[:, :-1]) - (pr[:, 1:] - pr[:, :-1])) ** 2
+        shape = (bs, num_frames) + tuple(predict.shape[1:])
+        pr, ta = predict.reshape(shape), latents.reshape(shape)
+        if frames is None:
+            pr_prev, ta_prev = pr[:, :-1], ta[:, :-1]
+            pr, ta = pr[:, 1:], ta[:, 1:]
+        else:
+            pr_prev = frames.mesh.halo(pr, 1, 1, "frames")[:, :num_frames]
+            ta_prev = frames.mesh.halo(ta, 1, 1, "frames")[:, :num_frames]
+        aux = ((ta - ta_prev) - (pr - pr_prev)) ** 2
+        if frames is not None and frames.index == 0:
+            aux[:, 0] = 0.0
         flat = aux.reshape(bs, -1, aux.shape[-1])
-        norm = torch.sqrt((flat ** 2).sum(dim=1, keepdim=True)) + 1e-12
-        aux_w = (flat / norm).reshape(aux.shape)
-        aux_w = 1.0 + torch.cat([torch.zeros_like(aux_w[:, :1]), aux_w],
-                                dim=1)
+        sq = (flat ** 2).sum(dim=1, keepdim=True)
+        if frames is not None:
+            frames.mesh.all_reduce_([sq], axis="frames")
+        aux_w = 1.0 + (flat / (torch.sqrt(sq) + 1e-12)).reshape(aux.shape)
+        if frames is None:
+            aux_w = torch.cat([torch.ones_like(aux_w[:, :1]), aux_w], dim=1)
         aux_w = aux_w.reshape(n, -1)
     per_sample = per_sample * aux_w
-    # high-frequency loss (loss.py:119-121)
+    # high-frequency loss (loss.py:119-121), per frame
     hf = (w * (fourier_filter(predict) - fourier_filter(latents)) ** 2
-          ).reshape(n, -1).mean(dim=1).mean()
-    loss = per_sample.mean(dim=1).mean() + additional_loss_weight * hf
-    return loss, {"loss": loss, "hf_loss": hf, "sigma_mean": sigmas.mean()}
+          ).reshape(n, -1).mean(dim=1).sum() / rows
+    loss = per_sample.mean(dim=1).sum() / rows + additional_loss_weight * hf
+    return loss, {"loss": loss, "hf_loss": hf, "sigma_mean": sigma_mean}

@@ -9,7 +9,10 @@ selected per frame by cond_mask, and ``condition_input_blocks``, two convs
 latents, scaled per frame, to the first input block's output.
 
 State-dict names are the reference's (video_model.py:83-535). The public
-call is channels-last, [B*T, H, W, C], as in the JAX package.
+call is channels-last, [B*T, H, W, C], as in the JAX package; with a
+``frames`` shard (sequence parallelism, ``parallel/sequence.py``) T is this
+rank's T/f frames of each clip and the blocks exchange what crosses
+frames.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                      create_selective_checkpoint_contexts)
 
 from ...ops.flash_attention import SiteStore
+from ...parallel.sequence import FramesShard
 from .layers import (GN_EPS, Downsample, MLPEmbed, SpatialVideoTransformer,
                      Upsample, VideoResBlock, conv, group_norm,
                      timestep_embedding, zero_)
@@ -160,7 +164,10 @@ class VideoUNet(nn.Module):
         recompute reuses them (``ops.flash_attention.SiteStore``), as the
         JAX package saves ``flash_out_s{S}``, ``flash_lse_s{S}`` and
         ``attn_out_q{T}_c{mc}``; "dots" selects what it keeps by operator
-        (``_dots_policy``)."""
+        (``_dots_policy``). ``num_frames`` is the clip's T (the temporal
+        attention's query length, also under sequence parallelism). A
+        block's recompute issues its exchanges again: every rank of a frames
+        group recomputes the same blocks in the same order."""
         cfg = self.cfg
         if not (cfg.remat and torch.is_grad_enabled()):
             return lambda m, *args: m(*args)
@@ -194,8 +201,11 @@ class VideoUNet(nn.Module):
         cond_mask: Optional[torch.Tensor] = None,       # [B*T]
         guidance_input: Optional[torch.Tensor] = None,  # [B*T, H, W, in/2]
         guidance_scale: Optional[torch.Tensor] = None,  # [B*T] or scalar
+        frames: Optional[FramesShard] = None,
     ) -> torch.Tensor:
-        """-> [B*T, H, W, out_channels] in the compute dtype."""
+        """-> [B*T, H, W, out_channels] in the compute dtype. With
+        ``frames``, T = ``num_frames`` is this rank's share of each clip
+        (``frames.local``) and every per-frame input holds its frames."""
         mc = self.cfg.model_channels
         t_emb = timestep_embedding(timesteps, mc)
         emb = self.time_embed(t_emb)
@@ -210,14 +220,20 @@ class VideoUNet(nn.Module):
         dtype = self.input_blocks[0][0].weight.dtype
         context = context.to(dtype)
 
-        block = self._block_runner(x.shape[1], x.shape[2], num_frames)
+        if frames is not None and frames.local != num_frames:
+            raise ValueError(f"{num_frames} frames a clip on a rank of a "
+                             f"{frames.num_frames}-frame clip over "
+                             f"{frames.size} frames ranks")
+        block = self._block_runner(
+            x.shape[1], x.shape[2],
+            num_frames if frames is None else frames.num_frames)
 
         def run(mods, h):
             for m in mods:
                 if isinstance(m, VideoResBlock):
-                    h = block(m, h, emb, num_frames)
+                    h = block(m, h, emb, num_frames, frames)
                 elif isinstance(m, SpatialVideoTransformer):
-                    h = block(m, h, context, num_frames)
+                    h = block(m, h, context, num_frames, frames)
                 else:
                     h = m(h)
             return h

@@ -101,6 +101,8 @@ def wrap_kernel(fn: Callable, in_ranks: Sequence[int],
     if ctx is None or not ctx[1]:
         return fn
     mesh = ctx[0]
+    # one named axis: its ranks; several: every rank
+    axis = ctx[1][0] if len(ctx[1]) == 1 else None
     single = isinstance(out_ranks, int)
 
     def sharded(*args):
@@ -110,11 +112,11 @@ def wrap_kernel(fn: Callable, in_ranks: Sequence[int],
         for a, r in zip(args, in_ranks):
             if a.dim() != r:
                 raise ValueError(f"argument of rank {a.dim()}, expected {r}")
-        local = [a[mesh.local_slice(a.shape[0])] for a in args]
+        local = [a[mesh.local_slice(a.shape[0], axis)] for a in args]
         out = fn(*local)
         if single:
-            return mesh.all_gather(out, 0)
-        return tuple(mesh.all_gather(o, 0) for o in out)
+            return mesh.all_gather(out, 0, axis)
+        return tuple(mesh.all_gather(o, 0, axis) for o in out)
 
     return sharded
 

@@ -1,4 +1,4 @@
-"""Process groups for the port's data-parallel paths (port of
+"""Process groups of the port's parallel paths (port of
 ``street_crafter_tpu/parallel/mesh.py``).
 
 The JAX package lays named axes (``data``, ``frames``) over a device mesh
@@ -6,20 +6,24 @@ and lets XLA insert the collectives. The port runs one process per rank
 under ``torch.distributed`` (the reference's Lightning DDP / DeepSpeed
 ZeRO-2 over NCCL, ``waymo_high_res_mix.yaml:250``): ``make_mesh`` joins or
 starts the process group and returns a ``Mesh`` that carries the axis
-sizes, this rank and its device, and the three collectives the port uses
-(``all_reduce_``, ``all_gather``, ``broadcast_``). With world size 1, or no
-process group at all, every collective is the identity, so the one-device
-paths run exactly as they do without a mesh.
+sizes, this rank and its device, one process group per axis, and the
+collectives the port uses (``all_reduce_``, ``all_gather``,
+``broadcast_``, ``all_to_all`` and ``halo``), each over one axis
+(``axis="data"`` or ``"frames"``) or over every rank (``axis=None``).
+With world size 1, or no process group at all, every collective is the
+identity, so the one-device paths run exactly as they do without a mesh.
+
+Axes are laid out in the spec's order, the last one innermost, as JAX's
+``make_mesh`` lays its devices: ``{"data": 2, "frames": 4}`` puts rank
+``data_index * 4 + frames_index``. ``frames`` carries the JAX design's
+sequence parallelism (``parallel/sequence.py``): a clip's frames split
+over the axis, and the temporal stages exchange them.
 
 Backends: NCCL on ``cuda``, gloo on ``cpu``, and gloo on ``cuda`` only
-where the caller asks for it (two ranks that share one card: NCCL refuses
-two ranks on one device). gloo moves CUDA tensors through host memory:
+where the caller asks for it (ranks that share one card: NCCL refuses two
+ranks on one device). gloo moves CUDA tensors through host memory:
 ``Mesh`` copies each to the host, runs the collective there and copies the
 result back (gloo's own CUDA support does not cover ``all_gather``).
-
-Only the ``data`` axis may be larger than 1. The JAX design's sequence
-parallelism over ``frames`` has no counterpart in the port yet (ROADMAP
-queue 1, item 31).
 
 ``run_ranks`` is the test helper that replaces ``make_virtual_cpu_mesh``:
 it spawns N processes joined by a ``file://`` rendezvous and runs a
@@ -37,15 +41,11 @@ import queue
 import time
 import traceback
 import uuid
-from typing import Any, Callable, Mapping, Sequence
+from typing import Any, Callable, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-FRAMES_AXIS_NOT_PORTED = (
-    "the frames axis (the JAX design's sequence parallelism of the "
-    "fine-tune step and parallel/sample.py) has no counterpart in the port "
-    "(ROADMAP queue 1, item 31); only the data axis may be > 1")
 TIMEOUT_S = 600.0
 
 
@@ -81,77 +81,168 @@ class MeshSpec:
 
 @dataclasses.dataclass
 class Mesh:
-    """A data-parallel group: the axis sizes, this rank, its device, and
-    the process group's backend (None: no group, collectives are the
-    identity)."""
+    """Named axes over the ranks: the axis sizes (in layout order, the last
+    innermost), this rank, its device, the process group's backend (None:
+    no group, collectives are the identity) and, by axis, the group of the
+    ranks that share every other coordinate with this one (None: the axis
+    spans every rank, and the world group serves)."""
 
     shape: dict[str, int]
     rank: int = 0
     device: torch.device = torch.device("cpu")
     backend: str | None = None
+    groups: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def world_size(self) -> int:
         return math.prod(self.shape.values())
+
+    def size(self, axis: str | None = None) -> int:
+        """The number of ranks along ``axis`` (every rank: None)."""
+        return self.world_size if axis is None else self.shape.get(axis, 1)
+
+    def _stride(self, axis: str) -> int:
+        names = list(self.shape)
+        return math.prod(self.shape[n] for n in names[names.index(axis) + 1:])
+
+    def coord(self, axis: str | None) -> int:
+        """This rank's index along ``axis`` (its rank: None)."""
+        if axis is None:
+            return self.rank
+        if axis not in self.shape:
+            return 0
+        return (self.rank // self._stride(axis)) % self.shape[axis]
+
+    def axis_ranks(self, axis: str | None) -> list[int]:
+        """The global ranks along ``axis`` through this rank, in axis
+        order."""
+        if axis is None:
+            return list(range(self.world_size))
+        if axis not in self.shape:
+            return [self.rank]
+        st = self._stride(axis)
+        base = self.rank - self.coord(axis) * st
+        return [base + i * st for i in range(self.shape[axis])]
 
     @property
     def _staged(self) -> bool:
         """gloo on a card: collectives run on host copies."""
         return self.backend == "gloo" and self.device.type == "cuda"
 
-    def _active(self) -> bool:
-        return self.backend is not None and self.world_size > 1
+    def _active(self, axis: str | None = None) -> bool:
+        return self.backend is not None and self.size(axis) > 1
+
+    def _group(self, axis: str | None) -> Optional[Any]:
+        return None if axis is None else self.groups.get(axis)
 
     def all_reduce_(self, tensors: Sequence[torch.Tensor],
-                    op: str = "sum") -> None:
-        """In place, over every rank: the sum (or ``op="max"``)."""
-        if not self._active():
+                    op: str = "sum", axis: str | None = None) -> None:
+        """In place, over the ranks along ``axis``: the sum (or
+        ``op="max"``)."""
+        if not self._active(axis):
             return
         rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        group = self._group(axis)
         for t in tensors:
             if self._staged:
                 host = t.cpu()
-                dist.all_reduce(host, rop)
+                dist.all_reduce(host, rop, group=group)
                 t.copy_(host)
             else:
-                dist.all_reduce(t, rop)
+                dist.all_reduce(t, rop, group=group)
 
-    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """Every rank's ``x`` (equal shapes), concatenated along ``dim`` in
-        rank order."""
-        if not self._active():
+    def all_gather(self, x: torch.Tensor, dim: int = 0,
+                   axis: str | None = None) -> torch.Tensor:
+        """Every ``axis`` rank's ``x`` (equal shapes), concatenated along
+        ``dim`` in axis order."""
+        if not self._active(axis):
             return x
         src = x.cpu() if self._staged else x.contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.world_size)]
-        dist.all_gather(parts, src)
+        parts = [torch.empty_like(src) for _ in range(self.size(axis))]
+        dist.all_gather(parts, src, group=self._group(axis))
         out = torch.cat(parts, dim)
         return out.to(x.device) if self._staged else out
 
-    def broadcast_(self, tensors: Sequence[torch.Tensor],
-                   src: int = 0) -> None:
-        """In place: rank ``src``'s values on every rank."""
-        if not self._active():
+    def broadcast_(self, tensors: Sequence[torch.Tensor], src: int = 0,
+                   axis: str | None = None) -> None:
+        """In place: the values of the rank at index ``src`` along ``axis``
+        on every rank along it."""
+        if not self._active(axis):
             return
+        root = self.axis_ranks(axis)[src]
+        group = self._group(axis)
         for t in tensors:
             if self._staged:
                 host = t.cpu()
-                dist.broadcast(host, src)
+                dist.broadcast(host, root, group=group)
                 t.copy_(host)
             else:
-                dist.broadcast(t, src)
+                dist.broadcast(t, root, group=group)
+
+    def all_to_all(self, inputs: Sequence[torch.Tensor],
+                   out_shapes: Sequence[Sequence[int]],
+                   axis: str | None = None) -> list[torch.Tensor]:
+        """``inputs[j]`` to the rank at index j along ``axis``; returns what
+        each rank there sent to this one, of ``out_shapes[j]``, in axis
+        order. Sizes may differ and be 0; every tensor has one dtype."""
+        n = self.size(axis)
+        if len(inputs) != n or len(out_shapes) != n:
+            raise ValueError(f"{len(inputs)} inputs and {len(out_shapes)} "
+                             f"shapes for {n} ranks")
+        if not self._active(axis):
+            return [inputs[0].reshape(tuple(out_shapes[0]))]
+        dtype = inputs[0].dtype
+        dev = torch.device("cpu") if self._staged else inputs[0].device
+        flat = torch.cat([t.reshape(-1) for t in inputs]).to(dev)
+        in_splits = [t.numel() for t in inputs]
+        out_splits = [math.prod(s) for s in out_shapes]
+        out = torch.empty(sum(out_splits), dtype=dtype, device=dev)
+        dist.all_to_all_single(out, flat, out_splits, in_splits,
+                               group=self._group(axis))
+        out = out.to(inputs[0].device)
+        return [p.reshape(tuple(s)) for p, s in
+                zip(out.split(out_splits), out_shapes)]
+
+    def halo(self, x: torch.Tensor, k: int, dim: int = 0,
+             axis: str = "frames") -> torch.Tensor:
+        """``x`` with ``k`` entries of ``dim`` from each neighbour along
+        ``axis`` on either side (the previous rank's last k before, the next
+        rank's first k after), and zeros past the ends of the axis."""
+        n, i = self.size(axis), self.coord(axis)
+        L = x.shape[dim]
+        if k > L:
+            raise ValueError(f"a halo of {k} from {L} entries")
+        edge = list(x.shape)
+        edge[dim] = k
+        empty = [0] * len(edge)
+        sends = [x.new_zeros(empty) for _ in range(n)]
+        shapes = [empty] * n
+        if i > 0:
+            sends[i - 1] = x.narrow(dim, 0, k)
+            shapes[i - 1] = edge
+        if i < n - 1:
+            sends[i + 1] = x.narrow(dim, L - k, k)
+            shapes[i + 1] = edge
+        got = (self.all_to_all(sends, shapes, axis) if n > 1
+               else [x.new_zeros(empty)])
+        before = got[i - 1] if i > 0 else x.new_zeros(edge)
+        after = got[i + 1] if i < n - 1 else x.new_zeros(edge)
+        return torch.cat([before, x, after], dim)
 
     def barrier(self) -> None:
         if self._active():
             dist.barrier()
 
-    def local_slice(self, n: int) -> slice:
-        """This rank's part of a leading dim of ``n`` (``data`` ranks each
-        take n / data consecutive entries)."""
-        w = self.world_size
+    def local_slice(self, n: int, axis: str | None = "data") -> slice:
+        """This rank's part of a leading dim of ``n``: ranks along ``axis``
+        (every rank: None) each take n / size consecutive entries, in axis
+        order."""
+        w = self.size(axis)
         if n % w:
             raise ValueError(f"{n} does not split over {w} ranks")
         m = n // w
-        return slice(self.rank * m, (self.rank + 1) * m)
+        i = self.coord(axis)
+        return slice(i * m, (i + 1) * m)
 
 
 def make_mesh(spec: MeshSpec | Mapping[str, int] | None = None,
@@ -185,12 +276,7 @@ def make_mesh(spec: MeshSpec | Mapping[str, int] | None = None,
         spec = {"data": -1}
     if not isinstance(spec, MeshSpec):
         spec = MeshSpec(dict(spec))
-    if any(int(n) > 1 for name, n in spec.axes.items() if name != "data"):
-        raise NotImplementedError(f"mesh {dict(spec.axes)}: "
-                                  f"{FRAMES_AXIS_NOT_PORTED}")
     axes = spec.resolve(world)
-    if any(n > 1 for name, n in axes.items() if name != "data"):
-        raise NotImplementedError(f"mesh {axes}: {FRAMES_AXIS_NOT_PORTED}")
     if not joined:
         if world > 1:
             backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
@@ -200,7 +286,29 @@ def make_mesh(spec: MeshSpec | Mapping[str, int] | None = None,
                 timeout=datetime.timedelta(seconds=timeout_s))
         else:
             backend = None
-    return Mesh(shape=axes, rank=rank, device=dev, backend=backend)
+    mesh = Mesh(shape=axes, rank=rank, device=dev, backend=backend)
+    if backend is not None:
+        mesh.groups = _axis_groups(mesh)
+    return mesh
+
+
+def _axis_groups(mesh: Mesh) -> dict[str, Any]:
+    """One process group per axis of size 1 < n < world: every rank
+    creates every group, in the same order (``new_group`` is collective),
+    and keeps the ones it belongs to."""
+    groups: dict[str, Any] = {}
+    world = mesh.world_size
+    for axis, n in mesh.shape.items():
+        if n <= 1 or n >= world:
+            continue
+        st = mesh._stride(axis)
+        bases = sorted({r - ((r // st) % n) * st for r in range(world)})
+        for base in bases:
+            ranks = [base + i * st for i in range(n)]
+            g = dist.new_group(ranks)
+            if mesh.rank in ranks:
+                groups[axis] = g
+    return groups
 
 
 def axis_size(mesh: Mesh | None, name: str) -> int:

@@ -14,6 +14,11 @@ Novel views render directly at the diffusion resolution: the aspect crop
 and resize of the sample are folded into the camera's intrinsics
 (``diffusion_camera``), so no resampling op runs in the training loop.
 
+With a mesh (``sampling_mesh_from_cfg``: ``diffusion.shard_sample`` under
+torchrun), every window is sampled with its frames split over the mesh's
+``frames`` axis (``parallel/sample.py``); every rank gets the whole window
+and rank 0 alone writes files.
+
 ``EngineParamStore`` keeps the engine's weights in (pinned) host memory
 between sampling events and moves them to the card for one event, so that
 GS training has the card's memory to itself between events (the
@@ -33,10 +38,13 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..datasets.cameras import Camera
 from ..datasets.readers import CameraInfo
 from ..datasets.vdm_data import aspect_crop_resize
+from ..parallel.mesh import make_mesh
+from ..parallel.sample import sample_on_mesh
 from ..utils.png import read_png
 from ..visualizers.visualizer import save_image
 
@@ -166,16 +174,34 @@ class EngineParamStore:
             for t in list(m.parameters()) + list(m.buffers()))
 
 
+def sampling_mesh_from_cfg(cfg):
+    """The mesh of frames-sharded sampling when ``diffusion.shard_sample``
+    is set and the process group has more than one rank (torchrun's
+    ``WORLD_SIZE``), over ``cfg.mesh.axes``; None otherwise (as JAX's
+    returns None on one device)."""
+    if not cfg.diffusion.get("shard_sample", False):
+        return None
+    joined = dist.is_available() and dist.is_initialized()
+    world = (dist.get_world_size() if joined
+             else int(os.environ.get("WORLD_SIZE", 1)))
+    if world <= 1:
+        return None
+    return make_mesh(dict(cfg.mesh.axes), device=cfg.get("device", "cuda"))
+
+
 class DiffusionRunner:
     """Bridges the VDM engine to the GS scene. ``render_fn(camera_info) ->
     {"rgb": [H, W, 3] tensor in [0, 1], ...}`` renders the current 3DGS
     at the diffusion resolution (the SDS init). ``scene`` (None in unit
-    use) gives the processor that writes missing condition PNGs."""
+    use) gives the processor that writes missing condition PNGs. With a
+    ``mesh`` each window samples frames-sharded over its ``frames`` axis
+    (``parallel.sample.sample_on_mesh``) and rank 0 alone writes."""
 
     def __init__(self, scene, engine, height: int = 576, width: int = 1024,
                  window_size: int = 4, num_steps: int | None = None,
                  cfg_scale: float | None = None,
-                 save_dir: str | None = None, seed: int = SEED):
+                 save_dir: str | None = None, seed: int = SEED,
+                 mesh=None):
         self.scene = scene
         self.engine = engine
         self.th, self.tw = height, width
@@ -185,25 +211,41 @@ class DiffusionRunner:
         self.cfg_scale = cfg_scale
         self.save_dir = save_dir
         self.seed = seed
+        self.mesh = mesh
+
+    @property
+    def writes(self) -> bool:
+        """This rank writes files (rank 0, or no mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def _sample(self, guide_images: np.ndarray, cond_images: np.ndarray,
                 render_images: torch.Tensor | None, sds_scale: float | None,
                 cond_indices: tuple[int, ...] = (0,)) -> np.ndarray:
         """One window: [T, th, tw, 3] in [-1, 1]."""
         dev = self.engine.device
-        out = self.engine.sample(
-            guide_images=torch.from_numpy(guide_images).to(dev),
-            cond_image=torch.from_numpy(cond_images).to(dev),
-            generator=torch.Generator(device=dev).manual_seed(self.seed),
-            render_images=render_images, sds_scale=sds_scale,
-            cfg_scale=self.cfg_scale, num_steps=self.num_steps,
-            cond_indices=cond_indices)
+        kw = dict(generator=torch.Generator(device=dev).manual_seed(
+                      self.seed),
+                  render_images=render_images, sds_scale=sds_scale,
+                  cfg_scale=self.cfg_scale, num_steps=self.num_steps,
+                  cond_indices=cond_indices)
+        guide = torch.from_numpy(guide_images).to(dev)
+        cond = torch.from_numpy(cond_images).to(dev)
+        if self.mesh is not None:
+            out = sample_on_mesh(self.engine, guide, cond, self.mesh, **kw)
+        else:
+            out = self.engine.sample(guide_images=guide, cond_image=cond,
+                                     **kw)
         return out.float().cpu().numpy()
 
     def _render_conditions(self, cameras: list[CameraInfo]) -> None:
-        if self.scene is not None and self.scene.processor is not None:
+        """Write the missing condition PNGs (rank 0; the others wait)."""
+        if self.scene is None or self.scene.processor is None:
+            return
+        if self.writes:
             self.scene.processor.render_conditions(
                 cameras, self.scene.info.metadata["obj_meta"])
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     # -- data assembly ---------------------------------------------------
     def load_guidance(self, cam: CameraInfo) -> np.ndarray:
@@ -222,7 +264,7 @@ class DiffusionRunner:
             # a new version: Scene.batch_for builds the batch anew
             cam.metadata["diffusion_version"] = \
                 cam.metadata.get("diffusion_version", 0) + 1
-            if self.save_dir:
+            if self.save_dir and self.writes:
                 save_image(os.path.join(self.save_dir, name(cam)), img)
 
     # -- entry points ------------------------------------------------------

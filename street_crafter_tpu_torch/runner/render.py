@@ -7,6 +7,9 @@ Modes:
 - ``diffusion``: the VDM over every lane-shift trajectory, SDS-initialised
   from the checkpoint's render at the smallest SDS scale; PNG frames under
   ``diffusion_{it}/`` and, with ``render.save_video``, a video per shift.
+  With ``diffusion.shard_sample`` under torchrun each window samples
+  frames-sharded over ``mesh.axes``: every rank builds the scene and renders
+  the same (deterministic) SDS starts, rank 0 writes.
 - ``virtual_warp``: per front train camera, the source image warped by
   depth into lane-shifted, yawed virtual views (``render_virtual_warp``).
 
@@ -139,18 +142,29 @@ def render_novel_view(cfg: Config) -> dict:
 def render_diffusion(cfg: Config) -> dict:
     """The conditioned VDM over the novel trajectories of a trained scene
     (the reference's render.py:78-107). Returns {"videos": "shift_S" ->
-    path, "out_dir", "frames": the PNG paths}."""
-    from .diffusion import DiffusionRunner, diffusion_camera
+    path, "out_dir", "frames": the PNG paths (rank 0's)}."""
+    from .diffusion import (DiffusionRunner, diffusion_camera,
+                            sampling_mesh_from_cfg)
     from .vdm_sample import build_engine
     d = cfg.diffusion
-    scene = create_scene(cfg, init_params=False)
+    mesh = sampling_mesh_from_cfg(cfg)
+    if mesh is None:
+        scene = create_scene(cfg, init_params=False)
+    else:
+        # rank 0 first: it writes what the scene's build writes
+        cfg = cfg.clone()
+        cfg.device = str(mesh.device)
+        scene = create_scene(cfg, init_params=False) if mesh.rank == 0 \
+            else None
+        mesh.barrier()
+        scene = scene or create_scene(cfg, init_params=False)
     params, it = load_trained_state(cfg, scene)
-    engine = build_engine(cfg, int(d.sample_frames))
+    engine = build_engine(cfg, int(d.sample_frames), scene.device)
     out_dir = os.path.join(scene.model_path, f"diffusion_{it}")
     runner = DiffusionRunner(scene, engine, height=d.height, width=d.width,
                              window_size=d.window_size,
                              num_steps=d.num_steps, cfg_scale=d.cfg_scale,
-                             save_dir=out_dir)
+                             save_dir=out_dir, mesh=mesh)
     eval_render = make_eval_render(cfg, scene.meta,
                                    cfg.model.gaussian.sh_degree)
 
@@ -160,8 +174,11 @@ def render_diffusion(cfg: Config) -> dict:
 
     runner.run(scene.info.novel_view_cameras, scene.info.train_cameras,
                render_fn=render_fn, scale=min(d.sds_scales))
-    res = {"videos": {}, "out_dir": out_dir, "frames": sorted(
-        os.path.join(out_dir, f) for f in os.listdir(out_dir))}
+    res = {"videos": {}, "out_dir": out_dir, "frames": []}
+    if not runner.writes:
+        return res
+    res["frames"] = sorted(os.path.join(out_dir, f)
+                           for f in os.listdir(out_dir))
     if cfg.render.get("save_video", False):
         from ..visualizers import save_video
         for shift in sorted({i.metadata["novel_view_id"]

@@ -20,7 +20,8 @@ when the diffusion or the LiDAR depth loss needs them. Runs on
 step): the first camera as above, B - 1 more drawn from the same pool with
 the same resolution and supervision keys (``fill_camera_batch``). Under
 torchrun (``WORLD_SIZE`` ranks, ``mesh.axes.data: -1`` meaning the world
-size) the ranks draw the same cameras and each runs B / W of them; the
+size) the ranks draw the same cameras and each runs B / W of them (W the
+mesh's ``data`` size; a ``frames`` axis replicates the cameras); the
 gradients and densification statistics are all-reduced, and the replicated
 state (pools, Adam moments, the densify generator) stays bit-equal on
 every rank, which is checked after each densify. Rank 0 alone writes the
@@ -231,7 +232,7 @@ class GSTrainer:
                 infos = self.fill_camera_batch(cam_info, is_novel,
                                                novel_pool)
                 if self.mesh is not None:
-                    infos = infos[self.mesh.local_slice(len(infos))]
+                    infos = infos[self.mesh.local_slice(len(infos), "data")]
                 camera = [camera_of(i, is_novel) for i in infos]
                 batch = [scene.batch_for(i) for i in infos]
             else:
@@ -466,9 +467,9 @@ def train(cfg: Config, diffusion_hook: DiffusionHook | None = None,
           lpips_fn: Callable | None = None) -> GSTrainer:
     mesh = make_mesh(cfg.mesh.axes, device=cfg.get("device", "cuda"))
     world = mesh.world_size
-    if int(cfg.train.get("batch_size", 1)) % world:
+    if int(cfg.train.get("batch_size", 1)) % mesh.size("data"):
         raise ValueError(f"train.batch_size {cfg.train.batch_size} does not "
-                         f"split over {world} ranks")
+                         f"split over {mesh.size('data')} data ranks")
     if world > 1 and cfg.diffusion.use_diffusion:
         raise NotImplementedError(
             "diffusion.use_diffusion on several ranks: the sampling events "

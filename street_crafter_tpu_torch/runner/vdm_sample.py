@@ -7,8 +7,14 @@ as the conditioning frame, then per frame a PNG of ground truth, condition
 and sample stacked top to bottom (a video as well when
 ``render.save_video`` is set; that needs imageio).
 
+With ``diffusion.shard_sample`` under torchrun every rank reads the clips
+and samples its frames of each window (``parallel/sample.py``, over
+``mesh.axes``); rank 0 alone writes the PNGs and videos.
+
 CLI: python -m street_crafter_tpu_torch.runner.vdm_sample --config cfg.json
     [--num-clips N] [key=value ...]
+    torchrun --nproc-per-node 5 -m street_crafter_tpu_torch.runner.vdm_sample
+    --config cfg.json mesh.axes.frames=5 diffusion.shard_sample=true
 """
 
 from __future__ import annotations
@@ -23,22 +29,22 @@ from ..config import Config, default_config, load_config, merge_dotlist
 from ..datasets.vdm_data import ClipDataset
 from ..models.vdm.engine import VideoDiffusionEngine
 from ..models.vdm.weights import engine_from_config, load_vdm_params
+from ..parallel.sample import sample_on_mesh
 from ..utils.png import write_png
 from ..visualizers.visualizer import save_video, to_uint8
+from .diffusion import sampling_mesh_from_cfg
 
 SEED = 23   # the reference seeds every sampling call with 23
 
 
-def build_engine(cfg: Config, num_frames: int) -> VideoDiffusionEngine:
-    """The engine of ``cfg.diffusion`` on ``cfg.device``, weights loaded."""
-    if cfg.diffusion.get("shard_sample", False):
-        raise NotImplementedError(
-            "diffusion.shard_sample (the JAX package's multi-chip sampler) "
-            "is not ported (ROADMAP queue 1, item 31)")
+def build_engine(cfg: Config, num_frames: int, device=None
+                 ) -> VideoDiffusionEngine:
+    """The engine of ``cfg.diffusion`` on ``device`` (default
+    ``cfg.device``), weights loaded."""
     dcfg = cfg.diffusion.clone()
     dcfg.sample_frames = num_frames
     ecfg = engine_from_config(dcfg)
-    device = cfg.get("device", "cuda")
+    device = device if device is not None else cfg.get("device", "cuda")
     if torch.device(device).type == "cuda" and ecfg.unet.dtype != "bfloat16":
         raise ValueError(
             f"UNet compute dtype {ecfg.unet.dtype or 'float32'} on {device}: "
@@ -54,12 +60,17 @@ def sample_clips(cfg: Config, num_clips: int | None = None) -> dict:
     """Sample the val clips of ``cfg.vdm_train.data_root``. Returns
     {"out_dir", "clips": per-clip PNG directories, "videos", "sample_s":
     wall seconds per clip, "frames": the last clip's samples [T, H, W, 3]
-    in [-1, 1]}."""
+    in [-1, 1]}; frames-sharded, on every rank, with the PNGs (and
+    "clips", "videos") of rank 0."""
     v = cfg.vdm_train
     out_dir = cfg.model_path or os.path.join(cfg.workspace, "output",
                                              "vdm_samples", cfg.exp_name)
-    os.makedirs(out_dir, exist_ok=True)
-    engine = build_engine(cfg, v.num_frames)
+    mesh = sampling_mesh_from_cfg(cfg)
+    writes = mesh is None or mesh.rank == 0
+    if writes:
+        os.makedirs(out_dir, exist_ok=True)
+    engine = build_engine(cfg, v.num_frames,
+                          mesh.device if mesh is not None else None)
     dev = engine.device
     ds = ClipDataset(v.data_root, split="val", target_height=v.height,
                      target_width=v.width, num_frames=v.num_frames,
@@ -69,12 +80,19 @@ def sample_clips(cfg: Config, num_clips: int | None = None) -> dict:
     for i in range(n):
         item = ds[i]
         t0 = time.perf_counter()
-        out = engine.sample(
-            guide_images=torch.from_numpy(item["guide_seq"]).to(dev),
-            cond_image=torch.from_numpy(item["img_seq"][:1]).to(dev),
-            generator=torch.Generator(device=dev).manual_seed(SEED))
+        guide = torch.from_numpy(item["guide_seq"]).to(dev)
+        cond = torch.from_numpy(item["img_seq"][:1]).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        if mesh is not None:
+            out = sample_on_mesh(engine, guide, cond, mesh, generator=gen)
+        else:
+            out = engine.sample(guide_images=guide, cond_image=cond,
+                                generator=gen)
         sample = out.cpu().numpy()
         res["sample_s"].append(time.perf_counter() - t0)
+        res["frames"] = sample
+        if not writes:
+            continue
         frames = [np.concatenate([to_uint8((g + 1.0) / 2.0),
                                   to_uint8((c + 1.0) / 2.0),
                                   to_uint8((s + 1.0) / 2.0)], 0)
@@ -88,7 +106,6 @@ def sample_clips(cfg: Config, num_clips: int | None = None) -> dict:
             res["videos"].append(save_video(
                 os.path.join(out_dir, f"clip_{i:04d}.mp4"), frames,
                 fps=cfg.render.fps))
-        res["frames"] = sample
         print(f"clip {i}: {clip_dir} ({res['sample_s'][-1]:.1f} s)")
     return res
 

@@ -21,13 +21,19 @@ same seeded ``MultiSourceSampler`` and decodes and encodes only its own
 clips of the global batch of ``vdm_train.batch_size`` clips, and takes its
 slice of the global batch's random draws, so a run does not depend on the
 world size. Rank 0 alone logs and writes checkpoints (gathered: the one-GPU
-format, which resumes on any world size) and the EMA export. The
-``frames`` axis (sequence parallelism) raises (ROADMAP queue 1).
+format, which resumes on any world size) and the EMA export. With
+``mesh.axes.frames`` f > 1 (sequence parallelism, the JAX step on a
+``{data, frames}`` mesh) the clips split over ``data`` and each clip's
+frames over ``frames``: a frames rank encodes only its T/f frames (the
+conditioning, from frame 0, on every rank) and the UNet exchanges what
+crosses frames.
 
 CLI: python -m street_crafter_tpu_torch.runner.vdm_train --config cfg.json
     [key=value ...]
     torchrun --nproc_per_node 2 -m street_crafter_tpu_torch.runner.vdm_train
     --config cfg.json vdm_train.batch_size=2 [vdm_train.fsdp=true]
+    torchrun --nproc_per_node 4 -m street_crafter_tpu_torch.runner.vdm_train
+    --config cfg.json mesh.axes.data=2 mesh.axes.frames=2
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ..models.vdm.lr_schedule import schedule_from_config
 from ..models.vdm.weights import (engine_from_config, load_vdm_params,
                                   save_vdm_params)
 from ..parallel.mesh import Mesh, make_mesh
+from ..parallel.sequence import FramesShard
 from ..parallel.sharding import ShardingRules
 from ..training.vdm_trainer import VDMTrainer, groups_from_config
 from ..utils.checkpoint import load_vdm_checkpoint, save_vdm_checkpoint
@@ -59,8 +66,9 @@ EMA_FILE = "ema_params.pt"
 
 def build_sampler(cfg: Config, mesh: Mesh | None = None
                   ) -> MultiSourceSampler:
-    """The clip sampler; with a mesh, each batch holds this rank's clips of
-    the global batch."""
+    """The clip sampler; with a mesh, each batch holds the clips of this
+    rank's ``data`` index of the global batch (whole clips: a frames rank
+    takes its frames when it encodes)."""
     v = cfg.vdm_train
     datasets = []
     for name in v.subsets:
@@ -74,17 +82,19 @@ def build_sampler(cfg: Config, mesh: Mesh | None = None
         datasets, probs=list(v.probs) if v.probs else None,
         batch_size=v.batch_size, samples_per_epoch=v.samples_per_epoch,
         seed=cfg.seed, num_workers=int(v.get("num_workers", 0) or 0),
-        rank=mesh.rank if mesh is not None else 0,
-        world_size=mesh.world_size if mesh is not None else 1)
+        rank=mesh.coord("data") if mesh is not None else 0,
+        world_size=mesh.size("data") if mesh is not None else 1)
 
 
-def make_encode_fn(engine: VideoDiffusionEngine):
+def make_encode_fn(engine: VideoDiffusionEngine,
+                   frames: FramesShard | None = None):
     """Image batch -> latent training batch (shared_step,
     diffusion_condition.py:237-247): img_seq and guide_seq [B, T, H, W, 3]
     in [-1, 1] -> {"latents", "guidance_latents": [B, T, h, w, 4], "cond":
     Conditioning of [B, T, ...] leaves} on the engine's device, from the
     frozen VAE (frames, in chunks of the engine's encode / decode chunk)
-    and CLIP (frame 0 of each clip)."""
+    and CLIP (frame 0 of each clip). With ``frames`` only this rank's
+    frames are encoded and kept (T of the result is T/f)."""
     chunk = engine.cfg.encode_chunk or engine.cfg.decode_chunk
 
     @torch.no_grad()
@@ -93,15 +103,19 @@ def make_encode_fn(engine: VideoDiffusionEngine):
         img = torch.as_tensor(np.asarray(img_seq)).to(dev)
         guide = torch.as_tensor(np.asarray(guide_seq)).to(dev)
         B, T = img.shape[:2]
+        mine = slice(0, T) if frames is None else frames.frames
 
         def latents(x):
-            x = x.reshape(B * T, *x.shape[2:])
+            x = x[:, mine]
+            n = x.shape[1]
+            x = x.reshape(B * n, *x.shape[2:])
             z = engine.encode_images_chunked(x, chunk) if chunk \
                 else engine.encode_images(x)
-            return z.reshape(B, T, *z.shape[1:])
+            return z.reshape(B, n, *z.shape[1:])
 
         cond, _ = engine.build_conditioning(img[:, 0])
-        cond = Conditioning(*(x.reshape(B, T, *x.shape[1:]) for x in cond))
+        cond = Conditioning(*(x.reshape(B, T, *x.shape[1:])[:, mine]
+                              for x in cond))
         return {"latents": latents(img), "cond": cond,
                 "guidance_latents": latents(guide)}
 
@@ -182,7 +196,7 @@ def finetune(cfg: Config) -> dict:
     mesh = make_mesh(cfg.mesh.axes, device=cfg.get("device", "cuda"))
     main = mesh.rank == 0
     trainer, model_path = build_trainer(cfg, mesh)
-    encode = make_encode_fn(trainer.engine)
+    encode = make_encode_fn(trainer.engine, trainer.frames)
     metrics = (MetricsLogger(os.path.join(model_path, "logs")) if main
                else None)
     profiler = ProfilerHook(cfg.profiler if main else {}, model_path)

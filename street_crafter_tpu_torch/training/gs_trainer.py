@@ -144,7 +144,12 @@ def make_train_step(cfg: Config, meta: SceneMeta | None,
     ``contrib_abs``, ``visf``) and the radius maxima (``rad``) are
     all-reduced over the ranks; the gradients and the scalars are divided
     by B (JAX's means); then one Adam update runs on every rank, on equal
-    inputs, so the replicated pools stay bit-equal."""
+    inputs, so the replicated pools stay bit-equal. A mesh with a
+    ``frames`` axis F > 1 (JAX's ``make_train_step`` on ``{data,
+    frames}``) replicates the cameras over it: the sums over every rank
+    hold F copies of each camera's and are divided by F too (the reduction
+    runs over every rank, so all of them get the same bits even where a
+    kernel's atomics make the copies differ)."""
     weights = loss_weights(cfg)
     tile_size = int(cfg.render.tile_size)
     sh_degree = (active_sh_degree if active_sh_degree is not None
@@ -273,20 +278,21 @@ def make_train_step(cfg: Config, meta: SceneMeta | None,
 
     if batch_size <= 1:
         return train_step
-    world = mesh.world_size if mesh is not None else 1
-    if batch_size % world:
+    data = mesh.size("data") if mesh is not None else 1
+    copies = mesh.size("frames") if mesh is not None else 1
+    if batch_size % data:
         raise ValueError(f"train.batch_size {batch_size} does not split over "
-                         f"{world} ranks")
-    mine = (mesh.local_slice(batch_size) if mesh is not None
+                         f"{data} data ranks")
+    mine = (mesh.local_slice(batch_size, "data") if mesh is not None
             else slice(0, batch_size))
 
     def train_step_dp(state: GSTrainState, cameras: list,
                       batches: list[dict[str, Any]]) -> StepOutput:
         if len(cameras) != len(batches) or \
-                len(cameras) != batch_size // world:
+                len(cameras) != batch_size // data:
             raise ValueError(f"{len(cameras)} cameras and {len(batches)} "
                              f"batches on this rank, expected "
-                             f"{batch_size // world} each")
+                             f"{batch_size // data} each")
         if len({(c.width, c.height) for c in cameras}) > 1:
             raise ValueError("camera-batched training needs a uniform-"
                              "resolution batch")
@@ -322,12 +328,17 @@ def make_train_step(cfg: Config, meta: SceneMeta | None,
             mesh.all_reduce_([v for part in sorted(stats)
                               for k, v in stats[part].items()
                               if k.startswith("rad")], op="max")
+            if copies > 1:
+                for part in stats.values():
+                    for k, v in part.items():
+                        if not k.startswith("rad"):
+                            v.div_(copies)
         for t in leaves:
-            t.grad.div_(batch_size)
+            t.grad.div_(batch_size * copies)
         apply_update(state, stats)
         for t in leaves:
             t.grad = None
-        return StepOutput(state, {k: v / batch_size
+        return StepOutput(state, {k: v / (batch_size * copies)
                                   for k, v in zip(names, flat_sums)})
 
     return train_step_dp

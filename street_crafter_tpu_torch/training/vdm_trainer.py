@@ -42,7 +42,17 @@ gradient on every rank. Then, by ``rules``:
   (as DeepSpeed ZeRO-2 with bf16 params; JAX's FSDP shards the compute
   params too).
 
-Only ``all_reduce``, ``all_gather`` and ``broadcast`` are used.
+Sequence parallelism (a mesh whose ``frames`` axis is f > 1, the JAX step
+on a ``{data, frames}`` mesh): each rank holds T/f frames of its clips
+(``batch`` leaves [B, T/f, ...]) and takes those frames' rows of the
+draws; the UNet exchanges what crosses frames (``parallel/sequence.py``)
+and each rank's loss is its part of the clips' loss. The gradients and
+scalars are all-reduced over every rank and divided by ``accumulate x
+data``: the frames ranks hold parts of one loss, not copies of it. The
+optimizer state is sharded over ``data`` and replicated over ``frames``.
+
+Only ``all_reduce``, ``all_gather`` and ``broadcast`` are used by the
+optimizer.
 ``shard_train_state`` / ``gather_train_state`` split a whole train state
 into a rank's shards and back (checkpoints are whole: the one-GPU format).
 """
@@ -59,6 +69,7 @@ import torch
 from ..models.vdm.conditioner import Conditioning
 from ..models.vdm.engine import VideoDiffusionEngine
 from ..models.vdm.loss import LossDraws, diffusion_loss, draw_loss
+from ..parallel.sequence import FramesShard, frames_shard
 from ..parallel.sharding import ShardingRules
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -147,6 +158,18 @@ class StepDraws(NamedTuple):
             ld.sigma_normal[c], ld.cond_mask[rows], ld.noise[rows],
             ld.offset[rows]))
 
+    def frames(self, fs: FramesShard) -> "StepDraws":
+        """The rows of ``fs``'s frames of every clip."""
+        T, mine = fs.num_frames, fs.frames
+
+        def cut(x):
+            x = x.reshape(-1, T, *x.shape[1:])[:, mine]
+            return x.reshape(-1, *x.shape[2:])
+        ld = self.loss
+        return StepDraws(self.keep, LossDraws(
+            ld.sigma_normal, cut(ld.cond_mask), cut(ld.noise),
+            cut(ld.offset)))
+
 
 def _state_dims(rules: ShardingRules | None, shapes: dict) -> dict:
     """{field: {name: sharded dim or None}} of a train state's dicts."""
@@ -212,7 +235,9 @@ class VDMTrainer:
         self.params = dict(engine.unet.named_parameters())
         self.rules = rules
         self.mesh = rules.mesh if rules is not None else None
-        self.world = self.mesh.world_size if self.mesh is not None else 1
+        # clips are split over data; frames ranks hold parts of each clip
+        self.data = self.mesh.size("data") if self.mesh is not None else 1
+        self.frames = frames_shard(self.mesh, engine.cfg.num_frames)
         # seconds of the last step's gradient all-reduce and master gathers
         self.comm_s = {"all_reduce": 0.0, "all_gather": 0.0}
         self._dims = _state_dims(rules, {n: p.shape for n, p in
@@ -273,30 +298,39 @@ class VDMTrainer:
 
     def _loss(self, latents, cond: Conditioning, guidance, gscale,
               draws: LossDraws):
-        T = self.engine.cfg.num_frames
-        dfn = self.engine.training_denoise_fn(cond, guidance, gscale)
+        fs = self.frames
+        T = self.engine.cfg.num_frames if fs is None else fs.local
+        dfn = self.engine.training_denoise_fn(cond, guidance, gscale, fs)
         return diffusion_loss(dfn, latents, draws, num_frames=T,
                               offset_noise_level=0.02,
-                              use_additional_loss=True)
+                              use_additional_loss=True, frames=fs)
 
     def train_step(self, batch: dict, draws: StepDraws | None = None,
                    generator: torch.Generator | None = None
                    ) -> dict[str, float]:
         """``batch``: this rank's clips, {"latents": [B, T, h, w, 4], "cond":
         Conditioning of [B, T, ...] leaves, "guidance_latents": [B, T, h, w,
-        4]}. The draws of the global batch (B x the world size clips) come
-        from ``draws`` or else from ``generator``. Returns the step's
-        scalars (means over the global batch's clips)."""
+        4]}, T this rank's frames of each clip (the clip's T / f). The
+        draws of the global batch (B x the data size clips of the clip's
+        T) come from ``draws`` or else from ``generator``. Returns the
+        step's scalars (means over the global batch's clips)."""
         lat = batch["latents"]
         B, T = lat.shape[:2]
-        Bg = B * self.world
+        Tc = self.engine.cfg.num_frames
+        if T != (Tc if self.frames is None else self.frames.local):
+            f = 1 if self.frames is None else self.frames.size
+            raise ValueError(f"{T} frames a clip in the batch of a "
+                             f"{Tc}-frame clip over {f} frames ranks")
+        Bg = B * self.data
         if draws is None:
-            draws = self.draw(Bg, (Bg * T, *lat.shape[2:]), generator)
+            draws = self.draw(Bg, (Bg * Tc, *lat.shape[2:]), generator)
         if draws.keep.shape[0] != Bg:
             raise ValueError(f"draws of {draws.keep.shape[0]} clips for a "
                              f"global batch of {Bg}")
         if self.mesh is not None:
-            draws = draws.clips(self.mesh.local_slice(Bg), T)
+            draws = draws.clips(self.mesh.local_slice(Bg, "data"), Tc)
+        if self.frames is not None:
+            draws = draws.frames(self.frames)
         if B % self.accumulate:
             raise ValueError(f"{B} clips do not split into "
                              f"{self.accumulate} micro-batches")
@@ -334,7 +368,7 @@ class VDMTrainer:
         if self.mesh is not None:
             self.comm_s["all_reduce"] = self._timed(
                 self.mesh.all_reduce_, list(grads.values()) + [totals])
-        n = self.accumulate * self.world
+        n = self.accumulate * self.data
         if n > 1:
             for g in grads.values():
                 g.div_(n)

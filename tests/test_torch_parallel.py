@@ -134,8 +134,10 @@ def test_one_rank_mesh_is_the_identity():
     mesh.broadcast_([x])
     assert mesh.all_gather(x) is x and torch.equal(x, torch.arange(4.0))
     assert mesh.local_slice(4) == slice(0, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh({"data": 1, "frames": 2}, device="cpu", world_size=2)
+    # a frames axis resolves over a group of its size
+    # (test_frames_mesh_resolves_with_both_groups); one process has one rank
+    with pytest.raises(ValueError, match="device count"):
+        make_mesh({"data": 1, "frames": 2}, device="cpu")
     with pytest.raises(ValueError, match="device count"):
         make_mesh({"data": 2}, device="cpu")
     batch = {"a": np.arange(6).reshape(3, 2), "b": [torch.ones(3)]}
@@ -170,6 +172,24 @@ def test_collectives_on_two_ranks(tmp_path):
         np.testing.assert_array_equal(out["g0"], [[0.0, 0.0], [1.0, 1.0]])
         np.testing.assert_array_equal(out["g1"], [[0.0, 1.0], [0.0, 1.0]])
         np.testing.assert_array_equal(out["bcast"], [1.0])
+
+
+def test_frames_mesh_resolves_with_both_groups(tmp_path):
+    """``{data: 2, frames: 2}`` over four gloo ranks: the frames axis
+    innermost, one process group per axis, each collective over its
+    axis's two ranks."""
+    from tests import torch_sp_ranks
+    res = run_ranks(torch_sp_ranks.mesh_layouts, 4, str(tmp_path),
+                    [{"data": 2, "frames": 2}], 4, timeout_s=120)
+    for r in (x[0] for x in res):
+        i = r["coords"]
+        assert r["shape"] == {"data": 2, "frames": 2}
+        assert r["rank"] == 2 * i["data"] + i["frames"]
+        assert r["groups"] == ["data", "frames"]
+        assert r["ranks"]["frames"] == [2 * i["data"], 2 * i["data"] + 1]
+        assert r["ranks"]["data"] == [i["frames"], 2 + i["frames"]]
+        assert r["frames"]["sum"] == sum(r["ranks"]["frames"])
+        assert r["data"]["sum"] == sum(r["ranks"]["data"])
 
 
 def test_failing_rank_fails_the_call(tmp_path):

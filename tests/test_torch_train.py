@@ -337,9 +337,10 @@ def test_render_of_trained_checkpoint(trained):
 def test_unported_options_raise(trained):
     from street_crafter_tpu_torch.runner.train import main
     path = trained["path"]
-    # camera batches run (tests/test_torch_gs_dp.py); the frames axis of
-    # the mesh (sequence parallelism) is not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # camera batches run (tests/test_torch_gs_dp.py) and a frames axis
+    # replicates them (tests/test_torch_frames_sp.py); one process has no
+    # second rank for it
+    with pytest.raises(ValueError, match="not divisible"):
         main(["--config", path, "train.batch_size=2", "mesh.axes.frames=2"])
     with pytest.raises(RuntimeError, match="LPIPS"):
         main(["--config", path, "optim.lpips_fallback=none",

@@ -263,8 +263,11 @@ def test_vdm_sample_main_writes_pngs(tmp_path):
         assert img.shape == (3 * 32, 48, 3)
     assert np.isfinite(res["frames"]).all()
     assert np.abs(res["frames"]).max() <= 1.0
-    with pytest.raises(NotImplementedError):
-        vdm_sample.main(["--config", str(path), "diffusion.shard_sample=true"])
+    # shard_sample on one process (no group of ranks) samples as without
+    # it; on two ranks see tests/test_torch_sample_mesh.py
+    one = vdm_sample.main(["--config", str(path),
+                           "diffusion.shard_sample=true"])
+    np.testing.assert_array_equal(one["frames"], res["frames"])
 
 
 @pytest.mark.parametrize("diffusion", [{"compute_dtype": None},

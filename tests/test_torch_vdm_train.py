@@ -408,12 +408,12 @@ def test_vdm_train_main_checkpoints_resumes_and_exports(tmp_path):
                               f"diffusion.ckpt_path={res2['ema_path']}",
                               f"model_path={tmp_path / 'samples'}"])
     assert np.isfinite(sample["frames"]).all()
-    # data-parallel fine-tuning runs on several ranks
-    # (tests/test_torch_vdm_dp.py); one process has one, and the frames
-    # axis (sequence parallelism) is not ported
+    # data- and frames-parallel fine-tuning run on several ranks
+    # (tests/test_torch_vdm_dp.py, tests/test_torch_vdm_sp.py); one process
+    # has one
     with pytest.raises(ValueError, match="device count"):
         vdm_train.main(["--config", str(path), "mesh.axes.data=2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not divisible"):
         vdm_train.main(["--config", str(path), "mesh.axes.frames=2"])
 
 
