@@ -92,8 +92,8 @@ Phases, one status line each; any failure raises (exit code != 0):
      full width (25 frames at 576x1024, batch 1, bf16 compute with f32
      masters, remat flash0, the recipe's frozen temporal layers), seeded
      random weights as phase 9, TRAIN_STEPS steps and a checkpoint, then
-     one step resumed from it (its own checkpoint serialised into a byte
-     count only, so that the script writes under ~35 GB to disk: one
+     one step resumed from it (its own checkpoint counted by its tensors'
+     bytes only, so that the script writes under ~35 GB to disk: one
      checkpoint is ~24 GB), then the EMA export loaded back through
      runner.vdm_sample's loader: finite losses, spatial weights moved,
      temporal weights bit-identical, the EMA apart from the weights, the
@@ -125,8 +125,8 @@ Phases, one status line each; any failure raises (exit code != 0):
      waymo_val_base.yaml's GS and diffusion settings and the engine at
      full width with phase 9's seeded random weights (DISTILL_STEPS Euler
      steps); runner.train.main to DISTILL_ITERS with events at
-     DISTILL_EVENTS, 2 more iterations resumed from the checkpoint at 6
-     (which runs the event again), runner.render.main(mode=diffusion) on
+     DISTILL_EVENTS, the rest resumed from the checkpoint at the last
+     event (which runs it again), runner.render.main(mode=diffusion) on
      the checkpoint. Each event: every novel frame filled, finite,
      576x1024, its PNG written and its batch rebuilt; 15 / 5 / 11 launches
      of D / E / F per Euler step the SDS schedule runs, over both windows,
@@ -174,8 +174,9 @@ Phases, one status line each; any failure raises (exit code != 0):
      tensors); DP_GS_ORDER's batch-2 GS steps on phase 2's 50k splats at
      384x256 with a densify: the ranks' states bit-equal, and within
      DP_GS_TOL of each leaf's largest |value| of a one-rank run; the
-     fine-tune at full width (phase 12's engine and recipe) under
-     vdm_train.fsdp with one clip a rank: one step, its time, the
+     fine-tune at full width (phase 12's engine and recipe, clips of
+     DP_VDM frames) under vdm_train.fsdp with one clip a rank: one step,
+     its time, the
      gradient all-reduce's and the master gathers' times, each rank's
      peak, then the ranks' masters against one rank's step over both
      clips with accumulate 2 from the same weights and draws (within
@@ -189,7 +190,7 @@ Phases, one status line each; any failure raises (exit code != 0):
      clip whose step fits the card, with flash0 at that length beside it):
      first every policy's loss and gradient norm with the update skipped,
      from the same weights and draws, within POLICY_NORM_RTOL of flash0's;
-     then per policy a warm-up and a timed step, the peak, and exactly
+     then per policy a timed step, the peak, and exactly
      POLICY_D_PER_STEP / 15 / 15 launches of D-with-lse / G / H a step.
      (b) runner.vdm_train's build_trainer with diffusion.add_lora and
      vdm_train.train_peft_adapters at 1 x 25 x 576x1024: LORA_STEPS steps,
@@ -264,6 +265,35 @@ Phases, one status line each; any failure raises (exit code != 0):
      then SP_FT_FALLBACK (2 ranks of 12 frames). Each part's wall, the
      all-to-all and all-reduce seconds and each rank's peak. The kernels
      line's launches_by_path gains "frames_sp".
+ 24. distillation on several ranks, right after phase 16 in its scene
+     directory (its condition PNGs on disk but the first novel view's):
+     runner.train.main on {data: 2} at train.batch_size
+     2 with the diffusion hook, two ranks spawned sharing the card through
+     gloo, the engine at full width with phase 9's seeded weights on rank
+     0 alone, one event at DPD_EVENT of 2 Euler steps (2 windows), then
+     GS iterations with novel views: the 26 novel frames filled and
+     finite at 576x1024 and bit-equal on both ranks (sha256), rank 1 with
+     no engine, no file written and no D / E / F launch, rank 0 with 15 /
+     5 / 11 a step and no plain version, rank 0's one condition render
+     (while rank 1 waits in the barrier) one A, one pack, one B, kernel C
+     in every GS step on each
+     rank, check_replicated at the end; the event's wall and split, the
+     broadcasts' time, each rank's peak. The frames-sharded event is held
+     by the CPU tests only (five sampler ranks fill the card before any GS
+     state); phase 23 holds frames-sharded sampling on the card. The
+     kernels line's launches_by_path gains "dp_distill".
+ 25. the W8A8 eval UNet: UNetConfig(quant_convs=True) at full width with
+     phase 9's seeded weights, one CFG eval (2 x 25 frames at 72x128)
+     against the bf16 eval of the same weights: exactly 50 launches of
+     kernel Q (csrc/int8_conv.cu: absmax, quantize, weight quantization,
+     the int8 mma.sync implicit GEMM) and 15 / 5 / 11 of D / E / F, no
+     plain version, the per-frame PSNR (min, median, above Q_PSNR_FLOOR)
+     and each eval's median of 3; then Q at each distinct shape that eval
+     gave it against its plain version (int32 products and scales exactly
+     equal, bf16 outputs within 1 ulp), timed beside its bound (int8
+     operations at 1,979 TOPS or bytes), the plain version, F.conv2d in
+     bf16 and torch._int_mm on the int8 im2col (its products checked
+     equal too). The kernels line gains Q with its shapes.
 Kernel builds, launches and comparisons raise on failure; no phase catches
 its own. TF32 is off for matmuls and cuDNN convolutions throughout.
 The last three lines: the card's name and power limit, a JSON object of
@@ -1221,6 +1251,7 @@ F_SHAPES = [(2, 25, 2304, 640, 10), (2, 25, 576, 1280, 20),
             (2, 25, 144, 1280, 20)]
 PER_STEP = {"flash_attention": 15, "temporal_block_fused": 5,
             "temporal_attention_fused": 11}
+VDM_KERNELS = tuple(PER_STEP)       # kernels D, E and F
 
 
 def bf16_errors(got, want) -> dict:
@@ -1942,20 +1973,6 @@ def vdm_train_config(tmp: str, root: str, steps: int) -> str:
     return path
 
 
-class ByteCount:
-    """A write-only stream that counts what ``torch.save`` writes to it."""
-
-    def __init__(self):
-        self.n = 0
-
-    def write(self, b) -> int:
-        self.n += len(b)
-        return len(b)
-
-    def flush(self) -> None:
-        pass
-
-
 def vdm_train_main_path(tmp: str, gpu: str) -> tuple[dict, dict]:
     """Phase 12: runner.vdm_train.main at full width, TRAIN_STEPS steps with
     a checkpoint, one step resumed from it, the EMA export loaded back.
@@ -1996,9 +2013,9 @@ def vdm_train_main_path(tmp: str, gpu: str) -> tuple[dict, dict]:
         init_fn(self, engine, masters, *a, **kw)
 
     # the checkpoints: the first run's is written to disk (and timed); the
-    # resumed run's is serialised into a byte count only, so that the whole
-    # script writes under ~35 GB to disk: one checkpoint of the full-width
-    # state (f32 masters, two moments, EMA) is ~24 GB
+    # resumed run's is counted by its tensors' bytes only, so that the
+    # whole script writes under ~35 GB to disk: one checkpoint of the
+    # full-width state (f32 masters, two moments, EMA) is ~24 GB
     saves = []
     save_fn = VT.save_vdm_checkpoint
 
@@ -2010,10 +2027,13 @@ def vdm_train_main_path(tmp: str, gpu: str) -> tuple[dict, dict]:
         return out
 
     def counted_save(model_path, step, state):
-        sink = ByteCount()
+        # the bytes of the state's tensors (serialising them into a byte
+        # count took 16-18 s: cut to pay for phases 24-25)
         t = time.perf_counter()
-        torch.save(state.to_dict(), sink)
-        saves.append((time.perf_counter() - t, sink.n))
+        n = sum(v.numel() * v.element_size()
+                for part in state.to_dict().values() if isinstance(part, dict)
+                for v in part.values() if isinstance(v, torch.Tensor))
+        saves.append((time.perf_counter() - t, n))
         return CK.checkpoint_dir(model_path, step)
 
     FA.reset_launch_counts()
@@ -2091,7 +2111,7 @@ def vdm_train_main_path(tmp: str, gpu: str) -> tuple[dict, dict]:
     log(f"[12] resumed: {res['steps']} step to step {tr.state.step} in "
         f"{resume_s:.1f} s incl. engine build, checkpoint load and EMA "
         f"export; checkpoints (s, bytes): written {saves[0][0]:.1f} s, "
-        f"{saves[0][1]}; serialised only {saves[-1][0]:.1f} s, "
+        f"{saves[0][1]}; the resumed state's tensors {saves[-1][0]:.1f} s, "
         f"{saves[-1][1]}; launches per step {per_step}")
     if res["steps"] != 1 or tr.state.step != TRAIN_STEPS + 1:
         raise AssertionError(f"resume: {res['steps']} steps to "
@@ -2334,7 +2354,18 @@ def worklist_split(G, inputs: dict, gpu: str) -> dict:
     from street_crafter_tpu_torch.scripts.worklist_split import device_split
     out = {}
     for label, geo in inputs.items():
-        sp = device_split(lambda: G.tile_worklist(**geo))
+        # torch.profiler's device trace comes back empty now and then: try
+        # again, and leave the split unmeasured if it stays empty
+        for _ in range(PROFILE_TRIES):
+            sp = device_split(lambda: G.tile_worklist(**geo))
+            if sp["calls_traced"]:
+                break
+        if not sp["calls_traced"]:
+            log(f"[15] kernel A, headline {label} pass: torch.profiler "
+                f"recorded no device activity in {PROFILE_TRIES} tries")
+            out[label] = {"kernels_ms": {}, "busy_ms": None,
+                          "span_ms": None, "gaps": []}
+            continue
         acts = {}
         for a in sp["activities"]:
             k = next((k for k in A_KERNELS if k in a["name"]), a["name"])
@@ -2363,11 +2394,15 @@ def worklist_split(G, inputs: dict, gpu: str) -> dict:
 LIDAR_POINTS = 100_000     # background returns a frame (a Waymo top-LiDAR
 # sweep holds ~64 x 2,650 = ~170k before processing)
 DISTILL_ITERS = 8
-DISTILL_EVENTS = [3, 6]    # the sampling events; the checkpoint at 6
+# the sampling events, the checkpoint at the last (cut from [3, 6] to pay
+# for phases 24 and 25: one event fewer, ~21-25 s)
+DISTILL_EVENTS = [3]
 DISTILL_STEPS = 5          # Euler steps (cut from 50): SDS scales 0.7 and
 # 0.3 run int(5 x scale) = 3 and 1 of them
 DISTILL_WINDOWS = 2        # 26 novel frames in windows of 24, step 20
 JAX_TILE_CAP = 512         # JAX's condition raster keeps 512 splats a tile
+# one condition render's launches: one A, one pack, one B
+ONE_RENDER = {"tile_worklist": 1, "pair_records": 1, "composite": 1}
 
 
 def distill_scene(tmp: str) -> str:
@@ -2569,8 +2604,8 @@ class DistillProbe:
     def _make_hook(self, orig):
         torch = self.torch
 
-        def make(cfg):
-            hook = orig(cfg)
+        def make(cfg, *mesh):
+            hook = orig(cfg, *mesh)
             store = hook.param_store
             release = store.release
 
@@ -2784,11 +2819,12 @@ def condition_vs_plain(G, ply, cam, name: str, host_ms: float, phase: int,
     return rows
 
 
-def distill_main_path(G, tmp: str, gpu: str) -> tuple[dict, dict]:
+def distill_main_path(G, tmp: str, gpu: str) -> tuple[dict, dict, str]:
     """Phase 16: runner.train.main with the diffusion hook at full width,
-    a resume from the checkpoint at 6 that runs the event again, and
+    a resume from the checkpoint at the last event that runs it again, and
     runner.render.main(mode=diffusion) on the checkpoint. Returns (the
-    path's launch counts, the condition render's kernel rows)."""
+    path's launch counts, the condition render's kernel rows, the scene
+    directory)."""
     import torch
     from street_crafter_tpu_torch.config import save_config
     from street_crafter_tpu_torch.ops import flash_attention as FA
@@ -2838,16 +2874,18 @@ def distill_main_path(G, tmp: str, gpu: str) -> tuple[dict, dict]:
         f"iterations) in {wall_resume:.1f} s; runner.render.main("
         f"mode=diffusion) in {wall_render:.1f} s; launches {counts}; "
         f"max_memory_allocated {peak:.2f} GiB; {gpu}")
-    # the events: 3 and 6, then 7 on the resume (the event of 6 again),
-    # then the render mode's one (not a hook)
+    # the events, then the last one again on the resume, the iteration
+    # after it (the render mode's sample is not a hook's)
     its = [e["iteration"] for e in events]
     if its != DISTILL_EVENTS + [DISTILL_EVENTS[-1] + 1]:
         raise AssertionError(f"sampling events at {its}")
-    if [e["version"] for e in events] != [1, 2, 1]:
+    if [e["version"] for e in events] != list(
+            range(1, len(DISTILL_EVENTS) + 1)) + [1]:
         raise AssertionError("diffusion_version did not rise per event")
     if (resumed.start_iter, resumed.state.step) != (
             DISTILL_EVENTS[-1] + 1, DISTILL_ITERS):
-        raise AssertionError("the resume did not continue at 6")
+        raise AssertionError(f"the resume did not continue at "
+                             f"{DISTILL_EVENTS[-1] + 1}")
     # the GS steps: novel views after the first event, kernel C in every
     # step, reading its forward's records
     novel_after = sum(n for n, _ in picks[DISTILL_EVENTS[0] - 1:])
@@ -2861,8 +2899,7 @@ def distill_main_path(G, tmp: str, gpu: str) -> tuple[dict, dict]:
             f"GS steps: {novel_after} novel after the first event, kernel C "
             f"launches per step {c_per_step}, counts {counts}")
     # every condition render: one A, one pack, one B with 4 channels
-    one = {"tile_worklist": 1, "pair_records": 1, "composite": 1}
-    bad = [r for r in probe.renders if r[0] != one or r[1] != [4]]
+    bad = [r for r in probe.renders if r[0] != ONE_RENDER or r[1] != [4]]
     if bad or not probe.renders:
         raise AssertionError(f"condition renders: {len(probe.renders)}, "
                              f"off the kernels or not 4 channels: {bad[:3]}")
@@ -2896,15 +2933,15 @@ def distill_main_path(G, tmp: str, gpu: str) -> tuple[dict, dict]:
     rows = condition_render_vs_plain(G, resumed.scene, gpu)
     del resumed
     torch.cuda.empty_cache()
-    return counts, rows
+    return counts, rows, source
 
 
 # ---------------------------------------------------------------------------
 # phase 17: the cubemap sky, the colour MLPs, COLMAP points, virtual_warp
 # ---------------------------------------------------------------------------
 
-# cut from 30 and 10 to pay for phases 19-21
-SKY_ITERS, SKY_RESUME = 18, 6
+# cut from 30 and 10 to pay for phases 19-21, from 18 and 6 for 24-25
+SKY_ITERS, SKY_RESUME = 12, 4
 COLMAP_POINTS = 50_000     # at most; the scene's LiDAR holds 20,000
 WARP_STEPS, WARP_SHIFT = 5, 2.0
 # one pass a step: the cubemap replaces the Gaussian sky's pass
@@ -3335,7 +3372,9 @@ DP_GS_DENSIFY_AFTER = 2
 # tolerance against JAX of tests/test_torch_train.py)
 DP_GS_TOL = 2e-3
 # (c)'s fine-tune: phase 12's engine and recipe, one clip a rank
-DP_VDM = {"frames": 25, "height": 576, "width": 1024}
+# (cut from 25 frames to pay for phases 24-25: the 6.11 GB gradient
+# all-reduce, not the clip, is most of the step)
+DP_VDM = {"frames": 9, "height": 576, "width": 1024}
 # of each leaf's update (the fine-tune's tolerance in
 # tests/test_torch_vdm_train.py)
 VDM_UPDATE_RTOL = 1e-3
@@ -3867,7 +3906,7 @@ POLICY_NORM_RTOL = 1e-4
 # (it asks for more than the 79.18 GiB there are), at 22 it peaks at 76.24
 # GiB and at 23 it does not fit (one policy alone on the H100, 700 W)
 DOTS_FRAMES = 22
-LORA_STEPS = 3
+LORA_STEPS = 2             # cut from 3 to pay for phases 24-25
 
 
 def cut_clip(batch: dict, frames: int) -> dict:
@@ -3902,8 +3941,8 @@ def remat_policy_steps(tr, batch: dict, gpu: str) -> tuple[dict, dict]:
     """Phase 19 (a): phase 12's trainer on phase 13's batch under each
     remat policy. First every policy's loss and gradient norm from the
     same weights and draws (the update skipped), against flash0's; then
-    per policy a warm-up step and a timed step (CUDA synchronised), the
-    peak since the warm-up, and the launches of the timed step. Returns
+    per policy a timed step (CUDA synchronised), its peak, and its
+    launches. Returns
     (the timed steps' launches, summed; per policy {step_s, peak_gib,
     launches, frames})."""
     import gc
@@ -3960,7 +3999,8 @@ def remat_policy_steps(tr, batch: dict, gpu: str) -> tuple[dict, dict]:
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            tr.train_step(b, generator=g)                   # warm-up
+            # no warm-up step (cut to pay for phases 24-25): the gradient
+            # pass above ran this policy's forward and backward once
             FA.reset_launch_counts()
             TB.reset_launch_counts()
             torch.cuda.synchronize()
@@ -3976,7 +4016,7 @@ def remat_policy_steps(tr, batch: dict, gpu: str) -> tuple[dict, dict]:
                     "flash_attention_bwd_dkv": 15,
                     "flash_attention_bwd_dq": 15}
             log(f"[19] remat {policy}: train step ({T} frames at 576x1024, "
-                f"encode outside) {step_s:.3f} s after one warm-up, loss "
+                f"encode outside) {step_s:.3f} s after its gradient pass, loss "
                 f"{scalars['loss']:.4f}; max_memory_allocated {peak:.2f} GiB"
                 f"; launches {counts}; card {gpu}")
             if counts != want or not np.isfinite(scalars["loss"]):
@@ -4777,7 +4817,11 @@ def data_processing(G, gpu: str, dev: str = "cuda") -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 SP_FRAMES = 5              # (a): the one frames size that divides T = 25
-SP_STEPS = 2               # (a): Euler steps of the sample
+SP_STEPS = 1               # (a): Euler steps of the sample (cut from 2
+# to pay for phases 24-25)
+# (a): the chunked decode's frames a chunk (the engine's default 8 left
+# five ranks ~1 GiB of the card in one run: a rank ran out of memory)
+SP_DECODE_CHUNK = 6
 SP_SEED = 23
 SP_LOSS_RTOL = 2e-3        # (b): the step's loss against one rank's
 # the frames ranks compute in bf16 with other shapes than one rank (a
@@ -4861,7 +4905,8 @@ def sp_sample(mesh, dev) -> dict:
     cfg = default_config()
     cfg.merge({"device": dev.type,
                "diffusion": {"tiny": SP_TINY, "num_steps": SP_STEPS,
-                             "ckpt_path": "", "init_zero_layers_std": 1.0}})
+                             "ckpt_path": "", "init_zero_layers_std": 1.0,
+                             "decode_chunk": SP_DECODE_CHUNK}})
     t0 = time.perf_counter()
     eng = VS.build_engine(cfg, 25, dev)
     build_s = time.perf_counter() - t0
@@ -5234,6 +5279,542 @@ def frames_sp(gpu: str, dev: str = "cuda") -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 24: distillation on two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+DPD_ITERS = 5              # GS iterations, the event at DPD_EVENT
+DPD_EVENT = 2
+DPD_STEPS = 3              # Euler steps: the SDS scale 0.7 runs 2 of them
+DPD_SCALE = 0.7
+DPD_NOVEL_PROB = 0.9       # novel-view steps after the event
+DPD_TIMEOUT_S = 600.0
+DPD_NOVEL = 26             # phase 16's novel views (one shift of 26 frames)
+DPD_RENDERS = 1            # novel views whose condition PNGs are removed
+
+
+def dp_distill_config(tmp: str, source: str):
+    """Phase 16's configuration at train.batch_size 2 on {data: 2}: one
+    event at DPD_EVENT of int(DPD_STEPS x DPD_SCALE) Euler steps in
+    DPD_ITERS iterations, a checkpoint at the last only, the engine's
+    weights left on the card (phase 16 moves them; the pinned copy costs
+    seconds)."""
+    cfg = distill_config(tmp, source)
+    cfg.model_path = os.path.join(tmp, "dp_distill_model")
+    cfg.mesh.axes = {"data": DP_B}
+    t = cfg.train
+    t.batch_size = DP_B
+    t.iterations = DPD_ITERS
+    t.checkpoint_iterations = []
+    t.novel_view_prob = DPD_NOVEL_PROB
+    d = cfg.diffusion
+    d.num_steps = DPD_STEPS
+    d.sample_iterations = [DPD_EVENT]
+    d.sds_scales = [DPD_SCALE]
+    d.params_on_host = False
+    return cfg
+
+
+def dp_distill_rank(mesh, path: str) -> dict:
+    """Phase 24 on one of two ranks sharing the card through gloo:
+    runner.train.main with the diffusion hook. Returns its launches, its
+    events (wall, split, launches, the moves of the engine's weights),
+    each condition render's launches, each GS step's kernel C launches,
+    what it wrote and built, the novel frames' digest and its peak."""
+    import hashlib
+
+    import torch
+    from street_crafter_tpu_torch.data_processor import pointcloud as PC
+    from street_crafter_tpu_torch.models.vdm import engine as EN
+    from street_crafter_tpu_torch.runner import diffusion as DR
+    from street_crafter_tpu_torch.runner import train as T
+    from street_crafter_tpu_torch.runner import vdm_sample as VS
+    from street_crafter_tpu_torch.training.gs_trainer import check_replicated
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tm = StageTimer()
+    for owner, attr, stage in (
+            (PC.PointCloudProcessor, "render_condition", "condition"),
+            (PC.PointCloudProcessor, "_splat", "condition splat"),
+            (DR.DiffusionRunner, "load_guidance", "guide PNG load"),
+            (DR.DiffusionRunner, "load_cond_image", "cond image load"),
+            (DR.DiffusionRunner, "_share", "broadcast"),
+            (EN.VideoDiffusionEngine, "encode_images", "encode"),
+            (EN.VideoDiffusionEngine, "clip_embed", "CLIP"),
+            (EN.VideoDiffusionEngine, "decode_latents_chunked", "decode"),
+            (EN, "euler_edm_sample_sds", "Euler steps"),
+            (EN, "euler_edm_sample", "Euler steps"),
+            (T, "create_scene", "scene build"),
+            (VS, "build_engine", "engine build")):
+        tm.wrap(owner, attr, stage)
+    wrote = {"diffusion PNGs": 0, "checkpoints": 0}
+    renders, steps, events, hooks = [], [], [], []
+
+    def patch(owner, attr, make):
+        orig = getattr(owner, attr)
+        tm._undo.append((owner, attr, orig))
+        setattr(owner, attr, make(orig))
+
+    def counted(key):
+        def make(orig):
+            def call(*a, **kw):
+                wrote[key] += 1
+                return orig(*a, **kw)
+            return call
+        return make
+
+    def splat(orig):
+        def call(*a, **kw):
+            before = counts_now()
+            out = orig(*a, **kw)
+            renders.append(counts_since(before))
+            return out
+        return call
+
+    def step_fn(orig):
+        def make(trainer, is_novel, *a, **kw):
+            step = orig(trainer, is_novel, *a, **kw)
+
+            def run(*sa, **skw):
+                c0 = counts_now().get("composite_backward", 0)
+                out = step(*sa, **skw)
+                steps.append((is_novel, counts_now().get(
+                    "composite_backward", 0) - c0))
+                return out
+            return run
+        return make
+
+    def eval_render_fn(orig):
+        def make(trainer, sh):
+            fn = orig(trainer, sh)
+
+            def render(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                tm.ms["SDS render"] = tm.ms.get("SDS render", 0.0) + \
+                    1e3 * (time.perf_counter() - t0)
+                return out
+            return render
+        return make
+
+    def make_hook(orig):
+        def make(cfg, *m):
+            hook = orig(cfg, *m)
+            store = hook.param_store
+            hooks.append({"samples": hook.samples,
+                          "nbytes": 0 if store is None else store.nbytes})
+
+            def event(trainer, iteration, scale):
+                before, ms0 = counts_now(), dict(tm.ms)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hook(trainer, iteration, scale)
+                torch.cuda.synchronize()
+                events.append({
+                    "iteration": iteration, "scale": scale,
+                    "wall_s": time.perf_counter() - t0,
+                    "launches": counts_since(before),
+                    "stages_ms": {k: v - ms0.get(k, 0.0)
+                                  for k, v in tm.ms.items()
+                                  if v != ms0.get(k, 0.0)},
+                    "moves_s": ({"acquire": 0.0, "release": 0.0}
+                                if store is None else dict(store.move_s))})
+            return event
+        return make
+
+    patch(PC.PointCloudProcessor, "_splat", splat)
+    patch(DR, "save_image", counted("diffusion PNGs"))
+    patch(T, "save_checkpoint", counted("checkpoints"))
+    patch(T.GSTrainer, "step_fn", step_fn)
+    patch(T.GSTrainer, "eval_render_fn", eval_render_fn)
+    patch(T, "make_diffusion_hook", make_hook)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        trainer = T.main(["--config", path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches_now()
+        check_replicated(trainer.state, trainer.mesh)
+    finally:
+        tm.restore()
+    novel = trainer.scene.info.novel_view_cameras
+    d = trainer.cfg.diffusion
+    hw = (d.height, d.width, 3)
+    frames = [c._image for c in novel]
+    filled = all(f is not None and f.shape == hw and np.isfinite(f).all()
+                 for f in frames)
+    digest = hashlib.sha256(b"".join(
+        np.ascontiguousarray(f, np.float32).tobytes() for f in frames
+        if f is not None)).hexdigest()
+    return {"rank": mesh.rank, "wall_s": wall, "counts": counts,
+            "events": events, "renders": renders, "steps": steps,
+            "hooks": hooks, "wrote": wrote, "stages_ms": dict(tm.ms),
+            "novel": len(frames), "filled": filled, "digest": digest,
+            "versions": sorted({c.metadata.get("diffusion_version", 0)
+                                for c in novel}),
+            "state_step": int(trainer.state.step),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def dp_distill(tmp: str, source: str, gpu: str, dev: str = "cuda") -> dict:
+    """Phase 24: runner.train.main with the diffusion hook on {data: 2},
+    two ranks spawned sharing the card through gloo, in phase 16's scene
+    (its condition PNGs on disk but the first novel view's, which rank 0
+    renders in the event while rank 1 waits in the condition barrier).
+    Returns the two ranks' launches, summed."""
+    import torch
+    from street_crafter_tpu_torch.config import save_config
+    from street_crafter_tpu_torch.parallel.mesh import run_ranks
+    t_start = time.perf_counter()
+    cfg = dp_distill_config(tmp, source)
+    path = os.path.join(tmp, "dp_distill.json")
+    save_config(cfg, path)
+    # one novel view's condition PNGs go: rank 0 renders them in the event
+    # while rank 1 waits in the condition barrier
+    novel_dirs = [os.path.join(source, "lidar", n) for n in os.listdir(
+        os.path.join(source, "lidar")) if n.startswith("color_render_shift")]
+    for n in novel_dirs:
+        for f in ("000000_0.png", "000000_0_mask.png"):
+            os.remove(os.path.join(n, f))
+    torch.cuda.empty_cache()
+    ranks = run_ranks(dp_distill_rank, DP_B, tmp, path, backend="gloo",
+                      device=dev, threads=0, timeout_s=DPD_TIMEOUT_S)
+    wall = time.perf_counter() - t_start
+    r0, r1 = ranks
+    steps = int(DPD_STEPS * DPD_SCALE)
+    windows = DISTILL_WINDOWS
+    want = {k: PER_STEP[k] * steps * windows for k in VDM_KERNELS}
+    ev0, ev1 = r0["events"], r1["events"]
+    if [e["iteration"] for e in ev0] != [DPD_EVENT] or \
+            [e["iteration"] for e in ev1] != [DPD_EVENT]:
+        raise AssertionError(f"events at {[e['iteration'] for e in ev0]}, "
+                             f"{[e['iteration'] for e in ev1]}")
+    got0 = {k: ev0[0]["launches"].get(k, 0) for k in VDM_KERNELS}
+    got1 = {k: r1["counts"].get(k, 0) for k in VDM_KERNELS}
+    for r in ranks:
+        check_kernels_only(r["counts"], torch.device("cuda"),
+                           f"phase 24 rank {r['rank']}")
+    if got0 != want or any(got1.values()):
+        raise AssertionError(f"D / E / F launches: rank 0 {got0} (want "
+                             f"{want}: {steps} Euler steps x {windows} "
+                             f"windows), rank 1 {got1} (want none)")
+    if not (r0["filled"] and r1["filled"]) or r0["digest"] != r1["digest"] \
+            or r0["novel"] != DPD_NOVEL or r0["versions"] != [1] \
+            or r1["versions"] != [1]:
+        raise AssertionError(
+            f"novel frames: filled {r0['filled']}, {r1['filled']}; digests "
+            f"{r0['digest'][:16]}, {r1['digest'][:16]}; {r0['novel']} "
+            f"frames; versions {r0['versions']}, {r1['versions']}")
+    if [h["samples"] for h in r0["hooks"] + r1["hooks"]] != [True, False] \
+            or r1["hooks"][0]["nbytes"] or \
+            r1["stages_ms"].get("engine build", 0.0) or \
+            any(r1["wrote"].values()) or r1["renders"]:
+        raise AssertionError(f"rank 1 built an engine or wrote files: "
+                             f"hooks {r1['hooks']}, wrote {r1['wrote']}, "
+                             f"{len(r1['renders'])} condition renders")
+    if r0["wrote"]["diffusion PNGs"] != DPD_NOVEL or \
+            r0["wrote"]["checkpoints"] != 1:
+        raise AssertionError(f"rank 0 wrote {r0['wrote']}")
+    bad = [c for c in r0["renders"] if c != ONE_RENDER]
+    if bad or len(r0["renders"]) != DPD_RENDERS:
+        raise AssertionError(f"{len(r0['renders'])} condition renders on "
+                             f"rank 0 (want {DPD_RENDERS}), off one A / "
+                             f"pack / B: {bad[:3]}")
+    for r in ranks:
+        c_per_step = [c for _, c in r["steps"]]
+        if len(c_per_step) != DPD_ITERS or min(c_per_step) < 1 or \
+                r["state_step"] != DPD_ITERS:
+            raise AssertionError(f"rank {r['rank']}: GS steps "
+                                 f"{r['steps']}, state step "
+                                 f"{r['state_step']}")
+    novel_steps = sum(n for n, _ in r0["steps"])
+    if novel_steps < 1 or [n for n, _ in r0["steps"]] != \
+            [n for n, _ in r1["steps"]]:
+        raise AssertionError(f"novel-view steps: rank 0 {r0['steps']}, "
+                             f"rank 1 {r1['steps']}")
+    e0 = ev0[0]
+    log(f"[24] runner.train.main on {{data: {DP_B}}} at batch {DP_B} (two "
+        f"ranks sharing the card through gloo), {DPD_ITERS} iterations, one "
+        f"event at {DPD_EVENT} ({steps} Euler steps x {windows} windows): "
+        f"{wall:.1f} s with the spawn (ranks' runs "
+        f"{r0['wall_s']:.1f}, {r1['wall_s']:.1f} s; scene builds "
+        f"{r0['stages_ms'].get('scene build', 0.0) / 1e3:.1f}, "
+        f"{r1['stages_ms'].get('scene build', 0.0) / 1e3:.1f} s; rank 0's "
+        f"engine build {r0['stages_ms'].get('engine build', 0.0) / 1e3:.1f}"
+        f" s); {DPD_NOVEL} novel frames filled, finite and bit-equal on both "
+        f"ranks (sha256 {r0['digest'][:16]}); rank 0 alone built the engine "
+        f"({r0['hooks'][0]['nbytes'] / 2 ** 30:.2f} GiB of weights) and "
+        f"wrote {r0['wrote']}; rank 1 built none, wrote nothing, launched "
+        f"no D / E / F; check_replicated passed; {gpu}")
+    log(f"[24] the event: wall {e0['wall_s']:.2f} s on rank 0, "
+        f"{ev1[0]['wall_s']:.2f} s on rank 1; rank 0's split: "
+        f"{event_split(e0)}; the broadcasts ({windows} window(s) through "
+        f"host memory) "
+        f"{e0['stages_ms'].get('broadcast', 0.0):.1f} ms on rank 0, "
+        f"{ev1[0]['stages_ms'].get('broadcast', 0.0):.1f} ms on rank 1 (its "
+        f"wait for rank 0's windows inside); rank 0's D / E / F "
+        f"{got0['flash_attention']} / {got0['temporal_block_fused']} / "
+        f"{got0['temporal_attention_fused']}, no plain version; "
+        f"{len(r0['renders'])} condition renders, each one A, one pack, "
+        f"one B")
+    log(f"[24] GS steps (novel, kernel C launches): rank 0 {r0['steps']}, "
+        f"rank 1 {r1['steps']}; peak max_memory_allocated rank 0 "
+        f"{r0['peak_gib']:.2f} GiB, rank 1 {r1['peak_gib']:.2f} GiB; "
+        f"launches rank 0 {r0['counts']}, rank 1 {r1['counts']}; phase 24 "
+        f"{time.perf_counter() - t_start:.1f} s")
+    total: dict = {}
+    for r in ranks:
+        for k, n in r["counts"].items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the W8A8 eval UNet (kernel Q)
+# ---------------------------------------------------------------------------
+
+Q_SOURCE = "street_crafter_tpu_torch/csrc/int8_conv.cu"
+Q_REPLACES = ("street_crafter_tpu/models/vdm/layers.py:74 (Int8Conv; not a "
+              "Pallas kernel: XLA's int8 conv_general_dilated)")
+PEAK_INT8_OPS = 1.979e15
+Q_PER_EVAL = 50            # 22 ResBlocks x 2, 3 Downsamples, 3 Upsamples
+Q_REPS = 5
+Q_EVALS = 3
+Q_PSNR_FLOOR = 20.0        # dB: a broken quantizer reads near 0
+Q_FRAMES = 25
+Q_LATENT = (72, 128)       # 576x1024 / 8
+Q_TINY = False             # the tiny engine (a CPU rehearsal)
+
+
+def q_inputs(dev, N, C, O, H, W, nhwc, seed):
+    """Seeded bf16 activations [N, C, H, W] (channels-last memory when
+    ``nhwc``), weights N(0, 1 / fan_in) and a bias, as the eval UNet
+    holds them."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((N, C, H, W), generator=g, device=dev).to(torch.bfloat16)
+    if nhwc:
+        x = x.contiguous(memory_format=torch.channels_last)
+    w = (torch.randn((O, C, 3, 3), generator=g, device=dev)
+         / (9 * C) ** 0.5).to(torch.bfloat16)
+    b = (0.1 * torch.randn((O,), generator=g, device=dev)).to(torch.bfloat16)
+    return x, w, b
+
+
+def q_bound(N, C, O, H, W, stride) -> dict:
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    ops = 2.0 * N * Ho * Wo * O * 9 * C
+    nbytes = 2.0 * (N * C * H * W + O * C * 9 + O + N * O * Ho * Wo)
+    t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_INT8_OPS
+    return {"bound_ms": 1e3 * max(t_b, t_o), "ops": ops,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def bf16_ulps(got, want) -> int:
+    """The largest distance in bf16 steps between two bf16 tensors."""
+    import torch
+
+    def key(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+    return int((key(got) - key(want)).abs().max())
+
+
+def q_shape_row(Q, dev, shape: dict, seed: int, gpu: str) -> dict:
+    """Q at one of the UNet's shapes against its plain version: the int32
+    products and the scales exactly equal, the bf16 outputs within 1
+    ulp; its time beside the bound, the plain version's, F.conv2d in
+    bf16 and torch._int_mm on the int8 input's im2col (checked equal to
+    the products too)."""
+    import torch
+    import torch.nn.functional as F
+    N, C, O, H, W, s = (shape[k] for k in ("N", "C", "O", "H", "W",
+                                           "stride"))
+    x, w, b = q_inputs(dev, N, C, O, H, W, shape["nhwc"], seed)
+    with torch.no_grad():
+        prod, xs, ws = Q.int8_products(x, w, s)
+        pref, xsr, wsr = Q.int8_products_reference(x, w, s)
+        out = Q.int8_conv2d(x, w, b, s)
+        ref = Q.int8_conv2d_reference(x, w, b, s)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(prod, pref)) and bool(
+            torch.equal(xs, xsr)) and bool(torch.equal(ws, wsr))
+        ulps = bf16_ulps(out, ref)
+        err = float((out.float() - ref.float()).abs().max())
+        if not equal or ulps > 1 or out.shape != ref.shape:
+            raise AssertionError(f"Q at {shape}: int32 products equal "
+                                 f"{equal}, bf16 outputs {ulps} ulp apart")
+        ms = cuda_ms(lambda: Q.int8_conv2d(x, w, b, s), Q_REPS)
+        plain_ms = cuda_ms(lambda: Q.int8_conv2d_reference(x, w, b, s), 1,
+                           warmup=0)
+        conv_ms = cuda_ms(lambda: F.conv2d(x, w, b, s, 1), Q_REPS)
+        xq = Q.quantize_reference(x, xsr)
+        wq = Q.quantize_reference(w, wsr[:, None, None, None])
+        Ho, Wo = prod.shape[2:]
+        cols = F.unfold(xq.to(torch.bfloat16), 3, padding=1, stride=s)
+        a = cols.to(torch.int8).transpose(1, 2).reshape(N * Ho * Wo, C * 9)
+        del cols
+        bmat = wq.reshape(O, C * 9).t()
+        mm = torch._int_mm(a, bmat)
+        if not torch.equal(mm.reshape(N, Ho * Wo, O).transpose(1, 2).reshape(
+                N, O, Ho, Wo), pref):
+            raise AssertionError(f"torch._int_mm's products differ at "
+                                 f"{shape}")
+        int_mm_ms = cuda_ms(lambda: torch._int_mm(a, bmat), Q_REPS)
+        del a, mm, prod, pref, out, ref, xq
+    bound = q_bound(N, C, O, H, W, s)
+    row = {"shape": [N, C, H, W], "out_channels": O, "stride": s,
+           "kind": shape["kind"], "per_eval": shape["count"],
+           "channels_last": shape["nhwc"], "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+           "library_ms": conv_ms, "int_mm_ms": int_mm_ms,
+           "tops": bound["ops"] / ms / 1e9, "max_abs_err": err,
+           "ulps": ulps}
+    log(f"[25] Q at [{N}, {C}, {H}, {W}] -> {O}, stride {s} "
+        f"({shape['kind']}, {shape['count']} an eval): int32 products, "
+        f"scales equal, bf16 out {ulps} ulp; {ms:.3f} ms "
+        f"({row['tops']:.1f} TOPS), bound {bound['bound_ms']:.4f} ms "
+        f"({bound['bound_by']}), plain {plain_ms:.2f} ms, F.conv2d bf16 "
+        f"{conv_ms:.3f} ms, torch._int_mm on the im2col {int_mm_ms:.3f} ms; "
+        f"{gpu}")
+    return row
+
+
+def w8a8_eval(gpu: str, dev: str = "cuda") -> tuple[dict, dict]:
+    """Phase 25: the CFG UNet eval at full width (phase 9's seeded
+    weights) built from UNetConfig(quant_convs=True), against the bf16
+    eval of the same weights: exactly Q_PER_EVAL launches of Q an eval
+    and no plain version, finite outputs, the per-frame PSNR (min and
+    median) and each eval's median time; then Q against its plain version
+    at each distinct shape that eval gave it. Returns (the eval's
+    launches, Q's kernel row)."""
+    import torch
+    from street_crafter_tpu_torch.config import default_config
+    from street_crafter_tpu_torch.models.vdm import layers as PL
+    from street_crafter_tpu_torch.models.vdm.engine import materialize
+    from street_crafter_tpu_torch.models.vdm.unet import VideoUNet
+    from street_crafter_tpu_torch.ops import int8_conv as Q
+    from street_crafter_tpu_torch.runner import vdm_sample as VS
+    t_start = time.perf_counter()
+    dev = torch.device(dev, 0) if dev == "cuda" else torch.device(dev)
+    cfg = default_config()
+    cfg.merge({"device": dev.type,
+               "diffusion": {"tiny": Q_TINY, "ckpt_path": "",
+                             "init_zero_layers_std": 1.0}})
+    T, B = Q_FRAMES, 2
+    eng = VS.build_engine(cfg, T, dev)
+    unet = eng.unet
+    del eng
+    with torch.device("meta"):
+        qunet = VideoUNet(dataclasses.replace(unet.cfg, quant_convs=True))
+    qunet = materialize(qunet, dev, unet.input_blocks[0][0].weight.dtype)
+    qunet.load_state_dict(unet.state_dict())
+    rng = np.random.default_rng(25)
+    mc = unet.cfg
+    h, w = Q_LATENT
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    args = (t(rng.normal(size=(B * T, h, w, mc.in_channels))),
+            t(np.full(B * T, 0.25 * np.log(0.7))),
+            t(rng.normal(size=(B, 1, mc.context_dim))),
+            t(rng.normal(size=(B, mc.adm_in_channels))))
+    kw = dict(num_frames=T, cond_mask=t(np.tile(np.eye(T)[0], B)),
+              guidance_input=t(rng.normal(
+                  size=(B * T, h, w, mc.in_channels // 2))),
+              guidance_scale=t(np.repeat([0.0, 1.0], T)))
+    # the shapes the eval gives Q: each quantized convolution's input
+    seen = []
+    quant_conv = PL.quant_conv
+
+    def recorded(x, mod, frames=None):
+        seen.append((tuple(x.shape), mod.weight.shape[0], mod.stride[0],
+                     Q._channels_last(x)))
+        return quant_conv(x, mod, frames)
+    PL.quant_conv = recorded
+    reset_launches()
+    Q.reset_launch_counts()
+    try:
+        with torch.no_grad():
+            out_q = qunet(*args, **kw)
+            torch.cuda.synchronize()
+    finally:
+        PL.quant_conv = quant_conv
+    counts = {**launches_now(), **Q.launches}
+    with torch.no_grad():
+        out = unet(*args, **kw)
+        q_ms = sync_ms(lambda: qunet(*args, **kw), Q_EVALS)
+        ms = sync_ms(lambda: unet(*args, **kw), Q_EVALS)
+    if counts.get("int8_conv", 0) != Q_PER_EVAL or \
+            counts.get("int8_conv_reference", 0) or \
+            {k: counts.get(k, 0) for k in VDM_KERNELS} != PER_STEP:
+        raise AssertionError(f"the W8A8 eval launched {counts}: want "
+                             f"{Q_PER_EVAL} of Q, {PER_STEP}, no plain "
+                             f"version")
+    a, r = out_q.float(), out.float()
+    if out_q.shape != (B * T, h, w, 4) or not bool(
+            torch.isfinite(a).all()):
+        raise AssertionError(f"W8A8 eval: {tuple(out_q.shape)}, finite "
+                             f"{bool(torch.isfinite(a).all())}")
+    mse = ((a - r) ** 2).flatten(1).mean(1)
+    peak = r.flatten(1).amax(1) - r.flatten(1).amin(1)
+    psnr = (10 * torch.log10(peak ** 2 / mse.clamp(min=1e-30))).cpu()
+    rel = float((a - r).abs().max() / r.abs().max())
+    log(f"[25] the CFG UNet eval ({B} x {T} frames at {h}x{w}) from "
+        f"UNetConfig(quant_convs=True) against the bf16 eval of phase 9's "
+        f"seeded weights: per-frame PSNR min {float(psnr.min()):.2f} dB, "
+        f"median {float(psnr.median()):.2f} dB (peak: the bf16 frame's "
+        f"range), largest error {rel:.3e} of the largest |output|; "
+        f"median of {Q_EVALS}: W8A8 {statistics.median(q_ms):.1f} ms, bf16 "
+        f"{statistics.median(ms):.1f} ms; launches an eval {counts}; {gpu}")
+    if not float(psnr.min()) > Q_PSNR_FLOOR:
+        raise AssertionError(f"W8A8 eval: per-frame PSNR {psnr.tolist()}")
+    del qunet, unet, out, out_q, a, r, args, kw
+    torch.cuda.empty_cache()
+    shapes: dict = {}
+    for (N, C, H, W), O, s, nhwc in seen:
+        key = (N, C, O, H, W, s, nhwc)
+        shapes[key] = shapes.get(key, 0) + 1
+    kinds = {1: "stride 1 (ResBlock, Upsample)", 2: "stride 2 (Downsample)"}
+    rows = []
+    for i, ((N, C, O, H, W, s, nhwc), n) in enumerate(shapes.items()):
+        rows.append(q_shape_row(Q, dev, {
+            "N": N, "C": C, "O": O, "H": H, "W": W, "stride": s,
+            "nhwc": nhwc, "count": n, "kind": kinds[s]}, 500 + i, gpu))
+        torch.cuda.empty_cache()
+    head = max(rows, key=lambda r: r["per_eval"] * r["ms"])
+    row = {"name": "int8_conv", "route": "cuda", "source": Q_SOURCE,
+           "replaces": Q_REPLACES,
+           "launches": counts["int8_conv"],
+           "launches_by_path": {"w8a8_eval": counts["int8_conv"]},
+           "max_abs_err": max(r["max_abs_err"] for r in rows),
+           "ms": round(head["ms"], 4), "plain_ms": round(head["plain_ms"], 4),
+           "bound_ms": round(head["bound_ms"], 6),
+           "bound_by": head["bound_by"],
+           "library_ms": round(head["library_ms"], 4),
+           "library_call": "F.conv2d in bf16 (cuDNN)",
+           "int_mm_ms": round(head["int_mm_ms"], 4),
+           "eval_ms": {"w8a8": round(statistics.median(q_ms), 2),
+                       "bf16": round(statistics.median(ms), 2)},
+           "psnr_db": {"min": round(float(psnr.min()), 3),
+                       "median": round(float(psnr.median()), 3)},
+           "shapes": [{k: (round(v, 5) if isinstance(v, float) else v)
+                       for k, v in r.items()} for r in rows]}
+    total = {k: sum(r[k] * r["per_eval"] for r in rows)
+             for k in ("ms", "bound_ms", "library_ms", "int_mm_ms")}
+    log(f"[25] Q over one eval's {sum(r['per_eval'] for r in rows)} "
+        f"convolutions at {len(rows)} shapes: {total['ms']:.2f} ms against "
+        f"a bound of {total['bound_ms']:.3f} ms, F.conv2d bf16 "
+        f"{total['library_ms']:.2f} ms, torch._int_mm "
+        f"{total['int_mm_ms']:.2f} ms; phase 25 "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return counts, row
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5420,7 +6001,11 @@ def main() -> None:
 
     # ---- phase 16: distillation ---------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_distill_") as tmp:
-        distill_counts, cond_rows = distill_main_path(G, tmp, gpu)
+        distill_counts, cond_rows, source = distill_main_path(G, tmp, gpu)
+
+        # ---- phase 24: distillation on two ranks sharing the card ------
+        torch.cuda.empty_cache()
+        dpd_counts = dp_distill(tmp, source, gpu)
 
     # ---- phase 17: cubemap sky, colour MLPs, COLMAP points, virtual_warp ----
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sky_") as tmp:
@@ -5440,6 +6025,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     sp_counts = frames_sp(gpu)
 
+    # ---- phase 25: the W8A8 eval UNet (kernel Q) ---------------------------
+    torch.cuda.empty_cache()
+    q_counts, q_row = w8a8_eval(gpu)
+
     # each main path's counts, read right after its own reset; "launches"
     # is their sum
     by_path = {name: {"render": render_counts.get(name, 0),
@@ -5449,7 +6038,8 @@ def main() -> None:
                       "sky_color": sky_counts.get(name, 0),
                       "data_parallel": dp_counts.get(name, 0),
                       "semantic": sem_counts.get(name, 0),
-                      "pandaset": data_counts.get(name, 0)}
+                      "pandaset": data_counts.get(name, 0),
+                      "dp_distill": dpd_counts.get(name, 0)}
                for name in REPLACES}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
@@ -5504,8 +6094,7 @@ def main() -> None:
                      and isinstance(v[0], dict) else v)
                  for k, v in r.items()} for r in rows]
 
-    for name in ("flash_attention", "temporal_block_fused",
-                 "temporal_attention_fused"):
+    for name in VDM_KERNELS:
         head = vdm_rows[name][0]
         lse = "flash_attention_lse" if name == "flash_attention" else name
         paths = {"render": 0, "train": 0,
@@ -5519,7 +6108,9 @@ def main() -> None:
                  "reward": reward_counts.get(name, 0),
                  # the sampler's D, E, F and the step's D with lse
                  "frames_sp": sp_counts.get(name, 0) + (
-                     sp_counts.get(lse, 0) if lse != name else 0)}
+                     sp_counts.get(lse, 0) if lse != name else 0),
+                 "dp_distill": dpd_counts.get(name, 0),
+                 "w8a8_eval": q_counts.get(name, 0)}
         shapes = rounded(vdm_rows[name])
         if name == "flash_attention":
             shapes += [dict(r, path="vdm_train")
@@ -5547,7 +6138,8 @@ def main() -> None:
                  "data_parallel": dp_counts.get(name, 0),
                  "remat_policies": policy_counts.get(name, 0),
                  "lora": lora_counts.get(name, 0),
-                 "frames_sp": sp_counts.get(name, 0)}
+                 "frames_sp": sp_counts.get(name, 0),
+                 "dp_distill": dpd_counts.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": VDM_SOURCES["flash_attention"],
@@ -5586,6 +6178,8 @@ def main() -> None:
         "library_ms": round(x1_row["library_ms"], 5),
         "library_call": "torch.mul(x, 2.0)", "shape": [1, *X1_SHAPE[1:]],
         "also_replaces": "tests/test_kernel_shard.py:17"})
+    # kernel Q (phase 25): its launches are one W8A8 eval's
+    kernels.append(q_row)
     log(f"[10] sampling peak max_memory_allocated {vdm_peak:.2f} GiB")
     log(f"[18] data_parallel launches (phase 18's main paths): {dp_counts}")
     print(gpu, flush=True)

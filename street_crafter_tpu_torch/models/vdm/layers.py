@@ -30,9 +30,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.attention import multi_head_attention
+from ...ops.int8_conv import int8_conv2d
 from ...ops.temporal_block import (temporal_attention_fused,
                                    temporal_block_fused)
-from ...parallel.sequence import (FramesShard, clip_first_frame,
+from ...parallel.sequence import (AXIS, FramesShard, clip_first_frame,
                                   frames_halo, frames_sum, frames_to_tokens,
                                   token_runs, tokens_to_frames)
 
@@ -62,6 +63,20 @@ def linear(x: torch.Tensor, mod: nn.Linear) -> torch.Tensor:
 def conv(x: torch.Tensor, mod: nn.Module) -> torch.Tensor:
     w = mod.weight
     return mod._conv_forward(x.to(w.dtype), w, mod.bias)
+
+
+def quant_conv(x: torch.Tensor, mod: nn.Conv2d,
+               frames: FramesShard | None = None) -> torch.Tensor:
+    """The JAX package's ``Int8Conv`` with ``mod``'s parameters (a 3x3
+    ``nn.Conv2d``, padding 1): W8A8 through ``ops.int8_conv`` (kernel Q),
+    in the weights' dtype. With ``frames`` the activation's maximum is
+    taken over the clip's every frame (a max over the frames group), as
+    JAX's ``jnp.max`` is over the whole clip."""
+    reduce = None
+    if frames is not None:
+        def reduce(amax):
+            frames.mesh.all_reduce_([amax], op="max", axis=AXIS)
+    return int8_conv2d(x, mod.weight, mod.bias, mod.stride[0], reduce)
 
 
 def group_norm(x: torch.Tensor, mod: nn.GroupNorm, eps: float
@@ -165,16 +180,19 @@ class ResBlock(nn.Module):
     + skip (openaimodel.py:146-284). dims 3: [B, C, T, H, W] input, a
     [B, T, emb] embedding and a (3, 1, 1) kernel; with ``frames``, T is
     this rank's T/f frames of each clip, the norms' statistics cover the
-    clip and the convolutions read a halo."""
+    clip and the convolutions read a halo. ``quant_convs``: the two 3x3
+    convolutions of a 2-D block are W8A8 int8 (``quant_conv``; eval only),
+    the 1x1 skip stays as it is."""
 
     def __init__(self, ch: int, emb_ch: int, out_ch: int | None = None,
-                 dims: int = 2, kernel_size=3):
+                 dims: int = 2, kernel_size=3, quant_convs: bool = False):
         super().__init__()
         out_ch = out_ch or ch
         self.dims = dims
         Conv = nn.Conv2d if dims == 2 else nn.Conv3d
         ks = (kernel_size,) * dims if isinstance(kernel_size, int) \
             else tuple(kernel_size)
+        self.quant_convs = bool(quant_convs) and dims == 2 and max(ks) > 1
         pad = tuple(k // 2 for k in ks)
         self.in_layers = nn.Sequential(nn.GroupNorm(32, ch), nn.SiLU(),
                                        Conv(ch, out_ch, ks, padding=pad))
@@ -194,7 +212,11 @@ class ResBlock(nn.Module):
         else:
             def norm(t, mod):
                 return group_norm(t, mod, GN_EPS)
-            cv = conv
+            if self.quant_convs:
+                def cv(t, mod):
+                    return quant_conv(t, mod, frames)
+            else:
+                cv = conv
         h = F.silu(norm(x, self.in_layers[0]))
         h = cv(h, self.in_layers[2])
         e = linear(F.silu(emb), self.emb_layers[1])
@@ -212,12 +234,14 @@ class ResBlock(nn.Module):
 class VideoResBlock(ResBlock):
     """2D ResBlock + 3D temporal ResBlock mixed by an AlphaBlender
     (video_model.py:14-80). x: [B*T, C, H, W]; with ``frames``, T is this
-    rank's share of each clip (``num_frames`` = T/f)."""
+    rank's share of each clip (``num_frames`` = T/f). ``quant_convs``
+    goes to the 2-D block; the temporal stack stays as it is."""
 
     def __init__(self, ch: int, emb_ch: int, out_ch: int | None = None,
                  video_kernel_size=(3, 1, 1), merge_factor: float = 0.5,
-                 merge_strategy: str = "learned_with_images"):
-        super().__init__(ch, emb_ch, out_ch, dims=2)
+                 merge_strategy: str = "learned_with_images",
+                 quant_convs: bool = False):
+        super().__init__(ch, emb_ch, out_ch, dims=2, quant_convs=quant_convs)
         out_ch = out_ch or ch
         self.time_stack = ResBlock(out_ch, emb_ch, out_ch, dims=3,
                                    kernel_size=tuple(video_kernel_size))
@@ -225,7 +249,7 @@ class VideoResBlock(ResBlock):
 
     def forward(self, x, emb, num_frames: int,
                 frames: FramesShard | None = None):
-        x = super().forward(x, emb)
+        x = super().forward(x, emb, frames)
         bt, c, hh, ww = x.shape
         b = bt // num_frames
         x5 = x.reshape(b, num_frames, c, hh, ww).transpose(1, 2)
@@ -235,13 +259,18 @@ class VideoResBlock(ResBlock):
 
 
 class Downsample(nn.Module):
-    """Stride-2 3x3 convolution (openaimodel.py Downsample)."""
+    """Stride-2 3x3 convolution (openaimodel.py Downsample); W8A8 under
+    ``quant_convs``."""
 
-    def __init__(self, ch: int, out_ch: int | None = None):
+    def __init__(self, ch: int, out_ch: int | None = None,
+                 quant_convs: bool = False):
         super().__init__()
         self.op = nn.Conv2d(ch, out_ch or ch, 3, stride=2, padding=1)
+        self.quant_convs = bool(quant_convs)
 
-    def forward(self, x):
+    def forward(self, x, frames: FramesShard | None = None):
+        if self.quant_convs:
+            return quant_conv(x, self.op, frames)
         return conv(x, self.op)
 
 
@@ -251,13 +280,18 @@ def upsample_nearest(x: torch.Tensor) -> torch.Tensor:
 
 
 class Upsample(nn.Module):
-    """Nearest 2x + 3x3 convolution (openaimodel.py Upsample)."""
+    """Nearest 2x + 3x3 convolution (openaimodel.py Upsample); W8A8 under
+    ``quant_convs``."""
 
-    def __init__(self, ch: int, out_ch: int | None = None):
+    def __init__(self, ch: int, out_ch: int | None = None,
+                 quant_convs: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(ch, out_ch or ch, 3, padding=1)
+        self.quant_convs = bool(quant_convs)
 
-    def forward(self, x):
+    def forward(self, x, frames: FramesShard | None = None):
+        if self.quant_convs:
+            return quant_conv(upsample_nearest(x), self.conv, frames)
         return conv(upsample_nearest(x), self.conv)
 
 

@@ -82,7 +82,9 @@ class UNetConfig:
     remat_policy: str = "flash0"
     dtype: Optional[str] = None     # compute dtype; None = float32
     fused_temporal: bool = False
-    quant_convs: bool = False       # the JAX int8 path: not ported
+    # W8A8 int8 for the 2-D 3x3 ResBlock / Downsample / Upsample
+    # convolutions (layers.quant_conv, kernel Q): eval only
+    quant_convs: bool = False
 
     @staticmethod
     def tiny() -> "UNetConfig":
@@ -94,9 +96,6 @@ class UNetConfig:
 class VideoUNet(nn.Module):
     def __init__(self, cfg: UNetConfig = UNetConfig()):
         super().__init__()
-        if cfg.quant_convs:
-            raise NotImplementedError(
-                "quant_convs (the JAX int8 eval path) is not ported")
         self.cfg = cfg
         mc = cfg.model_channels
         ted = mc * 4
@@ -115,7 +114,8 @@ class VideoUNet(nn.Module):
 
         def res(ch, out_ch):
             return VideoResBlock(ch, ted, out_ch, cfg.video_kernel_size,
-                                 cfg.merge_factor, cfg.merge_strategy)
+                                 cfg.merge_factor, cfg.merge_strategy,
+                                 quant_convs=cfg.quant_convs)
 
         self.input_blocks = nn.ModuleList([nn.ModuleList(
             [nn.Conv2d(cfg.in_channels, mc, 3, padding=1)])])
@@ -134,7 +134,8 @@ class VideoUNet(nn.Module):
                 self.input_blocks.append(nn.ModuleList(mods))
                 chans.append(ch)
             if level != len(cfg.channel_mult) - 1:
-                self.input_blocks.append(nn.ModuleList([Downsample(ch)]))
+                self.input_blocks.append(nn.ModuleList([Downsample(
+                    ch, quant_convs=cfg.quant_convs)]))
                 chans.append(ch)
                 ds *= 2
         self.middle_block = nn.ModuleList([res(ch, ch), attn(ch),
@@ -147,7 +148,7 @@ class VideoUNet(nn.Module):
                 if ds in cfg.attention_resolutions:
                     mods.append(attn(ch))
                 if level and i == cfg.num_res_blocks:
-                    mods.append(Upsample(ch))
+                    mods.append(Upsample(ch, quant_convs=cfg.quant_convs))
                     ds //= 2
                 self.output_blocks.append(nn.ModuleList(mods))
         self.out = nn.Sequential(nn.GroupNorm(32, ch), nn.SiLU(),
@@ -234,8 +235,8 @@ class VideoUNet(nn.Module):
                     h = block(m, h, emb, num_frames, frames)
                 elif isinstance(m, SpatialVideoTransformer):
                     h = block(m, h, context, num_frames, frames)
-                else:
-                    h = m(h)
+                else:                       # Downsample, Upsample
+                    h = m(h, frames)
             return h
 
         h = conv(x.permute(0, 3, 1, 2), self.input_blocks[0][0])

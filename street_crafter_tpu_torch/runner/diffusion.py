@@ -14,10 +14,19 @@ Novel views render directly at the diffusion resolution: the aspect crop
 and resize of the sample are folded into the camera's intrinsics
 (``diffusion_camera``), so no resampling op runs in the training loop.
 
-With a mesh (``sampling_mesh_from_cfg``: ``diffusion.shard_sample`` under
-torchrun), every window is sampled with its frames split over the mesh's
-``frames`` axis (``parallel/sample.py``); every rank gets the whole window
-and rank 0 alone writes files.
+With a mesh, the ranks of the mesh run the event together. The ranks that
+hold an engine sample: with ``shard_frames`` (``diffusion.shard_sample``
+with a ``frames`` axis, as ``sampling_mesh_from_cfg`` gives
+``runner.render`` and ``runner.train``'s hook gives the frames group of
+data index 0) each window with its frames split over the ``frames`` axis
+(``parallel/sample.py``), every sampling rank getting the whole window;
+else rank 0 alone. After each window its frames go from data index 0 to
+every rank (a broadcast along ``data``, or over every rank when rank 0
+sampled alone), so that every rank attaches bit-equal images: ranks that
+each sampled would train on different supervision (two valid bf16
+evaluations of the network differ by up to ~0.1). Every rank joins the
+condition barrier, with or without a processor; rank 0 alone writes
+files.
 
 ``EngineParamStore`` keeps the engine's weights in (pinned) host memory
 between sampling events and moves them to the card for one event, so that
@@ -194,29 +203,65 @@ class DiffusionRunner:
     {"rgb": [H, W, 3] tensor in [0, 1], ...}`` renders the current 3DGS
     at the diffusion resolution (the SDS init). ``scene`` (None in unit
     use) gives the processor that writes missing condition PNGs. With a
-    ``mesh`` each window samples frames-sharded over its ``frames`` axis
-    (``parallel.sample.sample_on_mesh``) and rank 0 alone writes."""
+    ``mesh``: ``engine`` None on a rank that does not sample (it takes
+    each window from the broadcast; ``sample_frames`` then gives the
+    window), ``shard_frames`` (default: the mesh has a ``frames`` axis)
+    samples each window frames-sharded over that axis
+    (``parallel.sample.sample_on_mesh``), and rank 0 alone writes."""
 
     def __init__(self, scene, engine, height: int = 576, width: int = 1024,
                  window_size: int = 4, num_steps: int | None = None,
                  cfg_scale: float | None = None,
                  save_dir: str | None = None, seed: int = SEED,
-                 mesh=None):
+                 mesh=None, sample_frames: int | None = None,
+                 shard_frames: bool | None = None):
+        if engine is None and mesh is None:
+            raise ValueError("a rank without an engine takes its windows "
+                             "from a mesh")
         self.scene = scene
         self.engine = engine
         self.th, self.tw = height, width
         self.window_size = window_size
-        self.sample_frames = engine.cfg.num_frames
+        self.sample_frames = (engine.cfg.num_frames if engine is not None
+                              else int(sample_frames))
         self.num_steps = num_steps
         self.cfg_scale = cfg_scale
         self.save_dir = save_dir
         self.seed = seed
         self.mesh = mesh
+        if shard_frames is None:
+            shard_frames = mesh is not None and mesh.size("frames") > 1
+        self.shard_frames = bool(shard_frames)
 
     @property
     def writes(self) -> bool:
         """This rank writes files (rank 0, or no mesh)."""
         return self.mesh is None or self.mesh.rank == 0
+
+    @property
+    def samples(self) -> bool:
+        """This rank samples the windows (it holds the engine)."""
+        return self.engine is not None
+
+    def _share(self, out: np.ndarray | None) -> np.ndarray:
+        """The window's frames from data index 0 on every rank of the
+        mesh: a broadcast along ``data`` (each frames index's data-0 rank
+        holds the whole window) when sampling frames-sharded, else over
+        every rank from rank 0. ``out``: this rank's sample, None on a
+        rank that did not sample."""
+        if self.mesh is None:
+            return out
+        shape = (self.sample_frames, self.th, self.tw, 3)
+        t = (torch.empty(shape, dtype=torch.float32) if out is None
+             else torch.from_numpy(np.ascontiguousarray(out, np.float32)))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"a window of {tuple(t.shape)}, expected "
+                             f"{shape}")
+        if self.mesh.backend == "nccl":
+            t = t.to(self.mesh.device)
+        self.mesh.broadcast_([t], src=0,
+                             axis="data" if self.shard_frames else None)
+        return t.cpu().numpy()
 
     def _sample(self, guide_images: np.ndarray, cond_images: np.ndarray,
                 render_images: torch.Tensor | None, sds_scale: float | None,
@@ -230,7 +275,7 @@ class DiffusionRunner:
                   cond_indices=cond_indices)
         guide = torch.from_numpy(guide_images).to(dev)
         cond = torch.from_numpy(cond_images).to(dev)
-        if self.mesh is not None:
+        if self.shard_frames:
             out = sample_on_mesh(self.engine, guide, cond, self.mesh, **kw)
         else:
             out = self.engine.sample(guide_images=guide, cond_image=cond,
@@ -238,11 +283,13 @@ class DiffusionRunner:
         return out.float().cpu().numpy()
 
     def _render_conditions(self, cameras: list[CameraInfo]) -> None:
-        """Write the missing condition PNGs (rank 0; the others wait)."""
-        if self.scene is None or self.scene.processor is None:
-            return
-        if self.writes:
-            self.scene.processor.render_conditions(
+        """Write the missing condition PNGs (rank 0, where it has the
+        scene's processor); every rank of the mesh then meets in a barrier,
+        whether or not it has a processor, so that no rank reads a PNG
+        before it is written and the collectives after it pair up."""
+        processor = None if self.scene is None else self.scene.processor
+        if self.writes and processor is not None:
+            processor.render_conditions(
                 cameras, self.scene.info.metadata["obj_meta"])
         if self.mesh is not None:
             self.mesh.barrier()
@@ -295,9 +342,10 @@ class DiffusionRunner:
             raise ValueError(f"not enough frames for sampling: {n} < {win}")
         step = win - self.window_size
 
-        guides = [self.load_guidance(c) for c in cameras]
+        guides = ([self.load_guidance(c) for c in cameras] if self.samples
+                  else None)
         renders = None
-        if render_fn is not None:
+        if render_fn is not None and self.samples:
             renders = [render_fn(c)["rgb"].float() * 2.0 - 1.0
                        for c in cameras]
 
@@ -309,18 +357,21 @@ class DiffusionRunner:
             cond_cam = train_cameras[
                 int(np.abs(train_frames - frames[start]).argmin())]
             self._render_conditions([cond_cam])
-            guide_seq = np.stack([self.load_guidance(cond_cam)]
-                                 + guides[start:end]).astype(np.float32)
-            cond_image = self.load_cond_image(cond_cam)[None].astype(
-                np.float32)
-            render_seq = None
-            if renders is not None:
-                dev = renders[0].device
-                render_seq = torch.cat([
-                    torch.from_numpy(cond_image).to(dev),
-                    torch.stack(renders[start:end])])
-            out = self._sample(guide_seq, cond_image, render_seq,
-                               scale if render_seq is not None else None)
+            out = None
+            if self.samples:
+                guide_seq = np.stack([self.load_guidance(cond_cam)]
+                                     + guides[start:end]).astype(np.float32)
+                cond_image = self.load_cond_image(cond_cam)[None].astype(
+                    np.float32)
+                render_seq = None
+                if renders is not None:
+                    dev = renders[0].device
+                    render_seq = torch.cat([
+                        torch.from_numpy(cond_image).to(dev),
+                        torch.stack(renders[start:end])])
+                out = self._sample(guide_seq, cond_image, render_seq,
+                                   scale if render_seq is not None else None)
+            out = self._share(out)
             result[start:end] = (out[1:] + 1.0) / 2.0
             filled[start:end] = True
         assert filled.all(), "not all frames were sampled"
@@ -343,7 +394,8 @@ class DiffusionRunner:
             raise ValueError(f"not enough frames: {n} < {T}")
         step = T - self.window_size
 
-        guides = [self.load_guidance(c) for c in cameras]
+        guides = ([self.load_guidance(c) for c in cameras] if self.samples
+                  else None)
         filled = np.zeros(n, bool)
         result = np.zeros((n, self.th, self.tw, 3), np.float32)
         for start in range(0, n, step):
@@ -353,11 +405,15 @@ class DiffusionRunner:
             cond_indices = tuple(
                 i for i, c in enumerate(window)
                 if c.metadata["frame"] in train_frames)
-            cond_images = np.stack(
-                [self.load_cond_image(window[i]) for i in cond_indices])
-            out = self._sample(np.stack(guides[start:end]).astype(np.float32),
-                               cond_images.astype(np.float32), None, None,
-                               cond_indices=cond_indices)
+            out = None
+            if self.samples:
+                cond_images = np.stack(
+                    [self.load_cond_image(window[i]) for i in cond_indices])
+                out = self._sample(
+                    np.stack(guides[start:end]).astype(np.float32),
+                    cond_images.astype(np.float32), None, None,
+                    cond_indices=cond_indices)
+            out = self._share(out)
             result[start:end] = (out + 1.0) / 2.0
             filled[start:end] = True
         assert filled.all(), "not all frames were sampled"

@@ -27,12 +27,18 @@ state (pools, Adam moments, the densify generator) stays bit-equal on
 every rank, which is checked after each densify. Rank 0 alone writes the
 condition PNGs, checkpoints, PLYs, eval images and logs; a checkpoint is
 the one-GPU format and resumes on any world size. Distillation
-(``diffusion.use_diffusion``) runs on one rank only (ROADMAP queue 1).
+(``diffusion.use_diffusion``) runs on every rank of the mesh: the ranks at
+data index 0 sample each event (rank 0 alone, or its frames group under
+``diffusion.shard_sample`` with ``mesh.axes.frames`` > 1), every other
+rank takes the windows from their broadcast, so every rank attaches
+bit-equal novel images and the loop draws the same cameras on each
+(``make_diffusion_hook``).
 
 CLI: python -m street_crafter_tpu_torch.runner.train --config scene.json \
     [k=v ...]
     torchrun --nproc_per_node 2 -m street_crafter_tpu_torch.runner.train \
-    --config scene.json train.batch_size=2
+    --config scene.json train.batch_size=2 [diffusion.use_diffusion=true] \
+    [diffusion.shard_sample=true mesh.axes.frames=F]
 """
 
 from __future__ import annotations
@@ -398,43 +404,81 @@ def make_lpips(cfg: Config, device) -> Callable | None:
         "optim.allow_missing_lpips=True to waive.")
 
 
-def make_diffusion_hook(cfg: Config) -> DiffusionHook:
+def sampling_ranks(cfg: Config, mesh: Mesh | None) -> tuple[bool, bool]:
+    """(this rank samples the events, the sample is frames-sharded): with a
+    mesh, the ranks at data index 0 sample: rank 0 alone, or its frames
+    group when ``diffusion.shard_sample`` is set and the mesh has a
+    ``frames`` axis."""
+    if mesh is None:
+        return True, False
+    shard = (bool(cfg.diffusion.get("shard_sample", False))
+             and mesh.size("frames") > 1)
+    samples = mesh.coord("data") == 0 and (shard
+                                           or mesh.coord("frames") == 0)
+    return samples, shard
+
+
+def make_diffusion_hook(cfg: Config, mesh: Mesh | None = None
+                        ) -> DiffusionHook:
     """The sampling event: the VDM engine of ``cfg.diffusion`` (built once;
     its weights rest on the host between events under
     ``diffusion.params_on_host``) and a ``DiffusionRunner`` over the novel
     trajectories, SDS-initialised from the current 3DGS render at the
-    diffusion resolution. ``hook.param_store`` is the weights' store."""
+    diffusion resolution. ``hook.param_store`` is the weights' store
+    (None on a rank that does not sample).
+
+    With the trainer's ``mesh`` (several ranks) every rank enters the
+    hook at the same iterations. Only the ranks at data index 0 sample
+    (``sampling_ranks``): they alone build the engine and its store and
+    render the SDS start (from the replicated state, with no collective);
+    every other rank holds no engine. Every collective inside an event is
+    entered by exactly the ranks of its group, in the same order: the
+    condition barrier (every rank, before the trajectory and before each
+    window), the frames-sharded sample's exchanges (the sampling frames
+    group, within each window), the window's broadcast (along ``data``
+    when frames-sharded, else every rank). That is the whole design: a
+    rank that skipped one would pair its next collective with another's."""
     from .diffusion import (DiffusionRunner, EngineParamStore,
                             resolve_params_on_host)
     from .vdm_sample import build_engine
     d = cfg.diffusion
-    engine = build_engine(cfg, int(d.sample_frames))
-    store = EngineParamStore(engine,
-                             resolve_params_on_host(d, engine.device))
+    samples, shard = sampling_ranks(cfg, mesh)
+    engine = store = None
+    if samples:
+        engine = build_engine(cfg, int(d.sample_frames))
+        store = EngineParamStore(engine,
+                                 resolve_params_on_host(d, engine.device))
 
     def hook(trainer: GSTrainer, iteration: int, scale: float) -> None:
         scene = trainer.scene
-        eval_render = trainer.eval_render_fn(trainer.active_sh(iteration))
+        render_fn = None
+        if samples:
+            eval_render = trainer.eval_render_fn(
+                trainer.active_sh(iteration))
 
-        def render_fn(info):
-            return eval_render(trainer.state.params,
-                               trainer.novel_camera(info),
-                               scene.batch_for(info))
+            def render_fn(info):
+                return eval_render(trainer.state.params,
+                                   trainer.novel_camera(info),
+                                   scene.batch_for(info))
 
         try:
             runner = DiffusionRunner(
-                scene, store.acquire(), height=d.height, width=d.width,
+                scene, store.acquire() if samples else None,
+                height=d.height, width=d.width,
                 window_size=d.window_size, num_steps=d.num_steps,
                 cfg_scale=d.cfg_scale,
                 save_dir=os.path.join(scene.model_path, "diffusion")
-                if d.save_diffusion_render else None)
+                if d.save_diffusion_render else None, mesh=mesh,
+                sample_frames=int(d.sample_frames), shard_frames=shard)
             runner.run(scene.info.novel_view_cameras,
                        scene.info.train_cameras, render_fn=render_fn,
                        scale=scale)
         finally:
-            store.release()
+            if samples:
+                store.release()
 
     hook.param_store = store
+    hook.samples = samples
     return hook
 
 
@@ -470,11 +514,6 @@ def train(cfg: Config, diffusion_hook: DiffusionHook | None = None,
     if int(cfg.train.get("batch_size", 1)) % mesh.size("data"):
         raise ValueError(f"train.batch_size {cfg.train.batch_size} does not "
                          f"split over {mesh.size('data')} data ranks")
-    if world > 1 and cfg.diffusion.use_diffusion:
-        raise NotImplementedError(
-            "diffusion.use_diffusion on several ranks: the sampling events "
-            "of data-parallel distillation are not ported (ROADMAP queue 1, "
-            "item 24b's rest); train on one rank")
     if world > 1:
         scene = create_replicated_scene(cfg, mesh)
     else:
@@ -484,7 +523,8 @@ def train(cfg: Config, diffusion_hook: DiffusionHook | None = None,
         backup_code(scene.model_path)
         save_config(cfg, os.path.join(scene.model_path, "config.json"))
     if diffusion_hook is None and cfg.diffusion.use_diffusion:
-        diffusion_hook = make_diffusion_hook(cfg)
+        diffusion_hook = make_diffusion_hook(cfg,
+                                             mesh if world > 1 else None)
     if lpips_fn is None:
         lpips_fn = make_lpips(cfg, scene.device)
     trainer = GSTrainer(cfg, scene, lpips_fn=lpips_fn,

@@ -945,3 +945,70 @@ def test_x2_kernel_matches_plain(cuda, shape):
     assert torch.equal(out, KS.x2_reference(x))
     with pytest.raises(ValueError, match="contiguous"):
         KS.x2(x.reshape(-1)[::2] if x.numel() > 1 else x.expand(2))
+
+
+# -- kernel Q: the W8A8 int8 convolution ------------------------------------
+
+Q_CASES = [  # N, C, O, H, W, stride, channels-last, dtype
+    (2, 5, 6, 7, 9, 1, False, torch.float32),
+    (3, 37, 13, 9, 11, 2, True, torch.float32),
+    (2, 64, 130, 17, 33, 1, True, torch.bfloat16),
+    (1, 300, 40, 8, 8, 2, False, torch.bfloat16),
+    (4, 320, 320, 18, 32, 1, True, torch.bfloat16),
+    (2, 960, 640, 9, 16, 1, False, torch.bfloat16),
+    (2, 1280, 1280, 9, 16, 2, True, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("N,C,O,H,W,stride,nhwc,dtype", Q_CASES)
+def test_int8_conv_matches_plain(cuda, N, C, O, H, W, stride, nhwc, dtype):
+    """Kernel Q (csrc/int8_conv.cu) against its plain version on the card:
+    the int32 products and both scales exactly equal (integer sums, the
+    same float32 scale arithmetic), the outputs bit-equal in float32 and
+    within 1 ulp in bf16 (the epilogue's multiply and add kept apart, as
+    in the plain version). Odd sizes and channel counts that are not a
+    multiple of the kernel's 32-channel slice cross every tile edge; NCHW
+    and channels-last inputs, each kept in the output."""
+    from street_crafter_tpu_torch.ops import int8_conv as Q
+    g = torch.Generator(device=cuda).manual_seed(C + O)
+    x = (3 * torch.randn((N, C, H, W), generator=g, device=cuda)).to(dtype)
+    if nhwc:
+        x = x.contiguous(memory_format=torch.channels_last)
+    w = (torch.randn((O, C, 3, 3), generator=g, device=cuda)
+         / (9 * C) ** 0.5).to(dtype)
+    b = (0.1 * torch.randn((O,), generator=g, device=cuda)).to(dtype)
+    Q.reset_launch_counts()
+    with torch.no_grad():
+        prod, xs, ws = Q.int8_products(x, w, stride)
+        out = Q.int8_conv2d(x, w, b, stride)
+    torch.cuda.synchronize()
+    assert Q.launches == {"int8_absmax": 2, "int8_quantize": 2,
+                          "int8_weight_quant": 2, "int8_conv": 2}
+    pref, xsr, wsr = Q.int8_products_reference(x, w, stride)
+    assert torch.equal(xs, xsr) and torch.equal(ws, wsr)
+    assert torch.equal(prod, pref)
+    ref = Q.int8_conv2d_reference(x, w, b, stride)
+    assert out.dtype == ref.dtype == dtype and out.shape == ref.shape
+    assert out.is_contiguous(memory_format=torch.channels_last if nhwc
+                             else torch.contiguous_format)
+    if dtype == torch.float32:
+        assert torch.equal(out, ref)
+    else:
+        a = out.contiguous().view(torch.int16).int()
+        r = ref.contiguous().view(torch.int16).int()
+        a = torch.where(a < 0, -32768 - a, a)
+        r = torch.where(r < 0, -32768 - r, r)
+        assert int((a - r).abs().max()) <= 1
+
+
+def test_int8_conv_checks_inputs(cuda):
+    from street_crafter_tpu_torch.ops import int8_conv as Q
+    x = torch.randn(1, 8, 4, 4, device=cuda)
+    w = torch.randn(8, 8, 3, 3, device=cuda)
+    with pytest.raises(ValueError, match="stride"):
+        Q.int8_conv2d(x, w, None, 3)
+    with pytest.raises(ValueError, match="3x3"):
+        Q.int8_conv2d(x, w[:, :4], None)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        Q.int8_conv2d(x.half(), w.half(), None)
+    with pytest.raises(RuntimeError, match="eval-only"):
+        Q.int8_conv2d(x.requires_grad_(), w, None)

@@ -89,8 +89,8 @@ def distilled(tmp_path_factory):
     events = []
     hook = T.make_diffusion_hook
 
-    def counting_hook(c):
-        h = hook(c)
+    def counting_hook(c, *mesh):
+        h = hook(c, *mesh)
 
         def wrapped(trainer, iteration, scale):
             events.append((iteration, scale))

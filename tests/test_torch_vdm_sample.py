@@ -130,9 +130,19 @@ def test_engine_from_config_and_unported_options():
     assert PW.engine_from_config(dcfg, training=True).unet.fused_temporal \
         is False
     assert PW.engine_from_config(dcfg).unet.dtype == "bfloat16"
+    from street_crafter_tpu_torch.models.vdm.layers import Downsample
     from street_crafter_tpu_torch.models.vdm.unet import UNetConfig, VideoUNet
-    with torch.device("meta"), pytest.raises(NotImplementedError):
-        VideoUNet(dataclasses.replace(UNetConfig.tiny(), quant_convs=True))
+    # quant_convs (the W8A8 eval path) builds, reached through UNetConfig
+    # alone: engine_from_config never sets it
+    assert PW.engine_from_config(dcfg).unet.quant_convs is False
+    with torch.device("meta"):
+        unet = VideoUNet(dataclasses.replace(UNetConfig.tiny(),
+                                             quant_convs=True))
+    assert unet.cfg.quant_convs
+    assert isinstance(unet.input_blocks[3][0], Downsample)
+    assert unet.input_blocks[3][0].quant_convs
+    assert unet.input_blocks[1][0].quant_convs
+    assert not unet.input_blocks[1][0].time_stack.quant_convs
 
 
 # ----------------------------------------------------------- checkpoints

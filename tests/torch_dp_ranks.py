@@ -231,3 +231,165 @@ def batch_render(mesh, params: dict, cams: list) -> dict:
     out = make_sharded_renderer(mesh, w, h, sh_degree=1)(p, None, batch)
     return {k: v.numpy() for k, v in out.items()} | {
         "counts": dict(G.launches)}
+
+
+# -- distillation on several ranks ------------------------------------------
+
+def distill_loop(mesh, cfg: dict, meta: dict, state0: dict, lp: dict,
+                 novel: list) -> dict:
+    """The GS loop with one sampling event whose stand-in hook attaches
+    ``novel`` (numpy images) to the novel views, from the train state
+    ``state0`` (numpy) with the scene meta ``meta`` (numpy), on this rank
+    of ``mesh`` (one process: None). The scene as ``runner.train`` builds
+    it on several ranks (rank 0 first, then the others without a
+    processor). Returns the drawn cameras (the first of each step and the
+    whole batch), the losses (rank 0), each event's images and the
+    state."""
+    from street_crafter_tpu_torch.config import Config
+    from street_crafter_tpu_torch.models.gs.convert import (
+        meta_from_dict, train_state_from_dict, train_state_to_numpy)
+    from street_crafter_tpu_torch.ops.lpips import lpips_distance
+    from street_crafter_tpu_torch.runner import create_scene
+    from street_crafter_tpu_torch.runner.train import GSTrainer
+    cfg = Config(cfg)
+    if mesh is None or mesh.rank == 0:
+        scene = create_scene(cfg)
+    if mesh is not None:
+        mesh.barrier()
+        if mesh.rank != 0:
+            scene = create_scene(cfg, need_processor=False)
+    scene.meta = meta_from_dict(meta)
+    trainer = GSTrainer(cfg, scene, lpips_fn=lambda a, b: lpips_distance(
+        lp, a, b), mesh=mesh)
+    trainer.state = train_state_from_dict(state0)
+    picks, batches, losses = [], [], []
+    pick, fill = trainer.pick_camera, trainer.fill_camera_batch
+
+    def recorded_pick(pool):
+        info, is_novel = pick(pool)
+        picks.append((is_novel, info.image_name))
+        return info, is_novel
+
+    def recorded_fill(info, is_novel, pool):
+        infos = fill(info, is_novel, pool)
+        batches.append([i.image_name for i in infos])
+        return infos
+    trainer.pick_camera = recorded_pick
+    trainer.fill_camera_batch = recorded_fill
+
+    def stand_in_hook(tr, iteration, scale):
+        for info, img in zip(tr.scene.info.novel_view_cameras, novel):
+            info._image = img
+            info.metadata["diffusion_version"] = \
+                info.metadata.get("diffusion_version", 0) + 1
+
+    trainer.run(diffusion_hook=stand_in_hook,
+                log_fn=lambda it, vals: losses.append(vals["loss"]))
+    return {"picks": picks, "batches": batches, "losses": losses,
+            "state": train_state_to_numpy(trainer.state)}
+
+
+def distill_main(mesh, path: str, opts: list, resume_opts: list | None
+                 ) -> dict:
+    """``runner.train.main`` with the diffusion hook on this rank (one
+    process: ``mesh`` None), then, with ``resume_opts``, rank 0 removes
+    the last checkpoint and every rank resumes. Per run: the sampling
+    events, the novel images and their versions, the state, the engines
+    this rank built, whether its hook samples, and the diffusion PNGs and
+    condition renders this rank wrote."""
+    import os
+    import shutil
+
+    from street_crafter_tpu_torch.data_processor import pointcloud as PC
+    from street_crafter_tpu_torch.models.gs.convert import \
+        train_state_to_numpy
+    from street_crafter_tpu_torch.runner import diffusion as DR
+    from street_crafter_tpu_torch.runner import train as T
+    from street_crafter_tpu_torch.runner import vdm_sample as VS
+    from street_crafter_tpu_torch.utils.checkpoint import checkpoint_dir
+    log = {"engines": 0, "pngs": 0, "conditions": 0}
+    events, samples = [], []
+    build, save, splat = VS.build_engine, DR.save_image, \
+        PC.PointCloudProcessor._splat
+    make = T.make_diffusion_hook
+
+    def counted(key, fn):
+        def call(*a, **kw):
+            log[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    def counting_hook(cfg, *m):
+        hook = make(cfg, *m)
+        samples.append(hook.samples)
+
+        def event(trainer, iteration, scale):
+            events.append(iteration)
+            hook(trainer, iteration, scale)
+        return event
+
+    def run(args):
+        events.clear()
+        trainer = T.main(["--config", path, *args])
+        novel = trainer.scene.info.novel_view_cameras
+        return {"events": list(events),
+                "images": [c._image for c in novel],
+                "versions": [c.metadata.get("diffusion_version", 0)
+                             for c in novel],
+                "start_iter": trainer.start_iter,
+                "state": train_state_to_numpy(trainer.state),
+                "model_path": trainer.scene.model_path}
+
+    VS.build_engine = counted("engines", build)
+    DR.save_image = counted("pngs", save)
+    PC.PointCloudProcessor._splat = counted("conditions", splat)
+    T.make_diffusion_hook = counting_hook
+    try:
+        out = {"first": run(opts)}
+        out["first_log"] = dict(log)
+        if resume_opts is not None:
+            if mesh is None or mesh.rank == 0:
+                it = int(out["first"]["state"]["step"])
+                shutil.rmtree(checkpoint_dir(out["first"]["model_path"], it))
+            if mesh is not None:
+                mesh.barrier()
+            out["resumed"] = run(resume_opts)
+    finally:
+        VS.build_engine, DR.save_image = build, save
+        PC.PointCloudProcessor._splat = splat
+        T.make_diffusion_hook = make
+    out.update(log=log, samples=samples,
+               rank=0 if mesh is None else mesh.rank,
+               files=sorted(os.listdir(os.path.join(
+                   out["first"]["model_path"], "diffusion"))))
+    return out
+
+
+def condition_barrier(mesh, root: str) -> dict:
+    """``DiffusionRunner._render_conditions`` on every rank, rank 0 alone
+    with a processor (whose render takes a second and writes a file),
+    then an all-reduce: whether the file was there when the call returned,
+    and the sum."""
+    import os
+    import time
+    import types
+
+    from street_crafter_tpu_torch.runner.diffusion import DiffusionRunner
+    path = os.path.join(root, "condition.png")
+
+    class Processor:
+        def render_conditions(self, cameras, objects_info):
+            time.sleep(1.0)
+            with open(path, "w") as f:
+                f.write("png")
+
+    scene = types.SimpleNamespace(
+        processor=Processor() if mesh.rank == 0 else None,
+        info=types.SimpleNamespace(metadata={"obj_meta": []}))
+    engine = types.SimpleNamespace(cfg=types.SimpleNamespace(num_frames=4))
+    runner = DiffusionRunner(scene, engine, mesh=mesh)
+    runner._render_conditions([])
+    seen = os.path.exists(path)
+    total = torch.tensor([float(mesh.rank + 1)])
+    mesh.all_reduce_([total])
+    return {"seen": seen, "sum": float(total)}

@@ -351,3 +351,49 @@ def vdm_sp_steps(mesh, spec: dict | None, mode: str, policy: str, sd: dict,
     return {"losses": losses, "state": R.vdm_state_numpy(tr.whole_state()),
             "module": {n: p.detach().numpy().copy()
                        for n, p in tr.params.items()}}
+
+
+# -- the W8A8 eval UNet -------------------------------------------------------
+
+def quant_unet(mesh, spec: dict | None, sd: dict, inputs: dict,
+               T: int) -> dict:
+    """The tiny UNet with ``quant_convs`` (f32 weights, no gradients) on
+    ``spec``'s frames (one process: ``mesh`` and ``spec`` None): its output,
+    the input of every quantized convolution (as it reaches the int8
+    convolution, this rank's frames) and the launches of ``ops.int8_conv``.
+    ``inputs`` as ``layer_cases``' (a ("per_clip", array) pair is not
+    split)."""
+    import dataclasses
+
+    from street_crafter_tpu_torch.models.vdm.unet import (UNetConfig,
+                                                          VideoUNet)
+    from street_crafter_tpu_torch.ops import int8_conv as Q
+    from street_crafter_tpu_torch.parallel.sequence import frames_shard
+    fs = frames_shard(_mesh(spec), T) if spec is not None else None
+    L = T if fs is None else fs.local
+    unet = VideoUNet(dataclasses.replace(UNetConfig.tiny(),
+                                         quant_convs=True))
+    unet.load_state_dict({k: torch.tensor(v) for k, v in sd.items()})
+    ins = {}
+    for k, v in inputs.items():
+        if isinstance(v, tuple):
+            ins[k] = torch.tensor(v[1])
+        else:
+            ins[k] = torch.tensor(v) if fs is None else _frames_rows(v, T, fs)
+    seen = []
+    products = Q.int8_products_reference
+
+    def record(x, *args, **kw):
+        seen.append(_np(x))
+        return products(x, *args, **kw)
+    Q.int8_products_reference = record
+    Q.reset_launch_counts()
+    try:
+        with torch.no_grad():
+            out = unet(ins["x"], ins["t"], ins["ctx"], ins["y"],
+                       num_frames=L, cond_mask=ins["cm"],
+                       guidance_input=ins["g"], guidance_scale=ins["gs"],
+                       frames=fs)
+    finally:
+        Q.int8_products_reference = products
+    return {"out": _np(out), "inputs": seen, "launches": dict(Q.launches)}
