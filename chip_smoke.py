@@ -7,7 +7,10 @@ Phases, one status line each; any failure raises (exit code != 0):
   1. card name and power limit; build every kernel source of
      street_crafter_tpu_torch/csrc with nvcc for sm_90a, in parallel, and
      print each kernel's registers and spill bytes from ptxas's report,
-     with any wgmma serialisation it notes;
+     with any wgmma serialisation it notes; then start phases 3's, 9's,
+     16's and 17's data (images, LiDAR and condition PNGs: host work
+     only) in spawned processes of their own (prefetch_data), so that the
+     phases before each run on the card meanwhile;
   2. each kernel against its plain torch version on the card: 50k splats of
      a trained-like scene at 384x256, and a scene with splats wider than
      200 px. Kernel A's worklist (its tile order included) must equal the
@@ -38,7 +41,8 @@ Phases, one status line each; any failure raises (exit code != 0):
      of the headline frame: the times of A, the pack, B (eval and training
      forms) and C (CUDA events over back-to-back calls; the pack, B and C
      also replayed as a CUDA graph, and A's part after its host
-     synchronisation), their plain versions' (one call), one
+     synchronisation), their plain versions' (one call: for B and C the
+     call that phases 4 and 5 compare, timed), one
      torch.sort(stable=True) of A's pairs' 64-bit keys (A's yardstick,
      timed only), the tile-list lengths (median, p99, max) and the
      pixel-splat pairs in the lists, left by the per-warp cull, in the
@@ -286,14 +290,18 @@ Phases, one status line each; any failure raises (exit code != 0):
      phase 9's seeded weights, one CFG eval (2 x 25 frames at 72x128)
      against the bf16 eval of the same weights: exactly 50 launches of
      kernel Q (csrc/int8_conv.cu: absmax, quantize, weight quantization,
-     the int8 mma.sync implicit GEMM) and 15 / 5 / 11 of D / E / F, no
+     the int8 wgmma implicit GEMM fed by TMA) and 15 / 5 / 11 of D / E /
+     F, no
      plain version, the per-frame PSNR (min, median, above Q_PSNR_FLOOR)
      and each eval's median of 3; then Q at each distinct shape that eval
      gave it against its plain version (int32 products and scales exactly
      equal, bf16 outputs within 1 ulp), timed beside its bound (int8
      operations at 1,979 TOPS or bytes), the plain version, F.conv2d in
      bf16 and torch._int_mm on the int8 im2col (its products checked
-     equal too). The kernels line gains Q with its shapes.
+     equal too), and split by launch (q_split: CUDA events around each of
+     the four launches, the call enqueued behind a spin kernel; the
+     wrapper's host time). The kernels line gains Q with its shapes and
+     the eval's sums.
 Kernel builds, launches and comparisons raise on failure; no phase catches
 its own. TF32 is off for matmuls and cuDNN convolutions throughout.
 The last three lines: the card's name and power limit, a JSON object of
@@ -302,6 +310,7 @@ per-kernel results, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import os
@@ -383,6 +392,15 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def once_ms(fn) -> tuple:
+    """``fn``'s result and the device-clock ms of that one call
+    (``cuda_ms(fn, 1, warmup=0)``): a plain version that takes seconds is
+    compared and timed in the same call."""
+    out = []
+    ms = cuda_ms(lambda: out.append(fn()), 1, warmup=0)
+    return out[0], ms
+
+
 def check_worklist(wl, ref, label: str) -> None:
     """Kernel A's worklist bit-equal to the plain one, tile order included."""
     import torch
@@ -407,8 +425,8 @@ def compare(G, args: dict, label: str, phase: int) -> dict:
     comp = {k: args[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
                                  "colors", "opacities", "width", "height")}
     col, alpha = G.composite(wl, **comp)
-    col_ref, alpha_ref = G.composite_reference(wl, **comp)
-    torch.cuda.synchronize()
+    (col_ref, alpha_ref), plain_ms = once_ms(
+        lambda: G.composite_reference(wl, **comp))
     C = args["colors"].shape[1]
     n = 3 if C == 4 else C       # C = 4 is rgb + depth, the main path's
     err_rgb = float((col[..., :n] - col_ref[..., :n]).abs().max())
@@ -435,7 +453,8 @@ def compare(G, args: dict, label: str, phase: int) -> dict:
         raise AssertionError(f"{label}: kernel B disagrees with the plain "
                              f"composite")
     return {"pairs": wl.n_pairs, "worklist_err": 0,
-            "composite_err": max(err_rgb, err_alpha)}
+            "composite_err": max(err_rgb, err_alpha),
+            "plain_ms": plain_ms}
 
 
 def raster_args(flat, w2c, K, width: int, height: int) -> dict:
@@ -492,17 +511,51 @@ def heavy_pool_in_camera(c2w: np.ndarray, device, n: int = N_HEAVY):
     return GaussianPool(**arrays)
 
 
-def build_main_path_scene(tmp: str, dev):
-    """Synthetic 1920x1280 scene (4 frames, cameras 0-2) under ``tmp``, the
-    port's scene init, the 600k pool as background and an iteration-0
-    checkpoint. Returns (config, path of its JSON file)."""
-    from street_crafter_tpu_torch.config import default_config, save_config
+def gs_scene(tmp: str) -> str:
+    """Phases 3's and 17's data: the synthetic 1920x1280 scene (4 frames,
+    cameras 0-2). Returns its path."""
     from street_crafter_tpu_torch.datasets.synthetic import make_scene
+    return make_scene(tmp, num_frames=4, img_hw=(1280, 1920))
+
+
+def prefetch_data(tmp: str) -> dict:
+    """Phases 3's, 9's, 16's and 17's data (host work only: images, LiDAR
+    and condition PNGs), each made under ``tmp`` in a spawned process of
+    its own while the phases before it run on the card. Returns {phase:
+    future of the data's path}; the processes and ``tmp`` are removed at
+    exit."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    makers = {3: gs_scene, 9: vdm_clip_root, 16: distill_scene,
+              17: gs_scene}
+    pool = ProcessPoolExecutor(len(makers), mp_context=multiprocessing
+                               .get_context("spawn"))
+    atexit.register(shutil.rmtree, tmp, True)
+    atexit.register(pool.shutdown, True, cancel_futures=True)
+    return {phase: pool.submit(make, os.path.join(tmp, str(phase)))
+            for phase, make in makers.items()}
+
+
+def prefetched(future, phase: int) -> str:
+    """The path of a phase's data from ``prefetch_data``, and how long the
+    phase waited for it."""
+    t0 = time.perf_counter()
+    path = future.result()
+    log(f"[{phase}] data made in a spawned process beside the earlier "
+        f"phases; waited {time.perf_counter() - t0:.1f} s for it")
+    return path
+
+
+def build_main_path_scene(tmp: str, dev, source):
+    """Phase 3's scene (``gs_scene``, from ``prefetch_data``), the port's
+    scene init, the 600k pool as background and an iteration-0
+    checkpoint under ``tmp``. Returns (config, path of its JSON file)."""
+    from street_crafter_tpu_torch.config import default_config, save_config
     from street_crafter_tpu_torch.runner import create_scene
     from street_crafter_tpu_torch.utils.checkpoint import save_checkpoint
     t0 = time.perf_counter()
     cfg = default_config()
-    cfg.source_path = make_scene(tmp, num_frames=4, img_hw=(1280, 1920))
+    cfg.source_path = prefetched(source, 3)
     cfg.model_path = os.path.join(tmp, "model")
     cfg.device = "cuda"
     cfg.data.cameras = [0, 1, 2]
@@ -581,7 +634,8 @@ def compare_backward(G, args: dict, label: str, seed: int,
             raise AssertionError(f"{label}: kernel B on shared records "
                                  f"differs from kernel B packing its own")
         del own
-    ref = G.composite_reference(wl, **comp, train=True)
+    ref, plain_fwd_ms = once_ms(
+        lambda: G.composite_reference(wl, **comp, train=True))
     if not torch.equal(last, ref[3]):
         raise AssertionError(f"{label}: kernel B's last index differs")
     err_T = float((final_T - ref[2]).abs().max())
@@ -596,9 +650,8 @@ def compare_backward(G, args: dict, label: str, seed: int,
     state = dict(final_T=final_T, last=last, grad_colors=gcol,
                  grad_alpha=gal)
     got = G.composite_backward(wl, **comp, **state, records=rec)
-    want = G.composite_backward_reference(wl, **comp, grad_colors=gcol,
-                                          grad_alpha=gal)
-    torch.cuda.synchronize()
+    want, plain_bwd_ms = once_ms(lambda: G.composite_backward_reference(
+        wl, **comp, grad_colors=gcol, grad_alpha=gal))
     fields = {"u": G.GRAD_U, "v": G.GRAD_V, "a": G.GRAD_A, "b": G.GRAD_B,
               "c": G.GRAD_C, "opacity": G.GRAD_OPACITY,
               "absgrad": G.GRAD_ABS, "colors": slice(G.GRAD_COLORS, None)}
@@ -625,7 +678,9 @@ def compare_backward(G, args: dict, label: str, seed: int,
                              f"backward")
     return {"wl": wl, "comp": comp, "state": state, "err": worst_abs,
             "records": rec, "prefix": int(last.sum()),
-            "pixels": last.numel(), "grads": (got, want)}
+            "pixels": last.numel(), "grads": (got, want),
+            "plain_ms": {"composite (train)": plain_fwd_ms,
+                         "composite_backward": plain_bwd_ms}}
 
 
 def grad_errors(got, want) -> dict:
@@ -777,8 +832,9 @@ def headline_pass(G, args: dict, label: str, gpu: str) -> dict:
     records packed once (phase 4's and 5's limits); each kernel's time
     (CUDA events, mean of back-to-back calls; the pack, B and C also
     replayed as a CUDA graph, and A's part after its host synchronisation)
-    and its plain version's (one call); torch.sort of A's keys; the
-    tile-list lengths and the pixel-splat pair counts."""
+    and its plain version's (one call: for B and C the comparison's own);
+    torch.sort of A's keys; the tile-list lengths and the pixel-splat pair
+    counts."""
     import torch
     from street_crafter_tpu_torch.scripts.worklist_split import emission_keys
     stats = compare(G, args, label, 4)
@@ -786,26 +842,28 @@ def headline_pass(G, args: dict, label: str, gpu: str) -> dict:
     geo, comp = split_args(args)
     wl, rec = head["wl"], head["records"]
     bwd = dict(head["comp"], **head["state"])
-    cot = {k: bwd[k] for k in ("grad_colors", "grad_alpha")}
     pack = [comp[k] for k in ("u", "v", "conic_a", "conic_b", "conic_c",
                               "colors", "opacities")]
-    runs = {  # kernel, plain version, kernel calls, plain calls
+    # kernel, plain version (or the comparison's one timed call of it),
+    # kernel calls, plain calls
+    plain_ms = dict(head["plain_ms"], composite=stats["plain_ms"])
+    runs = {
         "tile_worklist": (lambda: G.tile_worklist(**geo),
                           lambda: G.tile_worklist_reference(**geo), 10, 3),
         "pair_records": (lambda: G.pair_records(wl, *pack),
                          lambda: G.pair_records_reference(wl, *pack), 20, 1),
-        "composite": (lambda: G.composite(wl, **comp, records=rec),
-                      lambda: G.composite_reference(wl, **comp), 20, 1),
+        "composite": (lambda: G.composite(wl, **comp, records=rec), None,
+                      20, 1),
         "composite (train)": (
-            lambda: G.composite(wl, **comp, train=True, records=rec),
-            lambda: G.composite_reference(wl, **comp, train=True), 20, 1),
+            lambda: G.composite(wl, **comp, train=True, records=rec), None,
+            20, 1),
         "composite_backward": (
-            lambda: G.composite_backward(wl, **bwd, records=rec),
-            lambda: G.composite_backward_reference(wl, **comp, **cot), 20,
+            lambda: G.composite_backward(wl, **bwd, records=rec), None, 20,
             1)}
     times, graphs = {}, {}
     for name, (kern, plain, reps, plain_reps) in runs.items():
         times[name] = (cuda_ms(kern, reps),
+                       plain_ms[name] if plain is None else
                        cuda_ms(plain, plain_reps,
                                warmup=1 if plain_reps > 1 else 0))
         if name == "tile_worklist":
@@ -1181,6 +1239,11 @@ def phase7_inputs(cfg, dev) -> tuple:
     return scene, params, cam, batch, train_config(cfg.clone())
 
 
+# GS train steps under torch.profiler for the device-busy share (phases 7
+# and 17): its trace of ~12,000 kernels a step takes seconds to read
+BUSY_STEPS = 1
+
+
 def step_time(G, cfg, dev, gpu: str) -> dict:
     """Phase 7: the trainer's own train step on the 600k pool. Returns
     the step's numbers (phase 17 prints its split beside them)."""
@@ -1200,13 +1263,14 @@ def step_time(G, cfg, dev, gpu: str) -> dict:
         + f"; whole step with the syncs {res['whole']:.2f}")
     one = res.pop("one")
 
-    busy, wall, n, top = busy_share(lambda: [one() for _ in range(3)])
+    busy, wall, n, top = busy_share(
+        lambda: [one() for _ in range(BUSY_STEPS)])
     if not n:
         log("[7] torch.profiler recorded no device kernels: busy share not "
             "measured")
         return res
     res["busy_share"] = busy / wall
-    log(f"[7] torch.profiler over 3 steps: {n} device kernels, "
+    log(f"[7] torch.profiler over {BUSY_STEPS} step(s): {n} device kernels, "
         f"{busy:.2f} ms busy of {wall:.2f} ms wall: device busy "
         f"{100 * busy / wall:.1f}%, idle "
         f"{100 - 100 * busy / wall:.1f}%; by kernel (ms, launches): "
@@ -1403,10 +1467,11 @@ def vdm_clip_root(tmp: str) -> str:
     return root
 
 
-def vdm_main_path(tmp: str, gpu: str) -> tuple[dict, str, float]:
-    """Phase 9: runner.vdm_sample.main at full width, seeded random weights
-    with the zero-initialised output layers perturbed, VDM_STEPS Euler
-    steps. Returns (launch counts, config path, peak GiB)."""
+def vdm_main_path(tmp: str, gpu: str, data) -> tuple[dict, str, float]:
+    """Phase 9: runner.vdm_sample.main at full width on ``vdm_clip_root``'s
+    data (``data``: its future from ``prefetch_data``), seeded random
+    weights with the zero-initialised output layers perturbed, VDM_STEPS
+    Euler steps. Returns (launch counts, config path, peak GiB)."""
     import torch
     from street_crafter_tpu_torch.models.vdm.engine import \
         VideoDiffusionEngine
@@ -1414,10 +1479,9 @@ def vdm_main_path(tmp: str, gpu: str) -> tuple[dict, str, float]:
     from street_crafter_tpu_torch.ops import temporal_block as TB
     from street_crafter_tpu_torch.runner import vdm_sample as VS
     from street_crafter_tpu_torch.utils.png import read_png
-    t0 = time.perf_counter()
-    root = vdm_clip_root(tmp)
-    log(f"[9] data: 26 frames at 1920x1280 + condition renders + "
-        f"meta_info_val.json in {time.perf_counter() - t0:.1f} s")
+    root = prefetched(data, 9)
+    log("[9] data: 26 frames at 1920x1280 + condition renders + "
+        "meta_info_val.json")
     cfg = {"device": "cuda", "model_path": os.path.join(tmp, "vdm_out"),
            "diffusion": {"tiny": False, "num_steps": VDM_STEPS,
                          "ckpt_path": "", "init_zero_layers_std": 1.0},
@@ -1973,9 +2037,11 @@ def vdm_train_config(tmp: str, root: str, steps: int) -> str:
     return path
 
 
-def vdm_train_main_path(tmp: str, gpu: str) -> tuple[dict, dict]:
-    """Phase 12: runner.vdm_train.main at full width, TRAIN_STEPS steps with
-    a checkpoint, one step resumed from it, the EMA export loaded back.
+def vdm_train_main_path(tmp: str, root: str, gpu: str
+                        ) -> tuple[dict, dict]:
+    """Phase 12: runner.vdm_train.main at full width on phase 9's data
+    (``root``), TRAIN_STEPS steps with a checkpoint, one step resumed from
+    it, the EMA export loaded back.
     Returns (the launch counts of both runs, {"trainer": the resumed
     trainer, "config": its config path, "peak_gib", "step_s"})."""
     import gc
@@ -1988,7 +2054,6 @@ def vdm_train_main_path(tmp: str, gpu: str) -> tuple[dict, dict]:
     from street_crafter_tpu_torch.runner import vdm_train as VT
     from street_crafter_tpu_torch.training import vdm_trainer as TR
     from street_crafter_tpu_torch.utils import checkpoint as CK
-    root = os.path.join(tmp, "vdm_data")
     scenes = [d for d in os.listdir(root)
               if os.path.isdir(os.path.join(root, d))]
     prepare_meta(root, scenes, "meta_info_train.json")
@@ -2749,13 +2814,8 @@ def condition_vs_plain(G, ply, cam, name: str, host_ms: float, phase: int,
         raise AssertionError("condition render: the pair records differ "
                              "from the plain pack")
     col, alpha = G.composite(wl, **comp, records=rec)
-    # the plain composite takes seconds here: its one call is also its time
-    plain = {}
-
-    def plain_composite():
-        plain["out"] = G.composite_reference(wl, **comp)
-    plain_composite_ms = cuda_ms(plain_composite, 1, warmup=0)
-    col_ref, alpha_ref = plain.pop("out")
+    (col_ref, alpha_ref), plain_composite_ms = once_ms(
+        lambda: G.composite_reference(wl, **comp))
     zmax = float(args["depths"][args["valid"]].max())
     err = {"rgb": float((col[..., :3] - col_ref[..., :3]).abs().max()),
            "acc": float((alpha - alpha_ref).abs().max()),
@@ -2819,12 +2879,14 @@ def condition_vs_plain(G, ply, cam, name: str, host_ms: float, phase: int,
     return rows
 
 
-def distill_main_path(G, tmp: str, gpu: str) -> tuple[dict, dict, str]:
+def distill_main_path(G, tmp: str, gpu: str, data
+                      ) -> tuple[dict, dict, str]:
     """Phase 16: runner.train.main with the diffusion hook at full width,
     a resume from the checkpoint at the last event that runs it again, and
-    runner.render.main(mode=diffusion) on the checkpoint. Returns (the
-    path's launch counts, the condition render's kernel rows, the scene
-    directory)."""
+    runner.render.main(mode=diffusion) on the checkpoint, on
+    ``distill_scene``'s data (``data``: its future from ``prefetch_data``).
+    Returns (the path's launch counts, the condition render's kernel rows,
+    the scene directory)."""
     import torch
     from street_crafter_tpu_torch.config import save_config
     from street_crafter_tpu_torch.ops import flash_attention as FA
@@ -2833,13 +2895,12 @@ def distill_main_path(G, tmp: str, gpu: str) -> tuple[dict, dict, str]:
     from street_crafter_tpu_torch.runner import train as T
     from street_crafter_tpu_torch.utils.checkpoint import checkpoint_dir
     from street_crafter_tpu_torch.utils.png import read_png
-    t0 = time.perf_counter()
-    source = distill_scene(tmp)
+    source = prefetched(data, 16)
     cfg = distill_config(tmp, source)
     path = os.path.join(tmp, "distill.json")
     save_config(cfg, path)
     log(f"[16] data: 26 frames at 1920x1280, {LIDAR_POINTS} LiDAR points a "
-        f"frame, in {time.perf_counter() - t0:.1f} s")
+        f"frame")
     probe = DistillProbe(gpu)
     G.reset_launch_counts()
     FA.reset_launch_counts()
@@ -3114,29 +3175,28 @@ def cubemap_lookup_ms(params, cam, gpu: str) -> None:
         f"{tex.shape[1]}x{tex.shape[2]}x3; {gpu}")
 
 
-def sky_color_main_path(G, tmp: str, gpu: str, phase7: dict) -> dict:
+def sky_color_main_path(G, tmp: str, gpu: str, phase7: dict, data) -> dict:
     """Phase 17: runner.train.main from scene init with the cubemap sky,
     the colour MLPs and COLMAP points, a resume, runner.render.main(
     mode=virtual_warp) on the checkpoint, then the train step at phase 7's
-    shape with the cubemap and the MLPs. Returns the path's launches."""
+    shape with the cubemap and the MLPs, on ``gs_scene``'s data (``data``:
+    its future from ``prefetch_data``). Returns the path's launches."""
     import torch
     from street_crafter_tpu_torch.config import save_config
-    from street_crafter_tpu_torch.datasets.synthetic import make_scene
     from street_crafter_tpu_torch.models.gs.color_mlp import init_color_mlp
     from street_crafter_tpu_torch.runner import render as R
     from street_crafter_tpu_torch.runner import train as T
     from street_crafter_tpu_torch.utils.ply import read_ply
     from street_crafter_tpu_torch.utils.png import read_png
+    source = prefetched(data, 17)
     t0 = time.perf_counter()
-    source = make_scene(os.path.join(tmp, "sky_data"), num_frames=4,
-                        img_hw=(1280, 1920))
     cfg = sky_color_config(tmp, source)
     colmap_xyz = write_colmap_model(cfg)
     path = os.path.join(tmp, "sky.json")
     save_config(cfg, path)
     log(f"[17] data: phase 3's synthetic scene (4 frames, cameras 0-2, "
-        f"1920x1280) and a COLMAP text model of {len(colmap_xyz)} points, "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"1920x1280) and a COLMAP text model of {len(colmap_xyz)} points "
+        f"(written in {time.perf_counter() - t0:.1f} s)")
     probe = SkyProbe()
     G.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -3326,7 +3386,8 @@ def sky_step_time(G, cfg, trainer, gpu: str, phase7: dict) -> None:
         color_mlp_sky=leaf(p.color_mlp_sky))
     res = timed_train_step(G, cfg.clone(), scene, params, cam, batch, dev)
     one = res.pop("one")
-    busy, wall, n, _ = busy_share(lambda: [one() for _ in range(3)])
+    busy, wall, n, _ = busy_share(
+        lambda: [one() for _ in range(BUSY_STEPS)])
     res["busy_share"] = busy / wall if n else None
     log(f"[17] train step at phase 7's shape ({N_HEAVY} splats in "
         f"{BKGD_CAPACITY} bkgd slots + actors "
@@ -3338,7 +3399,8 @@ def sky_step_time(G, cfg, trainer, gpu: str, phase7: dict) -> None:
         f"{max(res['ms']):.2f}) over 20 steps, phase 7 "
         f"{phase7['median']:.2f}; max_memory_allocated "
         f"{res['peak_gib']:.2f} GiB (phase 7 {phase7['peak_gib']:.2f}); "
-        + (f"device busy {100 * res['busy_share']:.1f}% over 3 steps "
+        + (f"device busy {100 * res['busy_share']:.1f}% over {BUSY_STEPS} "
+           f"step(s) "
            f"(torch.profiler; phase 7 {100 * phase7['busy_share']:.1f}%)"
            if res["busy_share"] and phase7.get("busy_share")
            else "busy share not measured")
@@ -3874,16 +3936,22 @@ def dp_two_ranks(gpu: str) -> tuple[dict, dict]:
     # X1's row: its times at the main path's shape (a rank's shard)
     x = torch.arange(int(np.prod(X1_SHAPE[1:])), dtype=torch.float32,
                      device=dev).reshape((1,) + X1_SHAPE[1:])
-    row = {"ms": cuda_ms(lambda: KS.x2(x), 200, 10),
+    # the kernel and torch.mul in turns (x2, mul, mul, x2), 200 calls each
+    fns = {"x2": lambda: KS.x2(x), "mul": lambda: torch.mul(x, 2.0)}
+    turns = {"x2": [], "mul": []}
+    for k in ("x2", "mul", "mul", "x2"):
+        turns[k].append(cuda_ms(fns[k], 200, 10))
+    row = {"ms": statistics.mean(turns["x2"]),
            "plain_ms": cuda_ms(lambda: KS.x2_reference(x), 200, 10),
-           "library_ms": cuda_ms(lambda: torch.mul(x, 2.0), 200, 10),
+           "library_ms": statistics.mean(turns["mul"]),
            "bound_ms": 1e3 * 2 * x.numel() * 4 / PEAK_BYTES_S,
            "max_abs_err": max(r["err"] for r in x1),
            "launches": sum(c.get("x2", 0) for c in x1_counts)}
-    log(f"[18] x2 (X1) at a rank's [1, 8, 128]: {row['ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.6f} ms (bytes), plain {row['plain_ms']:.4f} ms, "
-        f"torch.mul {row['library_ms']:.4f} ms (launch-bound at this "
-        f"size); {gpu}")
+    log(f"[18] x2 (X1) at a rank's [1, 8, 128]: {row['ms']:.5f} ms "
+        f"({turns['x2']}), bound {row['bound_ms']:.6f} ms (bytes), plain "
+        f"{row['plain_ms']:.5f} ms, torch.mul {row['library_ms']:.5f} ms "
+        f"({turns['mul']}; launch-bound at this size): "
+        f"{row['ms'] / row['library_ms']:.3f}x torch.mul; {gpu}")
     return total, row
 
 
@@ -5624,12 +5692,70 @@ def bf16_ulps(got, want) -> int:
     return int((key(got) - key(want)).abs().max())
 
 
+Q_LAUNCHES = {"sc_int8_absmax": "absmax", "sc_int8_quantize": "quantize",
+              "sc_int8_weight_quant": "weight_quant", "sc_int8_conv": "conv"}
+Q_SPIN_CYCLES = 2_000_000  # ~1.1 ms of torch.cuda._sleep ahead of each call
+
+
+def q_split(Q, x, w, b, s, reps: int = Q_REPS) -> dict:
+    """One ``int8_conv2d`` call split by launch: CUDA events around each
+    of the wrapper's four C entries, reached through a stand-in for
+    ``Q._library``. Each call is enqueued behind a spin kernel, so the
+    host is ahead and each interval is the device's own time of its
+    launch. Also the wrapper's host time a call: the Python call to its
+    return, unsynchronised, with the device busy behind it. Device ms
+    are means over ``reps`` calls."""
+    import torch
+    lib = Q._library()
+    marks: list = []
+
+    class Timed:
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            if name not in Q_LAUNCHES:
+                return fn
+
+            def call(*args):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                r = fn(*args)
+                e1.record()
+                marks.append((Q_LAUNCHES[name], e0, e1))
+                return r
+            return call
+
+    library = Q._library
+    Q._library = lambda: Timed()
+    try:
+        Q.int8_conv2d(x, w, b, s)
+        torch.cuda.synchronize()
+        marks.clear()
+        for _ in range(reps):
+            torch.cuda._sleep(Q_SPIN_CYCLES)
+            Q.int8_conv2d(x, w, b, s)
+        torch.cuda.synchronize()
+    finally:
+        Q._library = library
+    split = {k: 0.0 for k in Q_LAUNCHES.values()}
+    for k, e0, e1 in marks:
+        split[k] += e0.elapsed_time(e1) / reps
+    split["device"] = sum(split.values())
+    torch.cuda._sleep(10 * Q_SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        Q.int8_conv2d(x, w, b, s)
+    split["host"] = 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return split
+
+
 def q_shape_row(Q, dev, shape: dict, seed: int, gpu: str) -> dict:
     """Q at one of the UNet's shapes against its plain version: the int32
     products and the scales exactly equal, the bf16 outputs within 1
     ulp; its time beside the bound, the plain version's, F.conv2d in
     bf16 and torch._int_mm on the int8 input's im2col (checked equal to
-    the products too)."""
+    the products too); the call split by launch (``q_split``)."""
     import torch
     import torch.nn.functional as F
     N, C, O, H, W, s = (shape[k] for k in ("N", "C", "O", "H", "W",
@@ -5649,6 +5775,7 @@ def q_shape_row(Q, dev, shape: dict, seed: int, gpu: str) -> dict:
             raise AssertionError(f"Q at {shape}: int32 products equal "
                                  f"{equal}, bf16 outputs {ulps} ulp apart")
         ms = cuda_ms(lambda: Q.int8_conv2d(x, w, b, s), Q_REPS)
+        split = q_split(Q, x, w, b, s)
         plain_ms = cuda_ms(lambda: Q.int8_conv2d_reference(x, w, b, s), 1,
                            warmup=0)
         conv_ms = cuda_ms(lambda: F.conv2d(x, w, b, s, 1), Q_REPS)
@@ -5673,14 +5800,19 @@ def q_shape_row(Q, dev, shape: dict, seed: int, gpu: str) -> dict:
            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
            "library_ms": conv_ms, "int_mm_ms": int_mm_ms,
            "tops": bound["ops"] / ms / 1e9, "max_abs_err": err,
-           "ulps": ulps}
+           "ulps": ulps, "split": split,
+           "conv_tops": bound["ops"] / split["conv"] / 1e9}
     log(f"[25] Q at [{N}, {C}, {H}, {W}] -> {O}, stride {s} "
         f"({shape['kind']}, {shape['count']} an eval): int32 products, "
-        f"scales equal, bf16 out {ulps} ulp; {ms:.3f} ms "
+        f"scales equal, bf16 out {ulps} ulp; {ms:.4f} ms "
         f"({row['tops']:.1f} TOPS), bound {bound['bound_ms']:.4f} ms "
         f"({bound['bound_by']}), plain {plain_ms:.2f} ms, F.conv2d bf16 "
-        f"{conv_ms:.3f} ms, torch._int_mm on the im2col {int_mm_ms:.3f} ms; "
-        f"{gpu}")
+        f"{conv_ms:.4f} ms ({ms / conv_ms:.3f}x), torch._int_mm on the "
+        f"im2col {int_mm_ms:.4f} ms ({ms / int_mm_ms:.3f}x); split (device "
+        f"ms by launch) absmax {split['absmax']:.4f}, quantize "
+        f"{split['quantize']:.4f}, weight_quant {split['weight_quant']:.4f}, "
+        f"conv {split['conv']:.4f} ({row['conv_tops']:.1f} TOPS), sum "
+        f"{split['device']:.4f}; host {split['host']:.4f} ms a call; {gpu}")
     return row
 
 
@@ -5806,11 +5938,20 @@ def w8a8_eval(gpu: str, dev: str = "cuda") -> tuple[dict, dict]:
                        for k, v in r.items()} for r in rows]}
     total = {k: sum(r[k] * r["per_eval"] for r in rows)
              for k in ("ms", "bound_ms", "library_ms", "int_mm_ms")}
+    split = {k: sum(r["split"][k] * r["per_eval"] for r in rows)
+             for k in rows[0]["split"]}
+    row["eval_split_ms"] = {k: round(v, 3) for k, v in split.items()}
+    row["eval_sum_ms"] = {k: round(v, 3) for k, v in total.items()}
     log(f"[25] Q over one eval's {sum(r['per_eval'] for r in rows)} "
         f"convolutions at {len(rows)} shapes: {total['ms']:.2f} ms against "
         f"a bound of {total['bound_ms']:.3f} ms, F.conv2d bf16 "
-        f"{total['library_ms']:.2f} ms, torch._int_mm "
-        f"{total['int_mm_ms']:.2f} ms; phase 25 "
+        f"{total['library_ms']:.2f} ms "
+        f"({total['ms'] / total['library_ms']:.3f}x), torch._int_mm "
+        f"{total['int_mm_ms']:.2f} ms; split (device ms by "
+        f"launch) absmax {split['absmax']:.2f}, quantize "
+        f"{split['quantize']:.2f}, weight_quant {split['weight_quant']:.2f}, "
+        f"conv {split['conv']:.2f}, sum {split['device']:.2f}; host "
+        f"{split['host']:.2f} ms; phase 25 "
         f"{time.perf_counter() - t_start:.1f} s")
     return counts, row
 
@@ -5840,6 +5981,7 @@ def main() -> None:
     log(f"[1] built " + ", ".join(os.path.relpath(lib, here)
                                   for lib, _ in builds.values())
         + f" in {time.perf_counter() - t0:.1f} s")
+    data = prefetch_data(tempfile.mkdtemp(prefix="chip_smoke_data_"))
     for name, (_, ptxas) in builds.items():
         for e in ptxas_entries(ptxas):
             log(f"    ptxas {name}: {e['kernel']}: {e['registers']} "
@@ -5889,7 +6031,7 @@ def main() -> None:
 
     # ---- phase 3: the main path --------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        cfg, cfg_path = build_main_path_scene(tmp, dev)
+        cfg, cfg_path = build_main_path_scene(tmp, dev, data[3])
         torch.cuda.reset_peak_memory_stats()
         G.reset_launch_counts()
         t0 = time.perf_counter()
@@ -5966,7 +6108,7 @@ def main() -> None:
 
     # ---- phase 9: the sampling main path -----------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_vdm_") as tmp:
-        vdm_counts, vdm_cfg, vdm_peak = vdm_main_path(tmp, gpu)
+        vdm_counts, vdm_cfg, vdm_peak = vdm_main_path(tmp, gpu, data[9])
 
         # ---- phase 10: times -----------------------------------------------
         vdm_times(vdm_cfg, gpu)
@@ -5976,7 +6118,7 @@ def main() -> None:
         train_errs = compare_train_kernels()
 
         # ---- phase 12: the fine-tune main path -----------------------------
-        ft_counts, ft = vdm_train_main_path(tmp, gpu)
+        ft_counts, ft = vdm_train_main_path(tmp, data[9].result(), gpu)
 
         # ---- phase 13: times -----------------------------------------------
         ft_batch = vdm_train_times(ft, gpu)
@@ -6001,7 +6143,8 @@ def main() -> None:
 
     # ---- phase 16: distillation ---------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_distill_") as tmp:
-        distill_counts, cond_rows, source = distill_main_path(G, tmp, gpu)
+        distill_counts, cond_rows, source = distill_main_path(G, tmp, gpu,
+                                                              data[16])
 
         # ---- phase 24: distillation on two ranks sharing the card ------
         torch.cuda.empty_cache()
@@ -6009,7 +6152,7 @@ def main() -> None:
 
     # ---- phase 17: cubemap sky, colour MLPs, COLMAP points, virtual_warp ----
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sky_") as tmp:
-        sky_counts = sky_color_main_path(G, tmp, gpu, phase7)
+        sky_counts = sky_color_main_path(G, tmp, gpu, phase7, data[17])
 
     # ---- phase 18 (c): two ranks sharing the card through gloo ------------
     torch.cuda.empty_cache()

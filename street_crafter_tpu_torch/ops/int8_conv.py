@@ -45,7 +45,9 @@ launches: collections.Counter = collections.Counter()
 
 EPS = 1e-12
 QMAX = 127.0
-CHANNEL_TILE = 32       # the kernel's K slice: channels padded to it
+CHANNEL_TILE = 64       # the kernel's K slice: channels padded to it
+TILE_PIXELS = 128       # output pixels a tile of the kernel: th x tw
+TILE_WIDTHS = (128, 64, 32, 16, 8)
 # elements of float64 im2col columns a chunk of the plain version holds
 PLAIN_CHUNK = 1 << 27
 
@@ -68,6 +70,23 @@ def check_eval(*tensors: torch.Tensor | None) -> None:
 def out_size(n: int, stride: int) -> int:
     """The output length of a 3x3 convolution with padding 1."""
     return (n - 1) // stride + 1
+
+
+def padded_channels(c: int) -> int:
+    """The channels of the kernel's int8 input and weight rows: ``c``
+    rounded up to its 64-byte K slice (zeros in the pad)."""
+    return -(-c // CHANNEL_TILE) * CHANNEL_TILE
+
+
+def conv_tiles(ho: int, wo: int) -> tuple[int, int]:
+    """The kernel's tile rectangle (th, tw) for an ho x wo output: th x tw
+    = 128 output pixels of one image, tw in ``TILE_WIDTHS``, the width that
+    covers the image with the fewest tiles (the widest of equals). The
+    UNet's latent levels 72x128, 36x64, 18x32 and 9x16 get 1 x 128, 2 x
+    64, 4 x 32 and 8 x 16."""
+    tw = min(TILE_WIDTHS,
+             key=lambda w: -(-ho // (TILE_PIXELS // w)) * -(-wo // w))
+    return TILE_PIXELS // tw, tw
 
 
 # -- the plain version -------------------------------------------------------
@@ -158,7 +177,7 @@ def _library() -> ctypes.CDLL:
     lib.sc_int8_quantize.argtypes = [P, I, I, I, I, I, I, P, P, P, P]
     lib.sc_int8_weight_quant.argtypes = [P, I, I, I, I, P, P, P]
     lib.sc_int8_conv.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I,
-                                 P]
+                                 I, I, P]
     for fn in (lib.sc_int8_absmax, lib.sc_int8_quantize,
                lib.sc_int8_weight_quant, lib.sc_int8_conv):
         fn.restype = ctypes.c_int
@@ -218,7 +237,8 @@ def _launch(x: torch.Tensor, weight: torch.Tensor,
     N, C, H, W = x.shape
     O = weight.shape[0]
     Ho, Wo = out_size(H, stride), out_size(W, stride)
-    Cp = -(-C // CHANNEL_TILE) * CHANNEL_TILE
+    Cp = padded_channels(C)
+    th, tw = conv_tiles(Ho, Wo)
     xd, wd = _dtype_code(x, "x"), _dtype_code(weight, "weight")
     dev = x.device
     with torch.cuda.device(dev):
@@ -257,8 +277,8 @@ def _launch(x: torch.Tensor, weight: torch.Tensor,
         _check(lib.sc_int8_conv(xq.data_ptr(), wq.data_ptr(),
                                 wscale.data_ptr(), xscale.data_ptr(),
                                 b.data_ptr(), out.data_ptr(), N, H, W, Cp, O,
-                                stride, _OUT_KIND[out_dtype], int(nhwc),
-                                stream), "int8_conv", lib)
+                                stride, th, tw, _OUT_KIND[out_dtype],
+                                int(nhwc), stream), "int8_conv", lib)
         launches["int8_conv"] += 1
     return out, xscale, wscale
 

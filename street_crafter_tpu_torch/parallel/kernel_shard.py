@@ -141,22 +141,33 @@ def _library() -> ctypes.CDLL:
 
 def x2(x: torch.Tensor) -> torch.Tensor:
     """2 x of a float32 tensor: the kernel on a CUDA tensor (contiguous),
-    the plain version on a CPU tensor."""
+    the plain version on a CPU tensor. A call on the current device does
+    only what can change from call to call: the checks, the output, the
+    current stream as a raw handle (``torch._C._cuda_getCurrentRawStream``,
+    no Stream object) and the launch; a tensor on another device enters it
+    first."""
     if x.dtype != torch.float32:
         raise TypeError(f"x2 takes float32, got {x.dtype}")
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"cpu and cuda tensors only, not {x.device}")
         launches["x2_reference"] += 1
         return x2_reference(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"cpu and cuda tensors only, not {x.device}")
-    with torch.cuda.device(x.device):
-        lib = _library()
-        ptr = cuda_build.require(x, "x", torch.float32, align=4)
-        out = torch.empty_like(x)
-        err = lib.sc_x2(ptr, out.data_ptr(), x.numel(),
-                        torch.cuda.current_stream(x.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"x2 launch failed: "
-                               f"{lib.sc_error_string(err).decode()} ({err})")
-        launches["x2"] += 1
-        return out
+    index = x.get_device()
+    if index != torch._C._cuda_getDevice():
+        with torch.cuda.device(index):
+            return x2(x)
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    ptr = x.data_ptr()
+    if ptr % 4:
+        raise ValueError("x must be 4-byte aligned")
+    out = torch.empty_like(x)
+    err = _library().sc_x2(ptr, out.data_ptr(), x.numel(),
+                           torch._C._cuda_getCurrentRawStream(index))
+    if err:
+        raise RuntimeError(f"x2 launch failed: "
+                           f"{_library().sc_error_string(err).decode()} "
+                           f"({err})")
+    launches["x2"] += 1
+    return out

@@ -956,7 +956,21 @@ Q_CASES = [  # N, C, O, H, W, stride, channels-last, dtype
     (1, 300, 40, 8, 8, 2, False, torch.bfloat16),
     (4, 320, 320, 18, 32, 1, True, torch.bfloat16),
     (2, 960, 640, 9, 16, 1, False, torch.bfloat16),
-    (2, 1280, 1280, 9, 16, 2, True, torch.bfloat16)]
+    (2, 1280, 1280, 9, 16, 2, True, torch.bfloat16),
+    # the tiling's edges: the level-3 latent (9 rows in 8-row tiles) at
+    # stride 1 and 2 in the other layouts; a width no tile width divides;
+    # O = 320 and 1280 (whole 160-column tiles); C = 960 and 1920 (K slices
+    # across taps); full-width UNet shapes with N = 2 in both layouts
+    (2, 64, 320, 9, 16, 1, True, torch.float32),
+    (3, 128, 160, 9, 16, 2, False, torch.float32),
+    (1, 64, 320, 72, 100, 1, False, torch.bfloat16),
+    (1, 64, 160, 72, 100, 2, True, torch.float32),
+    (2, 320, 320, 36, 64, 2, False, torch.bfloat16),
+    (1, 640, 1280, 18, 32, 1, False, torch.float32),
+    (1, 960, 640, 18, 32, 1, True, torch.bfloat16),
+    (1, 1920, 1280, 9, 16, 1, False, torch.bfloat16),
+    (2, 320, 320, 72, 128, 1, False, torch.bfloat16),
+    (2, 640, 640, 72, 128, 1, True, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("N,C,O,H,W,stride,nhwc,dtype", Q_CASES)
@@ -966,7 +980,7 @@ def test_int8_conv_matches_plain(cuda, N, C, O, H, W, stride, nhwc, dtype):
     same float32 scale arithmetic), the outputs bit-equal in float32 and
     within 1 ulp in bf16 (the epilogue's multiply and add kept apart, as
     in the plain version). Odd sizes and channel counts that are not a
-    multiple of the kernel's 32-channel slice cross every tile edge; NCHW
+    multiple of the kernel's 64-channel slice cross every tile edge; NCHW
     and channels-last inputs, each kept in the output."""
     from street_crafter_tpu_torch.ops import int8_conv as Q
     g = torch.Generator(device=cuda).manual_seed(C + O)
