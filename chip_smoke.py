@@ -113,11 +113,12 @@ Phases, one status line each; any failure raises (exit code != 0):
      that call;
  14. kernel A's variant bench (street_crafter_tpu_torch/scripts/
      bench_phase1_variants.py): K1's row compaction of [117, 4096, 11]
-     candidates into 8 per-row lists by the four kernels of
+     candidates into 8 per-row lists by the kernel template of
      csrc/row_compact.cu (base, rowbatch with blocks of 128 and 256, bf16,
      count_only), each once with the launch counts set to 0 before and
      read after, then each against its plain version (counts, kept slots
-     and checksums exactly equal) and timed beside it;
+     and checksums exactly equal) and timed beside it, as called (20
+     calls) and on the device alone (a CUDA graph of 20 calls);
  15. kernel A's split at both headline passes (phase 4's inputs, kept):
      each kernel's device time and the device's idle gaps in one call,
      from torch.profiler (here and not in phase 5: a profiler session
@@ -520,15 +521,16 @@ def gs_scene(tmp: str) -> str:
 
 def prefetch_data(tmp: str) -> dict:
     """Phases 3's, 9's, 16's and 17's data (host work only: images, LiDAR
-    and condition PNGs), each made under ``tmp`` in a spawned process of
-    its own while the phases before it run on the card. Returns {phase:
-    future of the data's path}; the processes and ``tmp`` are removed at
-    exit."""
+    and condition PNGs), each made under ``tmp`` in two spawned processes,
+    in the order the phases need it, while the phases before it run on the
+    card (four at once made phase 3 wait for its data: they share the
+    host's cores with the kernels' build). Returns {phase: future of the
+    data's path}; the processes and ``tmp`` are removed at exit."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     makers = {3: gs_scene, 9: vdm_clip_root, 16: distill_scene,
               17: gs_scene}
-    pool = ProcessPoolExecutor(len(makers), mp_context=multiprocessing
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing
                                .get_context("spawn"))
     atexit.register(shutil.rmtree, tmp, True)
     atexit.register(pool.shutdown, True, cancel_futures=True)
@@ -708,12 +710,17 @@ def contributing_pairs(G, wl, comp: dict) -> int:
     of kernels B and C, recomputed as the plain versions do."""
     import torch
     height, width = comp["height"], comp["width"]
-    n = torch.zeros((), dtype=torch.int64, device=comp["u"].device)
-    for ts in G._tiles(wl, comp["u"], comp["v"], comp["conic_a"],
-                       comp["conic_b"], comp["conic_c"], comp["opacities"],
-                       width):
-        hit = (ts.keep & (ts.alpha > 0)).reshape(-1, G.TILE, G.TILE)
-        n += hit[:, :height - ts.rows.start, :width - ts.cols.start].sum()
+    dev = comp["u"].device
+    tw, th = G.tile_grid(width, height)
+    inside = torch.zeros((th * G.TILE, tw * G.TILE), dtype=torch.bool,
+                         device=dev)
+    inside[:height, :width] = True
+    inside = G._to_tiles(inside, th, tw)               # [tiles, 256]
+    n = torch.zeros((), dtype=torch.int64, device=dev)
+    for b in G._tile_batches(wl, comp["u"], comp["v"], comp["conic_a"],
+                             comp["conic_b"], comp["conic_c"],
+                             comp["opacities"], width):
+        n += (b.keep & (b.alpha > 0) & inside[b.tiles][:, None, :]).sum()
     return int(n)
 
 
@@ -2386,7 +2393,8 @@ def variant_bench(dev, gpu: str) -> tuple[list, dict]:
     """Phase 14: K1's row-compaction variants (kernel A's variant bench) at
     [117, 4096, 11]: each kernel once with the counts set to 0 just before
     and read just after, then each against its plain version and timed
-    beside it (street_crafter_tpu_torch/scripts/bench_phase1_variants.py)."""
+    beside it, as called and on the device alone (street_crafter_tpu_torch/
+    scripts/bench_phase1_variants.py)."""
     import torch
     from street_crafter_tpu_torch.ops import row_compact as RC
     from street_crafter_tpu_torch.scripts import bench_phase1_variants as PV
@@ -2404,8 +2412,11 @@ def variant_bench(dev, gpu: str) -> tuple[list, dict]:
             f"{'equal' if r['equal'] else 'DIFFERS'} (counts, kept slots, "
             f"checksums; largest checksum error {r['max_abs_err']}); "
             f"{r['kept']} kept, longest count {r['counts_max']}; kernel "
-            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes), plain "
-            f"{r['plain_ms']:.3f} ms; launches {counts}; {gpu}")
+            f"{r['device_ms']:.4f} ms on the device (a CUDA graph of 20 "
+            f"calls), {r['ms']:.4f} ms as called (20 calls), bound "
+            f"{r['bound_ms']:.4f} ms (bytes, {r['share_of_bound']:.1%} of "
+            f"it), plain {r['plain_ms']:.3f} ms; "
+            f"launches {counts}; {gpu}")
     bad = [r["name"] for r in rows if not r["equal"]]
     if bad:
         raise AssertionError(f"variant kernels differ from their plain "
@@ -2566,9 +2577,10 @@ class DistillProbe:
         self.torch, self.G, self.T, self.gpu = torch, G, T, gpu
         self.timer = StageTimer()
         tm = self.timer
-        tm.wrap(PC.PointCloudProcessor, "render_condition", "condition")
+        tm.wrap(PC.PointCloudProcessor, "render_conditions", "condition")
         tm.wrap(PC.PointCloudProcessor, "_splat", "condition splat")
         tm.wrap(DR.DiffusionRunner, "load_guidance", "guide PNG load")
+        tm.wrap(DR.DiffusionRunner, "load_guidances", "guide PNG load")
         tm.wrap(DR.DiffusionRunner, "load_cond_image", "cond image load")
         tm.wrap(EN.VideoDiffusionEngine, "encode_images", "encode")
         tm.wrap(EN.VideoDiffusionEngine, "clip_embed", "CLIP")
@@ -5402,9 +5414,10 @@ def dp_distill_rank(mesh, path: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     tm = StageTimer()
     for owner, attr, stage in (
-            (PC.PointCloudProcessor, "render_condition", "condition"),
+            (PC.PointCloudProcessor, "render_conditions", "condition"),
             (PC.PointCloudProcessor, "_splat", "condition splat"),
             (DR.DiffusionRunner, "load_guidance", "guide PNG load"),
+            (DR.DiffusionRunner, "load_guidances", "guide PNG load"),
             (DR.DiffusionRunner, "load_cond_image", "cond image load"),
             (DR.DiffusionRunner, "_share", "broadcast"),
             (EN.VideoDiffusionEngine, "encode_images", "encode"),
@@ -6305,7 +6318,8 @@ def main() -> None:
             "launches_by_path": {"variant_bench": variant_counts.get(
                 r["name"], 0), "distill": 0, "sky_color": 0,
                 "data_parallel": 0},
-            "max_abs_err": r["max_abs_err"], "ms": round(r["ms"], 4),
+            "max_abs_err": r["max_abs_err"],
+            "ms": round(r["ms"], 4), "device_ms": round(r["device_ms"], 4),
             "plain_ms": round(r["plain_ms"], 4),
             "bound_ms": round(r["bound_ms"], 6), "bound_by": r["bound_by"],
             "library_ms": None, "shape": r["shape"], "kb": r["kb"]})

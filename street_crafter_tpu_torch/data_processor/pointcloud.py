@@ -21,7 +21,7 @@ from ..datasets.waymo import ObjectInfo, png_size
 from ..ops.point_raster import render_pointcloud_gaussian
 from ..utils.ply import (read_ply, remove_radius_outliers, voxel_downsample,
                          write_ply)
-from ..utils.png import read_png, write_png
+from ..utils.png import PngWriter, read_png, write_png
 
 FLIP_AXIS = 1
 
@@ -295,10 +295,12 @@ class PointCloudProcessor:
     # -- condition rendering ---------------------------------------------------
     def render_condition(self, camera, objects_info: list[ObjectInfo],
                          scale: float = 0.01, use_ndc_scale: bool = True,
-                         force: bool = False) -> None:
+                         force: bool = False,
+                         png: PngWriter | None = None) -> None:
         """Render and save the LiDAR condition rgb and mask PNGs of one
         CameraInfo (waymo_processor.py:178-242), unless both exist and not
-        ``force``."""
+        ``force``; through ``png`` when given (its ``close`` waits for
+        them)."""
         rgb_path = camera.metadata["guidance_rgb_path"]
         mask_path = camera.metadata["guidance_mask_path"]
         if (os.path.exists(rgb_path) and os.path.exists(mask_path)
@@ -306,8 +308,9 @@ class PointCloudProcessor:
             return
         rgb, acc = self._splat(self.condition_cloud(camera, objects_info),
                                camera, scale, use_ndc_scale)
-        write_png(rgb_path, (rgb * 255).astype(np.uint8))
-        write_png(mask_path, (acc * 255).astype(np.uint8))
+        write = write_png if png is None else png.write
+        write(rgb_path, (rgb * 255).astype(np.uint8))
+        write(mask_path, (acc * 255).astype(np.uint8))
 
     def condition_cloud(self, camera, objects_info: list[ObjectInfo]
                         ) -> np.ndarray:
@@ -350,8 +353,11 @@ class PointCloudProcessor:
         return out.rgb.cpu().numpy(), out.acc.cpu().numpy()
 
     def render_conditions(self, cameras, objects_info, **kw) -> None:
-        for cam in cameras:
-            self.render_condition(cam, objects_info, **kw)
+        """``render_condition`` of each camera; the PNGs are written on
+        worker threads and are on disk when it returns."""
+        with PngWriter() as png:
+            for cam in cameras:
+                self.render_condition(cam, objects_info, png=png, **kw)
 
 
 class WaymoPointCloudProcessor(PointCloudProcessor):

@@ -16,14 +16,10 @@ import pickle
 import numpy as np
 
 from ..utils.ply import write_ply
-from ..utils.png import write_png
+from ..utils.png import PngWriter, write_png
 
 NUM_CAMS = 5
 IMG_W, IMG_H = 64, 48
-
-
-def _write_png(path, arr):
-    write_png(path, arr)
 
 
 def make_scene(root: str, num_frames: int = 4, seed: int = 0,
@@ -143,25 +139,29 @@ def make_scene(root: str, num_frames: int = 4, seed: int = 0,
     with open(os.path.join(d, "track", "track_ids.json"), "w") as fh:
         json.dump({moving_id: 0, static_id: 1}, fh)
 
-    # images + masks + depth
-    for f in range(num_frames):
-        for c in (range(NUM_CAMS) if image_cameras is None
-                  else image_cameras):
-            img = rng.integers(0, 255, (IMG_H_, IMG_W_, 3), dtype=np.uint8)
-            _write_png(os.path.join(d, "images", f"{f:06d}_{c}.png"), img)
-            sky = np.zeros((IMG_H_, IMG_W_), np.uint8)
-            sky[: IMG_H_ // 4] = 255
-            _write_png(os.path.join(d, "sky_mask", f"{f:06d}_{c}.png"), sky)
-            dyn = np.zeros((IMG_H_, IMG_W_), np.uint8)
-            dyn[IMG_H_ // 2:, IMG_W_ // 3: 2 * IMG_W_ // 3] = 255
-            _write_png(os.path.join(d, "dynamic_mask", f"{f:06d}_{c}.png"),
-                       dyn)
-            mask = np.zeros((IMG_H_, IMG_W_), bool)
-            mask[IMG_H_ // 2:, :] = True
-            value = rng.uniform(2.0, 50.0, mask.sum()).astype(np.float32)
-            np.savez_compressed(
-                _ensure(os.path.join(d, "lidar", "depth", f"{f:06d}_{c}.npz")),
-                mask=mask, value=value)
+    # images + masks + depth (the PNGs compress on worker threads)
+    with PngWriter() as png:
+        for f in range(num_frames):
+            for c in (range(NUM_CAMS) if image_cameras is None
+                      else image_cameras):
+                img = rng.integers(0, 255, (IMG_H_, IMG_W_, 3),
+                                   dtype=np.uint8)
+                png.write(os.path.join(d, "images", f"{f:06d}_{c}.png"), img)
+                sky = np.zeros((IMG_H_, IMG_W_), np.uint8)
+                sky[: IMG_H_ // 4] = 255
+                png.write(os.path.join(d, "sky_mask", f"{f:06d}_{c}.png"),
+                          sky)
+                dyn = np.zeros((IMG_H_, IMG_W_), np.uint8)
+                dyn[IMG_H_ // 2:, IMG_W_ // 3: 2 * IMG_W_ // 3] = 255
+                png.write(os.path.join(d, "dynamic_mask",
+                                       f"{f:06d}_{c}.png"), dyn)
+                mask = np.zeros((IMG_H_, IMG_W_), bool)
+                mask[IMG_H_ // 2:, :] = True
+                value = rng.uniform(2.0, 50.0, mask.sum()).astype(np.float32)
+                np.savez_compressed(
+                    _ensure(os.path.join(d, "lidar", "depth",
+                                         f"{f:06d}_{c}.npz")),
+                    mask=mask, value=value)
 
     # LiDAR plys: background ground plane + walls (world frame),
     # actor points in canonical box frame

@@ -22,7 +22,7 @@ import threading
 
 import numpy as np
 
-from ..utils.png import read_png
+from ..utils.png import read_png, thread_map
 
 _PRECISION_BITS = 32 - 8 - 2
 
@@ -258,8 +258,8 @@ class ClipDataset:
     def __getitem__(self, index: int) -> dict:
         s = self.samples[index]
         T = self.num_frames
-        imgs = np.stack([self._prep(p) for p in s["frames"][:T]])
-        guides = np.stack([self._prep(p) for p in s["guidances"][:T]])
+        imgs = np.stack(thread_map(self._prep, s["frames"][:T]))
+        guides = np.stack(thread_map(self._prep, s["guidances"][:T]))
         return {
             "img_seq": imgs.astype(np.float32),        # [T, H, W, 3]
             "guide_seq": guides.astype(np.float32),    # [T, H, W, 3]

@@ -327,16 +327,19 @@ def _torch_layout(leaf: str, a: np.ndarray) -> tuple[str, np.ndarray]:
     return leaf, a                               # bias, mix_factor
 
 
-def _jax_layout(leaf: str, a: np.ndarray) -> tuple[str, np.ndarray]:
-    """The inverse of ``_torch_layout``."""
+def _jax_layout(leaf: str, a):
+    """The inverse of ``_torch_layout``, on an array or a tensor."""
+    def axes(*order):
+        return a.permute(*order) if torch.is_tensor(a) else a.transpose(order)
+
     if leaf == "weight":
         if a.ndim == 1:
             return "scale", a
         if a.ndim == 2:
-            return "kernel", a.T
+            return "kernel", axes(1, 0)
         if a.ndim == 4:
-            return "kernel", a.transpose(2, 3, 1, 0)     # OIHW -> HWIO
-        return "kernel", a.transpose(2, 3, 4, 1, 0)      # OIDHW -> DHWIO
+            return "kernel", axes(2, 3, 1, 0)            # OIHW -> HWIO
+        return "kernel", axes(2, 3, 4, 1, 0)             # OIDHW -> DHWIO
     return leaf, a
 
 
@@ -353,9 +356,11 @@ def state_dict_to_jax(sd: Mapping[str, Any], module_map: dict[str, str],
         if fmod is None:
             left.append(name)
             continue
-        a = t.detach().float().cpu().numpy() if torch.is_tensor(t) \
-            else np.asarray(t, np.float32)
-        leaf, a = _jax_layout(leaf, a)
+        if torch.is_tensor(t):      # the layout copy in torch: threaded
+            leaf, a = _jax_layout(leaf, t.detach().float())
+            a = a.contiguous().cpu().numpy()
+        else:
+            leaf, a = _jax_layout(leaf, np.asarray(t, np.float32))
         node = tree
         for part in fmod.split("/"):
             node = node.setdefault(part, {})
@@ -452,7 +457,10 @@ def engine_params_from_jax(tree: Mapping, cfg
 
 
 def _tensors(sd: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(a))
+    """Contiguous tensors of ``sd``'s arrays: torch copies a writable
+    transposed view on its threads (numpy copies it on one)."""
+    return {k: torch.from_numpy(a).contiguous() if a.flags.writeable
+            else torch.from_numpy(np.ascontiguousarray(a))
             for k, a in sd.items()}
 
 

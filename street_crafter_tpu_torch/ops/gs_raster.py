@@ -187,45 +187,134 @@ class _TileSplats(NamedTuple):
     cols: slice
 
 
-def _tiles(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, opacities,
-           width: int, cull: torch.Tensor | None = None):
-    """Yield the non-empty tiles of ``wl`` with their [K, 256] alpha and
-    the stop rule's transmittance scan. ``cull`` ([P, 8] bool, from
-    ``warp_cull_reference``) sets alpha to 0 for every pixel of a warp
-    that culled the pair, as kernels B and C skip it."""
-    tw, _ = tile_grid(width, 1)
+class _TileBatch(NamedTuple):
+    """B tiles' lists at once, each padded to the batch's longest K with
+    rows of alpha 0 (which change no T, no prefix and no sum): [B, K, 256]
+    per (tile, splat, pixel), and as ``_TileSplats`` otherwise."""
+    tiles: torch.Tensor      # [B] tile ids (int64)
+    g: torch.Tensor          # [B, K] splat ids (a padding row: the list's
+    valid: torch.Tensor      # [B, K]  first)  inside the tile's list
+    dx: torch.Tensor
+    dy: torch.Tensor
+    sigma: torch.Tensor
+    raw: torch.Tensor
+    alpha: torch.Tensor      # 0 where skipped and on padding rows
+    keep: torch.Tensor
+    t_before: torch.Tensor
+    t_final: torch.Tensor    # [B, 256]
+
+
+# (tile, splat, pixel) elements of one batch of ``_tile_batches``: its
+# [B, K, 256] float32 temporaries take 32 MB each (a longer list goes alone)
+_BATCH_ELEMS = 1 << 23
+
+
+def _batch_tiles(lengths: list[int]) -> list[tuple[list[int], int]]:
+    """The non-empty tiles in batches of similar list lengths: (tile ids,
+    the batch's K). Tiles go in ascending length; a batch ends before a
+    tile twice as long as its first (and 16 longer) or past
+    ``_BATCH_ELEMS``, so padding at most doubles a batch's rows."""
+    order = sorted((n, t) for t, n in enumerate(lengths) if n)
+    out: list[tuple[list[int], int]] = []
+    for n, t in order:
+        if out:
+            ids, k = out[-1]
+            first = lengths[ids[0]]
+            if (n <= 2 * first or n - first <= TILE) and \
+                    n * (len(ids) + 1) * TILE * TILE <= _BATCH_ELEMS:
+                ids.append(t)
+                out[-1] = (ids, n)
+                continue
+        out.append(([t], n))
+    return out
+
+
+def _tile_batch(wl: TileWorklist, tiles: list[int], K: int, u, v, conic_a,
+                conic_b, conic_c, opacities, tw: int,
+                cull: torch.Tensor | None = None) -> _TileBatch:
+    """``tiles``' lists recomputed: per (tile, splat, pixel) the alpha of
+    kernels B and C and the stop rule's transmittance scan. ``cull`` ([P,
+    8] bool, from ``warp_cull_reference``) sets alpha to 0 for every pixel
+    of a warp that culled the pair, as kernels B and C skip it."""
     dev = u.device
     ly, lx = torch.meshgrid(
         torch.arange(TILE, dtype=torch.float32, device=dev) + 0.5,
         torch.arange(TILE, dtype=torch.float32, device=dev) + 0.5,
         indexing="ij")
     lx, ly = lx.reshape(-1), ly.reshape(-1)
+    t = torch.tensor(tiles, dtype=torch.int64, device=dev)
+    start = wl.ranges[t, 0].to(torch.int64)
+    n = wl.ranges[t, 1].to(torch.int64) - start
+    k = torch.arange(K, device=dev)
+    valid = k[None, :] < n[:, None]                              # [B, K]
+    pos = torch.where(valid, start[:, None] + k[None, :], start[:, None])
+    g = wl.gauss_ids[pos].to(torch.int64)
+    ox = ((t % tw) * TILE).to(torch.float32)[:, None, None]
+    oy = ((t // tw) * TILE).to(torch.float32)[:, None, None]
+    dx = (ox + lx) - u[g][:, :, None]                            # [B, K, 256]
+    dy = (oy + ly) - v[g][:, :, None]
+    sigma = (0.5 * (conic_a[g][:, :, None] * dx * dx
+                    + conic_c[g][:, :, None] * dy * dy)
+             + conic_b[g][:, :, None] * dx * dy)
+    raw = opacities[g][:, :, None] * torch.exp(-sigma)
+    alpha = torch.clamp(raw, max=ALPHA_CLAMP)
+    alpha = torch.where((sigma >= 0) & (alpha >= ALPHA_MIN)
+                        & valid[:, :, None], alpha, 0.0)
+    if cull is not None:
+        alpha = torch.where(cull[pos].repeat_interleave(32, 2), 0.0, alpha)
+    # T after each splat: a scan along the list multiplies sequentially
+    # per pixel, rounding exactly like the kernel's T *= 1 - alpha, so both
+    # stop at the same splat
+    t_after = torch.cumprod(1.0 - alpha, 1)
+    keep = t_after > T_STOP                      # a prefix per pixel
+    t_before = torch.cat([torch.ones_like(t_after[:, :1]), t_after[:, :-1]],
+                         1)
+    t_final = torch.where(keep, t_after, 1.0).amin(1)
+    return _TileBatch(t, g, valid, dx, dy, sigma, raw, alpha, keep,
+                      t_before, t_final)
+
+
+def _tile_batches(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
+                  opacities, width: int, cull: torch.Tensor | None = None):
+    """Yield ``_tile_batch`` over the non-empty tiles of ``wl``, in
+    batches of similar list lengths (``_batch_tiles``)."""
+    tw, _ = tile_grid(width, 1)
+    lengths = (wl.ranges[:, 1] - wl.ranges[:, 0]).tolist()
+    for tiles, K in _batch_tiles(lengths):
+        yield _tile_batch(wl, tiles, K, u, v, conic_a, conic_b, conic_c,
+                          opacities, tw, cull)
+
+
+def _tiles(wl: TileWorklist, u, v, conic_a, conic_b, conic_c, opacities,
+           width: int, cull: torch.Tensor | None = None):
+    """Yield the non-empty tiles of ``wl`` in tile order, one at a time,
+    with their [K, 256] alpha and the stop rule's transmittance scan
+    (``_tile_batch`` of the tile alone); ``cull`` as there."""
+    tw, _ = tile_grid(width, 1)
     for t, (s, e) in enumerate(wl.ranges.tolist()):
         if s == e:
             continue
-        g = wl.gauss_ids[s:e].to(torch.int64)
+        b = _tile_batch(wl, [t], e - s, u, v, conic_a, conic_b, conic_c,
+                        opacities, tw, cull)
         ty, tx = divmod(t, tw)
-        dx = (tx * TILE + lx)[None, :] - u[g][:, None]          # [K, 256]
-        dy = (ty * TILE + ly)[None, :] - v[g][:, None]
-        sigma = (0.5 * (conic_a[g][:, None] * dx * dx
-                        + conic_c[g][:, None] * dy * dy)
-                 + conic_b[g][:, None] * dx * dy)
-        raw = opacities[g][:, None] * torch.exp(-sigma)
-        alpha = torch.clamp(raw, max=ALPHA_CLAMP)
-        alpha = torch.where((sigma >= 0) & (alpha >= ALPHA_MIN), alpha, 0.0)
-        if cull is not None:
-            alpha = torch.where(cull[s:e].repeat_interleave(32, 1), 0.0,
-                                alpha)
-        # T after each splat: a scan along dim 0 multiplies sequentially
-        # per pixel, rounding exactly like the kernel's T *= 1 - alpha, so
-        # both stop at the same splat
-        t_after = torch.cumprod(1.0 - alpha, 0)
-        keep = t_after > T_STOP                      # a prefix per pixel
-        t_before = torch.cat([torch.ones_like(t_after[:1]), t_after[:-1]])
-        t_final = torch.where(keep, t_after, 1.0).amin(0)
-        yield _TileSplats(g, dx, dy, sigma, raw, alpha, keep, t_before,
-                          t_final, slice(ty * TILE, (ty + 1) * TILE),
+        yield _TileSplats(b.g[0], b.dx[0], b.dy[0], b.sigma[0], b.raw[0],
+                          b.alpha[0], b.keep[0], b.t_before[0],
+                          b.t_final[0], slice(ty * TILE, (ty + 1) * TILE),
                           slice(tx * TILE, (tx + 1) * TILE))
+
+
+def _to_image(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    """Tile-major [th * tw, 256, ...] -> the image [th * 16, tw * 16, ...]."""
+    rest = x.shape[2:]
+    return x.reshape(th, tw, TILE, TILE, *rest).transpose(1, 2).reshape(
+        th * TILE, tw * TILE, *rest)
+
+
+def _to_tiles(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    """The inverse of ``_to_image``."""
+    rest = x.shape[2:]
+    return x.reshape(th, TILE, tw, TILE, *rest).transpose(1, 2).reshape(
+        th * tw, TILE * TILE, *rest)
 
 
 def composite_reference(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
@@ -233,35 +322,37 @@ def composite_reference(wl: TileWorklist, u, v, conic_a, conic_b, conic_c,
                         train: bool = False, *,
                         cull: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, ...]:
-    """Python loop over tiles; per tile a vectorised [K, 256] alpha and an
-    inclusive transmittance scan for the stop rule. Returns (colours [H, W,
-    C], alpha [H, W]) and, with ``train``, also the final T [H, W] and the
-    index one past the last contributing splat in the tile's list (int32
-    [H, W], 0 where none). ``cull``: see ``_tiles`` (the tests' check that
-    the cull changes nothing)."""
+    """Batches of tiles of similar list lengths (``_tile_batches``); per
+    tile a vectorised [K, 256] alpha and an inclusive transmittance scan
+    for the stop rule. Returns (colours [H, W, C], alpha [H, W]) and, with
+    ``train``, also the final T [H, W] and the index one past the last
+    contributing splat in the tile's list (int32 [H, W], 0 where none).
+    ``cull``: see ``_tile_batch`` (the tests' check that the cull changes
+    nothing)."""
     launches["composite_reference"] += 1
     tw, th = tile_grid(width, height)
     dev = u.device
     C = colors.shape[1]
-    out = torch.zeros((th * TILE, tw * TILE, C), dtype=torch.float32,
+    out = torch.zeros((th * tw, TILE * TILE, C), dtype=torch.float32,
                       device=dev)
-    trans = torch.ones((th * TILE, tw * TILE), dtype=torch.float32, device=dev)
-    last = torch.zeros((th * TILE, tw * TILE), dtype=torch.int32, device=dev)
-    for ts in _tiles(wl, u, v, conic_a, conic_b, conic_c, opacities, width,
-                     cull):
-        w = torch.where(ts.keep, ts.alpha * ts.t_before, 0.0)
-        out[ts.rows, ts.cols] = (w.T @ colors[ts.g]).reshape(TILE, TILE, C)
-        trans[ts.rows, ts.cols] = ts.t_final.reshape(TILE, TILE)
+    trans = torch.ones((th * tw, TILE * TILE), dtype=torch.float32,
+                       device=dev)
+    last = torch.zeros((th * tw, TILE * TILE), dtype=torch.int32, device=dev)
+    for b in _tile_batches(wl, u, v, conic_a, conic_b, conic_c, opacities,
+                           width, cull):
+        w = torch.where(b.keep, b.alpha * b.t_before, 0.0)     # [B, K, 256]
+        out[b.tiles] = torch.bmm(w.transpose(1, 2), colors[b.g])
+        trans[b.tiles] = b.t_final
         if train:
-            pos = torch.arange(1, ts.g.shape[0] + 1, dtype=torch.int32,
-                               device=dev)[:, None]
-            hit = ts.keep & (ts.alpha > 0)
-            last[ts.rows, ts.cols] = torch.where(hit, pos, 0).amax(0).reshape(
-                TILE, TILE)
+            pos = torch.arange(1, b.g.shape[1] + 1, dtype=torch.int32,
+                               device=dev)[None, :, None]
+            hit = b.keep & (b.alpha > 0)
+            last[b.tiles] = torch.where(hit, pos, 0).amax(1)
+    out, trans = _to_image(out, th, tw), _to_image(trans, th, tw)
     res = (out[:height, :width], 1.0 - trans[:height, :width])
     if train:
         res += (trans[:height, :width].contiguous(),
-                last[:height, :width].contiguous())
+                _to_image(last, th, tw)[:height, :width].contiguous())
     return res
 
 
@@ -277,7 +368,7 @@ def composite_backward_reference(wl: TileWorklist, u, v, conic_a, conic_b,
     ``composite_reference`` does, then per pair the adjoint of the forward:
     dalpha_j = T_j (c_j.g_c) - (S_j - g_a T_N) / (1 - alpha_j) with S_j the
     suffix sum of w c.g_c behind splat j; zero where a splat was skipped,
-    stopped or its alpha clamped at 0.999. ``cull``: see ``_tiles``."""
+    stopped or its alpha clamped at 0.999. ``cull``: see ``_tile_batch``."""
     launches["composite_backward_reference"] += 1
     tw, th = tile_grid(width, height)
     dev = u.device
@@ -287,33 +378,34 @@ def composite_backward_reference(wl: TileWorklist, u, v, conic_a, conic_b,
     ga = torch.zeros((th * TILE, tw * TILE), dtype=torch.float32, device=dev)
     gc[:height, :width] = grad_colors
     ga[:height, :width] = grad_alpha
+    gc, ga = _to_tiles(gc, th, tw), _to_tiles(ga, th, tw)
     grads = torch.zeros((n, GRAD_COLORS + C), dtype=torch.float32, device=dev)
-    for ts in _tiles(wl, u, v, conic_a, conic_b, conic_c, opacities, width,
-                     cull):
-        g = ts.g
-        gcp = gc[ts.rows, ts.cols].reshape(-1, C)               # [256, C]
-        gap = ga[ts.rows, ts.cols].reshape(-1)                  # [256]
-        hit = ts.keep & (ts.alpha > 0)
-        w = torch.where(hit, ts.alpha * ts.t_before, 0.0)       # [K, 256]
-        cg = colors[g] @ gcp.T                                  # c_j . g_c
+    for b in _tile_batches(wl, u, v, conic_a, conic_b, conic_c, opacities,
+                           width, cull):
+        gcp = gc[b.tiles]                                       # [B, 256, C]
+        gap = ga[b.tiles][:, None, :]                           # [B, 1, 256]
+        hit = b.keep & (b.alpha > 0)
+        w = torch.where(hit, b.alpha * b.t_before, 0.0)         # [B, K, 256]
+        cg = torch.bmm(colors[b.g], gcp.transpose(1, 2))        # c_j . g_c
         wc = w * cg
-        suffix = torch.flip(torch.cumsum(torch.flip(wc, (0,)), 0), (0,)) - wc
-        dalpha = (ts.t_before * cg
-                  - (suffix - gap * ts.t_final) / (1.0 - ts.alpha))
+        suffix = torch.flip(torch.cumsum(torch.flip(wc, (1,)), 1), (1,)) - wc
+        dalpha = (b.t_before * cg
+                  - (suffix - gap * b.t_final[:, None, :]) / (1.0 - b.alpha))
         # gate before any product: the clamp and the skips pass no gradient
-        active = hit & (ts.raw < ALPHA_CLAMP)
-        dsig = torch.where(active, -ts.alpha * dalpha, 0.0)
-        dx = torch.where(active, ts.dx, 0.0)
-        dy = torch.where(active, ts.dy, 0.0)
-        a, b, c = (x[g][:, None] for x in (conic_a, conic_b, conic_c))
-        du = torch.where(active, -dsig * (a * dx + b * dy), 0.0)
-        dv = torch.where(active, -dsig * (c * dy + b * dx), 0.0)
-        dopa = torch.where(active, dalpha * torch.exp(-ts.sigma), 0.0)
+        active = hit & (b.raw < ALPHA_CLAMP)
+        dsig = torch.where(active, -b.alpha * dalpha, 0.0)
+        dx = torch.where(active, b.dx, 0.0)
+        dy = torch.where(active, b.dy, 0.0)
+        a, bb, c = (x[b.g][:, :, None] for x in (conic_a, conic_b, conic_c))
+        du = torch.where(active, -dsig * (a * dx + bb * dy), 0.0)
+        dv = torch.where(active, -dsig * (c * dy + bb * dx), 0.0)
+        dopa = torch.where(active, dalpha * torch.exp(-b.sigma), 0.0)
         rows = torch.stack([
-            du.sum(1), dv.sum(1), (0.5 * dx * dx * dsig).sum(1),
-            (dx * dy * dsig).sum(1), (0.5 * dy * dy * dsig).sum(1),
-            dopa.sum(1), du.abs().sum(1), dv.abs().sum(1)], 1)
-        grads.index_add_(0, g, torch.cat([rows, w @ gcp], 1))
+            du.sum(2), dv.sum(2), (0.5 * dx * dx * dsig).sum(2),
+            (dx * dy * dsig).sum(2), (0.5 * dy * dy * dsig).sum(2),
+            dopa.sum(2), du.abs().sum(2), dv.abs().sum(2)], 2)
+        grads.index_add_(0, b.g[b.valid],
+                         torch.cat([rows, torch.bmm(w, gcp)], 2)[b.valid])
     return grads
 
 

@@ -12,20 +12,25 @@ per row; ``rowbatch``: once every row's has) or after a block that held a
 dead candidate; a count is not capped inside the last block it walked,
 the slots are. Variants:
 
-  * ``base``: one CUDA block per (coarse tile, row), kb = 128;
-  * ``rowbatch``: one block per coarse tile for all 8 rows (kb 128 or 256);
-    rows that are full go on counting while another row is open;
+  * ``base``: each row's walk on its own, kb = 128 (the TPU's ``kernel``,
+    a program per (coarse tile, row));
+  * ``rowbatch``: one walk for all 8 rows of a coarse tile (kb 128 or 256;
+    the TPU's ``rowbatch_kernel``); rows that are full go on counting while
+    another row is open;
   * ``bf16``: ``base`` with the compacted values rounded to bf16 (as the
     TPU kernel's bf16 one-hot product rounds them);
   * ``count_only``: the mask and the counts without the scatter (the TPU
     bench's no-upd / no-ind ablations).
 
 ``compact_rows_reference`` is the plain torch version (CPU tensors, and
-the oracle on the card); ``compact_rows`` launches the kernels of
-``csrc/row_compact.cu`` on CUDA tensors. Slots past a row's count are not
-written by the kernels (zeros in the plain version). ``checksums`` reduces
-a result as the TPU bench's programs do. Nothing on the port's main paths
-calls these: they are kernel A's variant bench (``scripts/
+the oracle on the card); ``compact_rows`` launches the kernel of
+``csrc/row_compact.cu`` on CUDA tensors: one template for the four
+variants, over (chunk of ``CHUNK`` candidates, coarse tile), each chunk
+read once for all 8 rows by a bulk copy and the walk resolved across
+chunks by a chained scan (decoupled look-back). Slots past a row's count
+are not written by the kernel (zeros in the plain version). ``checksums``
+reduces a result as the TPU bench's programs do. Nothing on the port's
+main paths calls these: they are kernel A's variant bench (``scripts/
 bench_phase1_variants.py`` of this package).
 """
 
@@ -49,6 +54,7 @@ DEPTH, Y0, Y1 = 8, 9, 10
 DEAD = 1e10              # a candidate at or past this depth is dead
 VARIANTS = ("base", "rowbatch", "bf16", "count_only")
 ROWBATCH_KB = (128, 256)
+CHUNK = 512              # candidates a CTA of the kernel (csrc's kChunk)
 
 # kernel launches per variant ("base", "rowbatch", "bf16", "count_only";
 # "rowbatch_kb256" for the rowbatch kernel over blocks of 256)
@@ -135,7 +141,7 @@ def compact_rows_reference(cand: torch.Tensor, variant: str = "base",
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("row_compact")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.sc_compact_rows.argtypes = [P, I, I, I, I, I, P, P, P]
+    lib.sc_compact_rows.argtypes = [P, I, I, I, I, I, P, P, P, P]
     lib.sc_compact_rows.restype = I
     lib.sc_error_string.argtypes = [I]
     lib.sc_error_string.restype = ctypes.c_char_p
@@ -143,24 +149,46 @@ def _library() -> ctypes.CDLL:
 
 
 _VARIANT_CODE = {"base": 0, "bf16": 1, "count_only": 2, "rowbatch": 3}
+_LAUNCH_NAME = {(v, 128): v for v in VARIANTS}
+_LAUNCH_NAME[("rowbatch", 256)] = "rowbatch_kb256"
 
 
 def _compact_rows_cuda(cand, variant, kb):
+    """The launch. On the current device it does only what can change from
+    call to call: the checks, one float32 and one int32 allocation (the
+    counts are the int32 one's first T * 8 words, the kernel's workspace
+    the rest), the raw current stream (no Stream object) and the launch; a
+    tensor on another device enters it first."""
+    index = cand.get_device()
+    if index != torch._C._cuda_getDevice():
+        with torch.cuda.device(index):
+            return _compact_rows_cuda(cand, variant, kb)
+    if not cand.is_contiguous():
+        raise ValueError("candidates must be contiguous")
+    ptr = cand.data_ptr()
+    if ptr % 16:
+        raise ValueError("candidates must be 16-byte aligned")
     lib = _library()
     T, kc, _ = cand.shape
-    ptr = cuda_build.require(cand, "candidates", torch.float32, (T, kc, A))
     comp = (None if variant == "count_only" else
             torch.empty((T, ROWS, KF, A), dtype=torch.float32,
                         device=cand.device))
-    counts = torch.empty((T, ROWS), dtype=torch.int32, device=cand.device)
+    # the workspace (csrc's sc_compact_rows_workspace): a ticket a tile, a
+    # status word a (tile, chunk, row)
+    words = T * (1 + ROWS * -(-kc // CHUNK))
+    buf = torch.empty(T * ROWS + words, dtype=torch.int32,
+                      device=cand.device)
+    counts = buf.as_strided((T, ROWS), (ROWS, 1))
+    work = buf.data_ptr() + 4 * T * ROWS
     err = lib.sc_compact_rows(
         ptr, T, kc, KF, _VARIANT_CODE[variant], kb,
-        None if comp is None else comp.data_ptr(), counts.data_ptr(),
-        torch.cuda.current_stream(cand.device).cuda_stream)
+        None if comp is None else comp.data_ptr(), buf.data_ptr(), work,
+        torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"compact_rows launch failed: "
                            f"{lib.sc_error_string(err).decode()} ({err})")
-    launches[variant if kb == 128 else f"{variant}_kb{kb}"] += 1
+    if kc:  # no candidates: a memset of the counts, no kernel
+        launches[_LAUNCH_NAME[variant, kb]] += 1
     return comp, counts
 
 
@@ -169,9 +197,8 @@ def compact_rows(cand: torch.Tensor, variant: str = "base", kb: int = 128
     """As ``compact_rows_reference``; on CUDA tensors the kernel, whose
     slots past each count are left unwritten."""
     _check_args(cand, variant, kb)
-    if cand.device.type == "cuda":
-        with torch.cuda.device(cand.device):
-            return _compact_rows_cuda(cand, variant, kb)
+    if cand.is_cuda:
+        return _compact_rows_cuda(cand, variant, kb)
     if cand.device.type != "cpu":
         raise ValueError(f"cpu and cuda tensors only, not {cand.device}")
     return compact_rows_reference(cand, variant, kb)

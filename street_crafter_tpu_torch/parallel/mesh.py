@@ -22,8 +22,12 @@ over the axis, and the temporal stages exchange them.
 Backends: NCCL on ``cuda``, gloo on ``cpu``, and gloo on ``cuda`` only
 where the caller asks for it (ranks that share one card: NCCL refuses two
 ranks on one device). gloo moves CUDA tensors through host memory:
-``Mesh`` copies each to the host, runs the collective there and copies the
+``Mesh`` copies them to the host, runs the collective there and copies the
 result back (gloo's own CUDA support does not cover ``all_gather``).
+``all_reduce_`` and ``broadcast_`` pack a list's tensors of one dtype into
+host buckets of up to ``STAGE_BUCKET_BYTES``: one collective a bucket
+instead of one a tensor (over more than two ranks gloo's ring may then add
+an element's terms in another order).
 
 ``run_ranks`` is the test helper that replaces ``make_virtual_cpu_mesh``:
 it spawns N processes joined by a ``file://`` rendezvous and runs a
@@ -47,6 +51,38 @@ import torch
 import torch.distributed as dist
 
 TIMEOUT_S = 600.0
+STAGE_BUCKET_BYTES = 1 << 28     # host memory of one staged collective
+
+
+def _buckets(tensors: Sequence[torch.Tensor]) -> list[list[torch.Tensor]]:
+    """Consecutive runs of ``tensors`` that share a dtype, each at most
+    ``STAGE_BUCKET_BYTES`` (a larger tensor stands alone)."""
+    out: list[list[torch.Tensor]] = []
+    size = 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        if not out or t.dtype != out[-1][0].dtype or \
+                size + n > STAGE_BUCKET_BYTES:
+            out.append([])
+            size = 0
+        out[-1].append(t)
+        size += n
+    return out
+
+
+def _through_host(tensors: Sequence[torch.Tensor],
+                  collective: Callable[[torch.Tensor], Any]) -> None:
+    """``collective`` in place on host copies of ``tensors``, one flat
+    buffer a bucket, and the results copied back."""
+    for bucket in _buckets(tensors):
+        sizes = [t.numel() for t in bucket]
+        host = torch.empty(sum(sizes), dtype=bucket[0].dtype)
+        parts = host.split(sizes)
+        for t, part in zip(bucket, parts):
+            part.copy_(t.reshape(-1))
+        collective(host)
+        for t, part in zip(bucket, parts):
+            t.copy_(part.view(t.shape))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,13 +179,12 @@ class Mesh:
             return
         rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         group = self._group(axis)
+        if self._staged:
+            _through_host(tensors, lambda h: dist.all_reduce(h, rop,
+                                                             group=group))
+            return
         for t in tensors:
-            if self._staged:
-                host = t.cpu()
-                dist.all_reduce(host, rop, group=group)
-                t.copy_(host)
-            else:
-                dist.all_reduce(t, rop, group=group)
+            dist.all_reduce(t, rop, group=group)
 
     def all_gather(self, x: torch.Tensor, dim: int = 0,
                    axis: str | None = None) -> torch.Tensor:
@@ -171,13 +206,12 @@ class Mesh:
             return
         root = self.axis_ranks(axis)[src]
         group = self._group(axis)
+        if self._staged:
+            _through_host(tensors, lambda h: dist.broadcast(h, root,
+                                                            group=group))
+            return
         for t in tensors:
-            if self._staged:
-                host = t.cpu()
-                dist.broadcast(host, root, group=group)
-                t.copy_(host)
-            else:
-                dist.broadcast(t, root, group=group)
+            dist.broadcast(t, root, group=group)
 
     def all_to_all(self, inputs: Sequence[torch.Tensor],
                    out_shapes: Sequence[Sequence[int]],

@@ -54,7 +54,7 @@ from ..datasets.readers import CameraInfo
 from ..datasets.vdm_data import aspect_crop_resize
 from ..parallel.mesh import make_mesh
 from ..parallel.sample import sample_on_mesh
-from ..utils.png import read_png
+from ..utils.png import PngWriter, read_png, thread_map
 from ..visualizers.visualizer import save_image
 
 SEED = 23   # the reference seeds every sampling call with 23
@@ -100,6 +100,11 @@ def _load_rgb(path: str) -> np.ndarray:
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, -1)
     return img[..., :3]
+
+
+def _guidance(cam: CameraInfo, th: int, tw: int) -> np.ndarray:
+    rgb = _load_rgb(cam.metadata["guidance_rgb_path"])
+    return aspect_crop_resize(rgb, th, tw) * 2.0 - 1.0
 
 
 def resolve_params_on_host(dcfg, device: torch.device | str) -> bool:
@@ -297,8 +302,12 @@ class DiffusionRunner:
     # -- data assembly ---------------------------------------------------
     def load_guidance(self, cam: CameraInfo) -> np.ndarray:
         """The LiDAR condition image at the diffusion size, in [-1, 1]."""
-        rgb = _load_rgb(cam.metadata["guidance_rgb_path"])
-        return aspect_crop_resize(rgb, self.th, self.tw) * 2.0 - 1.0
+        return _guidance(cam, self.th, self.tw)
+
+    def load_guidances(self, cameras: list[CameraInfo]) -> list[np.ndarray]:
+        """``load_guidance`` of each camera, decoded and resized on the PNG
+        worker threads."""
+        return thread_map(lambda c: _guidance(c, self.th, self.tw), cameras)
 
     def load_cond_image(self, cam: CameraInfo) -> np.ndarray:
         img = aspect_crop_resize(cam.load_image(), self.th, self.tw)
@@ -306,13 +315,15 @@ class DiffusionRunner:
 
     def _attach(self, cameras: list[CameraInfo], frames: np.ndarray,
                 name: Callable[[CameraInfo], str]) -> None:
-        for cam, img in zip(cameras, frames):
-            cam._image = img
-            # a new version: Scene.batch_for builds the batch anew
-            cam.metadata["diffusion_version"] = \
-                cam.metadata.get("diffusion_version", 0) + 1
-            if self.save_dir and self.writes:
-                save_image(os.path.join(self.save_dir, name(cam)), img)
+        with PngWriter() as png:
+            for cam, img in zip(cameras, frames):
+                cam._image = img
+                # a new version: Scene.batch_for builds the batch anew
+                cam.metadata["diffusion_version"] = \
+                    cam.metadata.get("diffusion_version", 0) + 1
+                if self.save_dir and self.writes:
+                    save_image(os.path.join(self.save_dir, name(cam)), img,
+                               png)
 
     # -- entry points ------------------------------------------------------
     def run(self, novel_cameras: list[CameraInfo],
@@ -342,7 +353,7 @@ class DiffusionRunner:
             raise ValueError(f"not enough frames for sampling: {n} < {win}")
         step = win - self.window_size
 
-        guides = ([self.load_guidance(c) for c in cameras] if self.samples
+        guides = (self.load_guidances(cameras) if self.samples
                   else None)
         renders = None
         if render_fn is not None and self.samples:
@@ -394,7 +405,7 @@ class DiffusionRunner:
             raise ValueError(f"not enough frames: {n} < {T}")
         step = T - self.window_size
 
-        guides = ([self.load_guidance(c) for c in cameras] if self.samples
+        guides = (self.load_guidances(cameras) if self.samples
                   else None)
         filled = np.zeros(n, bool)
         result = np.zeros((n, self.th, self.tw, 3), np.float32)

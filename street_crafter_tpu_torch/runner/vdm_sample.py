@@ -30,7 +30,7 @@ from ..datasets.vdm_data import ClipDataset
 from ..models.vdm.engine import VideoDiffusionEngine
 from ..models.vdm.weights import engine_from_config, load_vdm_params
 from ..parallel.sample import sample_on_mesh
-from ..utils.png import write_png
+from ..utils.png import PngWriter
 from ..visualizers.visualizer import save_video, to_uint8
 from .diffusion import sampling_mesh_from_cfg
 
@@ -99,8 +99,9 @@ def sample_clips(cfg: Config, num_clips: int | None = None) -> dict:
                   for g, c, s in zip(item["img_seq"], item["guide_seq"],
                                      sample)]
         clip_dir = os.path.join(out_dir, f"clip_{i:04d}")
-        for t, frame in enumerate(frames):
-            write_png(os.path.join(clip_dir, f"{t:03d}.png"), frame)
+        with PngWriter() as png:
+            for t, frame in enumerate(frames):
+                png.write(os.path.join(clip_dir, f"{t:03d}.png"), frame)
         res["clips"].append(clip_dir)
         if cfg.render.get("save_video", False):
             res["videos"].append(save_video(

@@ -21,9 +21,16 @@ of ``ops/row_compact.py`` (``csrc/row_compact.cu``):
 The TPU's ``win8`` variant only moved the slot window's alignment and
 computes what ``base`` computes: no kernel here. Each kernel is held
 against the plain torch version on the same candidates (counts, the kept
-slots and the TPU bench's checksums exactly equal) and timed with CUDA
-events beside it. Prints one JSON object per variant, then the card's
-name and power limit. A kernel that disagrees exits non-zero.
+slots and the TPU bench's checksums exactly equal) and timed beside it:
+as called (``ms``: CUDA events around 20 calls back to back, the host's
+work per call included where it is the longer) and on the device alone
+(``device_ms``: 20 calls captured in one CUDA graph, replayed between
+events; the workspace's memset included). Both calls find the candidates
+in L2 where the last call left them (warm). Prints one JSON object per
+variant and seed, then the card's name and power limit. A kernel that
+disagrees exits non-zero.
+
+    python3 -m street_crafter_tpu_torch.scripts.bench_phase1_variants
 """
 
 from __future__ import annotations
@@ -84,27 +91,56 @@ def bound_ms(cand, counts, variant: str, kb: int,
     return 1e3 * (read + written + counts.numel() * 4) / peak_bytes_s
 
 
+def events_ms(fn, n: int) -> float:
+    """Mean ms per call of ``n`` calls back to back (CUDA events), after
+    one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Mean device ms per call: ``calls`` calls captured in one CUDA graph
+    (after a warm-up call off the capturing stream), replayed ``replays``
+    times between CUDA events. ``fn`` must not synchronise."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    ms = events_ms(graph.replay, replays) / calls
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def run_variants(dev, cand, peak_bytes_s: float, reps: int = 20) -> list:
     """Each variant's kernel against its plain version on ``cand`` (a CUDA
-    tensor), and both timed (CUDA events; the plain version once)."""
+    tensor), and both timed: the kernel as called (``ms``: CUDA events
+    around ``reps`` calls) and on the device alone (``device_ms``: a CUDA
+    graph of ``reps`` calls), the plain version once."""
     import torch
     from street_crafter_tpu_torch.ops import row_compact as RC
 
-    def ms(fn, n):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
-
     rows = []
     for name, variant, kb in RUNS:
-        comp, counts = RC.compact_rows(cand, variant, kb)
+        def call(variant=variant, kb=kb):
+            return RC.compact_rows(cand, variant, kb)
+        comp, counts = call()
         ref_comp, ref_counts = RC.compact_rows_reference(cand, variant, kb)
         ok = bool(torch.equal(counts, ref_counts))
         if comp is not None:
@@ -112,18 +148,20 @@ def run_variants(dev, cand, peak_bytes_s: float, reps: int = 20) -> list:
         sums = RC.checksums(comp, counts, variant)
         ref_sums = RC.checksums(ref_comp, ref_counts, variant)
         ok = ok and bool(torch.equal(sums, ref_sums))
+        del comp, counts
+        bound = bound_ms(cand, ref_counts, variant, kb, peak_bytes_s)
+        device = graph_ms(call, reps)
         rows.append({
             "name": name, "variant": variant, "kb": kb,
             "shape": list(cand.shape), "equal": ok,
             "max_abs_err": float((sums - ref_sums).abs().max()),
             "kept": int(ref_counts.clamp(max=RC.KF).sum()),
             "counts_max": int(ref_counts.max()),
-            "ms": ms(lambda: RC.compact_rows(cand, variant, kb), reps),
-            "plain_ms": ms(lambda: RC.compact_rows_reference(cand, variant,
-                                                             kb), 1),
-            "bound_ms": bound_ms(cand, ref_counts, variant, kb,
-                                 peak_bytes_s),
-            "bound_by": "bytes"})
+            "ms": events_ms(call, reps), "device_ms": device,
+            "plain_ms": events_ms(lambda: RC.compact_rows_reference(
+                cand, variant, kb), 1),
+            "bound_ms": bound, "bound_by": "bytes",
+            "share_of_bound": bound / device})
     return rows
 
 

@@ -117,52 +117,94 @@ def write_ply(path: str | os.PathLike, points: np.ndarray,
 
 def voxel_downsample(points: np.ndarray, colors: np.ndarray | None,
                      voxel_size: float) -> tuple[np.ndarray, np.ndarray | None]:
-    """open3d voxel_down_sample analog: mean of points/colors per voxel."""
+    """open3d voxel_down_sample analog: mean of points/colors per voxel,
+    the voxels in lexicographic (x, y, z) order."""
     keys = np.floor(points / voxel_size).astype(np.int64)
-    _, inv, counts = np.unique(keys, axis=0, return_inverse=True,
-                               return_counts=True)
+    inv, counts = _voxel_ids(keys)
     m = counts.shape[0]
-    out_pts = np.zeros((m, 3), np.float64)
-    np.add.at(out_pts, inv, points)
-    out_pts /= counts[:, None]
-    out_cols = None
-    if colors is not None:
-        out_cols = np.zeros((m, 3), np.float64)
-        np.add.at(out_cols, inv, colors)
-        out_cols = (out_cols / counts[:, None]).astype(np.float32)
-    return out_pts.astype(np.float32), out_cols
+
+    def mean(x):        # float64 sums in the points' order, as np.add.at
+        return np.stack([np.bincount(inv, weights=x[:, i], minlength=m)
+                         for i in range(3)], 1) / counts[:, None]
+
+    out_cols = None if colors is None else mean(colors).astype(np.float32)
+    return mean(points).astype(np.float32), out_cols
+
+
+def _voxel_ids(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``np.unique(keys, axis=0, return_inverse=True, return_counts=True)``
+    without the unique rows: each [N, 3] int64 row packed into one int64
+    that sorts as the row does (a 1-D sort, not a sort of records)."""
+    if len(keys) == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    packed, _ = _pack_cells(keys, margin=0)
+    _, inv, counts = np.unique(packed, return_inverse=True,
+                               return_counts=True)
+    return inv.reshape(-1), counts
+
+
+def _pack_cells(keys: np.ndarray, margin: int) -> tuple[np.ndarray, ...]:
+    """Each [N, 3] int64 cell index as one int64 that sorts as the row
+    does, with ``margin`` spare cells below and above each axis (so a
+    neighbour's offset stays inside); returns (packed keys, the spans)."""
+    lo = keys.min(0) - margin
+    span = keys.max(0) - lo + 1 + margin
+    if float(span[0]) * float(span[1]) * float(span[2]) >= 2.0 ** 62:
+        raise ValueError(f"{span} cells overflow a 64-bit cell key")
+    k = keys - lo
+    return (k[:, 0] * span[1] + k[:, 1]) * span[2] + k[:, 2], span
+
+
+_OUTLIER_BLOCK = 1 << 15      # points a vectorised pass
+# the own cell first: in a dense cloud it holds most points' neighbours
+_OFFSETS = sorted(((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                   for dz in (-1, 0, 1)), key=lambda o: o != (0, 0, 0))
 
 
 def remove_radius_outliers(points: np.ndarray, nb_points: int = 5,
                            radius: float = 0.5) -> np.ndarray:
     """open3d remove_radius_outlier analog: keep points with >= nb_points
-    neighbors within radius (grid-hash neighborhood count). Returns a bool
-    keep-mask."""
-    cell = radius
-    keys = np.floor(points / cell).astype(np.int64)
-    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
-    key_to_idx = {tuple(k): i for i, k in enumerate(uniq)}
-    counts = np.bincount(inv, minlength=len(uniq))
-    keep = np.zeros(len(points), bool)
-    # neighbor count over the 27-cell neighborhood is an upper bound for the
-    # exact radius count and a lower bound when restricted to the own cell;
-    # we use exact distances within the candidate cells.
-    from collections import defaultdict
-    cell_points = defaultdict(list)
-    for i, k in enumerate(map(tuple, keys)):
-        cell_points[k].append(i)
-    offsets = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
-               for dz in (-1, 0, 1)]
+    neighbors within radius. Returns a bool keep-mask.
+
+    Cells of side ``radius`` hash the points; each point's candidates are
+    the points of its own and the 26 neighbouring cells, and it counts
+    those (itself included) whose squared distance ``((p - q) ** 2).sum()``
+    in float32 is at most radius^2, stopping once it has ``nb_points + 1``
+    (the mask is the same). The points are sorted by cell, so a
+    neighbouring cell is one contiguous run, and the candidate pairs of a
+    block of points are counted in one vectorised pass an offset."""
+    n = len(points)
+    keep = np.zeros(n, bool)
+    if n == 0:
+        return keep
+    packed, span = _pack_cells(np.floor(points / radius).astype(np.int64),
+                               margin=1)
+    order = np.argsort(packed, kind="stable")
+    packed, pts = packed[order], points[order]
+    cells, first, size = np.unique(packed, return_index=True,
+                                   return_counts=True)
     r2 = radius * radius
-    for k, idxs in cell_points.items():
-        cand = []
-        for off in offsets:
-            nk = (k[0] + off[0], k[1] + off[1], k[2] + off[2])
-            cand.extend(cell_points.get(nk, ()))
-        cand = np.asarray(cand)
-        p = points[idxs]
-        q = points[cand]
-        d2 = ((p[:, None] - q[None]) ** 2).sum(-1)
-        cnt = (d2 <= r2).sum(-1)  # includes self
-        keep[np.asarray(idxs)] = cnt >= nb_points + 1
+    need = nb_points + 1
+    count = np.zeros(n, np.int64)
+    for b0 in range(0, n, _OUTLIER_BLOCK):
+        b1 = min(b0 + _OUTLIER_BLOCK, n)
+        for dx, dy, dz in _OFFSETS:
+            # a point that has its neighbours already is done
+            open_ = b0 + np.flatnonzero(count[b0:b1] < need)
+            if not len(open_):
+                break
+            want = packed[open_] + (dx * span[1] + dy) * span[2] + dz
+            c = np.minimum(np.searchsorted(cells, want), len(cells) - 1)
+            length = np.where(cells[c] == want, size[c], 0)
+            total = int(length.sum())
+            if not total:
+                continue
+            i = np.repeat(open_, length)
+            run = np.cumsum(length) - length
+            j = (np.arange(total) - np.repeat(run, length)
+                 + np.repeat(first[c], length))
+            d2 = ((pts[i] - pts[j]) ** 2).sum(-1)
+            count[b0:b1] += np.bincount(i[d2 <= r2] - b0,
+                                        minlength=b1 - b0)
+    keep[order] = count >= nb_points + 1
     return keep

@@ -3,6 +3,9 @@
 Stands in for ``imageio`` in the port, which may run where imageio is not
 installed. Writes non-interlaced 8-bit gray / gray+alpha / RGB / RGBA with
 filter type 0; reads the same colour types with any of the five row filters.
+``PngWriter`` writes a batch of PNGs on worker threads (zlib's compression
+and the file write release the GIL), so a caller that writes many frames
+goes on while they compress; the files are the same bytes.
 """
 
 from __future__ import annotations
@@ -10,8 +13,12 @@ from __future__ import annotations
 import os
 import struct
 import zlib
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
+
+PNG_THREADS = 4
+_pool: tuple[int, ThreadPoolExecutor] | None = None     # (its pid, pool)
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _SAMPLES = {0: 1, 4: 2, 2: 3, 6: 4}          # colour type -> samples/pixel
@@ -23,8 +30,8 @@ def _chunk(tag: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", crc)
 
 
-def write_png(path: str | os.PathLike, img: np.ndarray) -> None:
-    """Write a uint8 [H, W] or [H, W, C] (C in 1..4) image."""
+def _scanlines(img: np.ndarray) -> tuple[bytes, np.ndarray]:
+    """(IHDR body, the filtered scanlines): a copy of ``img``."""
     a = np.asarray(img)
     if a.dtype != np.uint8:
         raise ValueError(f"write_png takes uint8, got {a.dtype}")
@@ -35,12 +42,60 @@ def write_png(path: str | os.PathLike, img: np.ndarray) -> None:
     h, w, c = a.shape
     raw = np.zeros((h, 1 + w * c), np.uint8)      # leading 0 = filter None
     raw[:, 1:] = a.reshape(h, w * c)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
+    return struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0), raw
+
+
+def _write(path: str | os.PathLike, ihdr: bytes, raw: np.ndarray) -> None:
     os.makedirs(os.path.dirname(os.fspath(path)) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(_SIGNATURE + _chunk(b"IHDR", ihdr)
                 + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
                 + _chunk(b"IEND", b""))
+
+
+def write_png(path: str | os.PathLike, img: np.ndarray) -> None:
+    """Write a uint8 [H, W] or [H, W, C] (C in 1..4) image."""
+    _write(path, *_scanlines(img))
+
+
+def _threads() -> ThreadPoolExecutor:
+    """The worker threads of this process (a forked child makes its own:
+    its parent's threads do not run in it)."""
+    global _pool
+    if _pool is None or _pool[0] != os.getpid():
+        _pool = (os.getpid(), ThreadPoolExecutor(PNG_THREADS,
+                                                 thread_name_prefix="png"))
+    return _pool[1]
+
+
+def thread_map(fn, items) -> list:
+    """``[fn(x) for x in items]`` on the worker threads, in order: for
+    work that reads and decodes PNGs (zlib and numpy release the GIL)."""
+    return list(_threads().map(fn, items))
+
+
+class PngWriter:
+    """``write`` checks and copies the image, then compresses and writes it
+    on one of ``PNG_THREADS`` worker threads; ``close`` (or the end of a
+    ``with`` block) waits for every write and raises the first failure."""
+
+    def __init__(self) -> None:
+        self._pending: list[Future] = []
+
+    def write(self, path: str | os.PathLike, img: np.ndarray) -> None:
+        self._pending.append(_threads().submit(_write, path,
+                                               *_scanlines(img)))
+
+    def close(self) -> None:
+        pending, self._pending = self._pending, []
+        for f in pending:
+            f.result()
+
+    def __enter__(self) -> "PngWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def _unfilter_row(ftype: int, line: np.ndarray, prev: np.ndarray,

@@ -1,8 +1,9 @@
 """Render-output visualization: per-frame pngs + optional videos per stream
 (port of ``street_crafter_tpu/visualizers/visualizer.py``).
 
-PNGs go through the port's stdlib writer. Videos are written only when
-asked for, and need ``imageio``; asking without it raises.
+PNGs go through the port's stdlib writer, on its worker threads
+(``summarize`` waits for them). Videos are written only when asked for,
+and need ``imageio``; asking without it raises.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from collections import defaultdict
 
 import numpy as np
 
-from ..utils.png import write_png
+from ..utils.png import PngWriter, write_png
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -40,8 +41,10 @@ def depth_colormap(depth: np.ndarray, near: float | None = None,
     return to_uint8(img)
 
 
-def save_image(path: str, img: np.ndarray) -> None:
-    write_png(path, to_uint8(img))
+def save_image(path: str, img: np.ndarray,
+               png: PngWriter | None = None) -> None:
+    """``img`` as an 8-bit PNG; through ``png``'s threads when given."""
+    (write_png if png is None else png.write)(path, to_uint8(img))
 
 
 def save_video(path: str, frames: list[np.ndarray], fps: int = 10) -> str:
@@ -67,7 +70,8 @@ def save_video(path: str, frames: list[np.ndarray], fps: int = 10) -> str:
 class Visualizer:
     """Collects named streams (rgb, acc, depth, gt, diff) per (frame, cam),
     writes one png each and, with ``save_videos``, one video per stream
-    with the cameras of a frame side by side."""
+    with the cameras of a frame side by side. The PNGs are written on
+    worker threads; ``summarize`` returns once they are on disk."""
 
     def __init__(self, out_dir: str, fps: int = 10, save_images: bool = True,
                  save_videos: bool = True):
@@ -77,6 +81,7 @@ class Visualizer:
         self.save_videos = save_videos
         self._streams: dict[str, dict[int, dict[int, np.ndarray]]] = \
             defaultdict(lambda: defaultdict(dict))
+        self._png = PngWriter()
         os.makedirs(out_dir, exist_ok=True)
 
     def add(self, name: str, frame: int, cam: int, img: np.ndarray) -> None:
@@ -90,7 +95,8 @@ class Visualizer:
             self._streams[name][frame][cam] = to_uint8(img)
         if self.save_images:
             save_image(os.path.join(self.out_dir, name,
-                                    f"{frame:06d}_{cam}.png"), img)
+                                    f"{frame:06d}_{cam}.png"), img,
+                       self._png)
 
     def add_result(self, result: dict, frame: int, cam: int,
                    gt: np.ndarray | None = None) -> None:
@@ -107,8 +113,9 @@ class Visualizer:
                      np.repeat(to_uint8(diff)[..., None], 3, -1))
 
     def summarize(self) -> dict[str, str]:
-        """Write one video per stream when videos are on; returns stream ->
-        video path."""
+        """Wait for the PNGs; write one video per stream when videos are
+        on; returns stream -> video path."""
+        self._png.close()
         out = {}
         for name, frames in self._streams.items():
             video_frames = []

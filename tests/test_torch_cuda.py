@@ -25,6 +25,7 @@ from street_crafter_tpu_torch.ops import gs_raster as G
 from street_crafter_tpu_torch.ops import row_compact as RC
 from street_crafter_tpu_torch.scripts import bench_phase1_variants as PV
 from raster_cases import adversarial_cull_splats  # tests/raster_cases.py
+from row_compact_cases import CASES, chunk_case  # tests/row_compact_cases.py
 
 pytestmark = pytest.mark.cuda
 
@@ -546,17 +547,25 @@ def test_kernels_b_c_read_shared_records(cuda, C):
     assert_grads_close(got, want)
 
 
-@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("data", ["make_cand", "capped", *CASES, "full",
+                                  "empty"])
 @pytest.mark.parametrize("name,variant,kb", list(PV.RUNS))
-def test_row_compaction_kernels_match_plain(cuda, name, variant, kb, capped):
+def test_row_compaction_kernels_match_plain(cuda, name, variant, kb, data):
     """K1's row-compaction variants (kernel A's variant bench) against their
-    plain version on 13 coarse tiles of make_cand(0): the counts, every
-    kept slot and the checksums exactly; ``capped``: a third of the
-    candidates span the whole coarse tile (rows outgrow kf = 1024) and tile
-    2 holds a dead candidate in its third block of 128 (its walks stop
-    there)."""
-    cand = PV.make_cand(0, 13)
-    if capped:
+    plain version: the counts, every kept slot and the checksums exactly,
+    one launch a call. Candidates: 13 coarse tiles of make_cand(0);
+    ``capped``: there a third of the candidates span the whole coarse tile
+    (rows outgrow kf = 1024) and tile 2 holds a dead candidate in its third
+    block of 128 (its walks stop there); the chunk-edge sets of row_compact_cases.py; ``full``: the
+    bench's [117, 4096, 11] make_cand(0); ``empty``: 2 tiles of no
+    candidates (every count 0, no kernel launched)."""
+    if data in CASES:
+        cand = chunk_case(data, kb)
+    elif data == "empty":
+        cand = np.zeros((2, 0, RC.A), np.float32)
+    else:
+        cand = PV.make_cand(0, PV.TC if data == "full" else 13)
+    if data == "capped":
         wide = np.random.default_rng(2).random(cand.shape[:2]) < 0.33
         cand[..., RC.Y0] = np.where(wide, -1.0, cand[..., RC.Y0])
         cand[..., RC.Y1] = np.where(wide, 1000.0, cand[..., RC.Y1])
@@ -564,14 +573,14 @@ def test_row_compaction_kernels_match_plain(cuda, name, variant, kb, capped):
     x = torch.tensor(cand, device=cuda)
     RC.reset_launch_counts()
     comp, counts = RC.compact_rows(x, variant, kb)
-    assert dict(RC.launches) == {name: 1}
+    assert dict(RC.launches) == ({} if data == "empty" else {name: 1})
     ref_comp, ref_counts = RC.compact_rows_reference(x, variant, kb)
     assert torch.equal(counts, ref_counts)
     if comp is not None:
         assert PV.kept_equal(comp, ref_comp, ref_counts)
     assert torch.equal(RC.checksums(comp, counts, variant),
                        RC.checksums(ref_comp, ref_counts, variant))
-    if capped:
+    if data == "capped":
         assert int(ref_counts.max()) > RC.KF
 
 

@@ -8,8 +8,9 @@
     ``scripts/bench_phase1_variants.py``'s ``kernel`` (variants base and
     bf16) and ``rowbatch_kernel`` (blocks of 128 and 256 candidates), run
     under ``pl.pallas_call(..., interpret=True)`` on the first 2 coarse
-    tiles of its ``make_cand(seed)``: the counts exactly, the checksums to
-    1e-6 relative (the 11-value sum is reduced in another order), and the
+    tiles of its ``make_cand(seed)`` and on a 2-tile chunk-edge set of
+    ``row_compact_cases.py``: the counts exactly, the checksums to 1e-6
+    relative (the 11-value sum is reduced in another order), and the
     compacted lists exactly. The script is loaded by path; its candidates
     and the port's ``make_cand`` are the same numpy draws.
 """
@@ -29,6 +30,7 @@ from jax.experimental.pallas import tpu as pltpu
 from street_crafter_tpu_torch.ops import gs_raster as G
 from street_crafter_tpu_torch.ops import row_compact as RC
 from street_crafter_tpu_torch.scripts import bench_phase1_variants as PV
+from row_compact_cases import chunk_case  # tests/row_compact_cases.py
 
 torch.set_num_threads(1)
 
@@ -97,7 +99,14 @@ def candidates(data: str) -> np.ndarray:
     """``make_cand(0)``'s first coarse tiles; "capped": 40% of them span
     the whole coarse tile, so that every row of tile 0 outgrows kf, and
     tile 1 has a dead candidate in its second block of 128, which ends its
-    walks there."""
+    walks there; "kf_at_edges": the chunk-edge set of
+    ``row_compact_cases.py`` (every row reaches kf exactly at a block edge
+    inside a chunk of the CUDA kernel in tile 0, at a chunk edge in tile
+    1)."""
+    if data == "kf_at_edges":
+        cand = chunk_case(data)
+        assert cand.shape == (TILES, tpu_bench().kc, RC.A)
+        return cand
     cand = PV.make_cand(0, TILES)
     np.testing.assert_array_equal(
         cand, np.asarray(tpu_bench().make_cand(0))[:TILES])
@@ -109,7 +118,7 @@ def candidates(data: str) -> np.ndarray:
     return cand
 
 
-@pytest.mark.parametrize("data", ["make_cand", "capped"])
+@pytest.mark.parametrize("data", ["make_cand", "capped", "kf_at_edges"])
 @pytest.mark.parametrize("variant,kb", [("base", 128), ("bf16", 128),
                                         ("rowbatch", 128),
                                         ("rowbatch", 256)])
@@ -124,6 +133,14 @@ def test_row_compaction_matches_tpu_bench(variant, kb, data):
     first = got - port_counts
     np.testing.assert_array_equal(np.round(want - first), port_counts)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    if data == "kf_at_edges":
+        # every walk stops exactly at kf, before the next block
+        assert counts.tolist() == [[RC.KF] * RC.ROWS] * TILES
+        kept = torch.tensor(cand[0, 128:1152])
+        if variant == "bf16":
+            kept = kept.to(torch.bfloat16).float()
+        assert torch.equal(comp[0, 3], kept)
+        return
     if data == "capped":
         # tile 0's walks stop once the count passed kf: within a block of
         # it, slots capped; tile 1's after the block with the dead one

@@ -39,6 +39,45 @@ def collectives(mesh) -> dict:
             "g1": g1.numpy(), "bcast": c.numpy()}
 
 
+def staged_collectives(mesh) -> dict:
+    """all_reduce_ (sum, max) and broadcast_ from rank 1 over float32,
+    float64 and int64 tensors (one a strided view), staged through host
+    buckets of 64 bytes, as gloo with CUDA tensors stages them. Returns,
+    by collective, [the results, what every rank's inputs give], the
+    latter computed here from each rank's seed."""
+    import copy
+    from street_crafter_tpu_torch.parallel import mesh as M
+
+    class Staged(M.Mesh):
+        _staged = True
+
+    staged = copy.copy(mesh)
+    staged.__class__ = Staged
+    M.STAGE_BUCKET_BYTES = 64
+
+    def tensors(r):
+        g = torch.Generator().manual_seed(3 + r)
+        return [torch.randn(6, 8, generator=g)[:, ::2],
+                torch.randn(37, generator=g, dtype=torch.float64),
+                torch.arange(10) * (r + 1), torch.randn(3, 3, generator=g)]
+
+    ranks = [tensors(r) for r in range(mesh.world_size)]
+    want = {"sum": [sum(ts) for ts in zip(*ranks)],
+            "max": [torch.stack(ts).amax(0) for ts in zip(*ranks)],
+            "bcast": ranks[1]}
+    out = {}
+    for name, kw in (("sum", {}), ("max", {"op": "max"}),
+                     ("bcast", {"src": 1})):
+        ts = tensors(mesh.rank)
+        if name == "bcast":
+            staged.broadcast_(ts, **kw)
+        else:
+            staged.all_reduce_(ts, **kw)
+        out[name] = [[t.numpy().copy() for t in ts],
+                     [t.numpy().copy() for t in want[name]]]
+    return out
+
+
 def fail_on_rank_1(mesh) -> int:
     if mesh.rank == 1:
         raise ValueError("rank 1 fails on purpose")
