@@ -303,8 +303,37 @@ Phases, one status line each; any failure raises (exit code != 0):
      the four launches, the call enqueued behind a spin kernel; the
      wrapper's host time). The kernels line gains Q with its shapes and
      the eval's sums.
+ 26. the f32 engine (diffusion.compute_dtype float32), after phase 25: (a)
+     the f32 forms of D (with and without lse), G and H
+     (csrc/flash_attention_f32.cu, 3xTF32 products) against their plain
+     versions in f32 at ragged lengths (q, kv in 100, 300, 1000; head dims
+     64 and 128) and at the main path's shapes (sampling [50, S, H, 64]:
+     D; training [25, S, H, 64]: D with lse, G, H), within F32_ATOL +
+     F32_RTOL of the largest |reference|; a control (the plain forward in
+     TF32 products, its error over that limit); CUDA-event times beside
+     the bf16 forms on the same values, scaled_dot_product_attention on
+     the f32 tensors (timed only), the plain versions and the bound
+     (operations at 495 / 3 TF/s, or bytes); (b) runner.vdm_sample.main in
+     f32 on phase 9's data, seeded weights and noise, 25 frames at
+     576x1024, CFG, F32_SAMPLE_STEPS Euler step and the chunked decode:
+     exactly 15 launches of the f32 D an eval and nothing else (the
+     temporal stages are plain in f32, as in the JAX package), finite
+     frames; then one CFG denoiser eval of the f32 engine and of the bf16
+     engine from the same weights, latents, sigma and conditioning: each
+     eval's ms, the f32 eval's peak, the bf16 eval's per-frame PSNR
+     against the f32 one (reported, not gated); (c) runner.vdm_train.main
+     in f32 for one step on phase 12's recipe at full width (the
+     checkpoint and EMA export
+     counted, not written; 25 frames fit): a finite loss and 25 / 15 / 15
+     launches of the f32 D with lse / G / H; (d) a narrow f32 engine on
+     the card against the same engine on the CPU, one CFG denoiser eval
+     from one seed, within F32_CARD_RTOL of the largest |output|, with
+     cuDNN's TF32 at PyTorch's default (on) around the card's eval: the
+     engine itself turns it off (the control bypasses that). The kernels
+     line gains the four f32 forms; the script prints its total time.
 Kernel builds, launches and comparisons raise on failure; no phase catches
-its own. TF32 is off for matmuls and cuDNN convolutions throughout.
+its own. TF32 is off for matmuls and cuDNN convolutions throughout, but
+around phase 26 (d)'s card eval.
 The last three lines: the card's name and power limit, a JSON object of
 per-kernel results, and {"ok": true, "device": {...}}.
 """
@@ -5969,6 +5998,546 @@ def w8a8_eval(gpu: str, dev: str = "cuda") -> tuple[dict, dict]:
     return counts, row
 
 
+# ------------------------------------------------- phase 26: the f32 engine
+F32_SOURCE = "street_crafter_tpu_torch/csrc/flash_attention_f32.cu"
+F32_REPLACES = {
+    "flash_attention_f32": "street_crafter_tpu/ops/flash_attention.py:29",
+    "flash_attention_lse_f32": "street_crafter_tpu/ops/flash_attention.py:29",
+    "flash_attention_bwd_dkv_f32":
+        "street_crafter_tpu/ops/flash_attention.py:195",
+    "flash_attention_bwd_dq_f32":
+        "street_crafter_tpu/ops/flash_attention.py:246"}
+F32_KERNELS = tuple(F32_REPLACES)
+# the f32 forms against their plain versions (f32, TF32 off): atol 2e-5 +
+# rtol 1e-4 of the largest |reference| (f32 sums in another order)
+F32_ATOL, F32_RTOL = 2e-5, 1e-4
+# Hopper has no f32 tensor-core product: the f32 forms run three TF32
+# products a product (3xTF32), so their peak is TF32's dense 495 TF/s / 3
+PEAK_3XTF32_FLOPS = 495e12 / 3
+F32_RAGGED = [(1, sq, skv, 2, d) for d in (64, 128)
+              for sq in (100, 300, 1000) for skv in (100, 300, 1000)]
+F32_SAMPLE_STEPS = 1          # (b): Euler steps (cut from 50)
+# (b): a CFG eval of the f32 UNet: the 15 spatial sites at levels 0-2 take
+# the f32 D; the temporal stages are plain in f32 (E and F are bf16 only,
+# as the JAX package's fused gate)
+F32_PER_EVAL = {"flash_attention_f32": 15}
+F32_TRAIN_PER_STEP = {"flash_attention_lse_f32": 25,
+                      "flash_attention_bwd_dkv_f32": 15,
+                      "flash_attention_bwd_dq_f32": 15}
+F32_CARD_RTOL = 1e-4          # (d): the card's f32 eval against the CPU's
+# (d): a narrow f32 UNet (two levels, head dim 64) at a 16x16 latent: the
+# level-0 attention is 256 long, so it takes the flash route
+F32_NARROW = dict(model_channels=64, num_head_channels=64,
+                  channel_mult=(1, 2), attention_resolutions=(1, 2),
+                  num_res_blocks=1)
+F32_NARROW_T, F32_NARROW_HW = 4, (16, 16)
+# (b) and (c): the clip (a CPU rehearsal cuts it and takes the tiny engine)
+F32_FRAMES, F32_HW, F32_TINY = 25, (576, 1024), False
+
+
+def f32_case(dev, b, sq, skv, h, d, seed):
+    """q, k, v and a cotangent do, f32, from a seed."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((b, n, h, d), generator=g, device=dev)
+               for n in (sq, skv, skv))
+    return q, k, v, torch.randn((b, sq, h, d), generator=g, device=dev)
+
+
+def f32_err(got, want, label: str) -> tuple[float, float]:
+    """(largest |error|, its limit); raises past the limit."""
+    import torch
+    if got.dtype != torch.float32 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: {got.dtype}, not all finite")
+    err = float((got - want).abs().max())
+    limit = F32_ATOL + F32_RTOL * float(want.abs().max())
+    if err > limit:
+        raise AssertionError(f"{label}: largest error {err:.3e} past "
+                             f"{limit:.3e}: the kernel disagrees with its "
+                             f"plain version")
+    return err, limit
+
+
+def f32_forms_vs_plain(FA, q, k, v, do, label: str, sampling: bool,
+                       training: bool) -> dict:
+    """The f32 forms against their plain versions on the same inputs (the
+    plain lse and delta feed G and H): {kernel: (error, limit)}, the worst
+    of its outputs."""
+    out = {}
+
+    def keep(name, e):
+        if name not in out or e[0] / e[1] > out[name][0] / out[name][1]:
+            out[name] = e
+    o_ref, lse_ref = FA.flash_attention_lse_reference(q, k, v)
+    if sampling:
+        keep("flash_attention_f32", f32_err(FA._flash_cuda(q, k, v), o_ref,
+                                            f"{label} o"))
+    if training:
+        o, lse = FA._flash_cuda(q, k, v, with_lse=True)
+        keep("flash_attention_lse_f32", f32_err(o, o_ref, f"{label} o"))
+        keep("flash_attention_lse_f32", f32_err(lse, lse_ref,
+                                                f"{label} lse"))
+        del o, lse
+        delta = FA.attention_delta(o_ref, do)
+        dk, dv = FA._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta)
+        dk_ref, dv_ref = FA.flash_attention_bwd_dkv_reference(
+            q, k, v, do, lse_ref, delta)
+        keep("flash_attention_bwd_dkv_f32", f32_err(dk, dk_ref,
+                                                    f"{label} dk"))
+        keep("flash_attention_bwd_dkv_f32", f32_err(dv, dv_ref,
+                                                    f"{label} dv"))
+        del dk, dv, dk_ref, dv_ref
+        dq = FA._flash_bwd_dq_cuda(q, k, v, do, lse_ref, delta)
+        keep("flash_attention_bwd_dq_f32", f32_err(
+            dq, FA.flash_attention_bwd_dq_reference(q, k, v, do, lse_ref,
+                                                    delta), f"{label} dq"))
+    return out
+
+
+def f32_bound(nbytes: float, flops: float) -> dict:
+    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_3XTF32_FLOPS
+    return {"bound_ms": 1e3 * max(t_b, t_f),
+            "bound_by": "bytes" if t_b >= t_f else "operations"}
+
+
+def f32_kernels(gpu: str) -> tuple[dict, dict]:
+    """Phase 26 (a): the f32 forms of D (with and without lse), G and H
+    against their plain versions at ragged lengths and at the main path's
+    shapes (sampling: D; training: D with lse, G, H), a TF32 control, then
+    CUDA-event times beside the bf16 forms on the same values, one
+    scaled_dot_product_attention call on the f32 tensors (forward beside D,
+    backward beside G and H; timed only) and the plain versions. Returns
+    ({kernel: largest error at the main shapes}, {kernel: rows})."""
+    import torch
+    import torch.nn.functional as F
+    from street_crafter_tpu_torch.models.vdm.engine import tf32_off
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    worst_ratio: dict = {}
+    with tf32_off():
+        for i, (b, sq, skv, h, d) in enumerate(F32_RAGGED):
+            e = f32_forms_vs_plain(FA, *f32_case(dev, b, sq, skv, h, d,
+                                                 2600 + i),
+                                   f"q {sq} x kv {skv} x {d}", True, True)
+            for name, (err, lim) in e.items():
+                worst_ratio[name] = max(worst_ratio.get(name, 0.0),
+                                        err / lim)
+        log(f"[26] the f32 forms at {len(F32_RAGGED)} ragged shapes (q, kv "
+            f"in 100, 300, 1000; head dims 64, 128): the largest error over "
+            f"its limit (atol {F32_ATOL} + rtol {F32_RTOL} of the largest "
+            f"|reference|) " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in worst_ratio.items()))
+        errs: dict = {}
+        for i, (b, s, h, d) in enumerate(D_SHAPES + TRAIN_SHAPES):
+            sampling = i < len(D_SHAPES)
+            e = f32_forms_vs_plain(FA, *f32_case(dev, b, s, s, h, d,
+                                                 2700 + i),
+                                   f"[{b}, {s}, {h}, {d}]", sampling,
+                                   not sampling)
+            for name, (err, lim) in e.items():
+                errs[name] = max(errs.get(name, 0.0), err)
+            log(f"[26] {'sampling' if sampling else 'training'} shape "
+                f"[{b}, {s}, {h}, {d}]: " + ", ".join(
+                    f"{k} {err:.3e} (limit {lim:.3e})"
+                    for k, (err, lim) in e.items()))
+            torch.cuda.empty_cache()
+    # the control: the plain forward with TF32 products against it in f32
+    q, k, v, _ = f32_case(dev, 25, 576, 576, 20, 64, 2799)
+    with tf32_off():
+        ref, _ = FA.flash_attention_lse_reference(q, k, v)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32, _ = FA.flash_attention_lse_reference(q, k, v)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    err = float((tf32 - ref).abs().max())
+    log(f"[26] control: the plain forward in TF32 products at [25, 576, 20,"
+        f" 64] misses the f32 one by {err:.3e}, "
+        f"{err / (F32_ATOL + F32_RTOL * float(ref.abs().max())):.1f}x the "
+        f"f32 forms' limit")
+    rows = {name: [] for name in F32_KERNELS}
+    with tf32_off():
+        for i, (b, s, h, d) in enumerate(D_SHAPES):
+            q, k, v, _ = f32_case(dev, b, s, s, h, d, 2800 + i)
+            qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            flops = 4 * s * s * d * b * h
+            rows["flash_attention_f32"].append(with_rates({
+                "shape": [b, s, h, d],
+                "ms": cuda_ms(lambda: FA._flash_cuda(q, k, v), 3),
+                "bf16_ms": cuda_ms(lambda: FA._flash_cuda(qb, kb, vb), 3),
+                "plain_ms": cuda_ms(lambda: plain_attention(FA, q, k, v), 1,
+                                    warmup=0),
+                "library_ms": cuda_ms(
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt), 3),
+                **f32_bound(4 * 4 * b * s * h * d, flops)}, flops))
+            del q, k, v, qb, kb, vb, qt, kt, vt
+            torch.cuda.empty_cache()
+        for i, (b, s, h, d) in enumerate(TRAIN_SHAPES):
+            q, k, v, do = f32_case(dev, b, s, s, h, d, 2900 + i)
+            o, lse = FA._flash_cuda(q, k, v, with_lse=True)
+            delta = FA.attention_delta(o, do)
+            qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+            x = b * s * h * d * 4            # bytes of one [B, S, H, D] f32
+            r = b * h * s * 4                # bytes of one [B, H, S] f32
+            ops = s * s * d * b * h
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt)
+            dot = do.transpose(1, 2)
+            sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True), 3)
+            sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt), 3)
+            del out
+            for name, kern, bf16, plain, nbytes, flops, lib in (
+                    ("flash_attention_lse_f32",
+                     lambda: FA._flash_cuda(q, k, v, with_lse=True),
+                     lambda: FA._flash_cuda(qb, kb, vb, with_lse=True),
+                     lambda: FA.flash_attention_lse_reference(q, k, v),
+                     4 * x + r, 4 * ops, sdpa_fwd),
+                    ("flash_attention_bwd_dkv_f32",
+                     lambda: FA._flash_bwd_dkv_cuda(q, k, v, do, lse, delta),
+                     lambda: FA._flash_bwd_dkv_cuda(qb, kb, vb, dob, lse,
+                                                    delta),
+                     lambda: FA.flash_attention_bwd_dkv_reference(
+                         q, k, v, do, lse, delta),
+                     6 * x + 2 * r, 8 * ops, sdpa_bwd),
+                    ("flash_attention_bwd_dq_f32",
+                     lambda: FA._flash_bwd_dq_cuda(q, k, v, do, lse, delta),
+                     lambda: FA._flash_bwd_dq_cuda(qb, kb, vb, dob, lse,
+                                                   delta),
+                     lambda: FA.flash_attention_bwd_dq_reference(
+                         q, k, v, do, lse, delta),
+                     5 * x + 2 * r, 6 * ops, sdpa_bwd)):
+                rows[name].append(with_rates({
+                    "shape": [b, s, h, d], "ms": cuda_ms(kern, 3),
+                    "bf16_ms": cuda_ms(bf16, 3),
+                    "plain_ms": cuda_ms(plain, 1, warmup=0),
+                    "library_ms": lib, **f32_bound(nbytes, flops)}, flops))
+            del q, k, v, do, o, lse, delta, qb, kb, vb, dob, qt, kt, vt
+            torch.cuda.empty_cache()
+    for name, rs in rows.items():
+        lib = ("scaled_dot_product_attention backward (dq, dk, dv: G + H)"
+               if "bwd" in name else "scaled_dot_product_attention")
+        for r in rs:
+            log(f"[26] {name} {r['shape']}: kernel {r['ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.3f} ms ({r['bound_by']}, 3xTF32 at 165 "
+                f"TF/s), its bf16 form {r['bf16_ms']:.3f} ms, plain "
+                f"{r['plain_ms']:.1f} ms, {lib} in f32 "
+                f"{r['library_ms']:.3f} ms" + rates_text(r, "that call")
+                + f"; {gpu}")
+    log(f"[26] (a) took {time.perf_counter() - t0:.1f} s")
+    return errs, rows
+
+
+def f32_sample_main_path(tmp: str, root: str, gpu: str, dev: str = "cuda"
+                         ) -> tuple[dict, str]:
+    """Phase 26 (b), the main path: runner.vdm_sample.main with
+    diffusion.compute_dtype float32 on phase 9's data, seeded weights and
+    noise, F32_SAMPLE_STEPS Euler step(s), the chunked decode. Returns
+    (its launch counts, the config path)."""
+    import torch
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    from street_crafter_tpu_torch.runner import vdm_sample as VS
+    T, (H, W) = F32_FRAMES, F32_HW
+    cfg = {"device": dev, "model_path": os.path.join(tmp, "vdm_f32_out"),
+           "diffusion": {"tiny": F32_TINY, "compute_dtype": "float32",
+                         "num_steps": F32_SAMPLE_STEPS, "ckpt_path": "",
+                         "init_zero_layers_std": 1.0},
+           "vdm_train": {"data_root": root, "height": H, "width": W,
+                         "num_frames": T},
+           "render": {"save_video": False}}
+    path = os.path.join(tmp, "vdm_f32.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    FA.reset_launch_counts()
+    TB.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = VS.main(["--config", path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**FA.launches, **TB.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    frames = res["frames"]
+    log(f"[26] (b) runner.vdm_sample.main in f32: 1 clip, {T} frames at "
+        f"{H}x{W}, {F32_SAMPLE_STEPS} Euler step, CFG 2.5, the chunked "
+        f"decode, in {wall:.1f} s (sample {res['sample_s'][0]:.1f} s incl. "
+        f"encode, CLIP, decode); launches {counts}; max_memory_allocated "
+        f"{peak:.2f} GiB; sample mean {frames.mean():.4f} std "
+        f"{frames.std():.4f}; card {gpu}")
+    want = {k: n * F32_SAMPLE_STEPS for k, n in F32_PER_EVAL.items()}
+    if counts != want:
+        raise AssertionError(f"the f32 sample launched {counts}, want "
+                             f"{want}")
+    if frames.shape != (T, H, W, 3) or not np.isfinite(frames).all() \
+            or not frames.std() > 1e-3:
+        raise AssertionError(f"f32 samples: shape {frames.shape}, finite "
+                             f"{np.isfinite(frames).all()}, std "
+                             f"{frames.std()}")
+    if len(os.listdir(res["clips"][0])) != T:
+        raise AssertionError(f"the f32 sample wrote no {T} PNGs")
+    return counts, path
+
+
+def f32_against_bf16(cfg_path: str, gpu: str) -> dict:
+    """Phase 26 (b), the bf16 path's error: one CFG denoiser eval of the
+    f32 engine and of the bf16 engine from the same seeded weights (the
+    bf16 ones their rounding), latents, sigma and conditioning (the f32
+    engine's); per-frame PSNR of the bf16 eval against the f32 one (peak:
+    the f32 frame's range), each eval's ms and the f32 eval's peak."""
+    import torch
+    from street_crafter_tpu_torch.config import default_config, load_config
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    from street_crafter_tpu_torch.runner import vdm_sample as VS
+    cfg = default_config()
+    cfg.merge(load_config(cfg_path))
+    T, (H, W) = F32_FRAMES, F32_HW
+    eng = VS.build_engine(cfg, T)
+    dev = eng.device
+    g = torch.Generator(device=dev).manual_seed(26)
+    guide = torch.rand((T, H, W, 3), generator=g, device=dev) * 2 - 1
+    lat = eng.encode_images_chunked(guide, 8)
+    cond, uc = eng.build_conditioning(guide[:1])
+    cm = torch.zeros(T, device=dev)
+    cm[0] = 1.0
+    x = torch.randn(lat.shape, generator=g, device=dev)
+    sigma = torch.full((T,), 10.0, device=dev)
+    den = eng.make_cfg_denoise_fn(cond, uc, lat, cm)
+    FA.reset_launch_counts()
+    TB.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ref = den(x, sigma)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {**FA.launches, **TB.launches}
+    if counts != F32_PER_EVAL:
+        raise AssertionError(f"the f32 CFG eval launched {counts}")
+    ms32 = sync_ms(lambda: den(x, sigma), 2, warmup=0)
+    del eng, den, guide
+    torch.cuda.empty_cache()
+    cfg.diffusion.compute_dtype = "bfloat16"
+    eng16 = VS.build_engine(cfg, T)
+    den16 = eng16.make_cfg_denoise_fn(cond, uc, lat, cm)
+    out = den16(x, sigma)
+    ms16 = sync_ms(lambda: den16(x, sigma), 2)
+    a, r = out.float(), ref.float()
+    if a.shape != r.shape or not bool(torch.isfinite(r).all()) \
+            or not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"f32 / bf16 evals: {tuple(r.shape)}, "
+                             f"{tuple(a.shape)}, not all finite")
+    mse = ((a - r) ** 2).flatten(1).mean(1)
+    rng = r.flatten(1).amax(1) - r.flatten(1).amin(1)
+    psnr = (10 * torch.log10(rng ** 2 / mse.clamp(min=1e-30))).cpu()
+    rel = float((a - r).abs().max() / r.abs().max())
+    log(f"[26] (b) one CFG denoiser eval (2 x {T} frames at "
+        f"{lat.shape[1]}x{lat.shape[2]}, sigma 10) of phase 9's seeded weights: f32 {statistics.median(ms32):.1f}"
+        f" ms of {[round(t, 1) for t in ms32]} (max_memory_allocated "
+        f"{peak:.2f} GiB; launches {counts}), bf16 "
+        f"{statistics.median(ms16):.1f} ms; the bf16 eval against the f32 "
+        f"one: per-frame PSNR min {float(psnr.min()):.2f} dB, median "
+        f"{float(psnr.median()):.2f} dB (peak: the f32 frame's range), "
+        f"largest error {rel:.3e} of the largest |output|; {gpu}")
+    del eng16, den16, out, ref, a, r
+    torch.cuda.empty_cache()
+    return {"eval_ms": {"f32": round(statistics.median(ms32), 2),
+                        "bf16": round(statistics.median(ms16), 2)},
+            "eval_peak_gib": round(peak, 3),
+            "bf16_psnr_db": {"min": round(float(psnr.min()), 3),
+                             "median": round(float(psnr.median()), 3)}}
+
+
+def f32_train_main_path(tmp: str, root: str, gpu: str, dev: str = "cuda"
+                        ) -> tuple[dict, dict]:
+    """Phase 26 (c), the main path: runner.vdm_train.main in f32 on phase
+    12's recipe (flash0, the recipe's groups, phase 9's data) for one step
+    at full width: 25 frames fit the card (62.86 GiB). The checkpoint and
+    the EMA export are counted by their tensors' bytes, not written: the
+    script keeps its disk writes to phase 12's one full-width checkpoint
+    (~24 GB). Returns (its launch counts, {"frames", "peak_gib",
+    "step_s", "loss"})."""
+    import gc
+
+    import torch
+    from street_crafter_tpu_torch.datasets.vdm_data import prepare_meta
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    from street_crafter_tpu_torch.ops import temporal_block as TB
+    from street_crafter_tpu_torch.runner import vdm_train as VT
+    from street_crafter_tpu_torch.utils import checkpoint as CK
+    scenes = [d for d in os.listdir(root)
+              if os.path.isdir(os.path.join(root, d))]
+    prepare_meta(root, scenes, "meta_info_train.json")
+    written = []
+
+    def counted_save(model_path, step, state):
+        written.append(sum(v.numel() * v.element_size()
+                           for part in state.to_dict().values()
+                           if isinstance(part, dict)
+                           for v in part.values()
+                           if isinstance(v, torch.Tensor)))
+        return CK.checkpoint_dir(model_path, step)
+
+    def counted_params(path, engine, unet=None):
+        sds = {n: m.state_dict() for n, m in engine.modules().items()}
+        if unet is not None:
+            sds["unet"] = unet
+        written.append(sum(v.numel() * v.element_size()
+                           for sd in sds.values() for v in sd.values()))
+
+    path = vdm_train_config(tmp, root, 1)
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg["device"] = dev
+    cfg["diffusion"].update(compute_dtype="float32", tiny=F32_TINY)
+    cfg["vdm_train"].update(num_frames=F32_FRAMES, height=F32_HW[0],
+                            width=F32_HW[1])
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    save_fn, params_fn = VT.save_vdm_checkpoint, VT.save_vdm_params
+    VT.save_vdm_checkpoint, VT.save_vdm_params = counted_save, counted_params
+    FA.reset_launch_counts()
+    TB.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = VT.main(["--config", path])
+        torch.cuda.synchronize()
+    finally:
+        VT.save_vdm_checkpoint, VT.save_vdm_params = save_fn, params_fn
+    wall = time.perf_counter() - t0
+    counts = {**FA.launches, **TB.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(res["model_path"], "logs", "metrics.jsonl")) as f:
+        losses = [json.loads(line)["train/loss"] for line in f]
+    log(f"[26] (c) runner.vdm_train.main in f32: {res['steps']} step at "
+        f"full width ({F32_FRAMES} frames at {F32_HW[0]}x{F32_HW[1]}, f32 "
+        f"compute and masters, flash0) in {wall:.1f} s incl. engine build, "
+        f"data and the "
+        f"gathered state; step s {[round(t, 2) for t in res['step_s']]}; "
+        f"loss {losses}; launches {counts}; max_memory_allocated "
+        f"{peak:.2f} GiB of the card's 79.18; checkpoint and EMA export "
+        f"counted, not written: {written} bytes; card {gpu}")
+    if res["steps"] != 1 or len(losses) != 1 or not np.isfinite(losses[0]):
+        raise AssertionError(f"f32 step: {res['steps']} steps, losses "
+                             f"{losses}")
+    if counts != F32_TRAIN_PER_STEP:
+        raise AssertionError(f"the f32 step launched {counts}, want "
+                             f"{F32_TRAIN_PER_STEP}")
+    info = {"frames": F32_FRAMES, "peak_gib": round(peak, 3),
+            "step_s": round(res["step_s"][0], 3), "loss": losses[0]}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, info
+
+
+def f32_card_vs_cpu(gpu: str, dev: str = "cuda") -> dict:
+    """Phase 26 (d): a narrow f32 engine (F32_NARROW, tiny VAE and CLIP)
+    from one seed, one CFG denoiser eval on the card and on the CPU from
+    the same numpy inputs: the card's output within F32_CARD_RTOL of the
+    largest |output|. TF32 is left at PyTorch's default around the card's
+    eval (cuDNN on), so that the engine's own setting is what holds it;
+    the control runs the card's eval with that setting bypassed."""
+    import torch
+    from street_crafter_tpu_torch.models.vdm.clip import CLIPVisualConfig
+    from street_crafter_tpu_torch.models.vdm.conditioner import Conditioning
+    from street_crafter_tpu_torch.models.vdm.engine import (
+        EngineConfig, VideoDiffusionEngine)
+    from street_crafter_tpu_torch.models.vdm.unet import UNetConfig
+    from street_crafter_tpu_torch.models.vdm.vae import VAEConfig
+    from street_crafter_tpu_torch.models.vdm.weights import (
+        init_random_, load_state_dicts)
+    from street_crafter_tpu_torch.ops import flash_attention as FA
+    T, (h, w) = F32_NARROW_T, F32_NARROW_HW
+    cfg = EngineConfig(unet=UNetConfig(**F32_NARROW), vae=VAEConfig.tiny(),
+                       clip=CLIPVisualConfig.tiny(), num_frames=T)
+    cpu = VideoDiffusionEngine(cfg, "cpu")
+    init_random_(cpu, seed=26, zero_init_std=1.0)
+    card_eng = VideoDiffusionEngine(cfg, dev)
+    load_state_dicts(card_eng, {n: m.state_dict()
+                                for n, m in cpu.modules().items()})
+    rng = np.random.default_rng(26)
+    mc = cfg.unet
+
+    def r(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+    arrays = {"x": r(T, h, w, 4), "g": r(T, h, w, 4),
+              "cond": (r(T, 1, mc.context_dim), r(T, mc.adm_in_channels),
+                       r(T, h, w, 4)),
+              "uc": (r(T, 1, mc.context_dim), r(T, mc.adm_in_channels),
+                     r(T, h, w, 4))}
+    cm = np.zeros(T, np.float32)
+    cm[0] = 1.0
+
+    def run(eng, d):
+        def t(a):
+            return torch.from_numpy(a).to(d)
+        den = eng.make_cfg_denoise_fn(
+            Conditioning(*map(t, arrays["cond"])),
+            Conditioning(*map(t, arrays["uc"])), t(arrays["g"]), t(cm))
+        return den(t(arrays["x"]), torch.full((T,), 10.0, device=d)).cpu()
+
+    FA.reset_launch_counts()
+    want = run(cpu, "cpu")
+    cpu_counts = dict(FA.launches)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+    try:
+        FA.reset_launch_counts()
+        got = run(card_eng, dev)
+        counts = dict(FA.launches)
+        card_eng.f32 = False                    # the control: no scoping
+        ctrl = run(card_eng, dev)
+        card_eng.f32 = True
+        after = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    top = float(want.abs().max())
+    err = float((got - want).abs().max()) / top
+    ctrl_err = float((ctrl - want).abs().max()) / top
+    log(f"[26] (d) a narrow f32 engine ({mc.model_channels} channels, head "
+        f"dim 64, latent {h}x{w}, {T} frames) from one seed, one CFG "
+        f"denoiser eval on the card against the CPU: largest error "
+        f"{err:.3e} of the largest |output| {top:.4g} (limit "
+        f"{F32_CARD_RTOL}); control with the engine's TF32 setting "
+        f"bypassed (cuDNN TF32 on): {ctrl_err:.3e}; launches on the card "
+        f"{counts}, on the CPU {cpu_counts}; {gpu}")
+    if not bool(torch.isfinite(got).all()) or err > F32_CARD_RTOL:
+        raise AssertionError(f"the card's f32 eval misses the CPU's by "
+                             f"{err:.3e} of the largest |output|")
+    if counts.get("flash_attention_f32", 0) < 1 or \
+            any(k.endswith("_reference") for k in counts) or \
+            cpu_counts.get("flash_attention_reference", 0) < 1:
+        raise AssertionError(f"the flash route was not taken: card {counts}"
+                             f", CPU {cpu_counts}")
+    if not after:
+        raise AssertionError("the f32 engine left cuDNN's TF32 off")
+    return {"rel_err": err, "control_rel_err": ctrl_err}
+
+
+def f32_engine(root: str, gpu: str, dev: str = "cuda"
+               ) -> tuple[dict, dict, dict, dict]:
+    """Phase 26: the f32 engine on the card, (a) to (d). Returns ({"sample":
+    (b)'s main-path launches, "train": (c)'s}, (a)'s errors, (a)'s rows,
+    the reported numbers). ``dev`` "cpu" (a rehearsal) skips (a)."""
+    t0 = time.perf_counter()
+    errs, rows = f32_kernels(gpu) if dev == "cuda" else ({}, {})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f32_") as tmp:
+        sample_counts, cfg_path = f32_sample_main_path(tmp, root, gpu, dev)
+        report = f32_against_bf16(cfg_path, gpu)
+        train_counts, report["train"] = f32_train_main_path(tmp, root, gpu,
+                                                            dev)
+    report["card_vs_cpu"] = f32_card_vs_cpu(gpu, dev)
+    log(f"[26] phase 26 took {time.perf_counter() - t0:.1f} s")
+    return ({"sample": sample_counts, "train": train_counts}, errs, rows,
+            report)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6185,6 +6754,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     q_counts, q_row = w8a8_eval(gpu)
 
+    # ---- phase 26: the f32 engine (the f32 forms of D, G and H) ------------
+    torch.cuda.empty_cache()
+    f32_counts, f32_errs, f32_rows, f32_report = f32_engine(
+        data[9].result(), gpu)
+
     # each main path's counts, read right after its own reset; "launches"
     # is their sum
     by_path = {name: {"render": render_counts.get(name, 0),
@@ -6337,8 +6911,30 @@ def main() -> None:
         "also_replaces": "tests/test_kernel_shard.py:17"})
     # kernel Q (phase 25): its launches are one W8A8 eval's
     kernels.append(q_row)
+    # the f32 forms of D, G and H (phase 26): launches of (b)'s sample and
+    # (c)'s step, times at the first (largest) main-path shape
+    for name in F32_KERNELS:
+        head = f32_rows[name][0]
+        paths = {"vdm_sample_f32": f32_counts["sample"].get(name, 0),
+                 "vdm_train_f32": f32_counts["train"].get(name, 0)}
+        kernels.append({
+            "name": name, "route": "cuda", "source": F32_SOURCE,
+            "replaces": F32_REPLACES[name],
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": f32_errs[name], "ms": round(head["ms"], 4),
+            "plain_ms": round(head["plain_ms"], 4),
+            "bound_ms": round(head["bound_ms"], 6),
+            "bound_by": head["bound_by"],
+            "library_ms": round(head["library_ms"], 4),
+            "library_call": ("scaled_dot_product_attention backward in f32 "
+                             "(dq, dk, dv: G + H)" if "bwd" in name else
+                             "scaled_dot_product_attention in f32"),
+            "bf16_ms": round(head["bf16_ms"], 4),
+            "shapes": rounded(f32_rows[name])})
+    kernels[-len(F32_KERNELS)]["f32_engine"] = f32_report
     log(f"[10] sampling peak max_memory_allocated {vdm_peak:.2f} GiB")
     log(f"[18] data_parallel launches (phase 18's main paths): {dp_counts}")
+    log(f"[end] chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

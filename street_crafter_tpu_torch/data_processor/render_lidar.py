@@ -9,11 +9,13 @@ box otherwise), shift the camera's ego pose sideways and splat the cloud
 into the camera on ``device`` (``PointCloudProcessor._splat``: kernels A,
 the pack and B on CUDA). Writes the rgb and mask PNGs to
 ``lidar/color_render[_shift_{s:.2f}]/`` and, when asked, a preview video
-per (camera, shift), which needs imageio.
+per (camera, shift), which needs imageio. ``render_many`` renders several
+scenes, in turn or in spawned worker processes, one scene each at a time
+(waymo_render_lidar_pcd.py:145-156).
 
 CLI: python -m street_crafter_tpu_torch.data_processor.render_lidar \\
     --root DATA_ROOT --scenes 016 049 [--cams 0] [--shifts 0 2 3] \\
-    [--device cuda] [--preview]
+    [--device cuda] [--workers N] [--preview]
 """
 
 from __future__ import annotations
@@ -92,6 +94,29 @@ def render_scene_conditions(datadir: str, cams: list[int] = (0,),
     return written
 
 
+def render_many(root: str, scenes: list[str], num_workers: int = 1,
+                **kw) -> list[str]:
+    """``render_scene_conditions(root/scene, **kw)`` for every scene: in
+    this process, or over ``num_workers`` spawned processes (each builds
+    its own processor; on one card they share it). Returns the rgb PNG
+    paths written, scene by scene."""
+    dirs = [os.path.join(root, s) for s in scenes]
+    if num_workers <= 1:
+        written = []
+        for d in dirs:
+            print(f"rendering conditions: {d}")
+            written += render_scene_conditions(d, **kw)
+        return written
+    import multiprocessing as mp
+    with mp.get_context("spawn").Pool(num_workers) as pool:
+        parts = pool.starmap(_render_one_kw, [(d, kw) for d in dirs])
+    return [p for part in parts for p in part]
+
+
+def _render_one_kw(datadir: str, kw: dict) -> list[str]:
+    return render_scene_conditions(datadir, **kw)
+
+
 def main(argv: list[str] | None = None) -> list[str]:
     import argparse
     p = argparse.ArgumentParser(description="offline LiDAR condition render")
@@ -104,17 +129,15 @@ def main(argv: list[str] | None = None) -> list[str]:
     p.add_argument("--device", default="cuda")
     p.add_argument("--preview", action="store_true",
                    help="a preview video per camera and shift (imageio)")
+    p.add_argument("--workers", type=int, default=1,
+                   help="scenes rendered at once, one process each")
     p.add_argument("--force", action="store_true")
     args = p.parse_args(argv)
-    written = []
-    for scene in args.scenes:       # one card: the scenes in turn
-        d = os.path.join(args.root, scene)
-        print(f"rendering conditions: {d}")
-        written += render_scene_conditions(
-            d, cams=args.cams, shifts=args.shifts,
-            delta_frames=args.delta_frames, skip_existing=not args.force,
-            save_video_preview=args.preview, device=args.device)
-    return written
+    return render_many(args.root, args.scenes, num_workers=args.workers,
+                       cams=args.cams, shifts=args.shifts,
+                       delta_frames=args.delta_frames,
+                       skip_existing=not args.force,
+                       save_video_preview=args.preview, device=args.device)
 
 
 if __name__ == "__main__":

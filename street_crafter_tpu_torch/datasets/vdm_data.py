@@ -1,7 +1,10 @@
 """Clip data of the video diffusion model (port of
-``street_crafter_tpu/datasets/vdm_data.py``: ``prepare_meta``,
-``ClipDataset`` and the fine-tune's ``MultiSourceSampler``; the Vista
-action datasets are not ported).
+``street_crafter_tpu/datasets/vdm_data.py``): ``prepare_meta``,
+``ClipDataset`` (and its ``WaymoClipDataset`` / ``PandasetClipDataset``
+aliases), the fine-tune's ``MultiSourceSampler``, and Vista's anno-file
+datasets without LiDAR guidance: ``YouTubeClipDataset`` and
+``NuScenesClipDataset`` (one action conditioning a draw, in turn), with
+``balance_with_actions`` and ``resample_complete_samples``.
 
 Images are read with the port's own PNG reader (``utils/png.py``) and
 resized by ``aspect_crop_resize``, the port's copy of
@@ -268,6 +271,136 @@ class ClipDataset:
             "motion_bucket_id": np.float32(127.0),
             "cond_aug": np.float32(0.0),
         }
+
+
+class WaymoClipDataset(ClipDataset):
+    pass
+
+
+class PandasetClipDataset(ClipDataset):
+    pass
+
+
+def balance_with_actions(samples: list, increase_factor: int = 5,
+                         exceptions: list | None = None) -> list:
+    """Vista's command re-balancing: each sample whose command is not in
+    ``exceptions`` is repeated ``increase_factor`` times in all
+    (subsets/nuscenes.py:8-17)."""
+    if exceptions is None:
+        exceptions = [2, 3]
+    extra = []
+    if increase_factor > 1:
+        for s in samples:
+            if s["cmd"] not in exceptions:
+                extra.extend([s] * (increase_factor - 1))
+    return samples + extra
+
+
+def resample_complete_samples(samples: list, increase_factor: int = 5
+                              ) -> list:
+    """Samples with complete action annotations (speed, angle and a goal
+    inside the 1600x900 image in front of the camera) repeated
+    ``increase_factor`` times in all (subsets/nuscenes.py:20-28)."""
+    extra = []
+    if increase_factor > 1:
+        for s in samples:
+            if (s["speed"] and s["angle"] and s["z"] > 0
+                    and 0 < s["goal"][0] < 1600 and 0 < s["goal"][1] < 900):
+                extra.extend([s] * (increase_factor - 1))
+    return samples + extra
+
+
+class _VistaAnnoDataset:
+    """Vista's anno-file clips (vwm/data/subsets/common.py): a json list of
+    sample dicts; frames center-cropped to the target's aspect and
+    Lanczos-resized, in [-1, 1]; Vista's conditioning values, no LiDAR
+    guidance."""
+
+    def __init__(self, data_root: str, anno_file: str,
+                 target_height: int = 320, target_width: int = 576,
+                 num_frames: int = 25):
+        if not os.path.isdir(data_root):
+            raise FileNotFoundError(data_root)
+        if not os.path.exists(anno_file):
+            raise FileNotFoundError(anno_file)
+        with open(anno_file) as f:
+            self.samples = json.load(f)
+        self.data_root = data_root
+        self.th, self.tw = target_height, target_width
+        self.num_frames = num_frames
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def _image_path(self, sample: dict, i: int) -> str:
+        raise NotImplementedError
+
+    def _prep(self, path: str) -> np.ndarray:
+        return aspect_crop_resize(load_rgb(path), self.th, self.tw,
+                                  crop="center") * 2.0 - 1.0
+
+    def __getitem__(self, index: int) -> dict:
+        s = self.samples[index]
+        imgs = np.stack(thread_map(
+            self._prep, [self._image_path(s, i)
+                         for i in range(self.num_frames)]))
+        return {
+            "img_seq": imgs.astype(np.float32),        # [T, H, W, 3]
+            "cond_frames_without_noise": imgs[0],
+            "fps_id": np.float32(9.0),
+            "motion_bucket_id": np.float32(127.0),
+            "cond_aug": np.float32(0.0),
+        }
+
+
+class YouTubeClipDataset(_VistaAnnoDataset):
+    """Driving-video clips indexed by (folder_name, first_frame): frame i
+    is the first frame's number plus i, zero-padded alike
+    (subsets/youtube.py:6-22)."""
+
+    def _image_path(self, sample: dict, i: int) -> str:
+        idx_str, ext = sample["first_frame"].split(".")
+        name = str(int(idx_str) + i).zfill(len(idx_str)) + "." + ext
+        return os.path.join(self.data_root, sample["folder_name"], name)
+
+
+class NuScenesClipDataset(_VistaAnnoDataset):
+    """nuScenes clips with one action conditioning a draw
+    (subsets/nuscenes.py:31-95): the samples re-balanced by command and
+    resampled by completeness, then each draw advances ``action_mod`` by
+    its index (mod 4) and attaches the trajectory (0), the command (1),
+    speed and steering angle (2) or the goal point (3)."""
+
+    def __init__(self, *args, balance_factor: int = 5,
+                 resample_factor: int = 2, **kw):
+        super().__init__(*args, **kw)
+        self.samples = balance_with_actions(
+            self.samples, increase_factor=balance_factor)
+        self.samples = resample_complete_samples(
+            self.samples, increase_factor=resample_factor)
+        self.action_mod = 0
+
+    def _image_path(self, sample: dict, i: int) -> str:
+        return os.path.join(self.data_root, sample["frames"][i])
+
+    def __getitem__(self, index: int) -> dict:
+        out = super().__getitem__(index)
+        s = self.samples[index]
+        self.action_mod = (self.action_mod + index) % 4
+        if self.action_mod == 0:
+            out["trajectory"] = np.asarray(s["traj"][2:], np.float32)
+        elif self.action_mod == 1:
+            out["command"] = np.float32(s["cmd"])
+        elif self.action_mod == 2:
+            if s["speed"]:
+                out["speed"] = np.asarray(s["speed"][1:], np.float32)
+            if s["angle"]:
+                out["angle"] = np.asarray(s["angle"][1:], np.float32) / 780.0
+        elif s["z"] > 0 and 0 < s["goal"][0] < 1600 \
+                and 0 < s["goal"][1] < 900:
+            out["goal"] = np.asarray(
+                [s["goal"][0] / 1600.0, s["goal"][1] / 900.0], np.float32)
+        return out
 
 
 class MultiSourceSampler:

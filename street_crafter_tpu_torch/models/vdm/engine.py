@@ -16,6 +16,12 @@ Sequence parallelism (``frames``, a ``parallel.sequence.FramesShard``):
 frames of the clip; ``sample`` returns the whole clip on every rank
 (``parallel/sample.py``).
 
+The f32 engine (compute dtype float32, or null) runs its UNet, VAE and
+CLIP calls with TF32 off (``numerics``): cuDNN convolutions in TF32, which
+PyTorch allows by default, keep about three digits. The setting is scoped
+to those calls (and to the fine-tune's backward, which the trainer runs
+under it); the rest of the process keeps its own.
+
 Unlike the JAX engine the modules hold their weights (``engine.unet``,
 ``engine.vae``, ``engine.clip``); they are built on the meta device and
 materialised on ``device`` in the compute dtype by ``materialize``, then
@@ -25,6 +31,7 @@ init). Images and latents are channels-last at every public call.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
@@ -69,6 +76,19 @@ def _dtype(name: Optional[str]) -> torch.dtype:
     return getattr(torch, name) if name else torch.float32
 
 
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for cuDNN convolutions and f32 matmuls while the block
+    runs; the settings before it are restored after it."""
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, mm.allow_tf32)
+    cudnn.allow_tf32 = mm.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, mm.allow_tf32 = saved
+
+
 def materialize(module: torch.nn.Module, device, dtype: torch.dtype,
                 trainable: bool = False) -> torch.nn.Module:
     """Allocate a meta-device module's parameters (uninitialised) on
@@ -99,6 +119,13 @@ class VideoDiffusionEngine:
                                 trainable=training)
         self.vae = materialize(vae, self.device, _dtype(cfg.vae.dtype))
         self.clip = materialize(clip, self.device, _dtype(cfg.clip.dtype))
+        self.f32 = all(_dtype(c.dtype) == torch.float32
+                       for c in (cfg.unet, cfg.vae, cfg.clip))
+
+    def numerics(self):
+        """The context of every UNet, VAE and CLIP call: TF32 off for the
+        f32 engine, nothing for a bf16 one."""
+        return tf32_off() if self.f32 else contextlib.nullcontext()
 
     def modules(self) -> dict[str, torch.nn.Module]:
         return {"unet": self.unet, "vae": self.vae, "clip": self.clip}
@@ -109,12 +136,14 @@ class VideoDiffusionEngine:
                       noise: torch.Tensor | None = None) -> torch.Tensor:
         """[N, H, W, 3] in [-1, 1] -> scaled latents (mode, or a sample
         with ``noise``)."""
-        return self.vae.encode(images, noise)
+        with self.numerics():
+            return self.vae.encode(images, noise)
 
     @torch.no_grad()
     def decode_latents(self, z: torch.Tensor,
                        num_frames: int | None = None) -> torch.Tensor:
-        return self.vae.decode(z, num_frames or self.cfg.num_frames)
+        with self.numerics():
+            return self.vae.decode(z, num_frames or self.cfg.num_frames)
 
     @torch.no_grad()
     def decode_latents_chunked(self, z: torch.Tensor, chunk: int = 8,
@@ -175,7 +204,9 @@ class VideoDiffusionEngine:
 
     @torch.no_grad()
     def clip_embed(self, images: torch.Tensor) -> torch.Tensor:
-        return self.clip(clip_preprocess(images, self.cfg.clip.image_size))
+        with self.numerics():
+            return self.clip(clip_preprocess(images,
+                                             self.cfg.clip.image_size))
 
     # -- conditioning -------------------------------------------------------
     def build_conditioning(self, cond_frame: torch.Tensor
@@ -206,10 +237,11 @@ class VideoDiffusionEngine:
 
         @torch.no_grad()
         def run_unet(x, c_noise, concat, crossattn, vector, cm, gs):
-            return self.unet(torch.cat([x, concat.to(x.dtype)], dim=-1),
-                             c_noise, crossattn, vector, num_frames=T,
-                             cond_mask=cm, guidance_input=gs[0],
-                             guidance_scale=gs[1], frames=frames)
+            with self.numerics():
+                return self.unet(torch.cat([x, concat.to(x.dtype)], dim=-1),
+                                 c_noise, crossattn, vector, num_frames=T,
+                                 cond_mask=cm, guidance_input=gs[0],
+                                 guidance_scale=gs[1], frames=frames)
 
         def half_fn(c: Conditioning, gscale: float):
             gs = (None, None) if g is None else \
@@ -262,11 +294,13 @@ class VideoDiffusionEngine:
             def model_fn(scaled_x, c_noise):
                 net_in = torch.cat([scaled_x, cond.concat.to(scaled_x.dtype)],
                                    dim=-1)
-                return self.unet(net_in, c_noise, cond.crossattn, cond.vector,
-                                 num_frames=T, cond_mask=cond_mask,
-                                 guidance_input=guidance_latents,
-                                 guidance_scale=guidance_scale,
-                                 frames=frames)
+                with self.numerics():
+                    return self.unet(net_in, c_noise, cond.crossattn,
+                                     cond.vector, num_frames=T,
+                                     cond_mask=cond_mask,
+                                     guidance_input=guidance_latents,
+                                     guidance_scale=guidance_scale,
+                                     frames=frames)
             return D.denoise(model_fn, noised, sigma)
 
         return fn

@@ -34,6 +34,22 @@ _ZERO_INIT = {"unet": ("out_layers.3.weight", "proj_out.weight",
               "clip": ()}
 
 
+# the compute dtypes of the JAX package's engine_from_config (null is
+# float32), which the engine runs on either device
+COMPUTE_DTYPES = ("bfloat16", "float32", None)
+
+
+def check_compute_dtype(ecfg: EngineConfig) -> None:
+    """Raise unless the UNet, VAE and CLIP compute in bfloat16 or float32:
+    on the card the attention kernels have a bf16 and an f32 form, and no
+    other."""
+    for part in (ecfg.unet, ecfg.vae, ecfg.clip):
+        if part.dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"compute dtype {part.dtype}: the engine runs bfloat16 or "
+                f"float32 (null); set diffusion.compute_dtype to one of them")
+
+
 def engine_from_config(dcfg, training: bool = False) -> EngineConfig:
     """The diffusion config node -> EngineConfig. Sampling takes the fused
     temporal kernels by default; ``training=True`` turns them off."""

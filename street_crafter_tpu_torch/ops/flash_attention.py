@@ -11,11 +11,13 @@ product with v), and its gradient. Each piece has two implementations:
     ``flash_attention_lse_reference``, ``flash_attention_bwd_dkv_reference``,
     ``flash_attention_bwd_dq_reference``), used for CPU tensors (the tests)
     and as the oracle on the card;
-  * a kernel of ``csrc/flash_attention.cu``, used for CUDA tensors: bf16,
-    head dim 64 or 128. Kernel D is the forward (with lse: the training
-    forward), G computes dK and dV, H dQ. The source is compiled with nvcc
-    on first use; a failed build or launch raises, and unsupported inputs
-    raise.
+  * a kernel, used for CUDA tensors, head dim 64 or 128: the bf16 forms of
+    ``csrc/flash_attention.cu`` or the f32 forms of
+    ``csrc/flash_attention_f32.cu`` (3xTF32 products), picked by q's
+    dtype; any other dtype, or q, k, v and do of mixed dtypes, raises.
+    Kernel D is the forward (with lse: the training forward), G computes
+    dK and dV, H dQ. The sources are compiled with nvcc on first use; a
+    failed build or launch raises, and unsupported inputs raise.
 ``flash_attention`` takes the no-grad forward (no lse) unless grad is
 enabled and an input requires grad; then it goes through an autograd
 Function that saves q, k, v, o and lse and whose backward is G and H (the
@@ -37,8 +39,8 @@ from . import cuda_build
 
 # calls per implementation: "flash_attention" (kernel D, no lse),
 # "flash_attention_lse" (kernel D with lse), "flash_attention_bwd_dkv"
-# (kernel G), "flash_attention_bwd_dq" (kernel H), and each one's
-# "*_reference" (plain)
+# (kernel G), "flash_attention_bwd_dq" (kernel H), each one's f32 form
+# ("*_f32") and each one's "*_reference" (plain, either dtype)
 launches: collections.Counter = collections.Counter()
 # f32 elements of one chunk of plain scores (1 GiB): a [9216, 9216] score
 # tile is 340 MB per (batch, head)
@@ -274,29 +276,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     return _flash_cuda(q, k, v)
 
 
+# the kernels' source and entry-name suffix by dtype: the bf16 forms
+# (csrc/flash_attention.cu) and the f32 forms (csrc/flash_attention_f32.cu)
+_FORMS = {torch.bfloat16: "", torch.float32: "_f32"}
+
+
+def _suffix(q: torch.Tensor) -> str:
+    """The kernels' suffix for q's dtype; any other dtype raises."""
+    if q.dtype not in _FORMS:
+        raise TypeError(f"q must be torch.bfloat16 or torch.float32, got "
+                        f"{q.dtype}")
+    return _FORMS[q.dtype]
+
+
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("flash_attention")
+def _library(suffix: str = "") -> dict:
+    """The four entries and the error string of the bf16 (``""``) or f32
+    (``"_f32"``) forms, by their names without the suffix."""
+    lib = cuda_build.load("flash_attention" + suffix)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sc_flash_forward.argtypes = [P, P, P, P, I, I, I, I, I, F, P]
-    lib.sc_flash_forward_lse.argtypes = [P, P, P, P, P, I, I, I, I, I, F, P]
-    lib.sc_flash_backward_dkv.argtypes = [P, P, P, P, P, P, P, P,
-                                          I, I, I, I, I, F, P]
-    lib.sc_flash_backward_dq.argtypes = [P, P, P, P, P, P, P,
-                                         I, I, I, I, I, F, P]
-    for fn in (lib.sc_flash_forward, lib.sc_flash_forward_lse,
-               lib.sc_flash_backward_dkv, lib.sc_flash_backward_dq):
-        fn.restype = I
-    lib.sc_flash_error_string.argtypes = [I]
-    lib.sc_flash_error_string.restype = ctypes.c_char_p
-    return lib
+    argtypes = {"sc_flash_forward": [P, P, P, P, I, I, I, I, I, F, P],
+                "sc_flash_forward_lse": [P, P, P, P, P, I, I, I, I, I, F, P],
+                "sc_flash_backward_dkv": [P, P, P, P, P, P, P, P,
+                                          I, I, I, I, I, F, P],
+                "sc_flash_backward_dq": [P, P, P, P, P, P, P,
+                                         I, I, I, I, I, F, P]}
+    fns = {}
+    for name, types in argtypes.items():
+        fn = getattr(lib, name + suffix)
+        fn.argtypes, fn.restype = types, I
+        fns[name] = fn
+    err = getattr(lib, "sc_flash_error_string" + suffix)
+    err.argtypes, err.restype = [I], ctypes.c_char_p
+    fns["error_string"] = err
+    return fns
 
 
 def _check(lib, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.sc_flash_error_string(err).decode()} "
-                           f"({err})")
+                           f"{lib['error_string'](err).decode()} ({err})")
 
 
 def _shapes(q, k):
@@ -311,62 +330,68 @@ def _shapes(q, k):
 
 
 def _flash_cuda(q, k, v, with_lse: bool = False):
-    """Kernel D: o, or (o, lse [B, H, Sq] f32) with ``with_lse``."""
+    """Kernel D (its bf16 or f32 form, by q's dtype): o, or (o, lse
+    [B, H, Sq] f32) with ``with_lse``."""
     B, Sq, H, D, Skv = _shapes(q, k)
-    bf16 = torch.bfloat16
-    pq = cuda_build.require(q, "q", bf16)
-    pk = cuda_build.require(k, "k", bf16, (B, Skv, H, D))
-    pv = cuda_build.require(v, "v", bf16, (B, Skv, H, D))
-    lib = _library()
+    sfx = _suffix(q)
+    pq = cuda_build.require(q, "q", q.dtype)
+    pk = cuda_build.require(k, "k", q.dtype, (B, Skv, H, D))
+    pv = cuda_build.require(v, "v", q.dtype, (B, Skv, H, D))
+    lib = _library(sfx)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = 1.0 / D ** 0.5
     if not with_lse:
-        _check(lib, lib.sc_flash_forward(pq, pk, pv, out.data_ptr(), B, H,
-                                         Sq, Skv, D, scale, stream),
-               "kernel D")
-        launches["flash_attention"] += 1
+        _check(lib, lib["sc_flash_forward"](pq, pk, pv, out.data_ptr(), B, H,
+                                            Sq, Skv, D, scale, stream),
+               "kernel D" + sfx)
+        launches["flash_attention" + sfx] += 1
         return out
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    _check(lib, lib.sc_flash_forward_lse(pq, pk, pv, out.data_ptr(),
-                                         lse.data_ptr(), B, H, Sq, Skv, D,
-                                         scale, stream), "kernel D (lse)")
-    launches["flash_attention_lse"] += 1
+    _check(lib, lib["sc_flash_forward_lse"](pq, pk, pv, out.data_ptr(),
+                                            lse.data_ptr(), B, H, Sq, Skv, D,
+                                            scale, stream),
+           "kernel D (lse)" + sfx)
+    launches["flash_attention_lse" + sfx] += 1
     return out, lse
 
 
 def _backward_args(q, k, v, do, lse, delta):
+    """(entry suffix, pointers, dims) of a backward launch: q, k, v and do
+    all bf16 or all f32, lse and delta f32."""
     B, Sq, H, D, Skv = _shapes(q, k)
-    bf16, f32 = torch.bfloat16, torch.float32
-    ptrs = (cuda_build.require(q, "q", bf16),
-            cuda_build.require(k, "k", bf16, (B, Skv, H, D)),
-            cuda_build.require(v, "v", bf16, (B, Skv, H, D)),
-            cuda_build.require(do, "do", bf16, (B, Sq, H, D)),
+    sfx = _suffix(q)
+    f32 = torch.float32
+    ptrs = (cuda_build.require(q, "q", q.dtype),
+            cuda_build.require(k, "k", q.dtype, (B, Skv, H, D)),
+            cuda_build.require(v, "v", q.dtype, (B, Skv, H, D)),
+            cuda_build.require(do, "do", q.dtype, (B, Sq, H, D)),
             cuda_build.require(lse, "lse", f32, (B, H, Sq), align=4),
             cuda_build.require(delta, "delta", f32, (B, H, Sq), align=4))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    return ptrs, (B, H, Sq, Skv, D, 1.0 / D ** 0.5, stream)
+    return sfx, ptrs, (B, H, Sq, Skv, D, 1.0 / D ** 0.5, stream)
 
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta):
-    """Kernel G: (dk, dv)."""
-    ptrs, dims = _backward_args(q, k, v, do, lse, delta)
-    lib = _library()
+    """Kernel G (bf16 or f32 by q's dtype): (dk, dv)."""
+    sfx, ptrs, dims = _backward_args(q, k, v, do, lse, delta)
+    lib = _library(sfx)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _check(lib, lib.sc_flash_backward_dkv(*ptrs, dk.data_ptr(),
-                                          dv.data_ptr(), *dims), "kernel G")
-    launches["flash_attention_bwd_dkv"] += 1
+    _check(lib, lib["sc_flash_backward_dkv"](*ptrs, dk.data_ptr(),
+                                             dv.data_ptr(), *dims),
+           "kernel G" + sfx)
+    launches["flash_attention_bwd_dkv" + sfx] += 1
     return dk, dv
 
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta):
-    """Kernel H: dq."""
-    ptrs, dims = _backward_args(q, k, v, do, lse, delta)
-    lib = _library()
+    """Kernel H (bf16 or f32 by q's dtype): dq."""
+    sfx, ptrs, dims = _backward_args(q, k, v, do, lse, delta)
+    lib = _library(sfx)
     dq = torch.empty_like(q)
-    _check(lib, lib.sc_flash_backward_dq(*ptrs, dq.data_ptr(), *dims),
-           "kernel H")
-    launches["flash_attention_bwd_dq"] += 1
+    _check(lib, lib["sc_flash_backward_dq"](*ptrs, dq.data_ptr(), *dims),
+           "kernel H" + sfx)
+    launches["flash_attention_bwd_dq" + sfx] += 1
     return dq
 
 

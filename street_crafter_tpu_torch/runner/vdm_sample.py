@@ -11,6 +11,10 @@ With ``diffusion.shard_sample`` under torchrun every rank reads the clips
 and samples its frames of each window (``parallel/sample.py``, over
 ``mesh.axes``); rank 0 alone writes the PNGs and videos.
 
+``diffusion.compute_dtype`` bfloat16 or float32 (null): the f32 engine
+runs the attention kernels' f32 forms and its UNet, VAE and CLIP with
+TF32 off (``VideoDiffusionEngine.numerics``).
+
 CLI: python -m street_crafter_tpu_torch.runner.vdm_sample --config cfg.json
     [--num-clips N] [key=value ...]
     torchrun --nproc-per-node 5 -m street_crafter_tpu_torch.runner.vdm_sample
@@ -28,7 +32,8 @@ import torch
 from ..config import Config, default_config, load_config, merge_dotlist
 from ..datasets.vdm_data import ClipDataset
 from ..models.vdm.engine import VideoDiffusionEngine
-from ..models.vdm.weights import engine_from_config, load_vdm_params
+from ..models.vdm.weights import (check_compute_dtype, engine_from_config,
+                                 load_vdm_params)
 from ..parallel.sample import sample_on_mesh
 from ..utils.png import PngWriter
 from ..visualizers.visualizer import save_video, to_uint8
@@ -40,17 +45,14 @@ SEED = 23   # the reference seeds every sampling call with 23
 def build_engine(cfg: Config, num_frames: int, device=None
                  ) -> VideoDiffusionEngine:
     """The engine of ``cfg.diffusion`` on ``device`` (default
-    ``cfg.device``), weights loaded."""
+    ``cfg.device``), weights loaded: bf16 or f32 (``diffusion.
+    compute_dtype`` bfloat16, float32 or null; the tiny engine is f32),
+    any other compute dtype raises."""
     dcfg = cfg.diffusion.clone()
     dcfg.sample_frames = num_frames
     ecfg = engine_from_config(dcfg)
     device = device if device is not None else cfg.get("device", "cuda")
-    if torch.device(device).type == "cuda" and ecfg.unet.dtype != "bfloat16":
-        raise ValueError(
-            f"UNet compute dtype {ecfg.unet.dtype or 'float32'} on {device}: "
-            f"kernel D (csrc/flash_attention.cu), the spatial attention's "
-            f"kernel, takes bfloat16 only; set diffusion.compute_dtype="
-            f"bfloat16 and tiny=false, or device=cpu")
+    check_compute_dtype(ecfg)
     engine = VideoDiffusionEngine(ecfg, device)
     load_vdm_params(engine, dcfg)
     return engine

@@ -11,7 +11,10 @@ and at the end) and a run resumes from the newest one when ``resume`` is
 set; at the end the EMA weights are exported with ``save_vdm_params`` to
 ``model_path/ema_params.pt``, which ``runner.vdm_sample`` loads as its
 ``diffusion.ckpt_path``. The image log writes PNGs of the first clip's
-inputs, VAE targets and a sample with the current weights.
+inputs, VAE targets and a sample with the current weights. The compute
+dtype (``diffusion.compute_dtype``) is bfloat16 or float32 (null): the
+f32 step runs the attention kernels' f32 forms and, on the card, its
+convolutions with TF32 off (``VideoDiffusionEngine.numerics``).
 
 Under torchrun (``mesh.axes.data``: -1, the world size, or the world size
 itself) the ranks train data-parallel with ZeRO-2 (Adam moments sharded),
@@ -49,8 +52,8 @@ from ..datasets.vdm_data import ClipDataset, MultiSourceSampler
 from ..models.vdm.conditioner import Conditioning
 from ..models.vdm.engine import VideoDiffusionEngine
 from ..models.vdm.lr_schedule import schedule_from_config
-from ..models.vdm.weights import (engine_from_config, load_vdm_params,
-                                  save_vdm_params)
+from ..models.vdm.weights import (check_compute_dtype, engine_from_config,
+                                  load_vdm_params, save_vdm_params)
 from ..parallel.mesh import Mesh, make_mesh
 from ..parallel.sequence import FramesShard
 from ..parallel.sharding import ShardingRules
@@ -136,12 +139,7 @@ def build_trainer(cfg: Config, mesh: Mesh | None = None
     dcfg.sample_frames = v.num_frames
     ecfg = engine_from_config(dcfg, training=True)
     device = mesh.device if mesh is not None else cfg.get("device", "cuda")
-    if torch.device(device).type == "cuda" and ecfg.unet.dtype != "bfloat16":
-        raise ValueError(
-            f"UNet compute dtype {ecfg.unet.dtype or 'float32'} on {device}: "
-            f"the attention kernels (csrc/flash_attention.cu) take bfloat16 "
-            f"only; set diffusion.compute_dtype=bfloat16 and tiny=false, or "
-            f"device=cpu")
+    check_compute_dtype(ecfg)
     engine = VideoDiffusionEngine(ecfg, device, training=True)
     state, it = (load_vdm_checkpoint(model_path, device=engine.device)
                  if cfg.resume else (None, None))

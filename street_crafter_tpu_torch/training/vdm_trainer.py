@@ -352,7 +352,8 @@ class VDMTrainer:
             loss, scalars = self._loss(frames(lat), cond,
                                        frames(batch["guidance_latents"]),
                                        gscale[clips].reshape(-1), ld)
-            loss.backward()
+            with self.engine.numerics():
+                loss.backward()
             for name, p in self.params.items():
                 if p.grad is None:
                     g = torch.zeros_like(p, dtype=torch.float32)

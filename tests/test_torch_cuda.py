@@ -1,7 +1,8 @@
 """The CUDA kernels of street_crafter_tpu_torch (raster A-C, also at the
 LiDAR condition render's shape and in a GS step with the cubemap sky and
 the colour MLPs, and kernel A's row-compaction variants, attention D,
-its backward G and H, temporal stage E and F and the GEMM they chain)
+its backward G and H in bf16 and in f32, temporal stage E and F and the
+GEMM they chain)
 against their plain torch versions on a CUDA device. Marked ``cuda``; each
 test skips when no CUDA device is present. On the GPU machine:
 
@@ -760,7 +761,7 @@ def test_gemm_epilogues_match_plain_torch(cuda, epi, M, K):
 
 
 def test_vdm_kernel_wrappers_check_inputs(cuda):
-    q = torch.zeros((1, 300, 2, 64), device=cuda)
+    q = torch.zeros((1, 300, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16"):
         FA.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="head dim"):
@@ -862,6 +863,140 @@ def test_attention_kernels_refuse_unaligned_tensors(cuda, kernel):
         else:
             FA._flash_bwd_dq_cuda(q, k, v, shifted, lse, lse)
     assert not FA.launches
+
+
+# the f32 forms of D, G and H (csrc/flash_attention_f32.cu, 3xTF32) against
+# the plain versions in f32 (TF32 off): atol 2e-5 + rtol 1e-4 of the
+# largest |reference|, f32 sums in another order. Plain TF32 products
+# (10 mantissa bits) miss this by ~10x at these lengths.
+F32_ATOL, F32_RTOL = 2e-5, 1e-4
+F32_RAGGED = [(1, sq, skv, 2, d) for d in (64, 128)
+              for sq in (100, 300, 1000) for skv in (100, 300, 1000)]
+# the main path's: one CFG eval's three levels (sampling), a train step's
+F32_SAMPLING = [(50, 9216, 5, 64), (50, 2304, 10, 64), (50, 576, 20, 64)]
+F32_TRAINING = [(25, 9216, 5, 64), (25, 2304, 10, 64), (25, 576, 20, 64)]
+
+
+@pytest.fixture
+def exact_f32():
+    """TF32 off for torch's own f32 products while a test runs."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def assert_f32_close(got, want, what):
+    assert got.shape == want.shape and got.dtype == torch.float32, what
+    assert bool(torch.isfinite(got).all()), what
+    err = float((got - want).abs().max())
+    limit = F32_ATOL + F32_RTOL * float(want.abs().max())
+    assert err <= limit, f"{what}: {err:.3e} > {limit:.3e}"
+
+
+def _f32_case(cuda, b, sq, skv, h, d, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn((b, n, h, d), generator=g, device=cuda)
+               for n in (sq, skv, skv))
+    do = torch.randn((b, sq, h, d), generator=g, device=cuda)
+    return q, k, v, do
+
+
+def check_f32_training_forms(q, k, v, do):
+    """D with lse, G and H in f32 against their plain versions (the plain
+    lse and delta feed both backwards)."""
+    FA.reset_launch_counts()
+    o, lse = FA._flash_cuda(q, k, v, with_lse=True)
+    o_ref, lse_ref = FA.flash_attention_lse_reference(q, k, v)
+    delta = FA.attention_delta(o_ref, do)
+    dk, dv = FA._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta)
+    dq = FA._flash_bwd_dq_cuda(q, k, v, do, lse_ref, delta)
+    dk_ref, dv_ref = FA.flash_attention_bwd_dkv_reference(q, k, v, do,
+                                                          lse_ref, delta)
+    dq_ref = FA.flash_attention_bwd_dq_reference(q, k, v, do, lse_ref, delta)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_lse_f32", "flash_attention_bwd_dkv_f32",
+                 "flash_attention_bwd_dq_f32"):
+        assert FA.launches[name] == 1, dict(FA.launches)
+    for name, got, want in (("o", o, o_ref), ("lse", lse, lse_ref),
+                            ("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                            ("dv", dv, dv_ref)):
+        assert_f32_close(got, want, name)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", F32_RAGGED)
+def test_f32_forms_match_plain_versions(cuda, exact_f32, b, sq, skv, h, d):
+    """The four f32 forms (D, D with lse, G, H) at ragged lengths."""
+    q, k, v, do = _f32_case(cuda, b, sq, skv, h, d, sq + 7 * skv + d)
+    FA.reset_launch_counts()
+    o = FA.flash_attention(q, k, v)
+    want = FA.flash_attention_reference(q, k, v)
+    assert FA.launches["flash_attention_f32"] == 1
+    assert_f32_close(o, want, "o")
+    check_f32_training_forms(q, k, v, do)
+
+
+@pytest.mark.parametrize("b,s,h,d", F32_SAMPLING)
+def test_f32_forward_at_the_sampling_shapes(cuda, exact_f32, b, s, h, d):
+    q, k, v, _ = _f32_case(cuda, b, s, s, h, d, s)
+    FA.reset_launch_counts()
+    o = FA.flash_attention(q, k, v)
+    # the plain o of the lse form, computed in (batch, head) chunks: the
+    # scores of [50, 9216, 5, 64] in one piece take 79 GiB
+    want, _ = FA.flash_attention_lse_reference(q, k, v)
+    assert dict(FA.launches) == {"flash_attention_f32": 1,
+                                 "flash_attention_lse_reference": 1}
+    assert_f32_close(o, want, "o")
+
+
+@pytest.mark.parametrize("b,s,h,d", F32_TRAINING)
+def test_f32_training_forms_at_the_training_shapes(cuda, exact_f32, b, s, h,
+                                                   d):
+    check_f32_training_forms(*_f32_case(cuda, b, s, s, h, d, s + 1))
+
+
+def test_f32_wrappers_refuse_mixed_dtypes_and_float16(cuda):
+    q, k, v, do = _f32_case(cuda, 1, 300, 300, 2, 64, 3)
+    lse = torch.zeros((1, 2, 300), device=cuda)
+    FA.reset_launch_counts()
+    with pytest.raises(TypeError, match="float32, got torch.float16"):
+        FA.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="k must be torch.float32"):
+        FA.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(TypeError, match="v must be torch.bfloat16"):
+        FA._flash_cuda(q.bfloat16(), k.bfloat16(), v, with_lse=True)
+    with pytest.raises(TypeError, match="do must be torch.float32"):
+        FA._flash_bwd_dkv_cuda(q, k, v, do.bfloat16(), lse, lse)
+    with pytest.raises(TypeError, match="float32, got torch.float16"):
+        FA._flash_bwd_dq_cuda(q.half(), k, v, do, lse, lse)
+    assert not FA.launches
+
+
+def test_attention_function_backward_launches_f32_g_and_h(cuda, exact_f32):
+    """``flash_attention``'s autograd Function in f32: the f32 D with lse
+    forward, the f32 G and H backward, gradients as the plain versions'."""
+    q, k, v, do = _f32_case(cuda, 1, 300, 260, 2, 64, 5)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    FA.reset_launch_counts()
+    out = FA.flash_attention(q, k, v)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert dict(FA.launches) == {"flash_attention_lse_f32": 1,
+                                 "flash_attention_bwd_dkv_f32": 1,
+                                 "flash_attention_bwd_dq_f32": 1}
+    o_ref, lse_ref = FA.flash_attention_lse_reference(q.detach(), k.detach(),
+                                                      v.detach())
+    delta = FA.attention_delta(o_ref, do)
+    dk_ref, dv_ref = FA.flash_attention_bwd_dkv_reference(
+        q.detach(), k.detach(), v.detach(), do, lse_ref, delta)
+    dq_ref = FA.flash_attention_bwd_dq_reference(
+        q.detach(), k.detach(), v.detach(), do, lse_ref, delta)
+    for name, got, want in (("o", out.detach(), o_ref), ("dq", q.grad, dq_ref),
+                            ("dk", k.grad, dk_ref), ("dv", v.grad, dv_ref)):
+        assert_f32_close(got, want, name)
 
 
 def sky_mlp_step(device):

@@ -282,18 +282,36 @@ def test_vdm_sample_main_writes_pngs(tmp_path):
 
 @pytest.mark.parametrize("diffusion", [{"compute_dtype": None},
                                        {"compute_dtype": "float32"},
-                                       {"tiny": True}])
-def test_build_engine_refuses_non_bf16_on_cuda(diffusion):
-    """Kernel D takes bf16 only: an f32 UNet on cuda is refused before the
-    engine is built (no card is needed to see it)."""
+                                       {"tiny": True},
+                                       {"compute_dtype": "float16"}])
+def test_build_engine_refuses_non_bf16_on_cuda(diffusion, monkeypatch):
+    """The sampler builds bf16 and f32 engines on cuda (kernels D, G and H
+    have both forms): compute dtype null, float32 and the tiny engine pass
+    the check, float16 is refused before the engine is built. The engine's
+    construction is stubbed, so no card is needed."""
     from street_crafter_tpu_torch.config import default_config
     from street_crafter_tpu_torch.runner import vdm_sample
+    built = []
+
+    def engine(ecfg, device):
+        built.append((ecfg, torch.device(device)))
+        return "engine"
+    monkeypatch.setattr(vdm_sample, "VideoDiffusionEngine", engine)
+    monkeypatch.setattr(vdm_sample, "load_vdm_params", lambda e, d: None)
     cfg = default_config()
     cfg.device = "cuda"
     for k, v in diffusion.items():
         cfg.diffusion[k] = v
-    with pytest.raises(ValueError, match="bfloat16 only"):
-        vdm_sample.build_engine(cfg, 3)
+    if diffusion.get("compute_dtype") == "float16":
+        with pytest.raises(ValueError, match="bfloat16 or float32"):
+            vdm_sample.build_engine(cfg, 3)
+        assert not built
+        return
+    assert vdm_sample.build_engine(cfg, 3) == "engine"
+    (ecfg, dev), = built
+    assert dev.type == "cuda" and ecfg.num_frames == 3
+    assert {c.dtype for c in (ecfg.unet, ecfg.vae, ecfg.clip)} <= \
+        {"float32", None}
 
 
 def test_sample_rollout_conditions_on_the_overlap(engines):
