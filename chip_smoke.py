@@ -313,7 +313,12 @@ Phases, one status line each; any failure raises (exit code != 0):
      TF32 products, its error over that limit); CUDA-event times beside
      the bf16 forms on the same values, scaled_dot_product_attention on
      the f32 tensors (timed only), the plain versions and the bound
-     (operations at 495 / 3 TF/s, or bytes); (b) runner.vdm_sample.main in
+     (operations at 495 / 3 TF/s, or bytes); at each training shape G and
+     H's share of their bound and G + H + attention_delta on one line
+     beside SDPA's f32 backward; what one TF32 product reads of an f32
+     operand (the f32 G and H's split relies on the low 13 mantissa bits
+     being cleared, else it fails); (b)
+     runner.vdm_sample.main in
      f32 on phase 9's data, seeded weights and noise, 25 frames at
      576x1024, CFG, F32_SAMPLE_STEPS Euler step and the chunked decode:
      exactly 15 launches of the f32 D an eval and nothing else (the
@@ -6094,6 +6099,36 @@ def f32_forms_vs_plain(FA, q, k, v, do, label: str, sampling: bool,
     return out
 
 
+def tf32_operand_check(FA, dev) -> str:
+    """The f32 G and H's 3xTF32 split relies on a TF32 product reading an
+    f32 operand with its low 13 mantissa bits cleared: one TF32 product on
+    the card (``FA.tf32_product_probe``) must read each operand, A and B,
+    as ``FA.tf32_read`` does, on values whose low bits are all set
+    (rounding would carry), exactly half a TF32 step, or random. Returns
+    the finding; raises otherwise."""
+    import torch
+    g = torch.Generator().manual_seed(2650)
+    x = torch.randn((64, 8), generator=g)
+    bits = x.view(torch.int32)
+    bits[:16] |= 0x1FFF
+    bits[16:32] = (bits[16:32] & -8192) | 0x1000
+    rows = torch.eye(8).repeat(8, 1)  # row m is the unit vector m % 8
+    read_a = FA.tf32_product_probe(x.to(dev), torch.eye(8, device=dev)).cpu()
+    read_b = FA.tf32_product_probe(rows.to(dev), x[:8].contiguous().to(dev))
+    hi = FA.tf32_read(x)
+    rna = ((bits + 4096) & -8192).view(torch.float32)
+    n_a = int((read_a == hi).sum())
+    n_b = int((read_b.cpu() == hi[:8].T.repeat(8, 1)).sum())
+    finding = (f"a TF32 product reads {n_a} of 512 A operands and {n_b} of "
+               f"512 B operands as their f32 value with the low 13 mantissa "
+               f"bits cleared ({int((read_a == rna).sum())} of the A ones "
+               f"would match rounding to nearest)")
+    if n_a != 512 or n_b != 512:
+        raise AssertionError(f"{finding}: the f32 G and H's split assumes "
+                             f"all of them")
+    return finding
+
+
 def f32_bound(nbytes: float, flops: float) -> dict:
     t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_3XTF32_FLOPS
     return {"bound_ms": 1e3 * max(t_b, t_f),
@@ -6106,8 +6141,11 @@ def f32_kernels(gpu: str) -> tuple[dict, dict]:
     shapes (sampling: D; training: D with lse, G, H), a TF32 control, then
     CUDA-event times beside the bf16 forms on the same values, one
     scaled_dot_product_attention call on the f32 tensors (forward beside D,
-    backward beside G and H; timed only) and the plain versions. Returns
-    ({kernel: largest error at the main shapes}, {kernel: rows})."""
+    backward beside G and H; timed only) and the plain versions; at each
+    training shape G + H + attention_delta beside SDPA's backward, and once
+    what a TF32 product reads of an f32 operand (the f32 G and H's split
+    relies on it). Returns ({kernel: largest error at the main shapes},
+    {kernel: rows})."""
     import torch
     import torch.nn.functional as F
     from street_crafter_tpu_torch.models.vdm.engine import tf32_off
@@ -6142,6 +6180,7 @@ def f32_kernels(gpu: str) -> tuple[dict, dict]:
                     f"{k} {err:.3e} (limit {lim:.3e})"
                     for k, (err, lim) in e.items()))
             torch.cuda.empty_cache()
+    log(f"[26] TF32 operands: {tf32_operand_check(FA, dev)}")
     # the control: the plain forward with TF32 products against it in f32
     q, k, v, _ = f32_case(dev, 25, 576, 576, 20, 64, 2799)
     with tf32_off():
@@ -6217,6 +6256,18 @@ def f32_kernels(gpu: str) -> tuple[dict, dict]:
                     "bf16_ms": cuda_ms(bf16, 3),
                     "plain_ms": cuda_ms(plain, 1, warmup=0),
                     "library_ms": lib, **f32_bound(nbytes, flops)}, flops))
+            # the backward as the autograd Function runs it: delta, G, H
+            dkv, dq = (rows[n][-1] for n in ("flash_attention_bwd_dkv_f32",
+                                             "flash_attention_bwd_dq_f32"))
+            delta_ms = cuda_ms(lambda: FA.attention_delta(o, do), 3)
+            dkv["delta_ms"] = dq["delta_ms"] = delta_ms
+            total = dkv["ms"] + dq["ms"] + delta_ms
+            log(f"[26] training [{b}, {s}, {h}, {d}]: G f32 {dkv['ms']:.3f} "
+                f"ms ({100 * dkv['bound_share']:.1f}% of its bound), H f32 "
+                f"{dq['ms']:.3f} ms ({100 * dq['bound_share']:.1f}%), "
+                f"attention_delta {delta_ms:.3f} ms; G + H + delta "
+                f"{total:.3f} ms against scaled_dot_product_attention's f32 "
+                f"backward {sdpa_bwd:.3f} ms ({total / sdpa_bwd:.3f}x); {gpu}")
             del q, k, v, do, o, lse, delta, qb, kb, vb, dob, qt, kt, vt
             torch.cuda.empty_cache()
     for name, rs in rows.items():

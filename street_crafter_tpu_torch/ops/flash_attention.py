@@ -13,8 +13,9 @@ product with v), and its gradient. Each piece has two implementations:
     and as the oracle on the card;
   * a kernel, used for CUDA tensors, head dim 64 or 128: the bf16 forms of
     ``csrc/flash_attention.cu`` or the f32 forms of
-    ``csrc/flash_attention_f32.cu`` (3xTF32 products), picked by q's
-    dtype; any other dtype, or q, k, v and do of mixed dtypes, raises.
+    ``csrc/flash_attention_f32.cu`` (3xTF32 products; G and H split by
+    ``tf32_split``), picked by q's dtype; any other dtype, or q, k, v and
+    do of mixed dtypes, raises.
     Kernel D is the forward (with lse: the training forward), G computes
     dK and dV, H dQ. The sources are compiled with nvcc on first use; a
     failed build or launch raises, and unsupported inputs raise.
@@ -40,7 +41,8 @@ from . import cuda_build
 # calls per implementation: "flash_attention" (kernel D, no lse),
 # "flash_attention_lse" (kernel D with lse), "flash_attention_bwd_dkv"
 # (kernel G), "flash_attention_bwd_dq" (kernel H), each one's f32 form
-# ("*_f32") and each one's "*_reference" (plain, either dtype)
+# ("*_f32") and each one's "*_reference" (plain, either dtype); the TF32
+# check "tf32_probe_f32" (on no path) and its "tf32_probe_reference"
 launches: collections.Counter = collections.Counter()
 # f32 elements of one chunk of plain scores (1 GiB): a [9216, 9216] score
 # tile is 340 MB per (batch, head)
@@ -145,6 +147,47 @@ def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta
         dq[bs, :, hs] = torch.einsum("bhqk,bkhd->bqhd", ds.float(),
                                      kc.float()).to(q.dtype)
     return dq
+
+
+def tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """What a TF32 product on the card reads of f32 ``x``: x with its low
+    13 mantissa bits cleared (``tf32_product_probe`` checks it)."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split of the f32 forms of kernels G and H, by bit masks
+    on f32 ``x``: (hi, lo) as their TF32 products read them. The kernels
+    pass x's bits plus half a TF32 step as the hi operand, read as x
+    rounded to TF32 (nearest, ties away from zero), and x - hi, exact in
+    f32, as the lo one, read truncated: hi + lo within 2^-21 |x|. They sum
+    a_lo b_hi + a_hi b_lo + a_hi b_hi in f32; the dropped a_lo b_lo is
+    below 2^-22 of a b."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_split takes torch.float32, got {x.dtype}")
+    hi = tf32_read((x.view(torch.int32) + 4096).view(torch.float32))
+    return hi, tf32_read(x - hi)
+
+
+def tf32_product_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """d = a b^T, a [64, 8] and b [8, 8] f32, by one TF32 product on the
+    tensor cores (the wgmma of the f32 G and H, the operands' f32 bits
+    passed as they are). With b the identity, d shows the value a TF32
+    product reads of each f32 of a: the f32 G and H rely on it being
+    ``tf32_read(a)``. On CPU tensors, that plain model (in float64)."""
+    if a.device.type == "cpu":
+        launches["tf32_probe_reference"] += 1
+        return (tf32_read(a).double() @ tf32_read(b).double().T).float()
+    pa = cuda_build.require(a, "a", torch.float32, (64, 8))
+    pb = cuda_build.require(b, "b", torch.float32, (8, 8))
+    lib = _library("_f32")
+    d = torch.empty((64, 8), dtype=torch.float32, device=a.device)
+    _check(lib, lib["tf32_probe"](pa, pb, d.data_ptr(),
+                                  torch.cuda.current_stream(
+                                      a.device).cuda_stream),
+           "the TF32 probe")
+    launches["tf32_probe_f32"] += 1
+    return d
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -292,7 +335,8 @@ def _suffix(q: torch.Tensor) -> str:
 @functools.lru_cache(maxsize=None)
 def _library(suffix: str = "") -> dict:
     """The four entries and the error string of the bf16 (``""``) or f32
-    (``"_f32"``) forms, by their names without the suffix."""
+    (``"_f32"``) forms, by their names without the suffix (the f32 library
+    also has ``tf32_probe``)."""
     lib = cuda_build.load("flash_attention" + suffix)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     argtypes = {"sc_flash_forward": [P, P, P, P, I, I, I, I, I, F, P],
@@ -306,6 +350,9 @@ def _library(suffix: str = "") -> dict:
         fn = getattr(lib, name + suffix)
         fn.argtypes, fn.restype = types, I
         fns[name] = fn
+    if suffix == "_f32":
+        fns["tf32_probe"] = lib.sc_tf32_probe_f32
+        fns["tf32_probe"].argtypes, fns["tf32_probe"].restype = [P] * 4, I
     err = getattr(lib, "sc_flash_error_string" + suffix)
     err.argtypes, err.restype = [I], ctypes.c_char_p
     fns["error_string"] = err

@@ -872,6 +872,21 @@ def test_attention_kernels_refuse_unaligned_tensors(cuda, kernel):
 F32_ATOL, F32_RTOL = 2e-5, 1e-4
 F32_RAGGED = [(1, sq, skv, 2, d) for d in (64, 128)
               for sq in (100, 300, 1000) for skv in (100, 300, 1000)]
+# the edges of the f32 G's and H's tiles: 1, one under and one over the
+# streamed tile (32), the ring's two stages (64, also the block of 64 rows
+# at head dim 128) and the block of 128 rows (head dim 64); none but 1 a
+# multiple of 8. One key (Skv = 1) goes with Sq up to 33 only: there p = 1
+# and ds = p (dp - delta) scale cancels to 0, so dK's plain f32 value is
+# rounding noise growing with Sq, and past ~64 queries 3xTF32's noise
+# (the f32 G's before this design as well) passes the 2e-5 absolute limit
+F32_EDGES = (1, 31, 33, 63, 65, 127, 129)
+F32_RAGGED += [(1, sq, skv, 2, d) for d in (64, 128)
+               for sq in F32_EDGES for skv in F32_EDGES
+               if skv > 1 or sq <= 33]
+# B > 1 and H > 1 with Sq != Skv both ways: a tensor map that read the next
+# batch or head, or a row stride of the wrong length, would show
+F32_RAGGED += [(2, sq, skv, 3, d) for d in (64, 128)
+               for sq, skv in ((129, 65), (65, 129))]
 # the main path's: one CFG eval's three levels (sampling), a train step's
 F32_SAMPLING = [(50, 9216, 5, 64), (50, 2304, 10, 64), (50, 576, 20, 64)]
 F32_TRAINING = [(25, 9216, 5, 64), (25, 2304, 10, 64), (25, 576, 20, 64)]
@@ -956,6 +971,28 @@ def test_f32_forward_at_the_sampling_shapes(cuda, exact_f32, b, s, h, d):
 def test_f32_training_forms_at_the_training_shapes(cuda, exact_f32, b, s, h,
                                                    d):
     check_f32_training_forms(*_f32_case(cuda, b, s, s, h, d, s + 1))
+
+
+def test_tf32_products_read_f32_operands_with_13_bits_cleared(cuda):
+    """The f32 G and H's split relies on a TF32 product reading an f32
+    operand with its low 13 mantissa bits cleared (``tf32_read``), neither
+    rounded nor whole: one product must read each operand, A then B, so.
+    The values carry every low-bit class: all 13 set (rounding would
+    carry), exactly half a TF32 step, random."""
+    g = torch.Generator().manual_seed(19)
+    x = torch.randn((64, 8), generator=g)
+    bits = x.view(torch.int32)
+    bits[:16] |= 0x1FFF
+    bits[16:32] = (bits[16:32] & -8192) | 0x1000
+    eye = torch.eye(8)
+    rows = torch.eye(8).repeat(8, 1)  # row m is the unit vector m % 8
+    FA.reset_launch_counts()
+    d_a = FA.tf32_product_probe(x.to(cuda), eye.to(cuda)).cpu()
+    d_b = FA.tf32_product_probe(rows.to(cuda), x[:8].contiguous().to(cuda))
+    torch.cuda.synchronize()
+    assert dict(FA.launches) == {"tf32_probe_f32": 2}
+    assert torch.equal(d_a, FA.tf32_read(x))
+    assert torch.equal(d_b.cpu(), FA.tf32_read(x[:8]).T.repeat(8, 1))
 
 
 def test_f32_wrappers_refuse_mixed_dtypes_and_float16(cuda):
