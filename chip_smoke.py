@@ -313,11 +313,12 @@ Phases, one status line each; any failure raises (exit code != 0):
      TF32 products, its error over that limit); CUDA-event times beside
      the bf16 forms on the same values, scaled_dot_product_attention on
      the f32 tensors (timed only), the plain versions and the bound
-     (operations at 495 / 3 TF/s, or bytes); at each training shape G and
-     H's share of their bound and G + H + attention_delta on one line
-     beside SDPA's f32 backward; what one TF32 product reads of an f32
-     operand (the f32 G and H's split relies on the low 13 mantissa bits
-     being cleared, else it fails); (b)
+     (operations at 495 / 3 TF/s, or bytes); at each sampling shape D's
+     share of its bound beside SDPA's forward, at each training shape D
+     with lse's, G's and H's shares and G + H + attention_delta on one
+     line beside SDPA's f32 backward; what one TF32 product reads of an
+     f32 operand (the f32 D, G and H's split relies on the low 13
+     mantissa bits being cleared, else it fails); (b)
      runner.vdm_sample.main in
      f32 on phase 9's data, seeded weights and noise, 25 frames at
      576x1024, CFG, F32_SAMPLE_STEPS Euler step and the chunked decode:
@@ -6100,8 +6101,8 @@ def f32_forms_vs_plain(FA, q, k, v, do, label: str, sampling: bool,
 
 
 def tf32_operand_check(FA, dev) -> str:
-    """The f32 G and H's 3xTF32 split relies on a TF32 product reading an
-    f32 operand with its low 13 mantissa bits cleared: one TF32 product on
+    """The f32 D, G and H's 3xTF32 split relies on a TF32 product reading
+    an f32 operand with its low 13 mantissa bits cleared: one TF32 product on
     the card (``FA.tf32_product_probe``) must read each operand, A and B,
     as ``FA.tf32_read`` does, on values whose low bits are all set
     (rounding would carry), exactly half a TF32 step, or random. Returns
@@ -6124,8 +6125,8 @@ def tf32_operand_check(FA, dev) -> str:
                f"bits cleared ({int((read_a == rna).sum())} of the A ones "
                f"would match rounding to nearest)")
     if n_a != 512 or n_b != 512:
-        raise AssertionError(f"{finding}: the f32 G and H's split assumes "
-                             f"all of them")
+        raise AssertionError(f"{finding}: the f32 D, G and H's split "
+                             f"assumes all of them")
     return finding
 
 
@@ -6141,10 +6142,11 @@ def f32_kernels(gpu: str) -> tuple[dict, dict]:
     shapes (sampling: D; training: D with lse, G, H), a TF32 control, then
     CUDA-event times beside the bf16 forms on the same values, one
     scaled_dot_product_attention call on the f32 tensors (forward beside D,
-    backward beside G and H; timed only) and the plain versions; at each
-    training shape G + H + attention_delta beside SDPA's backward, and once
-    what a TF32 product reads of an f32 operand (the f32 G and H's split
-    relies on it). Returns ({kernel: largest error at the main shapes},
+    backward beside G and H; timed only) and the plain versions, each
+    form's share of its 3xTF32 bound; at each training shape G + H +
+    attention_delta beside SDPA's backward, and once what a TF32 product
+    reads of an f32 operand (the f32 D, G and H's split relies on it).
+    Returns ({kernel: largest error at the main shapes},
     {kernel: rows})."""
     import torch
     import torch.nn.functional as F
@@ -6212,6 +6214,11 @@ def f32_kernels(gpu: str) -> tuple[dict, dict]:
                 "library_ms": cuda_ms(
                     lambda: F.scaled_dot_product_attention(qt, kt, vt), 3),
                 **f32_bound(4 * 4 * b * s * h * d, flops)}, flops))
+            r = rows["flash_attention_f32"][-1]
+            log(f"[26] sampling [{b}, {s}, {h}, {d}]: D f32 {r['ms']:.3f} ms "
+                f"({100 * r['bound_share']:.1f}% of its bound), "
+                f"scaled_dot_product_attention in f32 {r['library_ms']:.3f} "
+                f"ms ({r['ms'] / r['library_ms']:.3f}x); {gpu}")
             del q, k, v, qb, kb, vb, qt, kt, vt
             torch.cuda.empty_cache()
         for i, (b, s, h, d) in enumerate(TRAIN_SHAPES):
@@ -6257,12 +6264,15 @@ def f32_kernels(gpu: str) -> tuple[dict, dict]:
                     "plain_ms": cuda_ms(plain, 1, warmup=0),
                     "library_ms": lib, **f32_bound(nbytes, flops)}, flops))
             # the backward as the autograd Function runs it: delta, G, H
-            dkv, dq = (rows[n][-1] for n in ("flash_attention_bwd_dkv_f32",
-                                             "flash_attention_bwd_dq_f32"))
+            fwd, dkv, dq = (rows[n][-1] for n in (
+                "flash_attention_lse_f32", "flash_attention_bwd_dkv_f32",
+                "flash_attention_bwd_dq_f32"))
             delta_ms = cuda_ms(lambda: FA.attention_delta(o, do), 3)
             dkv["delta_ms"] = dq["delta_ms"] = delta_ms
             total = dkv["ms"] + dq["ms"] + delta_ms
-            log(f"[26] training [{b}, {s}, {h}, {d}]: G f32 {dkv['ms']:.3f} "
+            log(f"[26] training [{b}, {s}, {h}, {d}]: D f32 with lse "
+                f"{fwd['ms']:.3f} ms ({100 * fwd['bound_share']:.1f}% of its "
+                f"bound), G f32 {dkv['ms']:.3f} "
                 f"ms ({100 * dkv['bound_share']:.1f}% of its bound), H f32 "
                 f"{dq['ms']:.3f} ms ({100 * dq['bound_share']:.1f}%), "
                 f"attention_delta {delta_ms:.3f} ms; G + H + delta "

@@ -148,12 +148,6 @@ constexpr int WG3 = 384;      // a producer warpgroup + two consumers
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Rows [row, row + box rows) of head h of batch b through a 4-D map, as NA
 // 64-column boxes (128-byte swizzle atoms) `atom` bytes apart at dst.
 template <int NA>
@@ -190,57 +184,6 @@ __device__ __forceinline__ void pv_tile(float (&acc)[N],
   wgmma_ab(acc, pa, vs, 128 * 128);
   wgmma_commit();
   fence_regs(acc);
-}
-
-// O's rows g (registers i with (i & 2) == 0) and g + 8 times al0, al1.
-template <int N>
-__device__ __forceinline__ void rescale(float (&acc)[N], float al0,
-                                        float al1) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] *= (i & 2) ? al1 : al0;
-}
-
-// The online softmax of one score tile (keys kv0 .. kv0 + 127), in base 2
-// and f32: keys past Skv get -inf; the running max m and sum l of rows g
-// and g + 8 are updated, al is O's rescale, and sc becomes p (unrounded).
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], int kv0,
-                                             int Skv, int t4, float sl2,
-                                             float& m0, float& m1, float& l0,
-                                             float& l1, float& al0,
-                                             float& al1) {
-  if (kv0 + 128 > Skv) {  // the ragged kv edge
-#pragma unroll
-    for (int r = 0; r < 64; ++r)
-      if (kv0 + 8 * (r / 4) + 2 * t4 + (r & 1) >= Skv) sc[r] = -INFINITY;
-  }
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int r = 0; r < 64; r += 4) {
-    mx0 = fmaxf(mx0, fmaxf(sc[r], sc[r + 1]));
-    mx1 = fmaxf(mx1, fmaxf(sc[r + 2], sc[r + 3]));
-  }
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-  }
-  const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
-  al0 = ex2(m0 - mn0);
-  al1 = ex2(m1 - mn1);
-  m0 = mn0;
-  m1 = mn1;
-  float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-  for (int r = 0; r < 64; r += 4) {
-    sc[r] = ex2(fmaf(sc[r], sl2, -m0));
-    sc[r + 1] = ex2(fmaf(sc[r + 1], sl2, -m0));
-    sc[r + 2] = ex2(fmaf(sc[r + 2], sl2, -m1));
-    sc[r + 3] = ex2(fmaf(sc[r + 3], sl2, -m1));
-    rs0 += sc[r] + sc[r + 1];
-    rs1 += sc[r + 2] + sc[r + 3];
-  }
-  l0 = l0 * al0 + rs0;
-  l1 = l1 * al1 + rs1;
 }
 
 // Dynamic shared memory of kernel D: the alignment pad, Q, the K/V ring and

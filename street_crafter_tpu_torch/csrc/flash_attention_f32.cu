@@ -16,48 +16,38 @@
 // split into two TF32 parts, x = hi + lo, and every product is
 // a_hi b_hi + a_hi b_lo + a_lo b_hi accumulated in f32 (3xTF32, as
 // CUTLASS's "fast f32" GEMMs do). The term dropped, a_lo b_lo, is below
-// 2^-22 of the product, so the sums keep f32's precision. D splits with
-// two roundings (hi = x rounded to TF32, lo = the rest rounded) and sums
-// the two small products first. G and H use that a TF32 product reads an
-// f32 operand with its low 13 mantissa bits cleared (the card's behaviour,
-// checked by tf32_probe_kernel below and the card tests): hi is x's bits
-// plus half a TF32 step, written over the TMA tile in place and read as x
-// rounded to nearest, and lo = x - hi as read, exact in f32, read
-// truncated (hopper.cuh's tf32_hi, tf32_lo; ops/flash_attention.py's
-// tf32_split models it): hi + lo within 2^-21 |x|. FFMA on the CUDA cores
-// would be exact too, at 67 TFLOP/s against 3xTF32's 495 / 3 = 165: the
-// split was chosen for that rate.
+// 2^-22 of the product, so the sums keep f32's precision. The split uses
+// that a TF32 product reads an f32 operand with its low 13 mantissa bits
+// cleared (the card's behaviour, checked by tf32_probe_kernel below and
+// the card tests): hi is x's bits plus half a TF32 step, written over the
+// TMA tile in place and read as x rounded to nearest, and lo = x - hi as
+// read, exact in f32, read truncated (hopper.cuh's tf32_hi, tf32_lo;
+// ops/flash_attention.py's tf32_split models it): hi + lo within 2^-21
+// |x|. FFMA on the CUDA cores would be exact too, at 67 TFLOP/s against
+// 3xTF32's 495 / 3 = 165: the split was chosen for that rate.
 //
 // Bound on this card: the products, at 165 TFLOP/s (TF32's dense 495 over
 // the split's three products): 4 Sq Skv D operations per (batch, head) for
 // D, 8 for G and 6 for H; the bytes (each input read once, each output
 // written once, at 3.35 TB/s) take ~1/16 of that at the UNet's S = 9216.
 //
-// Kernel D (a simple design that is right; the TMA / wgmma shape of G and
-// H below is the later work for it):
-//   - one block of 4 warps per (batch * head, 64 query rows), each warp
-//     owning 16 rows; K and V tiles of 64 keys (32 at head dim 128) go
-//     through a cp.async double buffer; rows past S are zero-filled by the
-//     copy itself (src-size 0), never read from the next batch or head;
-//   - mma.sync.m16n8k8 TF32 products on fragments split as they are loaded;
-//     tiles in shared memory at a row stride of D + 4 floats, so that the
-//     fragment loads fall on 32 distinct banks;
-//   - P V takes P from the m16n8 accumulators without a shuffle: a thread
-//     holds keys 2t and 2t + 1 of each 8, and A's k-columns t and t + 4 are
-//     mapped to those keys; the B operand is read from rows 2t and 2t + 1;
-//   - the online softmax in f32 and base 2, keys past Skv get -inf.
-//
-// Kernels G and H: TF32 wgmma fed by TMA, each tile split once. What bounds
-// them is the tensor cores' 3xTF32 rate (8 and 6 Sq Skv D operations per
-// (batch, head) at 165 TF/s). What held their first form at 27-29% of it
-// was splitting every operand fragment again at each use (the streamed
-// tiles by all 8 warps, twice a tile; the resident K, V or Q, dO on every
-// tile) with scalar shared-memory loads into mma.sync. The design:
-//   - G: one block per (batch * head, 64 NC keys) of a producer warpgroup
-//     and NC consumer warpgroups of 64 keys each (NC = 2 at head dim 64).
-//     K and V come in once by TMA and each consumer warpgroup splits its
-//     own 64 rows once. q and dO stream in tiles of 32 queries through a
-//     TMA ring of SR stages (full / empty mbarriers); the producer's second
+// All three: TF32 wgmma fed by TMA, each tile split once. What held their
+// first forms (mma.sync.m16n8k8 on fragments split as they were loaded, a
+// cp.async double buffer) at 22-29% of the bound was splitting every
+// operand fragment again at each use, with scalar shared-memory loads.
+// The design:
+//   - D: one block per (batch * head, 64 NC queries) of a producer
+//     warpgroup and NC consumer warpgroups of 64 queries each (NC = 2 at
+//     head dim 64). Q comes in once by TMA and each consumer warpgroup
+//     splits its own 64 rows once. K and V stream in
+//     tiles of 32 keys through a TMA ring of SR stages (full / empty
+//     mbarriers); the consumers split each K tile's rows in place and write
+//     V's transposed copy into one of two slots, once a tile, together
+//     (V is read only by P V, so its tile stays as TMA wrote it). O stays
+//     in f32 registers and is written once, with lse.
+//   - G: one block per (batch * head, 64 NC keys): K and V come in once by
+//     TMA and each consumer warpgroup splits its own 64 rows once. q and dO
+//     stream in tiles of 32 queries through the ring; the producer's second
 //     warp copies each tile's lse * log2(e) and delta rows into the stage
 //     and arrives on the same full barrier (1 + 32 arrivals). dK and dV
 //     stay in f32 registers and are written once.
@@ -70,28 +60,35 @@
 //     rows of lo parts at the same swizzled offsets. The consumer warpgroups
 //     split each streamed tile once, together, each pass under products already
 //     in flight: its rows (under the previous tile's last products), read by
-//     the products that sum over D (S^T = K q^T, dP^T = V dO^T in G; S = Q K^T,
-//     dP = dO V^T in H), and its transposed copy, hi and lo (under the score
-//     products), read by the products that sum over the streamed index (dV +=
-//     P^T dO, dK += dS^T q in G; dQ += dS K in H): TF32 wgmma has no transpose
-//     bit, both operands are K-major, so such a B operand needs the streamed
-//     index contiguous. The transpose costs no extra pass: the split touches
-//     every element anyway. A named barrier of the consumers hands each pass's
-//     shares over (after a proxy fence), and one at the end of each tile frees
+//     the products that sum over D (S = Q K^T in D; S^T = K q^T, dP^T = V
+//     dO^T in G; S = Q K^T, dP = dO V^T in H), and its transposed copy, hi
+//     and lo (under the score products), read by the products that sum
+//     over the streamed index (O += P V in D; dV += P^T dO, dK += dS^T q in
+//     G; dQ += dS K in H): TF32 wgmma has no transpose bit, both operands
+//     are K-major, so such a B operand needs the streamed index contiguous.
+//     The transpose costs no extra pass: the split touches every element
+//     anyway. A named barrier of the consumers hands each pass's shares
+//     over (after a proxy fence), and one at the end of each tile frees
 //     what it read.
 //   - products: a score tile (64 x 32) by one wgmma m64n64k8 of A's hi
 //     against B's hi and lo rows at once (they lie next to each other)
 //     and one m64n32k8 of A's lo against B's hi, both from shared memory,
 //     the two halves added after the wait: A is read once for two of the
-//     three products (7 KB a k8 step, not 9 KB). P^T and dS^T (G) or dS
-//     (H) are split in registers and fed as A from registers (m64nDk8, 3 a
-//     k8 step). An accumulator's column pair (2u, 2u + 1) of each 8 is A's
-//     k-columns u and u + 4: the transposed copy is written with its
-//     positions in that order (split_t), no shuffle.
-//   - masks: queries past Sq get p = 0 in G, keys past Skv ds = 0 in H
-//     (TMA's zero fill gives s = 0, not -inf, and lse = 0 gives p = 1);
-//     4-D tensor maps (D, H, S, B), so the fill never reads the next batch
-//     or head; rows past S are not stored.
+//     three products (7 KB a k8 step, not 9 KB). P (D), P^T and dS^T (G)
+//     or dS (H) are split in registers and fed as
+//     A from registers (m64nDk8, 3 a k8 step). An accumulator's column
+//     pair (2u, 2u + 1) of each 8 is A's k-columns u and u + 4: the
+//     transposed copy is written with its positions in that order
+//     (split_t), no shuffle.
+//   - D's online softmax runs in f32 and base 2 on the folded score
+//     fragments (row max and sum over the four threads of a row,
+//     ex2.approx), under products: tile t's S and tile t - 1's P V are
+//     issued together, O rescaled before them; the softmax of tile t runs
+//     while P V is in flight, and only a wgmma writes O in flight.
+//   - masks: keys past Skv get -inf in D and ds = 0 in H, queries past Sq
+//     p = 0 in G (TMA's zero fill gives s = 0, not -inf, and lse = 0 gives
+//     p = 1); 4-D tensor maps (D, H, S, B), so the fill never reads the
+//     next batch or head; rows past S are not stored.
 //   - shared memory decides the tile sizes. Head dim 64, G: K and V with
 //     their lo rows 128 KB, two ring stages of q and dO with their lo rows
 //     2 x 32 KB, two transposed slots (dO^T, q^T, hi and lo) 2 x 16 KB:
@@ -100,7 +97,10 @@
 //     tile itself is what makes 32 fit. Head dim 128 (not a speed target: the
 //     UNet runs 64): one consumer warpgroup (64 rows a block), one ring
 //     stage and one slot, G splitting q^T after dV's products: 128 + 64 +
-//     32 KB. A transposed row is one atom, so the streamed tile is 32.
+//     32 KB. A transposed row is one atom, so the streamed tile is 32. D:
+//     Q with its lo rows 64 KB, a stage (K with its lo rows, V) 24 KB, a
+//     slot 16 KB; four stages and two slots, 193 KB. Head dim 128: one
+//     consumer, 64 + 2 x 48 + 2 x 32 KB.
 //   - registers: ptxas gives each thread of a 384-thread block 168,
 //     setmaxnreg or not; G at head dim 64 holds dK, dV (64) and the score
 //     tiles' halves (64), then dK, dV and the split P^T, dS^T fragments
@@ -109,7 +109,12 @@
 //     register-A m64n64k8 of the update products runs well below the TF32
 //     peak and an m64n128k8 near it, and the score pair gains with A_hi
 //     from registers): both need dK, dV or Q, dO's hi fragments in more
-//     registers than a 384-thread block has.
+//     registers than a 384-thread block has. D at head dim 64 holds O
+//     (32), the score pair (32) and P's split fragments (32); Q_hi fits
+//     beside them as register-A fragments, but that form (the score pair
+//     at 91.5% of TF32's peak in the rates script, not 84.7%) ran no
+//     faster than this one within the card's spread (PERF.md's findings
+//     on the f32 D), so Q stays a split tile in shared memory.
 // Where this goes wrong, and how the design guards against it:
 //   - descriptor offsets in TMA's 128-byte swizzle: a K-major f32 row of 32
 //     values is one atom, a k8 step advances 32 bytes in it, eight rows
@@ -149,281 +154,7 @@ namespace {
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// 16 bytes from global src to shared dst, or 16 zero bytes when !valid (src
-// is then not read).
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
-                                     bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// x = hi + lo, both TF32 (f32 with the low 13 mantissa bits clear); x - hi
-// is exact in f32.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float r = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
-}
-
-// An A fragment of m16n8k8 (rows g, g + 8; k-columns t, t + 4), split.
-struct FragA {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ void set(float a0, float a1, float a2,
-                                      float a3) {
-    split(a0, hi[0], lo[0]);
-    split(a1, hi[1], lo[1]);
-    split(a2, hi[2], lo[2]);
-    split(a3, hi[3], lo[3]);
-  }
-};
-
-// A B fragment of m16n8k8 (k-rows t, t + 4; column g), split.
-struct FragB {
-  uint32_t hi[2], lo[2];
-  __device__ __forceinline__ void set(float b0, float b1) {
-    split(b0, hi[0], lo[0]);
-    split(b1, hi[1], lo[1]);
-  }
-};
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b in 3xTF32, the small products first.
-__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
-                                     const FragB& b) {
-  mma_tf32(c, a.lo, b.hi);
-  mma_tf32(c, a.hi, b.lo);
-  mma_tf32(c, a.hi, b.hi);
-}
-
-// Rows [row0, row0 + ROWS) of head h of batch b of a [B, S, H, D] tensor
-// into shared memory at a row stride of D + 4 floats, rows past S as zeros;
-// NT threads, one 16-byte copy each at a time (not committed).
-template <int ROWS, int D, int NT>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int b, int h, int H, int S,
-                                          int row0) {
-  constexpr int CPR = D / 4;
-  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
-    const int r = i / CPR, c = i - r * CPR, s = row0 + r;
-    const bool ok = s < S;
-    const float* g = src + (((size_t)b * S + (ok ? s : 0)) * H + h) * D + 4 * c;
-    cp16(smem_u32(dst + r * (D + 4) + 4 * c), g, ok);
-  }
-}
-
-// The A fragment of k-step kk from rows r, r + 8 of a tile at stride DP.
-template <int DP>
-__device__ __forceinline__ void rows_a(FragA& a, const float* tile, int r,
-                                      int kk, int t4) {
-  const float* p0 = tile + r * DP + 8 * kk + t4;
-  const float* p1 = p0 + 8 * DP;
-  a.set(p0[0], p1[0], p0[4], p1[4]);
-}
-
-// The B fragment (k = the tile's columns 8 kk + t, + 4; n = its row n0 + g)
-// of a row-major tile: B = tile^T.
-template <int DP>
-__device__ __forceinline__ void rows_bt(FragB& b, const float* tile, int n0,
-                                       int kk, int g, int t4) {
-  const float* p = tile + (n0 + g) * DP + 8 * kk + t4;
-  b.set(p[0], p[4]);
-}
-
-// The B fragment (k = rows 8 j + 2 t, + 1; n = column 8 n + g) of a
-// row-major tile, the k order matching score_a.
-template <int DP>
-__device__ __forceinline__ void rows_b(FragB& b, const float* tile, int j,
-                                      int n, int g, int t4) {
-  const float* p = tile + (8 * j + 2 * t4) * DP + 8 * n + g;
-  b.set(p[0], p[DP]);
-}
-
-// The A fragment of k-step j from the accumulators of score columns 8 j ..
-// 8 j + 7 (a thread holds rows g, g + 8 at columns 2 t, 2 t + 1): k-column
-// t is column 2 t, k-column t + 4 is column 2 t + 1.
-__device__ __forceinline__ void score_a(FragA& a, const float (&c)[4]) {
-  a.set(c[0], c[2], c[1], c[3]);
-}
-
-// ------------------------------------------------------------- kernel D
-
-template <int D, int BK>
-constexpr int fwd_smem_bytes() {
-  return (64 + 4 * BK) * (D + 4) * 4;
-}
-
-// o (and lse) of 64 query rows of one (batch, head): grid q_tiles * B * H,
-// 4 warps of 16 rows.
-template <int D, int BK, bool LSE>
-__global__ void __launch_bounds__(128)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int H, int Sq, int Skv,
-                     int q_tiles, float sl2) {
-  constexpr int DP = D + 4, BQ = 64, NT = 128;
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* skv = sq + BQ * DP;  // stage s: K at skv + 2 s BK DP, then V
-
-  const int bh = blockIdx.x / q_tiles, qt = blockIdx.x - bh * q_tiles;
-  const int b = bh / H, h = bh - b * H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int q0 = qt * BQ, n_kv = (Skv + BK - 1) / BK;
-
-  load_rows<BQ, D, NT>(sq, q, b, h, H, Sq, q0);
-  load_rows<BK, D, NT>(skv, k, b, h, H, Skv, 0);
-  load_rows<BK, D, NT>(skv + BK * DP, v, b, h, H, Skv, 0);
-  cp_commit();
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max (base 2, scaled)
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
-  const int r = warp * 16 + g;           // the thread's rows r, r + 8
-
-  for (int t = 0; t < n_kv; ++t) {
-    if (t + 1 < n_kv) {
-      float* nk = skv + ((t + 1) & 1) * 2 * BK * DP;
-      load_rows<BK, D, NT>(nk, k, b, h, H, Skv, (t + 1) * BK);
-      load_rows<BK, D, NT>(nk + BK * DP, v, b, h, H, Skv, (t + 1) * BK);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const float* ks = skv + (t & 1) * 2 * BK * DP;
-    const float* vs = ks + BK * DP;
-
-    float sc[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      FragA a;
-      rows_a<DP>(a, sq, r, kk, t4);
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        FragB bf;
-        rows_bt<DP>(bf, ks, 8 * j, kk, g, t4);
-        mma3(sc[j], a, bf);
-      }
-    }
-
-    // the online softmax of this tile
-    const int kv0 = t * BK;
-    if (kv0 + BK > Skv) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (kv0 + 8 * j + 2 * t4 + (e & 1) >= Skv) sc[j][e] = -INFINITY;
-    }
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
-    const float al0 = ex2(m0 - mn0), al1 = ex2(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      sc[j][0] = ex2(fmaf(sc[j][0], sl2, -m0));
-      sc[j][1] = ex2(fmaf(sc[j][1], sl2, -m0));
-      sc[j][2] = ex2(fmaf(sc[j][2], sl2, -m1));
-      sc[j][3] = ex2(fmaf(sc[j][3], sl2, -m1));
-      rs0 += sc[j][0] + sc[j][1];
-      rs1 += sc[j][2] + sc[j][3];
-    }
-    l0 = l0 * al0 + rs0;
-    l1 = l1 * al1 + rs1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= al0;
-      acc[n][1] *= al0;
-      acc[n][2] *= al1;
-      acc[n][3] *= al1;
-    }
-
-    // O += P V
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      FragA a;
-      score_a(a, sc[j]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        FragB bf;
-        rows_b<DP>(bf, vs, j, n, g, t4);
-        mma3(acc[n], a, bf);
-      }
-    }
-    __syncthreads();  // this stage is loaded again at t + 2
-  }
-
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const int row0 = q0 + r, row1 = row0 + 8;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    if (row0 < Sq)
-      *reinterpret_cast<float2*>(
-          o + (((size_t)b * Sq + row0) * H + h) * D + 8 * n + 2 * t4) =
-          make_float2(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (row1 < Sq)
-      *reinterpret_cast<float2*>(
-          o + (((size_t)b * Sq + row1) * H + h) * D + 8 * n + 2 * t4) =
-          make_float2(acc[n][2] * inv1, acc[n][3] * inv1);
-  }
-  if (LSE && t4 == 0) {
-    // natural-log logsumexp of the scaled scores: (m + log2 l) ln 2
-    if (row0 < Sq) lse[(size_t)bh * Sq + row0] = (m0 + log2f(l0)) * LN2;
-    if (row1 < Sq) lse[(size_t)bh * Sq + row1] = (m1 + log2f(l1)) * LN2;
-  }
-}
-
-// ------------------------------------------------------ kernels G and H
+// --------------------------------------------- pieces of kernels D, G and H
 
 __device__ __forceinline__ float4 lds4(uint32_t a) {
   float4 v;
@@ -484,33 +215,36 @@ __device__ __forceinline__ void split_rows(uint32_t tile, int row0, int w,
   }
 }
 
-// The transposed copy of a 32-row split tile (after split_rows: its rows,
-// the streamed index, in their hi form), hi at t_hi and lo 32 NA * 128
-// bytes further: its row c is the tile's column c, one 128-byte atom whose
-// position 8 j + u holds the tile's row 8 j + 2 u and position 8 j + u + 4
-// its row 8 j + 2 u + 1 (u < 4), the k order of the register-A score
-// fragments (tf32_frags). A warp's scalar stores fall on 32 distinct
-// banks (one row c, 32 positions).
-template <int NA, int NW>
+// The transposed copy of a 32-row tile, split: hi at t_hi and lo 32 NA *
+// 128 bytes further. Its row c is the tile's column c, one 128-byte atom
+// whose position 8 j + u holds the tile's row 8 j + 2 u and position
+// 8 j + u + 4 its row 8 j + 2 u + 1 (u < 4), the k order of the
+// register-A score fragments (tf32_frags). The tile is a split tile after
+// split_rows (its rows, the streamed index, in their hi form), or with RAW
+// 32 rows as TMA wrote them (atoms 32 * 128 bytes apart: kernel D's V,
+// which no product reads by rows). A warp's scalar stores fall on 32
+// distinct banks (one row c, 32 positions).
+template <int NA, int NW, bool RAW = false>
 __device__ __forceinline__ void split_t(uint32_t tile, uint32_t t_hi, int w,
                                         int lane) {
   constexpr int TASKS = NA * 8;
-  constexpr uint32_t T_LO = NA * 32 * 128;
+  constexpr uint32_t T_LO = NA * 32 * 128, ATOM = (RAW ? 128 : 256) * 32;
   static_assert(TASKS % NW == 0, "whole tasks a warp");
   const int p = (lane & ~7) | ((lane & 7) >> 1) | ((lane & 1) << 2);
 #pragma unroll
   for (int i = 0; i < TASKS / NW; ++i) {
     const int task = w + i * NW;
     const int a = task / 8, k = task % 8;
-    const float4 x = lds4(tile + a * (256 * 32) + swz(lane, k));
+    const float4 x = lds4(tile + a * ATOM + swz(lane, k));
     const float v[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = 32 * a + 4 * k + e;
       const uint32_t o =
           t_hi + c * 128 + (((p >> 2) ^ (c & 7)) << 4) + 4 * (p & 3);
-      sts1(o, v[e]);
-      sts1(o + T_LO, tf32_lo(tf32_x(v[e]), v[e]));
+      const float hi = RAW ? tf32_hi(v[e]) : v[e];
+      sts1(o, hi);
+      sts1(o + T_LO, tf32_lo(RAW ? v[e] : tf32_x(v[e]), hi));
     }
   }
 }
@@ -584,6 +318,205 @@ __device__ __forceinline__ void tf32_frags(uint32_t (&hi)[K8][4],
   }
 }
 
+// ------------------------------------------------------------- kernel D
+
+// S = Q K^T of the key tile at ks into the pair's accumulator (issued and
+// committed, not waited for; fold sums its halves): Q a split tile of RQ
+// rows, this warpgroup's 64 at qa.
+template <int NA, int RQ>
+__device__ __forceinline__ void qk_tile(float (&acc)[32], uint32_t qa,
+                                        uint32_t ks) {
+  fence_regs(acc);
+  wgmma_fence();
+  mma3_ss<NA>(acc, qa, 256 * RQ, RQ * 128, ks, 256 * 32);
+  wgmma_commit();
+  fence_regs(acc);
+}
+
+// O += P V of one key tile (issued and committed): P's split fragments in
+// registers, V^T's split copy at slot (D rows of hi, then of lo).
+template <int N>
+__device__ __forceinline__ void pv_tile(float (&acc)[N],
+                                        const uint32_t (&ph)[4][4],
+                                        const uint32_t (&pl)[4][4],
+                                        uint32_t slot) {
+  fence_regs(acc);
+  wgmma_fence();
+  mma3_rs(acc, ph, pl, slot, 2 * N * 128);
+  wgmma_commit();
+  fence_regs(acc);
+}
+
+// Dynamic shared memory of kernel D in f32: the alignment pad, Q (a split
+// tile of 64 NC rows), SR ring stages (K as a split tile of BK rows, then
+// V as TMA wrote it), two transposed slots (V^T of the even and the odd
+// tiles, hi then lo) and the barriers (q_full, SR full, SR empty).
+template <int D, int NC, int BK, int SR>
+constexpr int fwd_smem_bytes() {
+  return 1024 + (D / 32) * 256 * 64 * NC +
+         SR * 3 * (D / 32) * 128 * BK + 2 * 2 * D * 128 + 8 * (1 + 2 * SR);
+}
+
+// o (and lse) of 64 NC query rows of one (batch, head), key tiles of BK
+// keys: grid q_tiles * B * H, a producer warpgroup and NC consumers.
+template <int D, int NC, int BK, int SR, bool LSE>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     float* __restrict__ o, float* __restrict__ lse, int H,
+                     int Sq, int Skv, int q_tiles, float sl2) {
+  static_assert(BK == 32, "a transposed row is one atom of BK positions");
+  constexpr int NA = D / 32, RQ = 64 * NC, NT = 128 * NC, NW = 4 * NC;
+  constexpr uint32_t QATOM = 256 * RQ, QTILE = NA * QATOM;
+  constexpr uint32_t KATOM = 256 * BK, KTILE = NA * KATOM;
+  constexpr uint32_t VATOM = 128 * BK, STAGE = KTILE + NA * VATOM;
+  constexpr uint32_t SLOT = 2 * D * 128;
+  extern __shared__ uint8_t smem_b[];
+  const uint32_t sq = (smem_u32(smem_b) + 1023) & ~1023u;
+  const uint32_t ring = sq + QTILE;          // stage s: K, then V
+  const uint32_t slots = ring + SR * STAGE;  // V^T of even, odd tiles
+  const uint32_t q_full = slots + 2 * SLOT;
+  const uint32_t full = q_full + 8, empty = full + 8 * SR;
+
+  const int bh = blockIdx.x / q_tiles, qt = blockIdx.x - bh * q_tiles;
+  const int b = bh / H, h = bh - b * H;
+  const int n_kv = (Skv + BK - 1) / BK;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < SR; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, NT);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one thread issues TMA
+    if constexpr (NC == 2) regs_dec<24>();
+    if (tid == 0) {
+      mbar_expect_tx(q_full, NA * RQ * 128);
+      for (int a = 0; a < NA; ++a)
+        tma_load(sq + a * QATOM, &tq, q_full, 32 * a, h, RQ * qt, b);
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % SR;
+        mbar_wait(empty + 8 * s, ((t / SR) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * NA * BK * 128);
+        const uint32_t ks = ring + s * STAGE;
+        for (int a = 0; a < NA; ++a) {
+          tma_load(ks + a * KATOM, &tk, full + 8 * s, 32 * a, h, BK * t, b);
+          tma_load(ks + KTILE + a * VATOM, &tv, full + 8 * s, 32 * a, h,
+                   BK * t, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup cw owns query rows 64 cw .. 64 cw + 63
+    if constexpr (NC == 2) regs_inc<240>();
+    const int cw = wg - 1, ct = threadIdx.x - 128;
+    const int cwarp = ct / 32, lane = ct % 32, warp = cwarp % 4;
+    const int g = lane / 4, t4 = lane % 4;
+    const int r0 = RQ * qt + 64 * cw + 16 * warp + g, r1 = r0 + 8;
+    const uint32_t qa = sq + cw * 64 * 128;
+
+    // Q: each warpgroup splits its own 64 rows, once a block; then the
+    // first K tile, by all consumers
+    mbar_wait(q_full, 0);
+    split_rows<NA, RQ, 2, 4>(sq, 64 * cw, warp, lane);
+    mbar_wait(full, 0);
+    split_rows<NA, BK, 1, NW>(ring, 0, cwarp, lane);
+    fence_async_smem();
+    consumers_sync<NT>();
+
+    float acc[D / 2];  // O: m64nD accumulator, rows g and g + 8 of the warp
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;  // running max (base 2, scaled)
+    float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
+    float al0 = 0.f, al1 = 0.f;            // O's rescale before the next P V
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];  // P of the last tile, split
+
+    // Tile t's S and tile t - 1's P V are issued together; V^T of tile t
+    // and tile t + 1's K rows are split while they run, and tile t's
+    // softmax runs while P V is still in flight. Tile 0 has its S alone,
+    // the last P V comes after the loop.
+    {
+      float acc_s[BK];  // hi and lo halves (the pair)
+      qk_tile<NA, RQ>(acc_s, qa, ring);
+      split_t<NA, NW, true>(ring + KTILE, slots, cwarp, lane);
+      if (n_kv > 1) {
+        mbar_wait(full + 8 * (1 % SR), (1 / SR) & 1);
+        split_rows<NA, BK, 1, NW>(ring + (1 % SR) * STAGE, 0, cwarp, lane);
+      }
+      fence_async_smem();
+      wgmma_wait<0>();
+      fence_regs(acc_s);
+      mbar_arrive(empty);  // this thread's last read of the stage
+      float sc[BK / 2];
+      fold(acc_s, sc);
+      softmax_tile(sc, 0, Skv, t4, sl2, m0, m1, l0, l1, al0, al1);
+      tf32_frags(ph, pl, sc);
+      consumers_sync<NT>();  // V^T of tile 0 and K of tile 1 complete
+    }
+    for (int t = 1; t < n_kv; ++t) {
+      const int s = t % SR;
+      const uint32_t ks = ring + s * STAGE;
+      float acc_s[BK];
+      rescale(acc, al0, al1);  // tile t - 2's P V is done
+      qk_tile<NA, RQ>(acc_s, qa, ks);
+      pv_tile(acc, ph, pl, slots + ((t - 1) & 1) * SLOT);
+      split_t<NA, NW, true>(ks + KTILE, slots + (t & 1) * SLOT, cwarp, lane);
+      if (t + 1 < n_kv) {
+        const int s1 = (t + 1) % SR;
+        mbar_wait(full + 8 * s1, ((t + 1) / SR) & 1);
+        split_rows<NA, BK, 1, NW>(ring + s1 * STAGE, 0, cwarp, lane);
+      }
+      fence_async_smem();
+      wgmma_wait<1>();  // S
+      fence_regs(acc_s);
+      mbar_arrive(empty + 8 * s);
+      float sc[BK / 2];
+      fold(acc_s, sc);
+      softmax_tile(sc, BK * t, Skv, t4, sl2, m0, m1, l0, l1, al0, al1);
+      wgmma_wait<0>();  // P V
+      fence_regs(acc);
+      tf32_frags(ph, pl, sc);
+      consumers_sync<NT>();  // V^T of tile t and K of tile t + 1 complete
+    }
+    rescale(acc, al0, al1);
+    pv_tile(acc, ph, pl, slots + ((n_kv - 1) & 1) * SLOT);
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    if (LSE && t4 == 0) {
+      // natural-log logsumexp of the scaled scores: (m + log2 l) ln 2
+      if (r0 < Sq) lse[(long)bh * Sq + r0] = (m0 + log2f(l0)) * LN2;
+      if (r1 < Sq) lse[(long)bh * Sq + r1] = (m1 + log2f(l1)) * LN2;
+    }
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    const long rs = (long)H * D;
+    float* ob = o + ((long)b * Sq * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + 2 * t4;
+      if (r0 < Sq)
+        *reinterpret_cast<float2*>(ob + r0 * rs + col) =
+            make_float2(acc[4 * c] * inv0, acc[4 * c + 1] * inv0);
+      if (r1 < Sq)
+        *reinterpret_cast<float2*>(ob + r1 * rs + col) =
+            make_float2(acc[4 * c + 2] * inv1, acc[4 * c + 3] * inv1);
+    }
+  }
+}
+
+// ------------------------------------------------------ kernels G and H
+
 // Dynamic shared memory of kernel G in f32: the alignment pad, K and V
 // (split tiles of 64 NC rows), SR ring stages (q, then dO: split tiles of
 // BQ rows), TS transposed slots (hi, then lo), the lse / delta rows of each
@@ -614,7 +547,7 @@ flash_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr uint32_t KATOM = 256 * RK, KTILE = NA * KATOM;
   constexpr uint32_t QATOM = 256 * BQ, QTILE = NA * QATOM;
   constexpr uint32_t SLOT = 2 * D * 128;
-  extern __shared__ uint8_t smem_b[];  // bytes (kernel D: floats, smem)
+  extern __shared__ uint8_t smem_b[];
   const uint32_t sk = (smem_u32(smem_b) + 1023) & ~1023u;
   const uint32_t sv = sk + KTILE;
   const uint32_t ring = sv + KTILE;               // stage s: q, then dO
@@ -842,7 +775,7 @@ flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int NA = D / 32, RQ = 64 * NC, NT = 128 * NC, NW = 4 * NC;
   constexpr uint32_t QATOM = 256 * RQ, QTILE = NA * QATOM;
   constexpr uint32_t KATOM = 256 * BK, KTILE = NA * KATOM;
-  extern __shared__ uint8_t smem_b[];  // bytes (kernel D: floats, smem)
+  extern __shared__ uint8_t smem_b[];
   const uint32_t sq = (smem_u32(smem_b) + 1023) & ~1023u;
   const uint32_t sdo = sq + QTILE;
   const uint32_t ring = sdo + QTILE;               // stage s: K, then V
@@ -1030,37 +963,6 @@ cudaError_t allow_smem(K kern, int bytes) {
                               bytes);
 }
 
-template <int D, int BK, bool LSE>
-int launch_forward(const float* q, const float* k, const float* v, float* o,
-                   float* lse, int B, int H, int Sq, int Skv, float scale,
-                   cudaStream_t st) {
-  constexpr int smem = fwd_smem_bytes<D, BK>();
-  auto kern = flash_fwd_f32_kernel<D, BK, LSE>;
-  cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int q_tiles = (Sq + 63) / 64;
-  kern<<<(unsigned)(q_tiles * B * H), 128, smem, st>>>(
-      q, k, v, o, lse, H, Sq, Skv, q_tiles, scale * LOG2E);
-  return (int)cudaGetLastError();
-}
-
-template <bool LSE>
-int forward(const void* q, const void* k, const void* v, void* o, float* lse,
-            int B, int H, int Sq, int Skv, int D, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const auto *fq = (const float*)q, *fk = (const float*)k,
-             *fv = (const float*)v;
-  if (D == 64)
-    return launch_forward<64, 64, LSE>(fq, fk, fv, (float*)o, lse, B, H, Sq,
-                                       Skv, scale, st);
-  if (D == 128)
-    return launch_forward<128, 32, LSE>(fq, fk, fv, (float*)o, lse, B, H, Sq,
-                                        Skv, scale, st);
-  return (int)cudaErrorInvalidValue;
-}
-
 // The 4-D TMA map of a [B, S, H, D] f32 tensor (dims innermost first: D, H,
 // S, B), box {32, 1, rows, 1}: 32 columns (one 128-byte swizzle atom) of
 // `rows` positions of one (batch, head); positions past S read as zeros.
@@ -1080,6 +982,43 @@ int tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D, int NC, int SR, bool LSE>
+int launch_forward(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int H, int Sq, int Skv, float scale,
+                   cudaStream_t st) {
+  constexpr int smem = fwd_smem_bytes<D, NC, 32, SR>();
+  static_assert(smem <= 232448, "over the 227 KB a block may use");
+  auto kern = flash_fwd_f32_kernel<D, NC, 32, SR, LSE>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap mq, mk, mv;
+  int err = tensor_map(&mq, q, B, Sq, H, D, 64 * NC);
+  if (!err) err = tensor_map(&mk, k, B, Skv, H, D, 32);
+  if (!err) err = tensor_map(&mv, v, B, Skv, H, D, 32);
+  if (err) return err;
+  const int q_tiles = (Sq + 64 * NC - 1) / (64 * NC);
+  kern<<<(unsigned)(q_tiles * B * H), 128 * (NC + 1), smem, st>>>(
+      mq, mk, mv, (float*)o, lse, H, Sq, Skv, q_tiles, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// Kernel D in f32: head dim 64 with two consumers and four ring stages,
+// head dim 128 with one consumer and two (shared memory).
+template <bool LSE>
+int forward(const void* q, const void* k, const void* v, void* o, float* lse,
+            int B, int H, int Sq, int Skv, int D, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 64)
+    return launch_forward<64, 2, 4, LSE>(q, k, v, o, lse, B, H, Sq, Skv,
+                                         scale, st);
+  if (D == 128)
+    return launch_forward<128, 1, 2, LSE>(q, k, v, o, lse, B, H, Sq, Skv,
+                                          scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int D, int NC, int BQ, int SR, int TS>

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's CUDA sources:
 // mbarriers, 1-D bulk copies, TMA loads through tensor maps, wgmma
 // products (bf16, and TF32 with the 3xTF32 split's helpers) with
-// shared-memory descriptors in TMA's 128-byte swizzle, setmaxnreg, and the
-// host-side entry point of cuTensorMapEncodeTiled.
+// shared-memory descriptors in TMA's 128-byte swizzle, setmaxnreg, the
+// online softmax of kernel D's bf16 and f32 forms, and the host-side entry
+// point of cuTensorMapEncodeTiled.
 // Included once per
 // source (each source is its own library); everything has internal
 // linkage.
@@ -24,6 +25,7 @@
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -475,6 +477,66 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ------------------------------------------- kernel D's online softmax
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// O's rows g (registers i with (i & 2) == 0) and g + 8 times al0, al1.
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], float al0,
+                                        float al1) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= (i & 2) ? al1 : al0;
+}
+
+// The online softmax of one folded score tile (keys kv0 .. kv0 + 2 N - 1)
+// in f32 and base 2: keys past Skv get -inf (TMA's zero fill gives s = 0
+// there); the running max m and sum l of rows g and g + 8 are updated, al
+// is O's rescale, and s becomes p (unrounded).
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], int kv0, int Skv,
+                                             int t4, float sl2, float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& al0, float& al1) {
+  if (kv0 + 2 * N > Skv) {
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      if (kv0 + 8 * (r / 4) + 2 * t4 + (r & 1) >= Skv) s[r] = -INFINITY;
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int r = 0; r < N; r += 4) {
+    mx0 = fmaxf(mx0, fmaxf(s[r], s[r + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[r + 2], s[r + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
+  al0 = ex2(m0 - mn0);
+  al1 = ex2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int r = 0; r < N; r += 4) {
+    s[r] = ex2(fmaf(s[r], sl2, -m0));
+    s[r + 1] = ex2(fmaf(s[r + 1], sl2, -m0));
+    s[r + 2] = ex2(fmaf(s[r + 2], sl2, -m1));
+    s[r + 3] = ex2(fmaf(s[r + 3], sl2, -m1));
+    rs0 += s[r] + s[r + 1];
+    rs1 += s[r + 2] + s[r + 3];
+  }
+  l0 = l0 * al0 + rs0;
+  l1 = l1 * al1 + rs1;
 }
 
 // ------------------------------------------------------------- host

@@ -13,8 +13,8 @@ product with v), and its gradient. Each piece has two implementations:
     and as the oracle on the card;
   * a kernel, used for CUDA tensors, head dim 64 or 128: the bf16 forms of
     ``csrc/flash_attention.cu`` or the f32 forms of
-    ``csrc/flash_attention_f32.cu`` (3xTF32 products; G and H split by
-    ``tf32_split``), picked by q's dtype; any other dtype, or q, k, v and
+    ``csrc/flash_attention_f32.cu`` (3xTF32 products, every operand split
+    as ``tf32_split`` models), picked by q's dtype; any other dtype, or q, k, v and
     do of mixed dtypes, raises.
     Kernel D is the forward (with lse: the training forward), G computes
     dK and dV, H dQ. The sources are compiled with nvcc on first use; a
@@ -156,8 +156,8 @@ def tf32_read(x: torch.Tensor) -> torch.Tensor:
 
 
 def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The 3xTF32 split of the f32 forms of kernels G and H, by bit masks
-    on f32 ``x``: (hi, lo) as their TF32 products read them. The kernels
+    """The 3xTF32 split of the f32 forms of kernels D, G and H, by bit
+    masks on f32 ``x``: (hi, lo) as their TF32 products read them. The kernels
     pass x's bits plus half a TF32 step as the hi operand, read as x
     rounded to TF32 (nearest, ties away from zero), and x - hi, exact in
     f32, as the lo one, read truncated: hi + lo within 2^-21 |x|. They sum
@@ -171,9 +171,9 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def tf32_product_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """d = a b^T, a [64, 8] and b [8, 8] f32, by one TF32 product on the
-    tensor cores (the wgmma of the f32 G and H, the operands' f32 bits
+    tensor cores (the wgmma of the f32 D, G and H, the operands' f32 bits
     passed as they are). With b the identity, d shows the value a TF32
-    product reads of each f32 of a: the f32 G and H rely on it being
+    product reads of each f32 of a: the f32 D, G and H rely on it being
     ``tf32_read(a)``. On CPU tensors, that plain model (in float64)."""
     if a.device.type == "cpu":
         launches["tf32_probe_reference"] += 1

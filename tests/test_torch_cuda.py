@@ -872,12 +872,13 @@ def test_attention_kernels_refuse_unaligned_tensors(cuda, kernel):
 F32_ATOL, F32_RTOL = 2e-5, 1e-4
 F32_RAGGED = [(1, sq, skv, 2, d) for d in (64, 128)
               for sq in (100, 300, 1000) for skv in (100, 300, 1000)]
-# the edges of the f32 G's and H's tiles: 1, one under and one over the
-# streamed tile (32), the ring's two stages (64, also the block of 64 rows
-# at head dim 128) and the block of 128 rows (head dim 64); none but 1 a
-# multiple of 8. One key (Skv = 1) goes with Sq up to 33 only: there p = 1
-# and ds = p (dp - delta) scale cancels to 0, so dK's plain f32 value is
-# rounding noise growing with Sq, and past ~64 queries 3xTF32's noise
+# the edges of the f32 D's, G's and H's tiles (D blocks queries and tiles
+# keys as H does): 1, one under and one over the streamed tile (32), the
+# ring's two stages (64, also the block of 64 rows at head dim 128) and the
+# block of 128 rows (head dim 64, also D's ring of four stages); none but
+# 1 a multiple of 8. One key (Skv = 1) goes with Sq up to 33 only: there
+# p = 1 and ds = p (dp - delta) scale cancels to 0, so dK's plain f32 value
+# is rounding noise growing with Sq, and past ~64 queries 3xTF32's noise
 # (the f32 G's before this design as well) passes the 2e-5 absolute limit
 F32_EDGES = (1, 31, 33, 63, 65, 127, 129)
 F32_RAGGED += [(1, sq, skv, 2, d) for d in (64, 128)
@@ -905,10 +906,13 @@ def exact_f32():
 
 
 def assert_f32_close(got, want, what):
+    """Within the f32 limit; prints the error's share of it (``-rA`` shows
+    the shares of passed tests)."""
     assert got.shape == want.shape and got.dtype == torch.float32, what
     assert bool(torch.isfinite(got).all()), what
     err = float((got - want).abs().max())
     limit = F32_ATOL + F32_RTOL * float(want.abs().max())
+    print(f"f32 error share {what}: {err / limit:.4f}")
     assert err <= limit, f"{what}: {err:.3e} > {limit:.3e}"
 
 
@@ -936,7 +940,7 @@ def check_f32_training_forms(q, k, v, do):
     for name in ("flash_attention_lse_f32", "flash_attention_bwd_dkv_f32",
                  "flash_attention_bwd_dq_f32"):
         assert FA.launches[name] == 1, dict(FA.launches)
-    for name, got, want in (("o", o, o_ref), ("lse", lse, lse_ref),
+    for name, got, want in (("o (lse form)", o, o_ref), ("lse", lse, lse_ref),
                             ("dq", dq, dq_ref), ("dk", dk, dk_ref),
                             ("dv", dv, dv_ref)):
         assert_f32_close(got, want, name)
@@ -952,6 +956,31 @@ def test_f32_forms_match_plain_versions(cuda, exact_f32, b, sq, skv, h, d):
     assert FA.launches["flash_attention_f32"] == 1
     assert_f32_close(o, want, "o")
     check_f32_training_forms(q, k, v, do)
+
+
+# one key for the forward alone, up to 1000 queries (B, H > 1): p = 1 and
+# o is v's row; the backward's cancellation at one key does not reach it
+F32_ONE_KEY = [(2, sq, 1, 3, d) for d in (64, 128)
+               for sq in (63, 65, 127, 129, 1000)]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", F32_ONE_KEY)
+def test_f32_forward_at_one_key(cuda, exact_f32, b, sq, skv, h, d):
+    """D and D with lse in f32 at one key: o against the plain version and
+    against v's row, lse against the plain version."""
+    q, k, v, _ = _f32_case(cuda, b, sq, skv, h, d, sq + d)
+    FA.reset_launch_counts()
+    o = FA.flash_attention(q, k, v)
+    o_lse, lse = FA._flash_cuda(q, k, v, with_lse=True)
+    o_ref, lse_ref = FA.flash_attention_lse_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert dict(FA.launches) == {"flash_attention_f32": 1,
+                                 "flash_attention_lse_f32": 1,
+                                 "flash_attention_lse_reference": 1}
+    for name, got, want in (("o", o, o_ref), ("o (lse form)", o_lse, o_ref),
+                            ("o against v", o, v.expand_as(o)),
+                            ("lse", lse, lse_ref)):
+        assert_f32_close(got, want, name)
 
 
 @pytest.mark.parametrize("b,s,h,d", F32_SAMPLING)
@@ -974,7 +1003,7 @@ def test_f32_training_forms_at_the_training_shapes(cuda, exact_f32, b, s, h,
 
 
 def test_tf32_products_read_f32_operands_with_13_bits_cleared(cuda):
-    """The f32 G and H's split relies on a TF32 product reading an f32
+    """The f32 D, G and H's split relies on a TF32 product reading an f32
     operand with its low 13 mantissa bits cleared (``tf32_read``), neither
     rounded nor whole: one product must read each operand, A then B, so.
     The values carry every low-bit class: all 13 set (rounding would

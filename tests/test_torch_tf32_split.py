@@ -1,10 +1,13 @@
-"""The 3xTF32 split of the f32 forms of kernels G and H
+"""The 3xTF32 split of the f32 forms of kernels D, G and H
 (``ops.flash_attention.tf32_split``), held against float64 products at the
 kernels' sum lengths: 64 (the head dim: the score tiles) and 32 to 9216
-(the streamed index: dK, dV and dQ at the UNet's levels). The kernels sum
-a_lo b_hi + a_hi b_lo + a_hi b_hi in f32; that stays inside the f32 forms'
-limit (atol 2e-5 + rtol 1e-4 of the largest |reference|, the card tests'
-and chip_smoke.py phase 26's), and plain TF32 (hi alone) does not."""
+(the streamed index: O, dK, dV and dQ at the UNet's levels), and through
+D's online softmax over 32-key tiles. The kernels sum a_lo b_hi + a_hi
+b_lo + a_hi b_hi in f32; that stays inside the f32 forms' limit (atol 2e-5
++ rtol 1e-4 of the largest |reference|, the card tests' and chip_smoke.py
+phase 26's), and plain TF32 (hi alone) does not."""
+
+import math
 
 import numpy as np
 import pytest
@@ -115,6 +118,61 @@ def test_3xtf32_attention_backward_stays_inside_the_f32_limit():
     for name, ref in want.items():
         err = float((got[name].double() - ref).abs().max())
         assert err <= limit(ref), (name, err, limit(ref))
+
+
+def split_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  product=split_product) -> tuple[torch.Tensor, torch.Tensor]:
+    """o and lse (natural log) of one (batch, head) as the f32 D computes
+    them: key tiles of 32, S = Q K^T and O += P V by ``product``, the
+    online softmax in f32 and base 2 (the scale times log2(e) folded into
+    the scores), O and l rescaled between tiles."""
+    sl2 = torch.tensor(q.shape[1] ** -0.5 * math.log2(math.e))
+    m = torch.full((q.shape[0], 1), -math.inf)
+    l = torch.zeros((q.shape[0], 1))
+    acc = torch.zeros_like(q)
+    for j in range(0, k.shape[0], 32):
+        st = product(q, k[j:j + 32].T.contiguous())
+        mn = torch.maximum(m, st.max(-1, keepdim=True).values * sl2)
+        al = torch.exp2(m - mn)
+        p = torch.exp2(st * sl2 - mn)
+        l = l * al + p.sum(-1, keepdim=True)
+        acc = acc * al + product(p, v[j:j + 32])
+        m = mn
+    return acc / l, ((m + torch.log2(l)) * math.log(2)).squeeze(-1)
+
+
+def forward_case(s: int):
+    """128 queries against s keys and values (head dim 64) and their o and
+    lse in float64."""
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, 64)).astype(
+        np.float32)) for n in (128, s, s))
+    s64 = (q.double() @ k.double().T) / 8.0
+    return (q, k, v), {"o": torch.softmax(s64, -1) @ v.double(),
+                       "lse": torch.logsumexp(s64, -1)}
+
+
+@pytest.mark.parametrize("s", [576, 2304, 9216])
+def test_3xtf32_attention_forward_stays_inside_the_f32_limit(s):
+    """o and lse at the UNet's three streamed lengths, every product of
+    the online softmax through the split, against float64."""
+    (q, k, v), want = forward_case(s)
+    o, lse = split_forward(q, k, v)
+    for name, got in (("o", o), ("lse", lse)):
+        err = float((got.double() - want[name]).abs().max())
+        assert err <= limit(want[name]), (name, err, limit(want[name]))
+
+
+def test_plain_tf32_attention_forward_misses_the_f32_limit():
+    """The same forward at 576 keys with hi alone (x rounded to TF32, one
+    product) and with the truncated read of one TF32 product: o more than
+    twice the limit off in both."""
+    (q, k, v), want = forward_case(576)
+    ref = want["o"]
+    for part in (lambda x: FA.tf32_split(x)[0], FA.tf32_read):
+        o, _ = split_forward(q, k, v, lambda a, b: part(a) @ part(b))
+        err = float((o.double() - ref).abs().max())
+        assert err > 2 * limit(ref), (err, limit(ref))
 
 
 def test_probe_model_on_the_cpu():
